@@ -1,0 +1,304 @@
+#!/usr/bin/env python3
+"""Chip smoke for lvd_tpu_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. device  - the card's name and power limit;
+  2. build   - the single nvcc build of lvd_tpu_torch/csrc/*.cu (seconds and
+               the -Xptxas -v register / shared-memory lines);
+  3. kernels - every kernel at every shape the Zeroscope path gives it, in
+               bf16, against its plain PyTorch version on fp32 copies
+               (lvd_tpu_torch.ops.selfcheck), timed with CUDA events;
+  4. reference - one full-width CFG UNet forward through the kernels (bf16)
+               against the plain path (fp32) on the same inputs, with weights
+               whose attention/FF/temporal-conv branches are not zero-init,
+               so every kernel's output reaches the noise prediction; the
+               plain path in bf16 is printed beside it as the yardstick of
+               what bf16 rounding alone costs;
+  5. generation - unguided Zeroscope text-to-video at full width (all UNet,
+               CLIP and VAE widths, 24 frames, 576x320, CFG 9.0) from seeded
+               random bf16 weights, 4 DPM-Solver++ steps, through the entry
+               points a user calls; launch counts are zeroed just before and
+               read just after, and every kernel must have run;
+  6. profile - one CFG UNet forward under torch.profiler: device time per
+               kernel A-D and for the stock ops, and the device's idle share.
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
+prints no result.
+"""
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+NUM_STEPS = 4           # denoising steps driven here (the preset runs 40)
+# max|kernels(bf16) - plain(fp32)| / max|plain(fp32)| of the UNet forward. On
+# an H100 the kernel path read 1.73e-2; the limit leaves room for seeds and
+# cards, and is far below a wrong kernel (readings in PERF.md, Findings).
+REFERENCE_TOL = 5e-2
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def device_phase(torch):
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"[device] torch.cuda: {name}, count {torch.cuda.device_count()}, "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(smi)
+    return name
+
+
+def build_phase():
+    from lvd_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"[build] nvcc {_build.build_info['seconds']} s (library ready after "
+        f"{time.perf_counter() - t0:.2f} s): {_build.build_info['path']}")
+    for line in _build.build_info["log"].splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
+
+
+def kernel_phase():
+    from lvd_tpu_torch.ops import selfcheck
+
+    records = selfcheck.run(seed=0, emit=lambda line: log(f"[kernel] {line}"))
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise SystemExit(f"[kernel] {len(bad)} kernel checks failed: "
+                         f"{[(r['name'], r['shape'], r['rel_err']) for r in bad]}")
+    return records
+
+
+def _undegenerate(tree, gen, torch):
+    """Gives every zero-init or 1e-5-scaled projection (transformer proj_out,
+    the last temporal conv) a normal * fan_in^-1/2 weight, so the kernels'
+    branches are not multiplied away before the output."""
+    if isinstance(tree, list):
+        return [_undegenerate(v, gen, torch) for v in tree]
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k in ("proj_out", "conv4") and isinstance(v, dict):
+            v = dict(v)
+            leaf = v if k == "proj_out" else dict(v["conv"])
+            w = leaf["w"]
+            fan_in = w[..., 0].numel()
+            leaf["w"] = (torch.randn(w.shape, generator=gen, device=w.device)
+                         * fan_in ** -0.5).to(w.dtype)
+            if k == "conv4":
+                v["conv"] = leaf
+            out[k] = v
+        else:
+            out[k] = _undegenerate(v, gen, torch)
+    return out
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Points every kernel wrapper the UNet calls at its plain PyTorch
+    version, for the reference forward only (the wrappers themselves run the
+    plain version for CPU tensors alone)."""
+    from lvd_tpu_torch.ops import geglu_fused, packed_attention, temp_conv_fused
+    from lvd_tpu_torch.ops import temporal_attention
+
+    swaps = [
+        (packed_attention, "attention_packed", packed_attention.attention_packed_plain),
+        (temporal_attention, "temporal_attention_pair",
+         temporal_attention.temporal_attention_pair_plain),
+        (geglu_fused, "geglu_mlp", geglu_fused.geglu_mlp_plain),
+        (temp_conv_fused, "norm_silu_temporal_conv",
+         temp_conv_fused.norm_silu_temporal_conv_plain),
+    ]
+    saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        for module, name, wrapper in saved:
+            setattr(module, name, wrapper)
+
+
+def reference_phase(torch, models):
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.models.unet3d import apply_unet3d
+
+    cfg = models.preset.unet
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = _undegenerate(models.unet_params, gen, torch)
+    sample = torch.randn((2, 24, 40, 72, 4), generator=gen, device="cuda")
+    text = torch.randn((2, 77, cfg.cross_attention_dim), generator=gen, device="cuda")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain path in full fp32
+    try:
+        with torch.no_grad():
+            eps = apply_unet3d(params, cfg, sample.bfloat16(), 500, text.bfloat16())
+            with plain_route():
+                plain = apply_unet3d(params, cfg, sample.bfloat16(), 500, text.bfloat16())
+                ref = apply_unet3d(cast_tree(params, torch.float32), cfg, sample, 500, text)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    scale = ref.abs().max().item()
+    rel = (eps.float() - ref).abs().max().item() / scale
+    rel_plain = (plain.float() - ref).abs().max().item() / scale
+    log(f"[reference] full-width CFG UNet forward against the plain path (fp32), "
+        f"max|d| / max|ref| (max|ref| {scale:.6g}): kernels (bf16) {rel:.6g} "
+        f"(gate {REFERENCE_TOL}); plain path (bf16) {rel_plain:.6g}")
+    if not (torch.isfinite(eps).all() and rel <= REFERENCE_TOL):
+        raise SystemExit("[reference] the kernel path disagrees with the plain path")
+    del eps, plain, ref, params
+    torch.cuda.empty_cache()
+
+
+def wrappers():
+    from lvd_tpu_torch.ops import geglu_fused, packed_attention, temp_conv_fused
+    from lvd_tpu_torch.ops import temporal_attention
+
+    return {
+        "attention_packed": packed_attention.attention_packed,
+        "temporal_attention_pair": temporal_attention.temporal_attention_pair,
+        "geglu_mlp": geglu_fused.geglu_mlp,
+        "norm_silu_temporal_conv": temp_conv_fused.norm_silu_temporal_conv,
+    }
+
+
+def generation_phase(torch, models):
+    from lvd_tpu_torch.pipeline import TextToVideoPipeline
+    from lvd_tpu_torch.text.templates import NEGATIVE_PROMPT
+
+    pipe = TextToVideoPipeline(models, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    video = pipe("a brown bear walking in a forest", NEGATIVE_PROMPT, height=320, width=576,
+                 num_frames=24, num_inference_steps=NUM_STEPS, guidance_scale=9.0, seed=0)
+    total = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers().items()}
+    t = pipe.timings
+    steps = t["steps"]
+    log(f"[generation] video {tuple(video.shape)} {video.dtype}, "
+        f"min {video.min():.4f} max {video.max():.4f} mean {video.mean():.4f}")
+    log(f"[generation] encode_prompt {t['encode_prompt']:.4f} s; steps "
+        f"{[round(s, 4) for s in steps]} s; decode {t['decode']:.4f} s; total {total:.4f} s")
+    per_step = sum(steps[1:]) / max(len(steps) - 1, 1)
+    log(f"[generation] seconds per step (steps 2..{len(steps)}) {per_step:.4f}; "
+        f"40-step video at that rate: {t['encode_prompt'] + 40 * per_step + t['decode']:.2f} s")
+    log(f"[generation] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[generation] launches in {NUM_STEPS} steps: {json.dumps(launches)}")
+    if video.shape != (1, 24, 320, 576, 3) or not np.isfinite(video).all():
+        raise SystemExit(f"[generation] bad output {video.shape}")
+    missing = [name for name, n in launches.items() if n <= 0]
+    if missing:
+        raise SystemExit(f"[generation] kernels never launched on the main path: {missing}")
+    return launches
+
+
+KERNEL_SYMBOLS = {  # substrings of the kernels' device symbols
+    "attention_packed": "attn_packed_kernel",
+    "temporal_attention_pair": "temporal_pair_kernel",
+    "geglu_mlp": "geglu_kernel",
+    "norm_silu_temporal_conv": "temp_conv_kernel",
+}
+
+
+def profile_phase(torch, models):
+    """Device time of one CFG UNet forward at the generation's shapes, split
+    into kernels A-D and the stock ops; idle share = 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lvd_tpu_torch.models.unet3d import apply_unet3d
+
+    cfg = models.preset.unet
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sample = torch.randn((2, 24, 40, 72, 4), generator=gen, device="cuda").bfloat16()
+    text = torch.randn((2, 77, cfg.cross_attention_dim), generator=gen,
+                       device="cuda").bfloat16()
+    forward = lambda: apply_unet3d(models.unet_params, cfg, sample, 500, text)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        forward()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            forward()
+            end.record()
+            torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    by_name = {e.key: (e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages() if e.self_device_time_total > 0}
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    split = {}
+    for kname, symbol in KERNEL_SYMBOLS.items():
+        hits = [v for k, v in by_name.items() if symbol in k]
+        split[kname] = {"ms": round(sum(ms for ms, _ in hits), 3),
+                        "calls": sum(n for _, n in hits)}
+    ours = {k for k in by_name if any(sym in k for sym in KERNEL_SYMBOLS.values())}
+    stock = sorted(((ms, n, k) for k, (ms, n) in by_name.items() if k not in ours),
+                   reverse=True)
+    split["stock"] = {"ms": round(sum(ms for ms, _, _ in stock), 3),
+                      "calls": sum(n for _, n, _ in stock)}
+    log(f"[profile] one CFG UNet forward: wall {wall_ms:.3f} ms (CUDA events, profiler on), "
+        f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}")
+    log(f"[profile] device ms by kernel: {json.dumps(split)}")
+    for ms, n, k in stock[:8]:
+        log(f"[profile] stock {ms:.3f} ms in {n} calls: {k[:110]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    name = device_phase(torch)
+    build_phase()
+    records = kernel_phase()
+
+    from lvd_tpu_torch.models.loader import random_pipeline_models
+
+    models = random_pipeline_models(
+        "zeroscope", torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    reference_phase(torch, models)
+    launches = generation_phase(torch, models)
+    profile_phase(torch, models)
+
+    from lvd_tpu_torch.ops.selfcheck import SOURCES
+
+    kernels = []
+    for kname, (source, replaces) in SOURCES.items():
+        recs = [r for r in records if r["name"] == kname]
+        main = recs[0]  # the L0 shape, the largest the path gives the kernel
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[kname],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main["shape"],
+        })
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,178 @@
+// Kernel C: the fused GEGLU feed-forward
+//   out = ((x W1h + b1h) * gelu(x W1g + b1g)) W2 + b2
+// on (R, C) rows, with the 4C-wide inner activation kept on chip.
+//
+// Replaces lvd_tpu/ops/geglu_fused.py `_fused_rows_resident`
+// (`_geglu_kernel_resident`).
+//
+// Bound on this card: at C = 320..640 the two products do ~12*C*C operations
+// per row against ~4*C bytes of row traffic, so the kernel is tensor-core
+// bound; unfused, the (R, 8C) projection and the (R, 4C) gated activation
+// would each make a round trip through device memory (354 MB and 177 MB per
+// L0 instance in bf16). Design: one block per 32-row tile keeps its x rows in
+// shared memory and walks the inner dimension in 64-wide chunks: h and g for
+// the chunk come from WMMA products (fp32), the gate is applied in fp32 and
+// rounded to bf16 in shared memory, and the chunk is multiplied straight into
+// W2, accumulating the (32, C) output in registers. The weights are read
+// from device memory (L2-resident: 3*C*4C bf16 is at most 9.8 MB). C is a
+// template parameter (C = 64*NF) so the output accumulators stay in
+// registers.
+#include "common.cuh"
+
+namespace lvd {
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBM = 32;   // rows per block
+constexpr int kBI = 64;   // inner chunk
+constexpr int kLdf = 72;  // fp32 smem row stride
+constexpr int kLdb = 80;  // bf16 smem row stride
+
+template <int NF>
+constexpr int geglu_smem() {
+  return kBM * (64 * NF + 16) * 2 + 2 * kBM * kLdf * 4 + kBM * kLdb * 2 + kWarps * 256 * 4;
+}
+
+__device__ inline float gelu(float g, int exact) {
+  if (exact) return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
+  const float z = 0.7978845608028654f * (g + 0.044715f * g * g * g);
+  return 0.5f * g * (1.f + tanhf(z));
+}
+
+template <int NF>
+__global__ void __launch_bounds__(kThreads)
+geglu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+             const bf16* __restrict__ w2, const bf16* __restrict__ b2, bf16* __restrict__ out,
+             int R, int I, int exact) {
+  constexpr int C = 64 * NF;
+  constexpr int kLdx = C + 16;
+  constexpr int CT = C / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  float* hs = reinterpret_cast<float*>(xs + kBM * kLdx);
+  float* gs = hs + kBM * kLdf;
+  bf16* as = reinterpret_cast<bf16*>(gs + kBM * kLdf);
+  float* scratch = reinterpret_cast<float*>(as + kBM * kLdb);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = blockIdx.x * kBM;
+
+  for (int e = tid; e < kBM * (C / 8); e += kThreads) {
+    const int r = e / (C / 8), c8 = e % (C / 8);
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < R) val = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * C + c8 * 8);
+    *reinterpret_cast<uint4*>(xs + r * kLdx + c8 * 8) = val;
+  }
+  __syncthreads();
+
+  FragAcc acc[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
+
+  // h/g tile of this warp within the (32, 64) chunk.
+  const int hr = warp / 4, hc = warp % 4;
+  const size_t ld1 = 2 * (size_t)I;
+
+  for (int i0 = 0; i0 < I; i0 += kBI) {
+    FragAcc ah, ag;
+    wmma::fill_fragment(ah, 0.f);
+    wmma::fill_fragment(ag, 0.f);
+    const bf16* bh = w1 + i0 + hc * 16;
+    const bf16* bg = bh + I;
+#pragma unroll 4
+    for (int kk = 0; kk < C; kk += 16) {
+      FragA a;
+      FragBRow fb;
+      wmma::load_matrix_sync(a, xs + hr * 16 * kLdx + kk, kLdx);
+      wmma::load_matrix_sync(fb, bh + kk * ld1, (unsigned)ld1);
+      wmma::mma_sync(ah, a, fb, ah);
+      wmma::load_matrix_sync(fb, bg + kk * ld1, (unsigned)ld1);
+      wmma::mma_sync(ag, a, fb, ag);
+    }
+    wmma::store_matrix_sync(hs + hr * 16 * kLdf + hc * 16, ah, kLdf, wmma::mem_row_major);
+    wmma::store_matrix_sync(gs + hr * 16 * kLdf + hc * 16, ag, kLdf, wmma::mem_row_major);
+    __syncthreads();
+
+    for (int e = tid; e < kBM * kBI; e += kThreads) {
+      const int r = e / kBI, c = e % kBI;
+      const float hv = hs[r * kLdf + c] + __bfloat162float(b1[i0 + c]);
+      const float gv = gs[r * kLdf + c] + __bfloat162float(b1[I + i0 + c]);
+      as[r * kLdb + c] = __float2bfloat16(hv * gelu(gv, exact));
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const int t = warp + kWarps * f;
+      const int rt = t / CT, ct = t % CT;
+#pragma unroll
+      for (int kk = 0; kk < kBI; kk += 16) {
+        FragA a;
+        FragBRow fb;
+        wmma::load_matrix_sync(a, as + rt * 16 * kLdb + kk, kLdb);
+        wmma::load_matrix_sync(fb, w2 + (size_t)(i0 + kk) * C + ct * 16, C);
+        wmma::mma_sync(acc[f], a, fb, acc[f]);
+      }
+    }
+    // The next chunk's first __syncthreads orders these reads of `as`
+    // before it is rewritten.
+  }
+
+  float* scr = scratch + warp * 256;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const int t = warp + kWarps * f;
+    const int rt = t / CT, ct = t % CT;
+    wmma::store_matrix_sync(scr, acc[f], 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 256; e += 32) {
+      const int r = r0 + rt * 16 + e / 16, c = ct * 16 + e % 16;
+      if (r < R) out[(size_t)r * C + c] = __float2bfloat16(scr[e] + __bfloat162float(b2[c]));
+    }
+    __syncwarp();
+  }
+}
+
+template <int NF>
+cudaError_t launch(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2,
+                   const bf16* b2, bf16* out, int R, int I, int exact, cudaStream_t stream) {
+  constexpr int smem = geglu_smem<NF>();
+  cudaError_t err = set_smem(geglu_kernel<NF>, smem);
+  if (err != cudaSuccess) return err;
+  geglu_kernel<NF><<<(R + kBM - 1) / kBM, kThreads, smem, stream>>>(x, w1, b1, w2, b2, out, R,
+                                                                    I, exact);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace lvd
+
+// x: (R, C), w1: (C, 2I) = [W1h | W1g], b1: (2I,), w2: (I, C), b2: (C,),
+// out: (R, C); all bf16. C in {64, 128, ..., 640}, I % 64 == 0.
+LVD_EXPORT int lvd_geglu(const void* x, const void* w1, const void* b1, const void* w2,
+                         const void* b2, void* out, int R, int C, int I, int exact,
+                         void* stream) {
+  using namespace lvd;
+  cudaGetLastError();
+  if (C % 64 != 0 || C < 64 || C > 640 || I % kBI != 0 || R <= 0) return cudaErrorInvalidValue;
+  auto xs = static_cast<const bf16*>(x);
+  auto w1s = static_cast<const bf16*>(w1);
+  auto b1s = static_cast<const bf16*>(b1);
+  auto w2s = static_cast<const bf16*>(w2);
+  auto b2s = static_cast<const bf16*>(b2);
+  auto o = static_cast<bf16*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C / 64) {
+    case 1: return launch<1>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
+    case 2: return launch<2>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
+    case 3: return launch<3>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
+    case 4: return launch<4>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
+    case 5: return launch<5>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
+    case 6: return launch<6>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
+    case 7: return launch<7>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
+    case 8: return launch<8>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
+    case 9: return launch<9>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
+    default: return launch<10>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
+  }
+}

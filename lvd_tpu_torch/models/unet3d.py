@@ -1,0 +1,178 @@
+"""3D UNet apply function, ModelScope/Zeroscope architecture (counterpart of
+lvd_tpu/models/unet3d.py:570-773, same topology and param tree).
+
+Frames fold into the batch for every 2D op ((B, F, H, W, C) ->
+(B*F, H, W, C)); temporal modules work on the frames-major (B, F, P, C)
+stream. Routing follows lvd_tpu's shape predicates:
+  * temporal attention pair -> kernel B where C <= 640 and heads are 64 wide
+    (temporal_attention.py:501-513), else the plain pixels-major pair;
+  * feed-forward -> kernel C where C <= 640 (geglu_fused.py:370-388);
+  * temporal conv -> kernel D at every level (temp_conv_fused.py:268-277),
+    with the GroupNorm statistics a stock reduction;
+  * attention -> kernel A at every non-capturing site on the card.
+Where lvd_tpu leaves a shape to XLA (C = 1280), the port runs stock torch.
+GLIGEN, attention capture for guidance and the frame-sharded path are not
+part of this slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..config import UNet3DConfig
+from ..ops import temp_conv_fused, temporal_attention
+from ..ops.attention import attention
+from ..ops.basic import (
+    conv2d,
+    conv3d,
+    feed_forward,
+    group_norm,
+    group_norm_coeffs,
+    layer_norm,
+    linear,
+    silu,
+    time_embedding_mlp,
+    timestep_embedding,
+    upsample_nearest_2x,
+)
+
+
+def _btb_apply(p, x, context, num_heads):
+    """Spatial BasicTransformerBlock: self-attention, cross-attention, FF."""
+    x = x + attention(p["attn1"], layer_norm(p["norm1"], x), None, num_heads)[0]
+    x = x + attention(p["attn2"], layer_norm(p["norm2"], x), context, num_heads)[0]
+    return x + feed_forward(p["ff"], layer_norm(p["norm3"], x))
+
+
+def _spatial_transformer(p, x, context, num_heads, cfg):
+    n, h, w, c = x.shape
+    residual = x
+    y = group_norm(p["norm"], x, cfg.norm_num_groups, cfg.transformer_norm_eps)
+    y = linear(p["proj_in"], y.reshape(n, h * w, c))
+    for block in p["blocks"]:
+        y = _btb_apply(block, y, context, num_heads)
+    y = linear(p["proj_out"], y)
+    return y.reshape(n, h, w, c) + residual
+
+
+def _temporal_transformer(p, x, num_frames, num_heads, cfg):
+    n, h, w, c = x.shape
+    b = n // num_frames
+    residual = x
+    y = x.reshape(b, num_frames, h * w, c)
+    y = group_norm(p["norm"], y, cfg.norm_num_groups, cfg.transformer_norm_eps)
+    y = linear(p["proj_in"], y)
+    fm = temporal_attention.supported(y, num_heads)
+    if not fm:
+        y = y.transpose(1, 2)
+    for block in p["blocks"]:
+        if fm:
+            y = temporal_attention.temporal_attention_pair(block, y, num_heads, frames_major=True)
+        else:
+            # Not routed to kernel B (C > 640): the plain pixels-major pair.
+            y = temporal_attention._pair_ref(block, y, num_heads, 1e-5)
+        y = y + feed_forward(block["ff"], layer_norm(block["norm3"], y))
+    if not fm:
+        y = y.transpose(1, 2)
+    y = linear(p["proj_out"], y)
+    return y.reshape(n, h, w, c) + residual
+
+
+def _gn_silu_conv(norm_p, conv_p, x, cfg):
+    return conv2d(conv_p, silu(group_norm(norm_p, x, cfg.norm_num_groups, cfg.norm_eps)))
+
+
+def _resnet(p, x, temb, cfg):
+    h = _gn_silu_conv(p["norm1"], p["conv1"], x, cfg)
+    h = h + linear(p["time_emb_proj"], silu(temb))[:, None, None, :]
+    h = _gn_silu_conv(p["norm2"], p["conv2"], h, cfg)
+    if "conv_shortcut" in p:
+        x = conv2d(p["conv_shortcut"], x, padding=0)
+    return x + h
+
+
+def _temp_conv(p, x, num_frames, cfg):
+    n, h, w, c = x.shape
+    b = n // num_frames
+    y4 = x.reshape(b, num_frames, h * w, c)
+    identity = y4
+    if temp_conv_fused.supported(y4):
+        for name in ("conv1", "conv2", "conv3", "conv4"):
+            blk = p[name]
+            a, bc = group_norm_coeffs(blk["norm"], y4, cfg.norm_num_groups, 1e-5)
+            y4 = temp_conv_fused.norm_silu_temporal_conv(
+                y4, a, bc, blk["conv"]["w"], blk["conv"]["b"])
+        return (identity + y4).reshape(n, h, w, c)
+    y = x.reshape(b, num_frames, h, w, c)
+    for name in ("conv1", "conv2", "conv3", "conv4"):
+        blk = p[name]
+        y = conv3d(blk["conv"], silu(group_norm(blk["norm"], y, cfg.norm_num_groups, 1e-5)))
+    return (x.reshape(b, num_frames, h, w, c) + y).reshape(n, h, w, c)
+
+
+def _cross_attn_layer(p, x, temb, context, num_frames, num_heads, cfg):
+    x = _resnet(p["resnet"], x, temb, cfg)
+    x = _temp_conv(p["temp_conv"], x, num_frames, cfg)
+    x = _spatial_transformer(p["attn"], x, context, num_heads, cfg)
+    return _temporal_transformer(p["temp_attn"], x, num_frames, num_heads, cfg)
+
+
+def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_states):
+    """sample (B, F, H, W, C_in) channels-last; timesteps scalar or (B,);
+    encoder_hidden_states (B, L, D). Returns noise_pred (B, F, H, W, C_out)."""
+    b, f, h, w, _ = sample.shape
+    boc = cfg.block_out_channels
+
+    timesteps = torch.as_tensor(timesteps, device=sample.device)
+    if timesteps.ndim == 0:
+        timesteps = timesteps.expand(b)
+    t_emb = timestep_embedding(timesteps, boc[0]).to(sample.dtype)
+    temb = time_embedding_mlp(params["time_embedding"], t_emb).repeat_interleave(f, dim=0)
+    context = encoder_hidden_states.to(sample.dtype).repeat_interleave(f, dim=0)
+
+    x = conv2d(params["conv_in"], sample.reshape(b * f, h, w, sample.shape[-1]))
+    x = _temporal_transformer(params["transformer_in"], x, f, cfg.transformer_in_num_heads, cfg)
+
+    def run_layer(lp, x, with_attn, num_heads):
+        if with_attn:
+            return _cross_attn_layer(lp, x, temb, context, f, num_heads, cfg)
+        return _temp_conv(lp["temp_conv"], _resnet(lp["resnet"], x, temb, cfg), f, cfg)
+
+    res_stack = [x]
+    for i, block in enumerate(params["down_blocks"]):
+        is_final = i == len(boc) - 1
+        for lp in block["layers"]:
+            x = run_layer(lp, x, not is_final, cfg.num_heads(boc[i]))
+            res_stack.append(x)
+        if "downsample" in block:
+            x = conv2d(block["downsample"], x, stride=2)
+            res_stack.append(x)
+
+    mid = params["mid_block"]
+    num_heads = cfg.num_heads(boc[-1])
+    x = _resnet(mid["resnet_in"], x, temb, cfg)
+    x = _temp_conv(mid["temp_conv_in"], x, f, cfg)
+    for lp in mid["layers"]:
+        x = _spatial_transformer(lp["attn"], x, context, num_heads, cfg)
+        x = _temporal_transformer(lp["temp_attn"], x, f, num_heads, cfg)
+        x = _resnet(lp["resnet"], x, temb, cfg)
+        x = _temp_conv(lp["temp_conv"], x, f, cfg)
+
+    rev = list(reversed(boc))
+    for i, block in enumerate(params["up_blocks"]):
+        for lp in block["layers"]:
+            x = torch.cat([x, res_stack.pop()], dim=-1)
+            x = run_layer(lp, x, i > 0, cfg.num_heads(rev[i]))
+        if "upsample" in block:
+            y = upsample_nearest_2x(x)
+            if res_stack:
+                th, tw = res_stack[-1].shape[1], res_stack[-1].shape[2]
+                if (th, tw) != (y.shape[1], y.shape[2]):
+                    # Odd sizes do not round-trip stride-2 conv + 2x upsample.
+                    y = F.interpolate(x.permute(0, 3, 1, 2), size=(th, tw), mode="nearest-exact")
+                    y = y.permute(0, 2, 3, 1)
+            x = conv2d(block["upsample"], y)
+
+    x = _gn_silu_conv(params["conv_norm_out"], params["conv_out"], x, cfg)
+    return x.reshape(b, f, h, w, cfg.out_channels)

@@ -1,0 +1,68 @@
+"""Fused GroupNorm-apply + SiLU + (3,1,1) temporal conv: kernel D and its
+plain version (counterpart of lvd_tpu/ops/temp_conv_fused.py).
+
+``norm_silu_temporal_conv(x, a, b, conv_w, conv_b)`` takes the frames-major
+(B, F, P, C) stream, the per-(batch, channel) GroupNorm affine (a, b) fp32
+from ``ops.basic.group_norm_coeffs`` and the conv3d weight (3, 1, 1, C, C).
+On a CUDA tensor it launches kernel D (csrc/temp_conv.cu, replacing
+``_fused``); on a CPU tensor it runs ``_unfused``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+
+def _unfused(x, a, b, w, bias):
+    """silu(x*a + b) in fp32, rounded to x's type, then the three
+    frame-shifted (rows, C) products (zero outside [0, F)) plus bias — the
+    same function as lvd_tpu's ``_unfused`` / ``_unfused_shifted``."""
+    z = x.float() * a[:, None, None, :] + b[:, None, None, :]
+    z = F.silu(z).to(x.dtype)
+    w = w.to(x.dtype)
+    y = z @ w[1]
+    y[:, 1:] += z[:, :-1] @ w[0]
+    y[:, :-1] += z[:, 1:] @ w[2]
+    return y + bias.to(x.dtype)
+
+
+def supported(x) -> bool:
+    """Kernel D takes every UNet level (lvd_tpu routes all of them,
+    temp_conv_fused.py:268-277): C % 64 == 0, F <= 32."""
+    _, f, _, c = x.shape
+    return c % 64 == 0 and f <= 32
+
+
+def norm_silu_temporal_conv_plain(x, a, b, conv_w, conv_b):
+    w = conv_w.reshape(3, conv_w.shape[-2], conv_w.shape[-1])
+    return _unfused(x, a, b, w, conv_b)
+
+
+def norm_silu_temporal_conv(x, a, b, conv_w, conv_b):
+    if x.device.type == "cpu":
+        return norm_silu_temporal_conv_plain(x, a, b, conv_w, conv_b)
+    c = x.shape[-1]
+    w = conv_w.reshape(3, conv_w.shape[-2], conv_w.shape[-1]).to(x.dtype)
+    bias = conv_b.to(x.dtype)
+    x = _build.kernel_input(x, torch.bfloat16, "norm_silu_temporal_conv x")
+    a = _build.kernel_input(a, torch.float32, "norm_silu_temporal_conv a")
+    b = _build.kernel_input(b, torch.float32, "norm_silu_temporal_conv b")
+    w = _build.kernel_input(w, torch.bfloat16, "norm_silu_temporal_conv w")
+    bias = _build.kernel_input(bias, torch.bfloat16, "norm_silu_temporal_conv bias")
+    bsz, f, p, _ = x.shape
+    if w.shape != (3, c, c) or a.shape != (bsz, c) or b.shape != (bsz, c):
+        raise ValueError(
+            f"norm_silu_temporal_conv: x {tuple(x.shape)}, w {tuple(w.shape)}, a {tuple(a.shape)}")
+    out = torch.empty_like(x)
+    err = _build.lib().lvd_temp_conv(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), bsz, f, p, c, _build.stream_of(x))
+    _build.check(err, "norm_silu_temporal_conv")
+    norm_silu_temporal_conv.launches += 1
+    return out
+
+
+norm_silu_temporal_conv.launches = 0

@@ -1,0 +1,113 @@
+"""TextToVideoPipeline, unguided (counterpart of lvd_tpu/pipeline.py:324-427
+without guidance, GLIGEN and the frame-sharded path).
+
+CLIP encodes the [negative; prompt] pair, DPM-Solver++ (2M) denoises with
+classifier-free guidance from fp32-carried latents, and the VAE decodes the
+frames to uint8 on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .config import ModelPreset
+from .diffusion import dpm_solver as dpm
+from .diffusion import sampler as sampler_mod
+from .models.clip import apply_clip_text
+from .models.loader import cast_tree
+from .models.vae import decode as vae_decode
+from .utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class PipelineModels:
+    preset: ModelPreset
+    unet_params: dict
+    clip_params: dict
+    vae_params: dict
+    tokenizer: object
+
+
+class TextToVideoPipeline:
+    def __init__(self, models: PipelineModels, dtype=torch.bfloat16, device=None):
+        """Runs on the card unless ``device="cpu"`` is asked for; the params
+        are cast to ``dtype`` and moved to the device once."""
+        self.device = resolve_device(device)
+        self.m = models
+        self.preset = models.preset
+        self.dtype = dtype
+        self.unet_params = cast_tree(models.unet_params, dtype, self.device)
+        self.clip_params = cast_tree(models.clip_params, dtype, self.device)
+        self.vae_params = cast_tree(models.vae_params, dtype, self.device)
+        # Phase seconds of the last call: encode_prompt, steps (one entry per
+        # denoising step), decode.
+        self.timings: dict = {}
+
+    @torch.no_grad()
+    def encode_prompt(self, prompt: str, negative_prompt: str = ""):
+        """The CFG pair (2, L, D): [uncond; cond] final hidden states."""
+        tok = self.m.tokenizer
+        ids = np.stack([np.asarray(tok.encode_padded(negative_prompt), np.int64),
+                        np.asarray(tok.encode_padded(prompt), np.int64)])
+        ids = torch.from_numpy(ids).to(self.device)
+        return apply_clip_text(self.clip_params, self.preset.clip, ids)["last_hidden_state"]
+
+    @torch.no_grad()
+    def decode_latents(self, latents, chunk: int = 24):
+        """(B, F, h, w, C) latents -> (B, F, H, W, 3) float in [0, 1], via
+        uint8 on the device (as lvd_tpu rounds it); frames in chunks."""
+        b, f, h, w, c = latents.shape
+        flat = latents.reshape(b * f, h, w, c)
+        outs = []
+        for i in range(0, b * f, chunk):
+            imgs = vae_decode(self.vae_params, self.preset.vae,
+                              flat[i:i + chunk] / self.preset.vae.scaling_factor)
+            imgs = torch.clamp(imgs.float() / 2.0 + 0.5, 0.0, 1.0)
+            outs.append(torch.round(imgs * 255.0).to(torch.uint8).cpu())
+        imgs = torch.cat(outs).numpy().astype(np.float32) / 255.0
+        return imgs.reshape(b, f, *imgs.shape[1:])
+
+    @torch.no_grad()
+    def __call__(self, prompt: str, negative_prompt: str = "", height: Optional[int] = None,
+                 width: Optional[int] = None, num_frames: int = 16,
+                 num_inference_steps: int = 50, guidance_scale: float = 9.0, seed: int = 0,
+                 latents=None, output_type: str = "np"):
+        """Returns (B, F, H, W, 3) float32 in [0, 1] (``output_type="np"``)
+        or the final latents (``"latent"``). ``latents`` may be passed in
+        (B, F, h, w, 4); otherwise they are drawn from ``seed``."""
+        preset = self.preset
+        height = height or preset.height
+        width = width or preset.width
+        if height % 8 or width % 8:
+            raise ValueError(f"height/width must be multiples of 8: {height}x{width}")
+        sf = preset.vae.scale_factor
+        sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
+            else (lambda: None)
+
+        t0 = time.perf_counter()
+        text_pair = self.encode_prompt(prompt, negative_prompt).to(self.dtype)
+        sync()
+        self.timings = {"encode_prompt": time.perf_counter() - t0, "steps": []}
+
+        if latents is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            latents = torch.randn((1, num_frames, height // sf, width // sf, 4),
+                                  generator=gen, device=self.device, dtype=torch.float32)
+            latents = latents * dpm.INIT_NOISE_SIGMA
+        latents = torch.as_tensor(latents).to(self.device, self.dtype)
+
+        coeffs = dpm.make_coeffs(preset.scheduler, num_inference_steps)
+        final = sampler_mod.sample_video(self.unet_params, preset.unet, latents, text_pair,
+                                         coeffs, float(guidance_scale),
+                                         step_times=self.timings["steps"])
+        if output_type == "latent":
+            return final
+        t0 = time.perf_counter()
+        video = self.decode_latents(final)
+        self.timings["decode"] = time.perf_counter() - t0
+        return video

@@ -1,0 +1,103 @@
+"""The port's kernels on the card (marked ``gpu``; they skip without one).
+
+On a machine with an NVIDIA Hopper GPU and nvcc (``--noconftest``: the
+suite's conftest sets up JAX, which this file does not need):
+    python -m pytest --noconftest tests/test_torch_gpu.py -q -m gpu
+The card is looked for inside a fixture, never at import time.
+"""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from lvd_tpu_torch.ops import _build
+
+    _build.lib()
+    return torch.device("cuda")
+
+
+def _rel(out, ref):
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("s_q,s_k,c", [(2880, 2880, 320), (720, 77, 640), (45, 45, 1280)])
+def test_attention_kernel_matches_plain(cuda, s_q, s_k, c):
+    from lvd_tpu_torch.ops import packed_attention as pa
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, s, c, generator=g, device=cuda).bfloat16() for s in (s_q, s_k, s_k))
+    before = pa.attention_packed.launches
+    out = pa.attention_packed(q, k, v, 0.125, c // 64)
+    ref = pa.attention_packed_plain(q.float(), k.float(), v.float(), 0.125, c // 64)
+    assert pa.attention_packed.launches == before + 1
+    assert _rel(out, ref) <= 2e-2
+
+
+def test_kernels_refuse_fp32(cuda):
+    from lvd_tpu_torch.ops import packed_attention as pa
+    from lvd_tpu_torch.ops.attention import attention
+    from lvd_tpu_torch.ops.basic import feed_forward
+
+    q = torch.randn(1, 64, 128, device=cuda)
+    with pytest.raises(TypeError):
+        pa.attention_packed(q, q, q, 0.125, 2)
+    # The routing takes fp32 to the kernels too: it raises, never runs plain.
+    lin = lambda a, b: {"w": torch.randn(a, b, device=cuda), "b": torch.zeros(b, device=cuda)}
+    with pytest.raises(TypeError):
+        attention({n: lin(128, 128) for n in ("to_q", "to_k", "to_v", "to_out")}, q, None, 2)
+    x = torch.randn(2048, 128, device=cuda)
+    with pytest.raises(TypeError):
+        feed_forward({"proj": lin(128, 1024), "out": lin(512, 128)}, x)
+
+
+def test_selfcheck_passes(cuda):
+    from lvd_tpu_torch.ops import selfcheck
+
+    records = selfcheck.run(emit=lambda line: None)
+    assert all(r["ok"] for r in records), [r for r in records if not r["ok"]]
+
+
+def _pair_params(c, g, cuda):
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    lin = lambda bias: {"w": r(c, c) * c ** -0.5, **({"b": r(c) * 0.1} if bias else {})}
+    attn = lambda: {"to_q": lin(False), "to_k": lin(False), "to_v": lin(False), "to_out": lin(True)}
+    norm = lambda: {"scale": 1 + 0.1 * r(c), "bias": 0.1 * r(c)}
+    return {"norm1": norm(), "attn1": attn(), "norm2": norm(), "attn2": attn()}
+
+
+@pytest.mark.parametrize("frames_major", [True, False])
+def test_temporal_pair_kernel_ragged_pixels_both_layouts(cuda, frames_major):
+    """45 pixels leave a ragged last pixel group; both stream layouts."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import temporal_attention as ta
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    p = _pair_params(320, g, cuda)
+    shape = (2, 24, 45, 320) if frames_major else (2, 45, 24, 320)
+    y = torch.randn(shape, generator=g, device=cuda)
+    out = ta.temporal_attention_pair(cast_tree(p, torch.bfloat16), y.bfloat16(), 5, 1e-5,
+                                     frames_major=frames_major)
+    ref = (ta._pair_ref_fm if frames_major else ta._pair_ref)(p, y, 5, 1e-5)
+    assert _rel(out, ref) <= 4.5e-2
+
+
+def test_geglu_kernel_exact_gelu_form(cuda, monkeypatch):
+    from lvd_tpu_torch.ops import geglu_fused as gf
+
+    monkeypatch.setattr(gf, "GELU_FORM", "exact")
+    g = torch.Generator(device=cuda).manual_seed(2)
+    c, inner = 128, 512
+    p = {"proj": {"w": torch.randn(c, 2 * inner, generator=g, device=cuda) * c ** -0.5,
+                  "b": torch.randn(2 * inner, generator=g, device=cuda) * 0.1},
+         "out": {"w": torch.randn(inner, c, generator=g, device=cuda) * inner ** -0.5,
+                 "b": torch.randn(c, generator=g, device=cuda) * 0.1}}
+    x = torch.randn(1000, c, generator=g, device=cuda)
+    out = gf.geglu_mlp(p, x.bfloat16())
+    ref = gf._unfused(x, p["proj"]["w"], p["proj"]["b"], p["out"]["w"], p["out"]["b"])
+    assert _rel(out, ref) <= 2e-2
