@@ -5,30 +5,48 @@
 
 Phases, each fatal on failure:
   1. device  - the card's name and power limit;
-  2. build   - the single nvcc build of lvd_tpu_torch/csrc/*.cu (seconds and
-               the -Xptxas -v register / shared-memory lines);
+  2. build   - the one nvcc call that builds lvd_tpu_torch/csrc/*.cu
+               (seconds and the -Xptxas -v register / shared-memory lines);
   3. kernels - every kernel at every shape the Zeroscope path gives it, in
                bf16, against its plain PyTorch version on fp32 copies
-               (lvd_tpu_torch.ops.selfcheck), timed with CUDA events;
+               (lvd_tpu_torch.ops.selfcheck), timed with CUDA events: the
+               forwards A-D at the CFG forward's shapes, the backwards E-G at
+               the guided energy walk's;
   4. reference - one full-width CFG UNet forward through the kernels (bf16)
                against the plain path (fp32) on the same inputs, with weights
                whose attention/FF/temporal-conv branches are not zero-init,
                so every kernel's output reaches the noise prediction; the
                plain path in bf16 is printed beside it as the yardstick of
                what bf16 rounding alone costs;
-  5. generation - unguided Zeroscope text-to-video at full width (all UNet,
+  5. gradient - one full-width guided energy gradient d(energy)/d(latents)
+               through the kernels (bf16) against the plain path (fp32), on
+               the same inputs and weights, gated on the max-element and the
+               L2 ratio, with the plain path in bf16 printed beside it; a
+               walk whose kernel branches are cut out of the gradient must
+               fail both gates;
+  6. generation - unguided Zeroscope text-to-video at full width (all UNet,
                CLIP and VAE widths, 24 frames, 576x320, CFG 9.0) from seeded
                random bf16 weights, 4 DPM-Solver++ steps, through the entry
                points a user calls; launch counts are zeroed just before and
-               read just after, and every kernel must have run;
-  6. profile - one CFG UNet forward under torch.profiler: device time per
-               kernel A-D and for the stock ops, and the device's idle share.
+               read just after, and every forward kernel must have run;
+  7. guided generation - the flagship layout (one box moving left to right)
+               and GuidanceConfig through the same entry point with
+               ``backward_guidance``, 4 steps with guidance on the first 2;
+               every kernel A-G must have run;
+  8. certification - guidance_effect at full width, 16 guided updates at
+               the first timestep: the in-box attention share must rise by
+               more than lvd_tpu's flagship gate (gain > 1.004) and the
+               attention's CoM must move toward the box;
+  9. profile - one CFG UNet forward and one guided update under
+               torch.profiler: device time per kernel and for the stock ops,
+               and the device's idle share.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
 """
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -41,6 +59,24 @@ NUM_STEPS = 4           # denoising steps driven here (the preset runs 40)
 # an H100 the kernel path read 1.73e-2; the limit leaves room for seeds and
 # cards, and is far below a wrong kernel (readings in PERF.md, Findings).
 REFERENCE_TOL = 5e-2
+# max|kernels(bf16) - plain(fp32)| / max|plain(fp32)| of the guided energy's
+# gradient with respect to the latents. On an H100 the kernel path read
+# 0.099, the plain path in bf16 0.141 (bf16 rounding alone: the top-k
+# selections of the energy flip near their thresholds) and a walk with the
+# kernel branches cut out of the gradient 1.015; the gate sits between
+# (readings in PERF.md, Findings).
+GRADIENT_TOL = 0.3
+# |kernels(bf16) - plain(fp32)| / |plain(fp32)| (L2) of the same gradient,
+# which near-threshold top-k flips move far less than the max-element ratio.
+# On an H100 the kernel path read 0.076, the plain path in bf16 0.086 and
+# the walk with the kernel branches cut out 0.982. That walk must exceed
+# both gates, so every run shows that they catch a broken gradient.
+GRADIENT_L2_TOL = 0.2
+# lvd_tpu's flagship certification gate (bench.py, certify).
+CERT_MIN_GAIN = 1.004
+CERT_ITERS = 16
+GUIDED_STEPS, GUIDED_INDEX_STEP = 4, 2  # guided generation: guidance on steps 0 and 1
+FLAG_PROMPT = "A bear walks from the left to the right, forest background"
 
 
 def log(msg):
@@ -80,6 +116,36 @@ def kernel_phase():
         raise SystemExit(f"[kernel] {len(bad)} kernel checks failed: "
                          f"{[(r['name'], r['shape'], r['rel_err']) for r in bad]}")
     return records
+
+
+def flagship_guidance(frames=24):
+    """bench.py's flagship layout and GuidanceConfig: one box moving left to
+    right, token 2 ("bear"), the six instrumented sites."""
+    from lvd_tpu_torch.diffusion.guidance import OVERALL_GUIDANCE_ATTN_KEYS, GuidanceConfig
+
+    move = lambda f: 0.8 * f / max(frames - 1, 1)
+    boxes = [[[0.05 + move(f), 0.45, 0.30 + move(f), 0.80] for f in range(frames)]]
+    cfg = GuidanceConfig(loss_scale=2.5, loss_threshold=350.0, max_iter=1, max_index_step=10,
+                         fg_top_p=0.25, bg_top_p=0.25, fg_weight=1.0, bg_weight=2.0)
+    return {"boxes": boxes, "object_positions": [[2]], "config": cfg,
+            "attn_keys": OVERALL_GUIDANCE_ATTN_KEYS}
+
+
+def guidance_tensors(guide, latent_hw=(40, 72)):
+    from lvd_tpu_torch.diffusion.sampler import pack_to_tensors
+    from lvd_tpu_torch.layout.rasterize import make_guidance_pack
+
+    cfg = guide["config"]
+    pack = make_guidance_pack(guide["boxes"], guide["object_positions"], guide["attn_keys"],
+                              latent_hw, fg_top_p=cfg.fg_top_p, bg_top_p=cfg.bg_top_p)
+    return pack_to_tensors(pack, "cuda")
+
+
+def seeded_latents(torch, seed=0):
+    """The pipeline's seeded noise (jax.random.normal's) for 24 x 576x320."""
+    from lvd_tpu_torch.utils import prng
+
+    return torch.from_numpy(prng.normal(seed, (1, 24, 40, 72, 4))).cuda()
 
 
 def _undegenerate(tree, gen, torch):
@@ -123,14 +189,36 @@ def plain_route():
         (temp_conv_fused, "norm_silu_temporal_conv",
          temp_conv_fused.norm_silu_temporal_conv_plain),
     ]
+    with _swapped([(module, name, plain) for module, name, plain in swaps]):
+        yield
+
+
+@contextlib.contextmanager
+def _swapped(swaps):
     saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
-    for module, name, plain in swaps:
-        setattr(module, name, plain)
+    for module, name, fn in swaps:
+        setattr(module, name, fn)
     try:
         yield
     finally:
         for module, name, wrapper in saved:
             setattr(module, name, wrapper)
+
+
+@contextlib.contextmanager
+def detached_route():
+    """Cuts each forward kernel's branch out of the gradient (its autograd
+    Function passes no gradient back), as a kernel wrapper outside autograd
+    would: the reading of a broken gradient, beside which the gate is set."""
+    from lvd_tpu_torch.ops import geglu_fused, packed_attention, temp_conv_fused
+    from lvd_tpu_torch.ops import temporal_attention
+
+    nothing = lambda n: staticmethod(lambda ctx, *grads: (None,) * n)
+    with _swapped([(packed_attention.PackedAttention, "backward", nothing(5)),
+                   (temporal_attention.TemporalPair, "backward", nothing(5)),
+                   (geglu_fused.Geglu, "backward", nothing(2)),
+                   (temp_conv_fused.NormSiluTemporalConv, "backward", nothing(5))]):
+        yield
 
 
 def reference_phase(torch, models):
@@ -164,7 +252,63 @@ def reference_phase(torch, models):
     torch.cuda.empty_cache()
 
 
+def gradient_phase(torch, models):
+    """d(energy)/d(latents) at full width: kernels (bf16), plain path (fp32
+    reference, and bf16), and the walk with the kernel branches cut out."""
+    from lvd_tpu_torch.diffusion import dpm_solver as dpm
+    from lvd_tpu_torch.diffusion.sampler import energy_and_grad
+    from lvd_tpu_torch.models.loader import cast_tree
+
+    cfg = models.preset.unet
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = _undegenerate(models.unet_params, gen, torch)
+    guide = flagship_guidance()
+    pack = guidance_tensors(guide)
+    lat = seeded_latents(torch)
+    text = torch.randn((1, 77, cfg.cross_attention_dim), generator=gen, device="cuda")
+    t = int(dpm.make_coeffs(models.preset.scheduler, 40).timestep[0])
+    run = lambda p, dt: energy_and_grad(p, cfg, lat, t, text.to(dt), pack, guide["attn_keys"],
+                                        guide["config"], dt)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain path in full fp32
+    try:
+        t0 = time.perf_counter()
+        e_k, g_k = run(params, torch.bfloat16)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        with plain_route():
+            e_p, g_p = run(params, torch.bfloat16)
+            e_r, g_r = run(cast_tree(params, torch.float32), torch.float32)
+        with detached_route():
+            e_b, g_b = run(params, torch.bfloat16)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    scale = g_r.abs().max().item()
+    rel = lambda g: (g - g_r).abs().max().item() / scale
+    rel_l2 = lambda g: ((g - g_r).norm() / g_r.norm()).item()
+    readings = {"kernels_bf16": rel(g_k), "plain_bf16": rel(g_p), "branches_cut": rel(g_b)}
+    readings_l2 = {"kernels_bf16": rel_l2(g_k), "plain_bf16": rel_l2(g_p),
+                   "branches_cut": rel_l2(g_b)}
+    log(f"[gradient] guided energy at full width (loss-scaled): kernels (bf16) {e_k.item():.6g}, "
+        f"plain (fp32) {e_r.item():.6g}, plain (bf16) {e_p.item():.6g}, branches cut "
+        f"{e_b.item():.6g}; kernel walk + backward {kernel_s:.3f} s")
+    log(f"[gradient] d(energy)/d(latents) against the plain path (fp32), max|d| / max|ref| "
+        f"(max|ref| {scale:.6g}): {json.dumps(readings)} (gate {GRADIENT_TOL}); "
+        f"|d| / |ref| (L2): {json.dumps(readings_l2)} (gate {GRADIENT_L2_TOL})")
+    if not (torch.isfinite(g_k).all() and readings["kernels_bf16"] <= GRADIENT_TOL
+            and readings_l2["kernels_bf16"] <= GRADIENT_L2_TOL):
+        raise SystemExit("[gradient] the kernels' gradient disagrees with the plain path")
+    if not (readings["branches_cut"] > GRADIENT_TOL
+            and readings_l2["branches_cut"] > GRADIENT_L2_TOL):
+        raise SystemExit("[gradient] the gates do not separate a gradient that lost its "
+                         "kernel branches")
+    del g_k, g_p, g_r, g_b, params
+    torch.cuda.empty_cache()
+    return readings
+
+
 def wrappers():
+    """Every kernel wrapper of the guided path, A-G, by kernel name."""
     from lvd_tpu_torch.ops import geglu_fused, packed_attention, temp_conv_fused
     from lvd_tpu_torch.ops import temporal_attention
 
@@ -173,7 +317,14 @@ def wrappers():
         "temporal_attention_pair": temporal_attention.temporal_attention_pair,
         "geglu_mlp": geglu_fused.geglu_mlp,
         "norm_silu_temporal_conv": temp_conv_fused.norm_silu_temporal_conv,
+        "attention_packed_bwd": packed_attention.attention_packed_bwd,
+        "temporal_attention_pair_bwd": temporal_attention.temporal_attention_pair_bwd,
+        "geglu_mlp_bwd": geglu_fused.geglu_mlp_bwd,
     }
+
+
+FORWARD_KERNELS = ("attention_packed", "temporal_attention_pair", "geglu_mlp",
+                   "norm_silu_temporal_conv")
 
 
 def generation_phase(torch, models):
@@ -203,10 +354,64 @@ def generation_phase(torch, models):
     log(f"[generation] launches in {NUM_STEPS} steps: {json.dumps(launches)}")
     if video.shape != (1, 24, 320, 576, 3) or not np.isfinite(video).all():
         raise SystemExit(f"[generation] bad output {video.shape}")
-    missing = [name for name, n in launches.items() if n <= 0]
+    missing = [name for name in FORWARD_KERNELS if launches[name] <= 0]
     if missing:
         raise SystemExit(f"[generation] kernels never launched on the main path: {missing}")
     return launches
+
+
+def guided_generation_phase(torch, models):
+    """The flagship guided generation through the pipeline's entry point;
+    every kernel A-G must launch."""
+    from lvd_tpu_torch.pipeline import TextToVideoPipeline
+    from lvd_tpu_torch.text.templates import NEGATIVE_PROMPT
+
+    guide = flagship_guidance()
+    guide["config"] = dataclasses.replace(guide["config"], max_index_step=GUIDED_INDEX_STEP)
+    pipe = TextToVideoPipeline(models, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    video = pipe(FLAG_PROMPT, NEGATIVE_PROMPT, height=320, width=576, num_frames=24,
+                 num_inference_steps=GUIDED_STEPS, guidance_scale=9.0, seed=0,
+                 backward_guidance=guide)
+    total = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers().items()}
+    t = pipe.timings
+    steps, guided = t["steps"], t["guided"]
+    log(f"[guided] video {tuple(video.shape)}, min {video.min():.4f} max {video.max():.4f} "
+        f"mean {video.mean():.4f}")
+    log(f"[guided] steps {[round(s, 4) for s in steps]} s (guidance on the first "
+        f"{len(guided)}: guided updates {[round(s, 4) for s in guided]} s); encode "
+        f"{t['encode_prompt']:.4f} s; decode {t['decode']:.4f} s; total {total:.4f} s")
+    log(f"[guided] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[guided] launches in {GUIDED_STEPS} steps: {json.dumps(launches)}")
+    if video.shape != (1, 24, 320, 576, 3) or not np.isfinite(video).all():
+        raise SystemExit(f"[guided] bad output {video.shape}")
+    missing = [name for name, n in launches.items() if n <= 0]
+    if missing:
+        raise SystemExit(f"[guided] kernels never launched on the guided path: {missing}")
+    return pipe, launches
+
+
+def certification_phase(torch, pipe):
+    """lvd_tpu's flagship certificate at full width (bench.py's certify)."""
+    from lvd_tpu_torch.diffusion.certify import guidance_effect
+
+    guide = flagship_guidance()
+    cond = pipe.encode_prompt(FLAG_PROMPT, "dull, blurry")[1:].to(torch.bfloat16)
+    t0 = time.perf_counter()
+    eff = guidance_effect(pipe.unet_params, pipe.preset.unet, pipe.preset.scheduler,
+                          seeded_latents(torch).bfloat16(), cond, guidance_tensors(guide),
+                          guide["attn_keys"], guide["config"], num_inference_steps=40,
+                          n_iters=CERT_ITERS)
+    log(f"[certify] {json.dumps(eff)} in {time.perf_counter() - t0:.2f} s "
+        f"(gates: gain > {CERT_MIN_GAIN}, CoM distance falling)")
+    if not (eff["gain"] > CERT_MIN_GAIN and eff["com_dist_after"] < eff["com_dist_before"]):
+        raise SystemExit("[certify] guidance did not move attention into the box")
+    return eff
 
 
 KERNEL_SYMBOLS = {  # substrings of the kernels' device symbols
@@ -214,14 +419,18 @@ KERNEL_SYMBOLS = {  # substrings of the kernels' device symbols
     "temporal_attention_pair": "temporal_pair_kernel",
     "geglu_mlp": "geglu_kernel",
     "norm_silu_temporal_conv": "temp_conv_kernel",
+    "attention_packed_bwd": "attn_bwd_",
+    "temporal_attention_pair_bwd": "temporal_pair_bwd_kernel",
+    "geglu_mlp_bwd": "geglu_bwd_kernel",
 }
 
 
 def profile_phase(torch, models):
-    """Device time of one CFG UNet forward at the generation's shapes, split
-    into kernels A-D and the stock ops; idle share = 1 - busy / wall."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time of one CFG UNet forward at the generation's shapes and of
+    one guided update (the energy walk and its backward), each split into
+    the kernels and the stock ops; idle share = 1 - busy / wall."""
+    from lvd_tpu_torch.diffusion import dpm_solver as dpm
+    from lvd_tpu_torch.diffusion.sampler import energy_and_grad
     from lvd_tpu_torch.models.unet3d import apply_unet3d
 
     cfg = models.preset.unet
@@ -229,16 +438,29 @@ def profile_phase(torch, models):
     sample = torch.randn((2, 24, 40, 72, 4), generator=gen, device="cuda").bfloat16()
     text = torch.randn((2, 77, cfg.cross_attention_dim), generator=gen,
                        device="cuda").bfloat16()
-    forward = lambda: apply_unet3d(models.unet_params, cfg, sample, 500, text)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.no_grad():
-        forward()
+        _profile(torch, "one CFG UNet forward",
+                 lambda: apply_unet3d(models.unet_params, cfg, sample, 500, text))
+    guide = flagship_guidance()
+    pack = guidance_tensors(guide)
+    lat = seeded_latents(torch)
+    t = int(dpm.make_coeffs(models.preset.scheduler, 40).timestep[0])
+    _profile(torch, "one guided update", lambda: energy_and_grad(
+        models.unet_params, cfg, lat, t, text[1:], pack, guide["attn_keys"], guide["config"],
+        torch.bfloat16))
+
+
+def _profile(torch, label, fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            start.record()
-            forward()
-            end.record()
-            torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end)
     by_name = {e.key: (e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages() if e.self_device_time_total > 0}
@@ -246,18 +468,19 @@ def profile_phase(torch, models):
     split = {}
     for kname, symbol in KERNEL_SYMBOLS.items():
         hits = [v for k, v in by_name.items() if symbol in k]
-        split[kname] = {"ms": round(sum(ms for ms, _ in hits), 3),
-                        "calls": sum(n for _, n in hits)}
+        if hits:
+            split[kname] = {"ms": round(sum(ms for ms, _ in hits), 3),
+                            "calls": sum(n for _, n in hits)}
     ours = {k for k in by_name if any(sym in k for sym in KERNEL_SYMBOLS.values())}
     stock = sorted(((ms, n, k) for k, (ms, n) in by_name.items() if k not in ours),
                    reverse=True)
     split["stock"] = {"ms": round(sum(ms for ms, _, _ in stock), 3),
                       "calls": sum(n for _, n, _ in stock)}
-    log(f"[profile] one CFG UNet forward: wall {wall_ms:.3f} ms (CUDA events, profiler on), "
+    log(f"[profile] {label}: wall {wall_ms:.3f} ms (CUDA events, profiler on), "
         f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}")
-    log(f"[profile] device ms by kernel: {json.dumps(split)}")
+    log(f"[profile] {label}, device ms by kernel: {json.dumps(split)}")
     for ms, n, k in stock[:8]:
-        log(f"[profile] stock {ms:.3f} ms in {n} calls: {k[:110]}")
+        log(f"[profile] {label}, stock {ms:.3f} ms in {n} calls: {k[:110]}")
 
 
 def main() -> int:
@@ -276,7 +499,12 @@ def main() -> int:
     models = random_pipeline_models(
         "zeroscope", torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
     reference_phase(torch, models)
-    launches = generation_phase(torch, models)
+    gradient_phase(torch, models)
+    generation_phase(torch, models)
+    pipe, launches = guided_generation_phase(torch, models)
+    certification_phase(torch, pipe)
+    del pipe
+    torch.cuda.empty_cache()
     profile_phase(torch, models)
 
     from lvd_tpu_torch.ops.selfcheck import SOURCES

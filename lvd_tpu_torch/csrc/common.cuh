@@ -53,6 +53,16 @@ inline cudaError_t set_smem(Kernel* kernel, int bytes) {
   return cudaSuccess;
 }
 
+// Stores one accumulator tile to the warp's scratch (256 floats) and hands
+// each lane its share of the values: fn(r, c, value) with r, c in [0, 16).
+template <typename Fn>
+__device__ inline void drain_tile(const FragAcc& acc, float* scratch, int lane, Fn fn) {
+  wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
+  __syncwarp();
+  for (int e = lane; e < 256; e += 32) fn(e / 16, e % 16, scratch[e]);
+  __syncwarp();
+}
+
 }  // namespace lvd
 
 LVD_EXPORT const char* lvd_error_string(int err);

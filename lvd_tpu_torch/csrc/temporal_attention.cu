@@ -65,16 +65,6 @@ struct AttnWeights {
   const float* bo;     // (C,) fp32
 };
 
-// Stores one accumulator tile to the warp's scratch and hands each lane its
-// share of the 256 values: fn(r, c, value) with r, c in [0, 16).
-template <typename Fn>
-__device__ inline void drain_tile(const FragAcc& acc, float* scratch, int lane, Fn fn) {
-  wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 256; e += 32) fn(e / 16, e % 16, scratch[e]);
-  __syncwarp();
-}
-
 __device__ void one_attention(const AttnWeights& w, bf16* ys, bf16* lns, bf16* os, bf16* qs,
                               bf16* ks, bf16* vs, float* S, bf16* P, float* scratch, int R,
                               int ldc, int C, int H, int F, int valid_rows, float eps,

@@ -36,6 +36,7 @@ class SolverCoeffs(NamedTuple):
     h: np.ndarray
     r: np.ndarray
     use_second_order: np.ndarray
+    sqrt_one_minus_abar: np.ndarray  # sigma at the current t: the guidance step's scale
 
     def at(self, i: int) -> "SolverCoeffs":
         """The coefficients of step ``i`` as Python scalars."""
@@ -67,6 +68,7 @@ def make_coeffs(cfg: SchedulerConfig, num_inference_steps: int = None,
         alpha_c=f32(alpha[timesteps]), sigma_c=f32(sigma[timesteps]),
         alpha_p=f32(alpha[t_prev]), sigma_p=f32(sigma[t_prev]),
         h=f32(h), r=f32(r), use_second_order=use_second,
+        sqrt_one_minus_abar=f32(sigma[timesteps]),
     )
 
 

@@ -1,41 +1,109 @@
-"""The unguided denoising loop: CFG + DPM-Solver++ (counterpart of the
-unguided path of lvd_tpu/diffusion/sampler.py:160-174).
+"""The denoising loop: CFG + DPM-Solver++ + cross-attention guidance
+(counterpart of lvd_tpu/diffusion/sampler.py:66-190, without GLIGEN and the
+frame-sharded path).
 
-The latent carry is fp32 end to end; the UNet consumes the model dtype (the
-dtype of the latents passed in). Cross-attention guidance and GLIGEN are
-later slices.
+The latent carry is fp32 end to end (a guidance update is far below the bf16
+step at unit scale); the UNet consumes the model dtype (the dtype of the
+latents passed in). Each of the first ``min(max_index_step, T)`` steps first
+runs the guidance loop: while ``loss / loss_scale > loss_threshold`` and
+fewer than ``max_iter`` updates were made, the loss-scaled energy and its
+gradient with respect to the latents are taken through a cond-only UNet walk
+that stops at the last captured site, and ``lat -= sqrt(1 - abar_t) * grad``.
+The loss starts at 1e10 and is carried across steps, so a step that enters
+with a loss already at or below the threshold makes no update.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..models.unet3d import apply_unet3d
 from . import dpm_solver as dpm
+from .guidance import GuidanceConfig, compute_ca_energy
+
+
+@dataclasses.dataclass
+class GuidanceTensors:
+    """The guidance pack (layout/rasterize.GuidancePack) as device tensors."""
+
+    masks: Dict[Tuple, torch.Tensor]
+    token_indices: torch.Tensor
+    token_mask: torch.Tensor
+    k_fg: Dict[Tuple, torch.Tensor]
+    k_bg: Dict[Tuple, torch.Tensor]
+
+
+def pack_to_tensors(pack, device) -> GuidanceTensors:
+    on = lambda a: torch.from_numpy(np.asarray(a)).to(device)
+    return GuidanceTensors(
+        masks={k: on(v) for k, v in pack.masks.items()},
+        token_indices=on(pack.token_indices).long(),
+        token_mask=on(pack.token_mask),
+        k_fg={k: on(v) for k, v in pack.k_fg.items()},
+        k_bg={k: on(v) for k, v in pack.k_bg.items()},
+    )
+
+
+def energy_and_grad(unet_params, unet_cfg, lat32, timestep, cond_text, guidance,
+                    keys, g_cfg: GuidanceConfig, model_dt):
+    """The loss-scaled energy at fp32 latents and its gradient with respect
+    to them (fp32), through the cond-only walk in ``model_dt``."""
+    with torch.enable_grad():
+        x = lat32.detach().requires_grad_(True)
+        _, aux = apply_unet3d(unet_params, unet_cfg, x.to(model_dt), timestep, cond_text,
+                              capture_keys=keys, capture_only=True,
+                              remat=g_cfg.energy_remat != "none")
+        energy = compute_ca_energy(aux, guidance, keys, g_cfg) * g_cfg.loss_scale
+        (grad,) = torch.autograd.grad(energy, x)
+    return energy.detach(), grad
 
 
 def sample_video(unet_params, unet_cfg, latents, text_pair, coeffs: dpm.SolverCoeffs,
-                 guidance_scale: float = 9.0, step_times=None):
+                 guidance_scale: float = 9.0, guidance: Optional[GuidanceTensors] = None,
+                 guidance_cfg: Optional[GuidanceConfig] = None,
+                 guidance_attn_keys: Sequence[Tuple] = (), step_times=None,
+                 guided_times=None):
     """latents (B, F, h, w, C) initial noise in the model dtype; text_pair
     (2B, L, D) = [uncond; cond]. Returns the final latents in the model
-    dtype. ``step_times``, if a list, receives each step's seconds (the
-    step is synchronised with the card first)."""
+    dtype. ``step_times`` and ``guided_times``, if lists, receive each
+    step's seconds and each guided step's guidance-loop seconds (the card is
+    synchronised first)."""
     model_dt = latents.dtype
     b = latents.shape[0]
+    n_steps = len(coeffs.timestep)
+    g_cfg = guidance_cfg or GuidanceConfig()
+    g_end = min(g_cfg.max_index_step, n_steps) if guidance is not None else 0
+    keys = tuple(tuple(k) for k in guidance_attn_keys)
+    cond_text = text_pair[b:]
+    sync = (lambda: torch.cuda.synchronize(latents.device)) if latents.is_cuda else (lambda: None)
+
     lat = latents.float()
     prev_x0 = None
-    for i in range(len(coeffs.timestep)):
+    loss = torch.tensor(1e10, dtype=torch.float32)  # always guide on the first step
+    for i in range(n_steps):
         t0 = time.perf_counter()
         c = coeffs.at(i)
+        if i < g_end:
+            it = 0
+            while (loss / g_cfg.loss_scale > g_cfg.loss_threshold).item() and it < g_cfg.max_iter:
+                loss, grad = energy_and_grad(unet_params, unet_cfg, lat, c.timestep, cond_text,
+                                             guidance, keys, g_cfg, model_dt)
+                lat = lat - c.sqrt_one_minus_abar * grad
+                it += 1
+            if guided_times is not None:
+                sync()
+                guided_times.append(time.perf_counter() - t0)
         lat_in = torch.cat([lat, lat], dim=0).to(model_dt)
         eps = apply_unet3d(unet_params, unet_cfg, lat_in, c.timestep, text_pair)
         eps_u, eps_c = eps[:b], eps[b:]
         eps_cfg = eps_u + guidance_scale * (eps_c - eps_u)
         prev_x0, lat = dpm.step(prev_x0, c, lat, eps_cfg)
         if step_times is not None:
-            if lat.is_cuda:
-                torch.cuda.synchronize(lat.device)
+            sync()
             step_times.append(time.perf_counter() - t0)
     return lat.to(model_dt)

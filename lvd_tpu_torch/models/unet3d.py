@@ -11,14 +11,23 @@ stream. Routing follows lvd_tpu's shape predicates:
     with the GroupNorm statistics a stock reduction;
   * attention -> kernel A at every non-capturing site on the card.
 Where lvd_tpu leaves a shape to XLA (C = 1280), the port runs stock torch.
-GLIGEN, attention capture for guidance and the frame-sharded path are not
-part of this slice.
+Each kernel wrapper is an autograd Function (backward kernels E, F and G, or
+stock ops for D), so the guided energy differentiates through the walk.
+
+Attention capture for guidance is a functional output, as in lvd_tpu:
+``capture_keys`` names spatial cross-attention sites by hierarchical address
+``(dir, block, layer, btb)``; their fp32 probabilities come back in ``aux``,
+and ``capture_only`` ends the walk once every key is captured. GLIGEN and the
+frame-sharded path are not part of this port yet.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..config import UNet3DConfig
 from ..ops import temp_conv_fused, temporal_attention
@@ -38,20 +47,27 @@ from ..ops.basic import (
 )
 
 
-def _btb_apply(p, x, context, num_heads):
-    """Spatial BasicTransformerBlock: self-attention, cross-attention, FF."""
+def _btb_apply(p, x, context, num_heads, capture=False):
+    """Spatial BasicTransformerBlock: self-attention, cross-attention, FF.
+    Returns (x, cross-attention probabilities if ``capture``)."""
     x = x + attention(p["attn1"], layer_norm(p["norm1"], x), None, num_heads)[0]
-    x = x + attention(p["attn2"], layer_norm(p["norm2"], x), context, num_heads)[0]
-    return x + feed_forward(p["ff"], layer_norm(p["norm3"], x))
+    h, probs = attention(p["attn2"], layer_norm(p["norm2"], x), context, num_heads,
+                         return_probs=capture)
+    x = x + h
+    return x + feed_forward(p["ff"], layer_norm(p["norm3"], x)), probs
 
 
-def _spatial_transformer(p, x, context, num_heads, cfg):
+def _spatial_transformer(p, x, context, num_heads, cfg, key=None, capture_keys=(), aux=None):
     n, h, w, c = x.shape
     residual = x
     y = group_norm(p["norm"], x, cfg.norm_num_groups, cfg.transformer_norm_eps)
     y = linear(p["proj_in"], y.reshape(n, h * w, c))
-    for block in p["blocks"]:
-        y = _btb_apply(block, y, context, num_heads)
+    for bi, block in enumerate(p["blocks"]):
+        full_key = None if key is None else key + (bi,)
+        capture = full_key in capture_keys
+        y, probs = _btb_apply(block, y, context, num_heads, capture)
+        if capture:
+            aux[full_key] = probs
     y = linear(p["proj_out"], y)
     return y.reshape(n, h, w, c) + residual
 
@@ -111,16 +127,27 @@ def _temp_conv(p, x, num_frames, cfg):
     return (x.reshape(b, num_frames, h, w, c) + y).reshape(n, h, w, c)
 
 
-def _cross_attn_layer(p, x, temb, context, num_frames, num_heads, cfg):
+def _cross_attn_layer(p, x, temb, context, num_frames, num_heads, cfg, key=None,
+                      capture_keys=(), aux=None):
     x = _resnet(p["resnet"], x, temb, cfg)
     x = _temp_conv(p["temp_conv"], x, num_frames, cfg)
-    x = _spatial_transformer(p["attn"], x, context, num_heads, cfg)
+    x = _spatial_transformer(p["attn"], x, context, num_heads, cfg, key, capture_keys, aux)
     return _temporal_transformer(p["temp_attn"], x, num_frames, num_heads, cfg)
 
 
-def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_states):
+def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_states, *,
+                 capture_keys: Sequence[tuple] = (), capture_only: bool = False,
+                 remat: bool = False):
     """sample (B, F, H, W, C_in) channels-last; timesteps scalar or (B,);
-    encoder_hidden_states (B, L, D). Returns noise_pred (B, F, H, W, C_out)."""
+    encoder_hidden_states (B, L, D). Returns noise_pred (B, F, H, W, C_out);
+    with ``capture_keys``, (noise_pred, aux {key: (B*F, heads, HW, L) fp32
+    probabilities of each captured site}), noise_pred None when
+    ``capture_only`` ends the walk at the last captured site. ``remat``
+    checkpoints each UNet layer below the deepest width
+    (torch.utils.checkpoint), for the energy's backward."""
+    capture_keys = tuple(tuple(k) for k in capture_keys)
+    if capture_only and not capture_keys:
+        raise ValueError("capture_only requires capture_keys")
     b, f, h, w, _ = sample.shape
     boc = cfg.block_out_channels
 
@@ -134,16 +161,37 @@ def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_st
     x = conv2d(params["conv_in"], sample.reshape(b * f, h, w, sample.shape[-1]))
     x = _temporal_transformer(params["transformer_in"], x, f, cfg.transformer_in_num_heads, cfg)
 
-    def run_layer(lp, x, with_attn, num_heads):
-        if with_attn:
-            return _cross_attn_layer(lp, x, temb, context, f, num_heads, cfg)
-        return _temp_conv(lp["temp_conv"], _resnet(lp["resnet"], x, temb, cfg), f, cfg)
+    aux: dict = {}
+
+    def run_layer(lp, x, key, with_attn, num_heads):
+        layer_keys = [k for k in capture_keys if tuple(k[:3]) == key]
+
+        def fn(x):
+            local: dict = {}
+            if with_attn:
+                y = _cross_attn_layer(lp, x, temb, context, f, num_heads, cfg, key,
+                                      capture_keys, local)
+            else:
+                y = _temp_conv(lp["temp_conv"], _resnet(lp["resnet"], x, temb, cfg), f, cfg)
+            return (y, *(local[k] for k in layer_keys))
+
+        if remat and num_heads * cfg.attention_head_dim < boc[-1]:
+            y, *captured = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+        else:
+            y, *captured = fn(x)
+        aux.update(zip(layer_keys, captured))
+        return y
+
+    def have_all_keys():
+        return capture_only and len(aux) == len(capture_keys)
 
     res_stack = [x]
     for i, block in enumerate(params["down_blocks"]):
         is_final = i == len(boc) - 1
-        for lp in block["layers"]:
-            x = run_layer(lp, x, not is_final, cfg.num_heads(boc[i]))
+        for j, lp in enumerate(block["layers"]):
+            x = run_layer(lp, x, ("down", i, j), not is_final, cfg.num_heads(boc[i]))
+            if have_all_keys():
+                return None, aux
             res_stack.append(x)
         if "downsample" in block:
             x = conv2d(block["downsample"], x, stride=2)
@@ -153,17 +201,22 @@ def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_st
     num_heads = cfg.num_heads(boc[-1])
     x = _resnet(mid["resnet_in"], x, temb, cfg)
     x = _temp_conv(mid["temp_conv_in"], x, f, cfg)
-    for lp in mid["layers"]:
-        x = _spatial_transformer(lp["attn"], x, context, num_heads, cfg)
+    for j, lp in enumerate(mid["layers"]):
+        x = _spatial_transformer(lp["attn"], x, context, num_heads, cfg, ("mid", 0, j),
+                                 capture_keys, aux)
+        if have_all_keys():
+            return None, aux
         x = _temporal_transformer(lp["temp_attn"], x, f, num_heads, cfg)
         x = _resnet(lp["resnet"], x, temb, cfg)
         x = _temp_conv(lp["temp_conv"], x, f, cfg)
 
     rev = list(reversed(boc))
     for i, block in enumerate(params["up_blocks"]):
-        for lp in block["layers"]:
+        for j, lp in enumerate(block["layers"]):
             x = torch.cat([x, res_stack.pop()], dim=-1)
-            x = run_layer(lp, x, i > 0, cfg.num_heads(rev[i]))
+            x = run_layer(lp, x, ("up", i, j), i > 0, cfg.num_heads(rev[i]))
+            if have_all_keys():
+                return None, aux
         if "upsample" in block:
             y = upsample_nearest_2x(x)
             if res_stack:
@@ -175,4 +228,5 @@ def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_st
             x = conv2d(block["upsample"], y)
 
     x = _gn_silu_conv(params["conv_norm_out"], params["conv_out"], x, cfg)
-    return x.reshape(b, f, h, w, cfg.out_channels)
+    out = x.reshape(b, f, h, w, cfg.out_channels)
+    return (out, aux) if capture_keys else out

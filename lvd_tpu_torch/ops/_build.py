@@ -41,7 +41,12 @@ SIGNATURES = {
     "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F, _P],
     "lvd_geglu": [_P] * 6 + [_I] * 4 + [_P],
     "lvd_temp_conv": [_P] * 6 + [_I] * 4 + [_P],
+    "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F, _P],
+    "lvd_geglu_bwd": [_P] * 6 + [_I] * 4 + [_P],
 }
+# Entry points that return a byte count instead of a CUDA error code.
+SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 4}
 
 # Filled by build(): seconds the nvcc call took (None when cached) and its log.
 build_info: dict = {"seconds": None, "log": "", "path": None}
@@ -101,6 +106,10 @@ def lib() -> ctypes.CDLL:
         fn = getattr(handle, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in SIZE_QUERIES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     handle.lvd_error_string.argtypes = [ctypes.c_int]
     handle.lvd_error_string.restype = ctypes.c_char_p
     return handle
@@ -114,6 +123,26 @@ def check(err: int, name: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """A raw kernel launch is not differentiable: it raises when autograd
+    would record it (grad mode on and an input requiring grad). The kernel
+    wrappers reach their launches only inside a ``torch.autograd.Function``,
+    whose forward and backward run with grad mode off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: a raw kernel launch on a tensor that requires grad; "
+                           "call it through its autograd.Function wrapper")
+
+
+def params_need_grad(tree) -> bool:
+    """Whether autograd would record a gradient for any tensor of a param
+    tree (the backward kernels compute input gradients only)."""
+    if not torch.is_grad_enabled():
+        return False
+    if isinstance(tree, dict):
+        return any(params_need_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
 
 
 def kernel_input(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:

@@ -4,8 +4,13 @@ plain version (counterpart of lvd_tpu/ops/temp_conv_fused.py).
 ``norm_silu_temporal_conv(x, a, b, conv_w, conv_b)`` takes the frames-major
 (B, F, P, C) stream, the per-(batch, channel) GroupNorm affine (a, b) fp32
 from ``ops.basic.group_norm_coeffs`` and the conv3d weight (3, 1, 1, C, C).
-On a CUDA tensor it launches kernel D (csrc/temp_conv.cu, replacing
-``_fused``); on a CPU tensor it runs ``_unfused``.
+It is a ``torch.autograd.Function``: on a CUDA tensor the forward launches
+kernel D (csrc/temp_conv.cu, replacing ``_fused``), on a CPU tensor it runs
+``_unfused``. lvd_tpu has no Pallas backward here (its ``_stage_bwd`` is
+XLA's VJP of the unfused recompute), so the backward recomputes ``_unfused``
+with stock torch ops and returns the gradients of every input that needs
+one: dx, da and db (a and b are GroupNorm statistics of x, so the latent
+gradient flows through them too), and the weight and bias gradients.
 """
 
 from __future__ import annotations
@@ -41,12 +46,10 @@ def norm_silu_temporal_conv_plain(x, a, b, conv_w, conv_b):
     return _unfused(x, a, b, w, conv_b)
 
 
-def norm_silu_temporal_conv(x, a, b, conv_w, conv_b):
-    if x.device.type == "cpu":
-        return norm_silu_temporal_conv_plain(x, a, b, conv_w, conv_b)
+def _launch_forward(x, a, b, w, bias):
+    """Kernel D on CUDA tensors; w is (3, C, C) in x's type."""
+    _build.refuse_grad("norm_silu_temporal_conv", x, a, b, w, bias)
     c = x.shape[-1]
-    w = conv_w.reshape(3, conv_w.shape[-2], conv_w.shape[-1]).to(x.dtype)
-    bias = conv_b.to(x.dtype)
     x = _build.kernel_input(x, torch.bfloat16, "norm_silu_temporal_conv x")
     a = _build.kernel_input(a, torch.float32, "norm_silu_temporal_conv a")
     b = _build.kernel_input(b, torch.float32, "norm_silu_temporal_conv b")
@@ -63,6 +66,34 @@ def norm_silu_temporal_conv(x, a, b, conv_w, conv_b):
     _build.check(err, "norm_silu_temporal_conv")
     norm_silu_temporal_conv.launches += 1
     return out
+
+
+class NormSiluTemporalConv(torch.autograd.Function):
+    """Forward kernel D (``_unfused`` on the CPU); backward the stock-op VJP
+    of ``_unfused`` recomputed, for every input that needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, w, bias):
+        out = _unfused(x, a, b, w, bias) if x.device.type == "cpu" else \
+            _launch_forward(x, a, b, w, bias)
+        ctx.save_for_backward(x, a, b, w, bias)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, need)]
+            y = _unfused(*leaves)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, dy))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def norm_silu_temporal_conv(x, a, b, conv_w, conv_b):
+    w = conv_w.reshape(3, conv_w.shape[-2], conv_w.shape[-1]).to(x.dtype)
+    return NormSiluTemporalConv.apply(x, a, b, w, conv_b.to(x.dtype))
 
 
 norm_silu_temporal_conv.launches = 0

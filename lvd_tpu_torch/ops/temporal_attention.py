@@ -1,13 +1,18 @@
-"""Fused temporal double self-attention: kernel B and its plain versions
-(counterpart of lvd_tpu/ops/temporal_attention.py).
+"""Fused temporal double self-attention: kernel B (forward), kernel F
+(dy-only backward) and their plain versions (counterpart of
+lvd_tpu/ops/temporal_attention.py).
 
 ``temporal_attention_pair(p, y, heads, eps, frames_major)`` runs
 LN1 -> attn1 -> +res -> LN2 -> attn2 -> +res over the frame axis of
-(B, P, F, C) input, or of the (B, F, P, C) stream with ``frames_major``. On
-a CUDA tensor it launches kernel B (csrc/temporal_attention.cu, replacing
-``_pallas_pair``); on a CPU tensor it runs ``_pair_ref`` / ``_pair_ref_fm``,
-the plain formulation lvd_tpu's kernel is held to. The FF stage stays
-outside (ops.geglu_fused).
+(B, P, F, C) input, or of the (B, F, P, C) stream with ``frames_major``. It
+is a ``torch.autograd.Function`` in y: on CUDA tensors the forward launches
+kernel B (csrc/temporal_attention.cu, replacing ``_pallas_pair``) and the
+backward kernel F (csrc/temporal_attention_bwd.cu, replacing
+``_pallas_pair_bwd``); on CPU tensors they run ``_pair_ref`` /
+``_pair_ref_fm`` and ``temporal_attention_pair_bwd_plain``. Weight gradients
+are not part of this slice: on the card a parameter that requires grad
+raises, on the CPU the plain formulation's autograd gives them. The FF
+stage stays outside (ops.geglu_fused).
 """
 
 from __future__ import annotations
@@ -20,12 +25,18 @@ HEAD_DIM = 64
 MAX_CHANNELS = 640
 
 
-def _ref_ln(p, x, eps):
+def _ln_stats(p, x, eps):
+    """LayerNorm with fp32 one-pass statistics: (z in x's type, xhat, rstd)."""
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = torch.clamp((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * rstd
+    return (xhat * p["scale"].float() + p["bias"].float()).to(x.dtype), xhat, rstd
+
+
+def _ref_ln(p, x, eps):
+    return _ln_stats(p, x, eps)[0]
 
 
 def _ref_attn(pa, y, num_heads):
@@ -76,17 +87,82 @@ def temporal_attention_pair_plain(p, y, num_heads: int, eps: float = 1e-5,
     return ref(p, y, num_heads, eps)
 
 
-def temporal_attention_pair(p, y, num_heads: int, eps: float = 1e-5,
-                            frames_major: bool = False):
-    if y.device.type == "cpu":
-        return temporal_attention_pair_plain(p, y, num_heads, eps, frames_major)
-    y = _build.kernel_input(y, torch.bfloat16, "temporal_attention_pair y")
+def _ln_bwd(dz, xhat, rstd, p):
+    g = dz * p["scale"].float()
+    m1 = g.mean(dim=-1, keepdim=True)
+    m2 = (g * xhat).mean(dim=-1, keepdim=True)
+    return rstd * (g - m1 - xhat * m2)
+
+
+def _qkv(pa, z):
+    """The fused (..., 3C) projection in fp32 from z in its own type."""
+    w = torch.cat([pa["to_q"]["w"], pa["to_k"]["w"], pa["to_v"]["w"]], dim=1).to(z.dtype)
+    return z.float() @ w.float()
+
+
+def _heads(qkv, num_heads):
+    """q, k, v of every head: (..., H, F, 64) each, fp32."""
+    c = qkv.shape[-1] // 3
+    split = lambda t: t.reshape(*t.shape[:-1], num_heads, c // num_heads).transpose(-2, -3)
+    return split(qkv[..., :c]), split(qkv[..., c:2 * c]), split(qkv[..., 2 * c:])
+
+
+def _attn_dz(pa, u, qkv, num_heads, dt):
+    """Input gradient of one self-attention at its LayerNorm output, the math
+    of lvd_tpu's ``_attn_dz`` per pixel: u (..., F, C) fp32 -> dz fp32."""
+    q, k, v = (t.to(dt).float() for t in _heads(qkv, num_heads))
+    d = q.shape[-1]
+    scale = d ** -0.5
+    p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+    c = u.shape[-1]
+    wo = pa["to_out"]["w"].to(dt).float().reshape(num_heads, d, c)
+    do = (u.to(dt).float().unsqueeze(-3) @ wo.transpose(-1, -2)).to(dt).float()
+    dv = p.to(dt).float().transpose(-1, -2) @ do
+    dp = do @ v.transpose(-1, -2)
+    tmp = dp * p
+    dl = ((tmp - p * tmp.sum(dim=-1, keepdim=True)) * scale).to(dt).float()
+    dq = dl @ k
+    dk = dl.transpose(-1, -2) @ q
+    merge = lambda t: t.transpose(-2, -3).flatten(-2)
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(dt).float()
+    w = torch.cat([pa["to_q"]["w"], pa["to_k"]["w"], pa["to_v"]["w"]], dim=1).to(dt).float()
+    return dqkv @ w.transpose(0, 1)
+
+
+def temporal_attention_pair_bwd_plain(p, y, dy, num_heads: int, eps: float = 1e-5,
+                                      frames_major: bool = False):
+    """dy of the pair for the cotangent ``dy``: the math of lvd_tpu's
+    ``_tattn_bwd_kernel`` (recompute LN1 -> attn1 -> +res -> LN2 -> qkv2,
+    then the attention and LayerNorm input VJPs twice), in y's type where
+    the kernel rounds and fp32 elsewhere."""
+    if frames_major:
+        y, dy = y.transpose(1, 2), dy.transpose(1, 2)
+    dt = y.dtype
+    z1, xhat1, rstd1 = _ln_stats(p["norm1"], y, eps)
+    x1 = y + _ref_attn(p["attn1"], z1, num_heads)
+    z2, xhat2, rstd2 = _ln_stats(p["norm2"], x1, eps)
+    qkv1, qkv2 = _qkv(p["attn1"], z1), _qkv(p["attn2"], z2)
+    u2 = dy.float()
+    dx1 = u2 + _ln_bwd(_attn_dz(p["attn2"], u2, qkv2, num_heads, dt), xhat2, rstd2, p["norm2"])
+    dx0 = dx1 + _ln_bwd(_attn_dz(p["attn1"], dx1, qkv1, num_heads, dt), xhat1, rstd1,
+                        p["norm1"])
+    dx0 = dx0.to(dt)
+    return dx0.transpose(1, 2) if frames_major else dx0
+
+
+def _layout(y, frames_major):
     if frames_major:
         b, f, pdim, c = y.shape
-        strides = (f * pdim * c, pdim * c, c)
-    else:
-        b, pdim, f, c = y.shape
-        strides = (f * pdim * c, c, f * c)
+        return (b, f, pdim, c), (f * pdim * c, pdim * c, c)
+    b, pdim, f, c = y.shape
+    return (b, f, pdim, c), (f * pdim * c, c, f * c)
+
+
+def _launch_forward(p, y, num_heads, eps, frames_major):
+    """Kernel B on a CUDA tensor."""
+    _build.refuse_grad("temporal_attention_pair", y)
+    y = _build.kernel_input(y, torch.bfloat16, "temporal_attention_pair y")
+    (b, f, pdim, c), strides = _layout(y, frames_major)
     if c != num_heads * HEAD_DIM:
         raise ValueError(f"temporal_attention_pair: C={c} is not {num_heads} heads of {HEAD_DIM}")
     weights = _attn_weights(p["attn1"], p["norm1"]) + _attn_weights(p["attn2"], p["norm2"])
@@ -99,4 +175,63 @@ def temporal_attention_pair(p, y, num_heads: int, eps: float = 1e-5,
     return out
 
 
+def temporal_attention_pair_bwd(p, y, dy, num_heads: int, eps: float = 1e-5,
+                                frames_major: bool = False):
+    """dy of the pair: kernel F on CUDA tensors, the plain version on CPU."""
+    if y.device.type == "cpu":
+        return temporal_attention_pair_bwd_plain(p, y, dy, num_heads, eps, frames_major)
+    _build.refuse_grad("temporal_attention_pair_bwd", y, dy)
+    y = _build.kernel_input(y, torch.bfloat16, "temporal_attention_pair_bwd y")
+    dy = _build.kernel_input(dy, torch.bfloat16, "temporal_attention_pair_bwd dy")
+    (b, f, pdim, c), strides = _layout(y, frames_major)
+    if c != num_heads * HEAD_DIM or dy.shape != y.shape:
+        raise ValueError(f"temporal_attention_pair_bwd: y {tuple(y.shape)}, dy "
+                         f"{tuple(dy.shape)} with {num_heads} heads of {HEAD_DIM}")
+    weights = _attn_weights(p["attn1"], p["norm1"]) + _attn_weights(p["attn2"], p["norm2"])
+    lib = _build.lib()
+    ws_bytes = lib.lvd_temporal_pair_bwd_workspace(b, f, pdim, c)
+    if ws_bytes < 0:
+        raise ValueError(f"temporal_attention_pair_bwd: unsupported shape {tuple(y.shape)}")
+    ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=y.device)
+    out = torch.empty_like(y)
+    err = lib.lvd_temporal_pair_bwd(
+        y.data_ptr(), dy.data_ptr(), out.data_ptr(), *[w.data_ptr() for w in weights],
+        ws.data_ptr(), b, f, pdim, c, num_heads, *strides, float(eps), _build.stream_of(y))
+    _build.check(err, "temporal_attention_pair_bwd")
+    temporal_attention_pair_bwd.launches += 1
+    return out
+
+
+class TemporalPair(torch.autograd.Function):
+    """Forward kernel B, backward kernel F in y (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, y, p, num_heads, eps, frames_major):
+        if y.device.type == "cpu":
+            out = temporal_attention_pair_plain(p, y, num_heads, eps, frames_major)
+        else:
+            out = _launch_forward(p, y, num_heads, eps, frames_major)
+        ctx.save_for_backward(y)
+        ctx.args = (p, num_heads, eps, frames_major)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        (y,) = ctx.saved_tensors
+        p, num_heads, eps, frames_major = ctx.args
+        return (temporal_attention_pair_bwd(p, y, dy, num_heads, eps, frames_major),
+                None, None, None, None)
+
+
+def temporal_attention_pair(p, y, num_heads: int, eps: float = 1e-5,
+                            frames_major: bool = False):
+    if _build.params_need_grad(p):
+        if y.device.type != "cpu":
+            raise RuntimeError("temporal_attention_pair: weight gradients come with the "
+                               "training slice (ROADMAP A6)")
+        return temporal_attention_pair_plain(p, y, num_heads, eps, frames_major)
+    return TemporalPair.apply(y, p, int(num_heads), float(eps), bool(frames_major))
+
+
 temporal_attention_pair.launches = 0
+temporal_attention_pair_bwd.launches = 0

@@ -1,9 +1,13 @@
-"""TextToVideoPipeline, unguided (counterpart of lvd_tpu/pipeline.py:324-427
-without guidance, GLIGEN and the frame-sharded path).
+"""TextToVideoPipeline (counterpart of lvd_tpu/pipeline.py:324-427 without
+GLIGEN and the frame-sharded path).
 
 CLIP encodes the [negative; prompt] pair, DPM-Solver++ (2M) denoises with
-classifier-free guidance from fp32-carried latents, and the VAE decodes the
-frames to uint8 on the device.
+classifier-free guidance from fp32-carried latents, optionally with
+cross-attention energy guidance on the first steps (``backward_guidance``),
+and the VAE decodes the frames to uint8 on the device. Without ``latents``
+the initial noise is ``jax.random.normal(PRNGKey(seed))``'s, drawn on the
+host by a numpy copy of JAX's PRNG (utils/prng.py), so a seed gives the same
+video as lvd_tpu.
 """
 
 from __future__ import annotations
@@ -18,9 +22,12 @@ import torch
 from .config import ModelPreset
 from .diffusion import dpm_solver as dpm
 from .diffusion import sampler as sampler_mod
+from .diffusion.guidance import GuidanceConfig
+from .layout.rasterize import make_guidance_pack
 from .models.clip import apply_clip_text
 from .models.loader import cast_tree
 from .models.vae import decode as vae_decode
+from .utils import prng
 from .utils.device import resolve_device
 
 
@@ -45,7 +52,8 @@ class TextToVideoPipeline:
         self.clip_params = cast_tree(models.clip_params, dtype, self.device)
         self.vae_params = cast_tree(models.vae_params, dtype, self.device)
         # Phase seconds of the last call: encode_prompt, steps (one entry per
-        # denoising step), decode.
+        # denoising step), guided (one entry per guided step: its guidance
+        # updates), decode.
         self.timings: dict = {}
 
     @torch.no_grad()
@@ -76,10 +84,14 @@ class TextToVideoPipeline:
     def __call__(self, prompt: str, negative_prompt: str = "", height: Optional[int] = None,
                  width: Optional[int] = None, num_frames: int = 16,
                  num_inference_steps: int = 50, guidance_scale: float = 9.0, seed: int = 0,
-                 latents=None, output_type: str = "np"):
+                 latents=None, backward_guidance: Optional[dict] = None,
+                 output_type: str = "np"):
         """Returns (B, F, H, W, 3) float32 in [0, 1] (``output_type="np"``)
         or the final latents (``"latent"``). ``latents`` may be passed in
-        (B, F, h, w, 4); otherwise they are drawn from ``seed``."""
+        (B, F, h, w, 4); otherwise they are drawn from ``seed`` as lvd_tpu
+        draws them. ``backward_guidance``: {boxes, object_positions, config,
+        attn_keys[, pack]} as lvd_tpu takes it; the guided updates enable
+        autograd locally."""
         preset = self.preset
         height = height or preset.height
         width = width or preset.width
@@ -94,17 +106,29 @@ class TextToVideoPipeline:
         sync()
         self.timings = {"encode_prompt": time.perf_counter() - t0, "steps": []}
 
+        h_lat, w_lat = height // sf, width // sf
         if latents is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            latents = torch.randn((1, num_frames, height // sf, width // sf, 4),
-                                  generator=gen, device=self.device, dtype=torch.float32)
-            latents = latents * dpm.INIT_NOISE_SIGMA
+            noise = prng.normal(seed, (1, num_frames, h_lat, w_lat, 4)) * dpm.INIT_NOISE_SIGMA
+            latents = torch.from_numpy(noise)
         latents = torch.as_tensor(latents).to(self.device, self.dtype)
 
         coeffs = dpm.make_coeffs(preset.scheduler, num_inference_steps)
+        guidance, g_cfg, keys = None, None, ()
+        if backward_guidance is not None:
+            g_cfg = backward_guidance.get("config") or GuidanceConfig()
+            keys = tuple(tuple(k) for k in backward_guidance["attn_keys"])
+            pack = backward_guidance.get("pack")
+            if pack is None:
+                pack = make_guidance_pack(
+                    backward_guidance["boxes"], backward_guidance["object_positions"], keys,
+                    (h_lat, w_lat), fg_top_p=g_cfg.fg_top_p, bg_top_p=g_cfg.bg_top_p,
+                    upsample_scale=g_cfg.upsample_scale)
+            guidance = sampler_mod.pack_to_tensors(pack, self.device)
+        self.timings["guided"] = []
         final = sampler_mod.sample_video(self.unet_params, preset.unet, latents, text_pair,
-                                         coeffs, float(guidance_scale),
-                                         step_times=self.timings["steps"])
+                                         coeffs, float(guidance_scale), guidance, g_cfg, keys,
+                                         step_times=self.timings["steps"],
+                                         guided_times=self.timings["guided"])
         if output_type == "latent":
             return final
         t0 = time.perf_counter()

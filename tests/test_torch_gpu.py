@@ -101,3 +101,88 @@ def test_geglu_kernel_exact_gelu_form(cuda, monkeypatch):
     out = gf.geglu_mlp(p, x.bfloat16())
     ref = gf._unfused(x, p["proj"]["w"], p["proj"]["b"], p["out"]["w"], p["out"]["b"])
     assert _rel(out, ref) <= 2e-2
+
+
+def _grads(out, inputs, ct):
+    return torch.autograd.grad(out.float(), inputs, ct)
+
+
+def _wrapper_case(name, g, cuda):
+    """(wrapper call, plain call, inputs) for one forward kernel; the inputs
+    are fp32 leaves, the wrapper gets bf16 copies (fp32 for GroupNorm's a, b)."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops import packed_attention as pa
+    from lvd_tpu_torch.ops import temp_conv_fused as tc
+    from lvd_tpu_torch.ops import temporal_attention as ta
+
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=cuda) * scale
+    if name == "attention_packed":
+        ins = [r(2, 300, 128) for _ in range(3)]
+        return (lambda q, k, v: pa.attention_packed(q, k, v, 0.125, 2),
+                lambda q, k, v: pa.attention_packed_plain(q, k, v, 0.125, 2), ins, 2e-2)
+    if name == "temporal_attention_pair":
+        p = _pair_params(320, g, cuda)
+        pb = cast_tree(p, torch.bfloat16)
+        return (lambda y: ta.temporal_attention_pair(pb, y, 5, 1e-5, frames_major=True),
+                lambda y: ta._pair_ref_fm(p, y, 5, 1e-5), [r(1, 24, 45, 320)], 4.5e-2)
+    if name == "geglu_mlp":
+        c, inner = 128, 512
+        p = {"proj": {"w": r(c, 2 * inner, scale=c ** -0.5), "b": r(2 * inner, scale=0.1)},
+             "out": {"w": r(inner, c, scale=inner ** -0.5), "b": r(c, scale=0.1)}}
+        pb = cast_tree(p, torch.bfloat16)
+        return (lambda x: gf.geglu_mlp(pb, x), lambda x: gf.geglu_mlp_plain(p, x),
+                [r(2048, c)], 2e-2)
+    c = 128
+    w = r(3, 1, 1, c, c, scale=(3 * c) ** -0.5)
+    bias = r(c, scale=0.1)
+    return (lambda x, a, b: tc.norm_silu_temporal_conv(x, a, b, w.bfloat16(), bias.bfloat16()),
+            lambda x, a, b: tc.norm_silu_temporal_conv_plain(x, a, b, w, bias),
+            [r(2, 24, 45, c), 1 + r(2, c, scale=0.1), r(2, c, scale=0.1)], 2e-2)
+
+
+@pytest.mark.parametrize("name", ["attention_packed", "temporal_attention_pair", "geglu_mlp",
+                                  "norm_silu_temporal_conv"])
+def test_wrapper_gradients_match_plain_autograd(cuda, name):
+    """On the card the gradient through each kernel wrapper (forward kernel,
+    backward kernel or stock VJP) equals the plain version's autograd
+    gradient; a wrapper whose output left the graph fails here."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    kernel, plain, ins, tol = _wrapper_case(name, g, cuda)
+    low = [t.to(torch.float32 if t.dim() == 2 and name == "norm_silu_temporal_conv"
+                else torch.bfloat16).requires_grad_(True) for t in ins]
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    out = kernel(*low)
+    ref = plain(*leaves)
+    ct = torch.randn(ref.shape, generator=g, device=cuda)
+    for got, want in zip(_grads(out, low, ct), _grads(ref, leaves, ct)):
+        assert _rel(got, want) <= tol
+
+
+def test_backward_kernels_refuse_inputs_that_require_grad(cuda):
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops import packed_attention as pa
+    from lvd_tpu_torch.ops import temporal_attention as ta
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(1, 24, 8, 128, generator=g, device=cuda).bfloat16().requires_grad_(True)
+    q = x[0]
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        pa.attention_packed_bwd(q, q, q, q, q, 0.125, 2)
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        pa._launch_forward(q, q, q, 0.125, 2)
+    p = cast_tree(_pair_params(128, g, cuda), torch.bfloat16)
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        ta.temporal_attention_pair_bwd(p, x, x, 2, 1e-5, frames_major=True)
+    ff = {"proj": {"w": torch.zeros(128, 1024, device=cuda), "b": torch.zeros(1024, device=cuda)},
+          "out": {"w": torch.zeros(512, 128, device=cuda), "b": torch.zeros(128, device=cuda)}}
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        gf.geglu_mlp_bwd(ff, x, x)
+    # Weight gradients are not part of the guided slice: asking for one raises.
+    p["attn1"]["to_q"]["w"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="training slice"):
+        ta.temporal_attention_pair(p, x.detach(), 2, 1e-5, frames_major=True)
+    ff["out"]["w"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="training slice"):
+        gf.geglu_mlp(ff, x.detach())
