@@ -5,13 +5,19 @@
 
 Phases, each fatal on failure:
   1. device  - the card's name and power limit;
-  2. build   - the one nvcc call that builds lvd_tpu_torch/csrc/*.cu
-               (seconds and the -Xptxas -v register / shared-memory lines);
+  2. build   - nvcc builds lvd_tpu_torch/csrc/*.cu, one process per source,
+               all started together, then one link (seconds and the -Xptxas
+               -v register / shared-memory / spill lines);
   3. kernels - every kernel at every shape the Zeroscope path gives it, in
-               bf16, against its plain PyTorch version on fp32 copies
-               (lvd_tpu_torch.ops.selfcheck), timed with CUDA events: the
-               forwards A-D at the CFG forward's shapes, the backwards E-G at
-               the guided energy walk's;
+               bf16, against its plain PyTorch version on fp32 copies, and
+               each kernel in fp32 at its largest shape against the plain
+               version in fp32 with TF32 off (gate 5e-3 and below the bf16
+               reading) (lvd_tpu_torch.ops.selfcheck), timed with CUDA
+               events: the forwards A-D and I (resnet convs, row 12) at the
+               CFG forward's shapes, H (projections, row 14) at the q/k/v/out
+               and text k/v shapes, the backwards E-G at the guided energy
+               walk's, and the public entry points sdpa() (A and E with one
+               head, row 1) and conv3x3() (I without prologue, row 13);
   4. reference - one full-width CFG UNet forward through the kernels (bf16)
                against the plain path (fp32) on the same inputs, with weights
                whose attention/FF/temporal-conv branches are not zero-init,
@@ -28,7 +34,7 @@ Phases, each fatal on failure:
                CLIP and VAE widths, 24 frames, 576x320, CFG 9.0) from seeded
                random bf16 weights, 4 DPM-Solver++ steps, through the entry
                points a user calls; launch counts are zeroed just before and
-               read just after, and every forward kernel must have run;
+               read just after, and every forward kernel A-D must have run;
   7. guided generation - the flagship layout (one box moving left to right)
                and GuidanceConfig through the same entry point with
                ``backward_guidance``, 4 steps with guidance on the first 2;
@@ -37,7 +43,20 @@ Phases, each fatal on failure:
                the first timestep: the in-box attention share must rise by
                more than lvd_tpu's flagship gate (gain > 1.004) and the
                attention's CoM must move toward the box;
-  9. profile - one CFG UNet forward and one guided update under
+  9. knobs   - a child process of this script with lvd_tpu's two opt-in
+               switches set (LVD_ENABLE_FUSED_SC=1 LVD_FUSED_LINEAR=1; the
+               second is read at import): phases 4 and 5 again, now with the
+               resnet convs on kernel I and the projections on kernel H, and
+               the guided generation of phase 7, which is this slice's main
+               path: every kernel A-I must have run. A non-zero exit of the
+               child fails the smoke;
+ 10. fp32    - one full-width CFG UNet forward in TextToVideoPipeline's
+               default type (fp32) through the kernels against the plain
+               path in fp32, TF32 off on both;
+ 11. entry points - the public sdpa() (forward and backward) and conv3x3()
+               at L0 shapes, counts zeroed just before and read just after:
+               kernels A, E and I must have run;
+ 12. profile - one CFG UNet forward and one guided update under
                torch.profiler: device time per kernel and for the stock ops,
                and the device's idle share.
 The line before the last is the kernels' JSON record; the last line is
@@ -48,6 +67,7 @@ prints no result.
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -72,6 +92,14 @@ GRADIENT_TOL = 0.3
 # the walk with the kernel branches cut out 0.982. That walk must exceed
 # both gates, so every run shows that they catch a broken gradient.
 GRADIENT_L2_TOL = 0.2
+# max|kernels(fp32) - plain(fp32)| / max|plain(fp32)| of the UNet forward in
+# the pipeline's default type, TF32 off outside the kernels. On an H100 the
+# kernel path (TF32 products inside the kernels) read 5.8e-4; the gate is the
+# kernels' own fp32 gate, far below the bf16 path's 1.7e-2, so a kernel that
+# rounded fp32 to bf16 would fail it (readings in PERF.md, Findings).
+FP32_REFERENCE_TOL = 5e-3
+# lvd_tpu's two opt-in switches, set for the knob phase's child process.
+KNOBS = {"LVD_ENABLE_FUSED_SC": "1", "LVD_FUSED_LINEAR": "1"}
 # lvd_tpu's flagship certification gate (bench.py, certify).
 CERT_MIN_GAIN = 1.004
 CERT_ITERS = 16
@@ -173,13 +201,19 @@ def _undegenerate(tree, gen, torch):
     return out
 
 
+def _linear_rows_plain(x, w, b=None, trans_w=False):
+    from lvd_tpu_torch.ops import linear_fused
+
+    return linear_fused.linear_plain(x, w.transpose(0, 1) if trans_w else w, b)
+
+
 @contextlib.contextmanager
 def plain_route():
     """Points every kernel wrapper the UNet calls at its plain PyTorch
     version, for the reference forward only (the wrappers themselves run the
     plain version for CPU tensors alone)."""
-    from lvd_tpu_torch.ops import geglu_fused, packed_attention, temp_conv_fused
-    from lvd_tpu_torch.ops import temporal_attention
+    from lvd_tpu_torch.ops import geglu_fused, linear_fused, packed_attention
+    from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
 
     swaps = [
         (packed_attention, "attention_packed", packed_attention.attention_packed_plain),
@@ -188,6 +222,8 @@ def plain_route():
         (geglu_fused, "geglu_mlp", geglu_fused.geglu_mlp_plain),
         (temp_conv_fused, "norm_silu_temporal_conv",
          temp_conv_fused.norm_silu_temporal_conv_plain),
+        (spatial_conv_fused, "norm_silu_conv2d", spatial_conv_fused.norm_silu_conv2d_plain),
+        (linear_fused, "linear_rows", _linear_rows_plain),
     ]
     with _swapped([(module, name, plain) for module, name, plain in swaps]):
         yield
@@ -210,14 +246,16 @@ def detached_route():
     """Cuts each forward kernel's branch out of the gradient (its autograd
     Function passes no gradient back), as a kernel wrapper outside autograd
     would: the reading of a broken gradient, beside which the gate is set."""
-    from lvd_tpu_torch.ops import geglu_fused, packed_attention, temp_conv_fused
-    from lvd_tpu_torch.ops import temporal_attention
+    from lvd_tpu_torch.ops import geglu_fused, linear_fused, packed_attention
+    from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
 
     nothing = lambda n: staticmethod(lambda ctx, *grads: (None,) * n)
     with _swapped([(packed_attention.PackedAttention, "backward", nothing(5)),
                    (temporal_attention.TemporalPair, "backward", nothing(5)),
                    (geglu_fused.Geglu, "backward", nothing(2)),
-                   (temp_conv_fused.NormSiluTemporalConv, "backward", nothing(5))]):
+                   (temp_conv_fused.NormSiluTemporalConv, "backward", nothing(5)),
+                   (spatial_conv_fused.NormSiluConv2d, "backward", nothing(5)),
+                   (linear_fused.LinearCore, "backward", nothing(3))]):
         yield
 
 
@@ -308,9 +346,9 @@ def gradient_phase(torch, models):
 
 
 def wrappers():
-    """Every kernel wrapper of the guided path, A-G, by kernel name."""
-    from lvd_tpu_torch.ops import geglu_fused, packed_attention, temp_conv_fused
-    from lvd_tpu_torch.ops import temporal_attention
+    """Every kernel wrapper, A-I, by kernel name (sdpa() counts on A's)."""
+    from lvd_tpu_torch.ops import conv3x3, geglu_fused, linear_fused, packed_attention
+    from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
 
     return {
         "attention_packed": packed_attention.attention_packed,
@@ -320,11 +358,27 @@ def wrappers():
         "attention_packed_bwd": packed_attention.attention_packed_bwd,
         "temporal_attention_pair_bwd": temporal_attention.temporal_attention_pair_bwd,
         "geglu_mlp_bwd": geglu_fused.geglu_mlp_bwd,
+        "linear": linear_fused.linear_rows,
+        "norm_silu_conv2d": spatial_conv_fused.norm_silu_conv2d,
+        "conv3x3": conv3x3.conv3x3,
     }
+
+
+def zero_launches():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 FORWARD_KERNELS = ("attention_packed", "temporal_attention_pair", "geglu_mlp",
                    "norm_silu_temporal_conv")
+GUIDED_KERNELS = FORWARD_KERNELS + ("attention_packed_bwd", "temporal_attention_pair_bwd",
+                                    "geglu_mlp_bwd")
+# This slice's main path: the guided generation under the two opt-in switches.
+KNOB_KERNELS = GUIDED_KERNELS + ("linear", "norm_silu_conv2d")
 
 
 def generation_phase(torch, models):
@@ -334,13 +388,12 @@ def generation_phase(torch, models):
     pipe = TextToVideoPipeline(models, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers().values():
-        fn.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     video = pipe("a brown bear walking in a forest", NEGATIVE_PROMPT, height=320, width=576,
                  num_frames=24, num_inference_steps=NUM_STEPS, guidance_scale=9.0, seed=0)
     total = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers().items()}
+    launches = read_launches()
     t = pipe.timings
     steps = t["steps"]
     log(f"[generation] video {tuple(video.shape)} {video.dtype}, "
@@ -360,9 +413,9 @@ def generation_phase(torch, models):
     return launches
 
 
-def guided_generation_phase(torch, models):
+def guided_generation_phase(torch, models, kernels=GUIDED_KERNELS):
     """The flagship guided generation through the pipeline's entry point;
-    every kernel A-G must launch."""
+    every kernel of ``kernels`` must launch."""
     from lvd_tpu_torch.pipeline import TextToVideoPipeline
     from lvd_tpu_torch.text.templates import NEGATIVE_PROMPT
 
@@ -371,14 +424,13 @@ def guided_generation_phase(torch, models):
     pipe = TextToVideoPipeline(models, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers().values():
-        fn.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     video = pipe(FLAG_PROMPT, NEGATIVE_PROMPT, height=320, width=576, num_frames=24,
                  num_inference_steps=GUIDED_STEPS, guidance_scale=9.0, seed=0,
                  backward_guidance=guide)
     total = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers().items()}
+    launches = read_launches()
     t = pipe.timings
     steps, guided = t["steps"], t["guided"]
     log(f"[guided] video {tuple(video.shape)}, min {video.min():.4f} max {video.max():.4f} "
@@ -390,7 +442,7 @@ def guided_generation_phase(torch, models):
     log(f"[guided] launches in {GUIDED_STEPS} steps: {json.dumps(launches)}")
     if video.shape != (1, 24, 320, 576, 3) or not np.isfinite(video).all():
         raise SystemExit(f"[guided] bad output {video.shape}")
-    missing = [name for name, n in launches.items() if n <= 0]
+    missing = [name for name in kernels if launches[name] <= 0]
     if missing:
         raise SystemExit(f"[guided] kernels never launched on the guided path: {missing}")
     return pipe, launches
@@ -422,6 +474,8 @@ KERNEL_SYMBOLS = {  # substrings of the kernels' device symbols
     "attention_packed_bwd": "attn_bwd_",
     "temporal_attention_pair_bwd": "temporal_pair_bwd_kernel",
     "geglu_mlp_bwd": "geglu_bwd_kernel",
+    "linear": "linear_kernel",
+    "conv3x3 (kernel I)": "conv3x3_kernel",
 }
 
 
@@ -483,12 +537,173 @@ def _profile(torch, label, fn):
         log(f"[profile] {label}, stock {ms:.3f} ms in {n} calls: {k[:110]}")
 
 
+def knob_child(torch) -> int:
+    """The knob phase's body, in a child process whose environment holds
+    KNOBS: the reference forward and the guided gradient through kernels A-I
+    against the plain path, then the guided generation (this slice's main
+    path). Its last line is the generation's launch counts."""
+    missing = [k for k, v in KNOBS.items() if os.environ.get(k) != v]
+    if missing:
+        raise SystemExit(f"[knobs] switches not set: {missing}")
+    from lvd_tpu_torch.models.loader import random_pipeline_models
+    from lvd_tpu_torch.ops import _build
+
+    _build.lib()
+    models = random_pipeline_models(
+        "zeroscope", torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    zero_launches()
+    reference_phase(torch, models)
+    ref_launches = read_launches()
+    log(f"[reference] launches: {json.dumps(ref_launches)}")
+    if ref_launches["linear"] <= 0 or ref_launches["norm_silu_conv2d"] <= 0:
+        raise SystemExit("[reference] the switches did not route kernels H and I")
+    gradient_phase(torch, models)
+    _, launches = guided_generation_phase(torch, models, KNOB_KERNELS)
+    print("KNOB_LAUNCHES " + json.dumps(launches), flush=True)
+    return 0
+
+
+def knob_phase(torch):
+    """Runs knob_child in a child process with KNOBS set (LVD_FUSED_LINEAR is
+    read at import); its output is echoed, a non-zero exit is fatal."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--knob-phase"],
+                          env={**os.environ, **KNOBS}, capture_output=True, text=True,
+                          timeout=900)
+    launches = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("KNOB_LAUNCHES "):
+            launches = json.loads(line[len("KNOB_LAUNCHES "):])
+        else:
+            log(f"[knobs] {line}")
+    log(f"[knobs] child exit {proc.returncode} after {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0 or launches is None:
+        log(proc.stderr[-8000:])
+        raise SystemExit("[knobs] the knob phase failed")
+    return launches
+
+
+def fp32_phase(torch, models):
+    """One full-width CFG UNet forward in the pipeline's default type (fp32)
+    through the kernels, against the plain path in fp32, TF32 off on both."""
+    from lvd_tpu_torch.models.unet3d import apply_unet3d
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+    from lvd_tpu_torch.pipeline import TextToVideoPipeline
+
+    pipe = TextToVideoPipeline(models, device="cuda")
+    if pipe.dtype != torch.float32:
+        raise SystemExit(f"[fp32] the pipeline's default type is {pipe.dtype}")
+    cfg = models.preset.unet
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = _undegenerate(pipe.unet_params, gen, torch)
+    del pipe
+    sample = torch.randn((2, 24, 40, 72, 4), generator=gen, device="cuda")
+    text = torch.randn((2, 77, cfg.cross_attention_dim), generator=gen, device="cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad(), exact_fp32():
+        zero_launches()
+        start.record()
+        eps = apply_unet3d(params, cfg, sample, 500, text)
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        with plain_route():
+            ref = apply_unet3d(params, cfg, sample, 500, text)
+    scale = ref.abs().max().item()
+    rel = (eps - ref).abs().max().item() / scale
+    log(f"[fp32] full-width CFG UNet forward in fp32 through the kernels against the plain "
+        f"path (fp32, TF32 off), max|d| / max|ref| (max|ref| {scale:.6g}): {rel:.6g} "
+        f"(gate {FP32_REFERENCE_TOL}); kernel path {start.elapsed_time(end):.3f} ms (first "
+        f"fp32 call, CUDA events); launches {json.dumps(launches)}")
+    missing = [name for name in FORWARD_KERNELS if launches[name] <= 0]
+    if missing or eps.dtype != torch.float32:
+        raise SystemExit(f"[fp32] kernels never launched in fp32: {missing}")
+    if not (torch.isfinite(eps).all() and rel <= FP32_REFERENCE_TOL):
+        raise SystemExit("[fp32] the fp32 kernel path disagrees with the plain path")
+    del eps, ref, params
+    torch.cuda.empty_cache()
+    return rel
+
+
+def entry_point_phase(torch):
+    """The public sdpa() (long keys: kernel A forward, E backward, one head)
+    and conv3x3() (kernel I without prologue) at L0 shapes, in bf16, held to
+    their plain versions on fp32 copies."""
+    from lvd_tpu_torch.ops import attention, conv3x3, packed_attention
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, h, s, d = 48, 5, 2880, 64
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
+               .requires_grad_(True) for _ in range(3))
+    do = torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
+    x = torch.randn((48, 40, 72, 320), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((3, 3, 320, 320), generator=gen, device="cuda") * 2880 ** -0.5).bfloat16()
+    zero_launches()
+    with torch.enable_grad():
+        out, _ = attention.sdpa(q, k, v)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    y = conv3x3.conv3x3(x, w)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    flat = lambda t: t.detach().float().reshape(b * h, s, d)
+    with torch.no_grad(), exact_fp32():
+        ref_o = packed_attention.attention_packed_plain(flat(q), flat(k), flat(v), d ** -0.5, 1)
+        ref_g = packed_attention.attention_packed_bwd_plain(
+            flat(q), flat(k), flat(v), flat(out), flat(do), d ** -0.5, 1)
+        ref_y = conv3x3.conv3x3_plain(x.float(), w.float())
+    rel = lambda a, r: ((a.float() - r).abs().max() / r.abs().max()).item()
+    errs = {"sdpa": rel(flat(out), ref_o),
+            "sdpa_bwd": max(rel(flat(g), r) for g, r in zip((dq, dk, dv), ref_g)),
+            "conv3x3": rel(y, ref_y)}
+    entry = {"sdpa": launches["attention_packed"], "sdpa_bwd": launches["attention_packed_bwd"],
+             "conv3x3": launches["conv3x3"]}
+    log(f"[entry] sdpa() {tuple(q.shape)} and conv3x3() {tuple(x.shape)} -> {tuple(y.shape)}, "
+        f"bf16 against the plain versions (fp32): {json.dumps(errs)}; launches "
+        f"{json.dumps(entry)}")
+    if min(entry.values()) <= 0:
+        raise SystemExit(f"[entry] kernels never launched by the entry points: {entry}")
+    if max(errs.values()) > 2e-2:
+        raise SystemExit("[entry] an entry point disagrees with its plain version")
+    return entry
+
+
+def kernels_line(records, knob_launches, entry_launches):
+    """One entry per kernel wrapper of selfcheck.SOURCES: its bf16 numbers at
+    its largest path shape, its worst errors in bf16 and fp32, and its
+    launches on this slice's main path (the entry points for sdpa() and
+    conv3x3())."""
+    from lvd_tpu_torch.ops.selfcheck import SOURCES
+
+    kernels = []
+    for kname, (source, replaces) in SOURCES.items():
+        recs = [r for r in records if r["name"] == kname and r["dtype"] == "bfloat16"]
+        f32 = [r for r in records if r["name"] == kname and r["dtype"] == "float32"]
+        main = recs[0]  # the largest shape the path gives the kernel
+        launches = entry_launches.get(kname, knob_launches.get(kname))
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "rel_err": max(r["rel_err"] for r in recs),
+            "max_abs_err_fp32": max(r["max_abs_err"] for r in f32),
+            "rel_err_fp32": max(r["rel_err"] for r in f32),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main["shape"],
+        })
+    return kernels
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--knob-phase"]:
+        return knob_child(torch)
     t_start = time.perf_counter()
     name = device_phase(torch)
     build_phase()
@@ -501,26 +716,16 @@ def main() -> int:
     reference_phase(torch, models)
     gradient_phase(torch, models)
     generation_phase(torch, models)
-    pipe, launches = guided_generation_phase(torch, models)
+    pipe, _ = guided_generation_phase(torch, models)
     certification_phase(torch, pipe)
     del pipe
+    knob_launches = knob_phase(torch)
+    fp32_phase(torch, models)
+    entry_launches = entry_point_phase(torch)
     torch.cuda.empty_cache()
     profile_phase(torch, models)
 
-    from lvd_tpu_torch.ops.selfcheck import SOURCES
-
-    kernels = []
-    for kname, (source, replaces) in SOURCES.items():
-        recs = [r for r in records if r["name"] == kname]
-        main = recs[0]  # the L0 shape, the largest the path gives the kernel
-        kernels.append({
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[kname],
-            "max_abs_err": max(r["max_abs_err"] for r in recs),
-            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shape": main["shape"],
-        })
+    kernels = kernels_line(records, knob_launches, entry_launches)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

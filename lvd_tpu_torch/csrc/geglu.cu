@@ -16,7 +16,9 @@
 // W2, accumulating the (32, C) output in registers. The weights are read
 // from device memory (L2-resident: 3*C*4C bf16 is at most 9.8 MB). C is a
 // template parameter (C = 64*NF) so the output accumulators stay in
-// registers.
+// registers. fp32 tensors take the same tiles with fp32 x rows and gated
+// chunk in shared memory (116 KB at C = 640, against 72 KB in bf16) and
+// TF32 products; the gated chunk is not rounded.
 #include "common.cuh"
 
 namespace lvd {
@@ -27,11 +29,11 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kBM = 32;   // rows per block
 constexpr int kBI = 64;   // inner chunk
 constexpr int kLdf = 72;  // fp32 smem row stride
-constexpr int kLdb = 80;  // bf16 smem row stride
 
-template <int NF>
+template <typename T, int NF>
 constexpr int geglu_smem() {
-  return kBM * (64 * NF + 16) * 2 + 2 * kBM * kLdf * 4 + kBM * kLdb * 2 + kWarps * 256 * 4;
+  return kBM * (64 * NF + kPad<T>) * (int)sizeof(T) + 2 * kBM * kLdf * 4 +
+         kBM * (kBI + kPad<T>) * (int)sizeof(T) + kWarps * 256 * 4;
 }
 
 __device__ inline float gelu(float g, int exact) {
@@ -40,33 +42,36 @@ __device__ inline float gelu(float g, int exact) {
   return 0.5f * g * (1.f + tanhf(z));
 }
 
-template <int NF>
+template <typename T, int NF>
 __global__ void __launch_bounds__(kThreads)
-geglu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-             const bf16* __restrict__ w2, const bf16* __restrict__ b2, bf16* __restrict__ out,
-             int R, int I, int exact) {
+geglu_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
+             const T* __restrict__ w2, const T* __restrict__ b2, T* __restrict__ out, int R,
+             int I, int exact) {
+  using M = Mma<T>;
   constexpr int C = 64 * NF;
-  constexpr int kLdx = C + 16;
+  constexpr int kLdx = C + kPad<T>;
+  constexpr int kLda = kBI + kPad<T>;
   constexpr int CT = C / 16;
+  constexpr int V = kVecN<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
+  T* xs = reinterpret_cast<T*>(smem);
   float* hs = reinterpret_cast<float*>(xs + kBM * kLdx);
   float* gs = hs + kBM * kLdf;
-  bf16* as = reinterpret_cast<bf16*>(gs + kBM * kLdf);
-  float* scratch = reinterpret_cast<float*>(as + kBM * kLdb);
+  T* as = reinterpret_cast<T*>(gs + kBM * kLdf);
+  float* scratch = reinterpret_cast<float*>(as + kBM * kLda);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = blockIdx.x * kBM;
 
-  for (int e = tid; e < kBM * (C / 8); e += kThreads) {
-    const int r = e / (C / 8), c8 = e % (C / 8);
+  for (int e = tid; e < kBM * (C / V); e += kThreads) {
+    const int r = e / (C / V), cv = e % (C / V);
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < R) val = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * C + c8 * 8);
-    *reinterpret_cast<uint4*>(xs + r * kLdx + c8 * 8) = val;
+    if (r0 + r < R) val = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * C + cv * V);
+    *reinterpret_cast<uint4*>(xs + r * kLdx + cv * V) = val;
   }
   __syncthreads();
 
-  FragAcc acc[NF];
+  typename M::Acc acc[NF];
 #pragma unroll
   for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
 
@@ -75,19 +80,19 @@ geglu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, const bf16
   const size_t ld1 = 2 * (size_t)I;
 
   for (int i0 = 0; i0 < I; i0 += kBI) {
-    FragAcc ah, ag;
+    typename M::Acc ah, ag;
     wmma::fill_fragment(ah, 0.f);
     wmma::fill_fragment(ag, 0.f);
-    const bf16* bh = w1 + i0 + hc * 16;
-    const bf16* bg = bh + I;
+    const T* bh = w1 + i0 + hc * 16;
+    const T* bg = bh + I;
 #pragma unroll 4
-    for (int kk = 0; kk < C; kk += 16) {
-      FragA a;
-      FragBRow fb;
-      wmma::load_matrix_sync(a, xs + hr * 16 * kLdx + kk, kLdx);
-      wmma::load_matrix_sync(fb, bh + kk * ld1, (unsigned)ld1);
+    for (int kk = 0; kk < C; kk += M::K) {
+      typename M::A a;
+      typename M::BRow fb;
+      load_op(a, xs + hr * 16 * kLdx + kk, kLdx);
+      load_op(fb, bh + kk * ld1, (unsigned)ld1);
       wmma::mma_sync(ah, a, fb, ah);
-      wmma::load_matrix_sync(fb, bg + kk * ld1, (unsigned)ld1);
+      load_op(fb, bg + kk * ld1, (unsigned)ld1);
       wmma::mma_sync(ag, a, fb, ag);
     }
     wmma::store_matrix_sync(hs + hr * 16 * kLdf + hc * 16, ah, kLdf, wmma::mem_row_major);
@@ -96,9 +101,9 @@ geglu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, const bf16
 
     for (int e = tid; e < kBM * kBI; e += kThreads) {
       const int r = e / kBI, c = e % kBI;
-      const float hv = hs[r * kLdf + c] + __bfloat162float(b1[i0 + c]);
-      const float gv = gs[r * kLdf + c] + __bfloat162float(b1[I + i0 + c]);
-      as[r * kLdb + c] = __float2bfloat16(hv * gelu(gv, exact));
+      const float hv = hs[r * kLdf + c] + to_f(b1[i0 + c]);
+      const float gv = gs[r * kLdf + c] + to_f(b1[I + i0 + c]);
+      as[r * kLda + c] = from_f<T>(hv * gelu(gv, exact));
     }
     __syncthreads();
 
@@ -107,11 +112,11 @@ geglu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, const bf16
       const int t = warp + kWarps * f;
       const int rt = t / CT, ct = t % CT;
 #pragma unroll
-      for (int kk = 0; kk < kBI; kk += 16) {
-        FragA a;
-        FragBRow fb;
-        wmma::load_matrix_sync(a, as + rt * 16 * kLdb + kk, kLdb);
-        wmma::load_matrix_sync(fb, w2 + (size_t)(i0 + kk) * C + ct * 16, C);
+      for (int kk = 0; kk < kBI; kk += M::K) {
+        typename M::A a;
+        typename M::BRow fb;
+        load_op(a, as + rt * 16 * kLda + kk, kLda);
+        load_op(fb, w2 + (size_t)(i0 + kk) * C + ct * 16, C);
         wmma::mma_sync(acc[f], a, fb, acc[f]);
       }
     }
@@ -128,51 +133,56 @@ geglu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, const bf16
     __syncwarp();
     for (int e = lane; e < 256; e += 32) {
       const int r = r0 + rt * 16 + e / 16, c = ct * 16 + e % 16;
-      if (r < R) out[(size_t)r * C + c] = __float2bfloat16(scr[e] + __bfloat162float(b2[c]));
+      if (r < R) out[(size_t)r * C + c] = from_f<T>(scr[e] + to_f(b2[c]));
     }
     __syncwarp();
   }
 }
 
-template <int NF>
-cudaError_t launch(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2,
-                   const bf16* b2, bf16* out, int R, int I, int exact, cudaStream_t stream) {
-  constexpr int smem = geglu_smem<NF>();
-  cudaError_t err = set_smem(geglu_kernel<NF>, smem);
+template <typename T, int NF>
+cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                   void* out, int R, int I, int exact, cudaStream_t stream) {
+  constexpr int smem = geglu_smem<T, NF>();
+  cudaError_t err = set_smem(geglu_kernel<T, NF>, smem);
   if (err != cudaSuccess) return err;
-  geglu_kernel<NF><<<(R + kBM - 1) / kBM, kThreads, smem, stream>>>(x, w1, b1, w2, b2, out, R,
-                                                                    I, exact);
+  geglu_kernel<T, NF><<<(R + kBM - 1) / kBM, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
+      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), R, I, exact);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_c(const void* x, const void* w1, const void* b1, const void* w2,
+                     const void* b2, void* out, int R, int C, int I, int exact,
+                     cudaStream_t s) {
+  switch (C / 64) {
+    case 1: return launch<T, 1>(x, w1, b1, w2, b2, out, R, I, exact, s);
+    case 2: return launch<T, 2>(x, w1, b1, w2, b2, out, R, I, exact, s);
+    case 3: return launch<T, 3>(x, w1, b1, w2, b2, out, R, I, exact, s);
+    case 4: return launch<T, 4>(x, w1, b1, w2, b2, out, R, I, exact, s);
+    case 5: return launch<T, 5>(x, w1, b1, w2, b2, out, R, I, exact, s);
+    case 6: return launch<T, 6>(x, w1, b1, w2, b2, out, R, I, exact, s);
+    case 7: return launch<T, 7>(x, w1, b1, w2, b2, out, R, I, exact, s);
+    case 8: return launch<T, 8>(x, w1, b1, w2, b2, out, R, I, exact, s);
+    case 9: return launch<T, 9>(x, w1, b1, w2, b2, out, R, I, exact, s);
+    default: return launch<T, 10>(x, w1, b1, w2, b2, out, R, I, exact, s);
+  }
 }
 
 }  // namespace
 }  // namespace lvd
 
 // x: (R, C), w1: (C, 2I) = [W1h | W1g], b1: (2I,), w2: (I, C), b2: (C,),
-// out: (R, C); all bf16. C in {64, 128, ..., 640}, I % 64 == 0.
+// out: (R, C); all of one type (dtype 0 bf16, 1 fp32). C in {64, 128, ...,
+// 640}, I % 64 == 0.
 LVD_EXPORT int lvd_geglu(const void* x, const void* w1, const void* b1, const void* w2,
-                         const void* b2, void* out, int R, int C, int I, int exact,
+                         const void* b2, void* out, int R, int C, int I, int exact, int dtype,
                          void* stream) {
   using namespace lvd;
   cudaGetLastError();
   if (C % 64 != 0 || C < 64 || C > 640 || I % kBI != 0 || R <= 0) return cudaErrorInvalidValue;
-  auto xs = static_cast<const bf16*>(x);
-  auto w1s = static_cast<const bf16*>(w1);
-  auto b1s = static_cast<const bf16*>(b1);
-  auto w2s = static_cast<const bf16*>(w2);
-  auto b2s = static_cast<const bf16*>(b2);
-  auto o = static_cast<bf16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (C / 64) {
-    case 1: return launch<1>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
-    case 2: return launch<2>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
-    case 3: return launch<3>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
-    case 4: return launch<4>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
-    case 5: return launch<5>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
-    case 6: return launch<6>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
-    case 7: return launch<7>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
-    case 8: return launch<8>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
-    case 9: return launch<9>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
-    default: return launch<10>(xs, w1s, b1s, w2s, b2s, o, R, I, exact, s);
-  }
+  return dispatch(dtype, [&](auto tag) {
+    return launch_c<decltype(tag)>(x, w1, b1, w2, b2, out, R, C, I, exact, s);
+  });
 }

@@ -21,7 +21,11 @@
 // tile in shared memory rather than in registers, since kernel C's
 // register-resident output already needs 252 registers at C = 640 and this
 // kernel carries two more operands. Weights are read from device memory
-// (L2-resident, at most 9.8 MB).
+// (L2-resident, at most 9.8 MB). Shared memory at C = 640: 200 KB in bf16.
+// fp32 tensors (TF32 products, no rounding of the gated cotangents) hold
+// their x and dy rows in fp32, and the (32, C) fp32 dx tile no longer fits
+// beside them (288 KB): dx accumulates in the fp32 output itself, whose
+// rows the wrapper pads to a multiple of 32 (207 KB of shared memory).
 #include "common.cuh"
 
 namespace lvd {
@@ -32,10 +36,15 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kBM = 32;   // rows per block
 constexpr int kBI = 64;   // inner chunk
 constexpr int kLdf = 72;  // fp32 smem row stride
-constexpr int kLdb = 80;  // bf16 smem row stride
 
+// dx accumulates in shared memory for bf16, in the fp32 output for fp32.
+template <typename T>
+constexpr bool kDxInSmem = sizeof(T) == 2;
+
+template <typename T>
 inline int geglu_bwd_smem(int C) {
-  return 2 * kBM * (C + 16) * 2 + 3 * kBM * kLdf * 4 + 2 * kBM * kLdb * 2 + kBM * (C + 8) * 4;
+  return 2 * kBM * (C + kPad<T>) * (int)sizeof(T) + 3 * kBM * kLdf * 4 +
+         2 * kBM * (kBI + kPad<T>) * (int)sizeof(T) + (kDxInSmem<T> ? kBM * (C + 8) * 4 : 0);
 }
 
 // (gelu(g), gelu'(g)) in fp32. Tanh form: g * sigmoid(2z), z = sqrt(2/pi) *
@@ -54,34 +63,46 @@ __device__ inline void gelu_val_grad(float g, int exact, float& val, float& grad
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-geglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                 const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-                 const bf16* __restrict__ w2, bf16* __restrict__ dx, int R, int C, int I,
-                 int exact) {
+geglu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const T* __restrict__ w1,
+                 const T* __restrict__ b1, const T* __restrict__ w2, T* __restrict__ dx, int R,
+                 int C, int I, int exact) {
+  using M = Mma<T>;
+  constexpr int V = kVecN<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ldx = C + 16, ldd = C + 8;
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* dys = xs + kBM * ldx;
+  const int ldx = C + kPad<T>, lda = kBI + kPad<T>;
+  T* xs = reinterpret_cast<T*>(smem);
+  T* dys = xs + kBM * ldx;
   float* hs = reinterpret_cast<float*>(dys + kBM * ldx);
   float* gs = hs + kBM * kLdf;
   float* ds = gs + kBM * kLdf;
-  bf16* dhs = reinterpret_cast<bf16*>(ds + kBM * kLdf);
-  bf16* dgs = dhs + kBM * kLdb;
-  float* dxs = reinterpret_cast<float*>(dgs + kBM * kLdb);
+  T* dhs = reinterpret_cast<T*>(ds + kBM * kLdf);
+  T* dgs = dhs + kBM * lda;
 
   const int tid = threadIdx.x, warp = tid / 32;
   const int r0 = blockIdx.x * kBM;
-  const int c8n = C / 8;
-  for (int e = tid; e < kBM * c8n; e += kThreads) {
-    const int r = e / c8n, c8 = e % c8n;
+  // The (32, C) fp32 dx accumulator: in shared memory, or the block's rows
+  // of the (padded) fp32 output.
+  float* dxs;
+  int ldd;
+  if constexpr (kDxInSmem<T>) {
+    dxs = reinterpret_cast<float*>(dgs + kBM * lda);
+    ldd = C + 8;
+  } else {
+    dxs = reinterpret_cast<float*>(dx) + (size_t)r0 * C;
+    ldd = C;
+  }
+  const int cvn = C / V;
+  for (int e = tid; e < kBM * cvn; e += kThreads) {
+    const int r = e / cvn, cv = e % cvn;
     uint4 xv = make_uint4(0, 0, 0, 0), dv = make_uint4(0, 0, 0, 0);
     if (r0 + r < R) {
-      xv = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * C + c8 * 8);
-      dv = *reinterpret_cast<const uint4*>(dy + (size_t)(r0 + r) * C + c8 * 8);
+      xv = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * C + cv * V);
+      dv = *reinterpret_cast<const uint4*>(dy + (size_t)(r0 + r) * C + cv * V);
     }
-    *reinterpret_cast<uint4*>(xs + r * ldx + c8 * 8) = xv;
-    *reinterpret_cast<uint4*>(dys + r * ldx + c8 * 8) = dv;
+    *reinterpret_cast<uint4*>(xs + r * ldx + cv * V) = xv;
+    *reinterpret_cast<uint4*>(dys + r * ldx + cv * V) = dv;
   }
   __syncthreads();
 
@@ -92,23 +113,23 @@ geglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 
   for (int i0 = 0; i0 < I; i0 += kBI) {
     {
-      FragAcc ah, ag, ad;
+      typename M::Acc ah, ag, ad;
       wmma::fill_fragment(ah, 0.f);
       wmma::fill_fragment(ag, 0.f);
       wmma::fill_fragment(ad, 0.f);
-      const bf16* bh = w1 + i0 + hc * 16;
-      const bf16* w2t = w2 + (size_t)(i0 + hc * 16) * C;
-      for (int kk = 0; kk < C; kk += 16) {
-        FragA a;
-        FragBRow fb;
-        wmma::load_matrix_sync(a, xs + hr * 16 * ldx + kk, ldx);
-        wmma::load_matrix_sync(fb, bh + kk * ld1, (unsigned)ld1);
+      const T* bh = w1 + i0 + hc * 16;
+      const T* w2t = w2 + (size_t)(i0 + hc * 16) * C;
+      for (int kk = 0; kk < C; kk += M::K) {
+        typename M::A a;
+        typename M::BRow fb;
+        load_op(a, xs + hr * 16 * ldx + kk, ldx);
+        load_op(fb, bh + kk * ld1, (unsigned)ld1);
         wmma::mma_sync(ah, a, fb, ah);
-        wmma::load_matrix_sync(fb, bh + I + kk * ld1, (unsigned)ld1);
+        load_op(fb, bh + I + kk * ld1, (unsigned)ld1);
         wmma::mma_sync(ag, a, fb, ag);
-        FragBCol fc;  // W2[chunk]^T: (C, 64) read column-major from (64, C) rows
-        wmma::load_matrix_sync(a, dys + hr * 16 * ldx + kk, ldx);
-        wmma::load_matrix_sync(fc, w2t + kk, C);
+        typename M::BCol fc;  // W2[chunk]^T: (C, 64) read column-major from (64, C) rows
+        load_op(a, dys + hr * 16 * ldx + kk, ldx);
+        load_op(fc, w2t + kk, C);
         wmma::mma_sync(ad, a, fc, ad);
       }
       const int at = hr * 16 * kLdf + hc * 16;
@@ -120,13 +141,13 @@ geglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 
     for (int e = tid; e < kBM * kBI; e += kThreads) {
       const int r = e / kBI, c = e % kBI;
-      const float hv = hs[r * kLdf + c] + __bfloat162float(b1[i0 + c]);
-      const float gv = gs[r * kLdf + c] + __bfloat162float(b1[I + i0 + c]);
+      const float hv = hs[r * kLdf + c] + to_f(b1[i0 + c]);
+      const float gv = gs[r * kLdf + c] + to_f(b1[I + i0 + c]);
       const float d = ds[r * kLdf + c];
       float u, du;
       gelu_val_grad(gv, exact, u, du);
-      dhs[r * kLdb + c] = __float2bfloat16(d * u);
-      dgs[r * kLdb + c] = __float2bfloat16(d * hv * du);
+      dhs[r * lda + c] = from_f<T>(d * u);
+      dgs[r * lda + c] = from_f<T>(d * hv * du);
     }
     __syncthreads();
 
@@ -134,22 +155,22 @@ geglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     for (int t = warp; t < 2 * CT; t += kWarps) {
       const int rt = t / CT, ct = t % CT;
       float* tile = dxs + rt * 16 * ldd + ct * 16;
-      FragAcc acc;
+      typename M::Acc acc;
       if (i0 == 0) {
         wmma::fill_fragment(acc, 0.f);
       } else {
         wmma::load_matrix_sync(acc, tile, ldd, wmma::mem_row_major);
       }
-      const bf16* wt = w1 + (size_t)ct * 16 * ld1 + i0;
+      const T* wt = w1 + (size_t)ct * 16 * ld1 + i0;
 #pragma unroll
-      for (int kk = 0; kk < kBI; kk += 16) {
-        FragA a;
-        FragBCol fb;
-        wmma::load_matrix_sync(a, dhs + rt * 16 * kLdb + kk, kLdb);
-        wmma::load_matrix_sync(fb, wt + kk, (unsigned)ld1);
+      for (int kk = 0; kk < kBI; kk += M::K) {
+        typename M::A a;
+        typename M::BCol fb;
+        load_op(a, dhs + rt * 16 * lda + kk, lda);
+        load_op(fb, wt + kk, (unsigned)ld1);
         wmma::mma_sync(acc, a, fb, acc);
-        wmma::load_matrix_sync(a, dgs + rt * 16 * kLdb + kk, kLdb);
-        wmma::load_matrix_sync(fb, wt + I + kk, (unsigned)ld1);
+        load_op(a, dgs + rt * 16 * lda + kk, lda);
+        load_op(fb, wt + I + kk, (unsigned)ld1);
         wmma::mma_sync(acc, a, fb, acc);
       }
       wmma::store_matrix_sync(tile, acc, ldd, wmma::mem_row_major);
@@ -157,35 +178,46 @@ geglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     // The next chunk's first __syncthreads orders these reads of dhs/dgs
     // before they are rewritten; each dx tile stays with one warp.
   }
+  if constexpr (!kDxInSmem<T>) return;  // dx already holds the result
   __syncthreads();
 
-  for (int e = tid; e < kBM * c8n; e += kThreads) {
-    const int r = e / c8n, c8 = e % c8n;
+  for (int e = tid; e < kBM * cvn; e += kThreads) {
+    const int r = e / cvn, cv = e % cvn;
     if (r0 + r >= R) continue;
-    Vec8 pack;
+    Vec<T> pack;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) pack.h[j] = __float2bfloat16(dxs[r * ldd + c8 * 8 + j]);
-    *reinterpret_cast<uint4*>(dx + (size_t)(r0 + r) * C + c8 * 8) = pack.u;
+    for (int j = 0; j < V; ++j) pack.h[j] = from_f<T>(dxs[r * ldd + cv * V + j]);
+    *reinterpret_cast<uint4*>(dx + (size_t)(r0 + r) * C + cv * V) = pack.u;
   }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* dy, const void* w1, const void* b1,
+                   const void* w2, void* dx, int R, int C, int I, int exact,
+                   cudaStream_t stream) {
+  const int smem = geglu_bwd_smem<T>(C);
+  cudaError_t err = set_smem(geglu_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  geglu_bwd_kernel<T><<<(R + kBM - 1) / kBM, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w1),
+      static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<T*>(dx), R, C, I, exact);
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace lvd
 
-// x, dy, dx: (R, C); w1: (C, 2I) = [W1h | W1g]; b1: (2I,); w2: (I, C); all
-// bf16. C % 64 == 0, C <= 640, I % 64 == 0.
+// x, dy: (R, C); dx: (R, C), with rows padded to a multiple of 32 for fp32;
+// w1: (C, 2I) = [W1h | W1g]; b1: (2I,); w2: (I, C); all of one type (dtype
+// 0 bf16, 1 fp32). C % 64 == 0, C <= 640, I % 64 == 0.
 LVD_EXPORT int lvd_geglu_bwd(const void* x, const void* dy, const void* w1, const void* b1,
-                             const void* w2, void* dx, int R, int C, int I, int exact,
+                             const void* w2, void* dx, int R, int C, int I, int exact, int dtype,
                              void* stream) {
   using namespace lvd;
   cudaGetLastError();
   if (C % 64 != 0 || C < 64 || C > 640 || I % kBI != 0 || R <= 0) return cudaErrorInvalidValue;
-  const int smem = geglu_bwd_smem(C);
-  cudaError_t err = set_smem(geglu_bwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  geglu_bwd_kernel<<<(R + kBM - 1) / kBM, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2), static_cast<bf16*>(dx), R, C, I,
-      exact);
-  return cudaGetLastError();
+  auto s = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, [&](auto tag) {
+    return launch<decltype(tag)>(x, dy, w1, b1, w2, dx, R, C, I, exact, s);
+  });
 }

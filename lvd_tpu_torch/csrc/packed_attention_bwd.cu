@@ -1,5 +1,7 @@
 // Kernel E: the backward of exact-softmax attention on head-packed
-// (B, S, H*64) tensors: dq, dk, dv from q, k, v, o and dO.
+// (B, S, H*D) tensors, D in {64, 128}, bf16 or fp32: dq, dk, dv from q, k,
+// v, o and dO. The public sdpa()'s backward (lvd_tpu's `_flash_bwd`, row 3)
+// is this kernel with one head.
 //
 // Replaces lvd_tpu/ops/pallas_attention.py `_pallas_attention_bwd`
 // (`_attn_bwd_kernel`, (BH, S, D) layout) and `_pallas_attention_bwd_heads`
@@ -11,8 +13,9 @@
 //
 // Math (per head, as the TPU kernel): P = softmax(Q K^T * scale);
 // delta = rowsum(dO * O); dV = P^T dO; dS = P * (dO V^T - delta) * scale;
-// dQ = dS K; dK = dS^T Q. P is rounded to bf16 for dV, dS for dQ and dK;
-// every product accumulates in fp32.
+// dQ = dS K; dK = dS^T Q. P is rounded to the tensors' type for dV, dS for
+// dQ and dK (no rounding in fp32, whose products run in TF32); every product
+// accumulates in fp32.
 //
 // Bound on this card: at the self-attention shapes the five (S, S, 64)
 // products per head dominate (10 * B * S^2 * C operations), so the backward
@@ -26,7 +29,12 @@
 //      every query tile and accumulate dK and dV in registers.
 //   3. dq: per (batch*head, 64-query tile), four warps of 16 queries walk
 //      every key tile and accumulate dQ in registers.
-// Heads are read at column offset h*64 of the packed rows (no relayout).
+// Heads are read at column offset h*D of the packed rows (no relayout).
+// Shared memory of the three launches (stats / dk-dv / dq): bf16 D=64
+// 38 / 97 / 87 KB; bf16 D=128 54 / 129 / 119 KB; fp32 D=64 54 / 145 /
+// 127 KB; fp32 D=128 86 / 209 / 191 KB. The dq launch reads the warp's q
+// and dO rows from shared memory at every key tile, so D = 128 in TF32
+// does not run out of registers.
 // Ragged query and key tails are masked: a query past S_q gets log-sum-exp
 // +inf (P = 0), a key past S_k gets P = 0. Launch 2 is skipped when the
 // caller needs no dk/dv (cross-attention keys come from the text).
@@ -35,93 +43,113 @@
 namespace lvd {
 namespace {
 
-constexpr int kD = 64;
 constexpr int kBT = 64;     // queries or keys per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kLdb = 80;    // bf16 smem row stride (160 B)
-constexpr int kLdf = 72;    // fp32 smem row stride (288 B)
+constexpr int kLdS = 72;    // fp32 (16, 64) score-tile row stride (288 B)
 
-// Copies rows [r0, r0 + 64) of head h into a (64, kLdb) smem tile; rows past
-// `rows` are zero.
-__device__ inline void load_tile(bf16* dst, const bf16* src, int r0, int rows, int C) {
-  for (int i = threadIdx.x; i < kBT * 8; i += kThreads) {
-    const int r = i / 8, c8 = i % 8;
+template <typename T, int D>
+struct BwdCfg {
+  static constexpr int kLdD = D + kPad<T>;    // q/k/v/dO tile rows
+  static constexpr int kLdP = kBT + kPad<T>;  // P / dS rows
+  static constexpr int kLdO = D + 8;          // fp32 staging rows of store_rows
+  // Per-warp fp32 region: two (16, 64) score tiles, reused as the staging
+  // tile of store_rows.
+  static constexpr int kWarpF = (2 * 16 * kLdS > 16 * kLdO) ? 2 * 16 * kLdS : 16 * kLdO;
+  static constexpr int kTile = kBT * kLdD * (int)sizeof(T);
+  static constexpr int kStatsSmem = 2 * kTile + kWarps * 16 * kLdS * 4;
+  static constexpr int kDkdvSmem =
+      4 * kTile + 2 * kBT * 4 + kWarps * (kWarpF * 4 + 2 * 16 * kLdP * (int)sizeof(T));
+  static constexpr int kDqSmem =
+      4 * kTile + 2 * kBT * 4 + kWarps * (kWarpF * 4 + 16 * kLdP * (int)sizeof(T));
+};
+
+// Copies rows [r0, r0 + 64) of one head into a (64, kLdD) smem tile; rows
+// past `rows` are zero.
+template <typename T, int D>
+__device__ inline void load_tile(T* dst, const T* src, int r0, int rows, int C) {
+  constexpr int V = kVecN<T>, DV = D / V, ld = BwdCfg<T, D>::kLdD;
+  for (int i = threadIdx.x; i < kBT * DV; i += kThreads) {
+    const int r = i / DV, cv = i % DV;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < rows) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * C + c8 * 8);
-    *reinterpret_cast<uint4*>(dst + r * kLdb + c8 * 8) = val;
+    if (r0 + r < rows) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * C + cv * V);
+    *reinterpret_cast<uint4*>(dst + r * ld + cv * V) = val;
   }
 }
 
-// Writes a warp's (16, 64) fp32 accumulators as bf16 rows [r0, r0 + 16) of
-// head h, through a (16, kLdf) staging tile; rows past `rows` are dropped.
-__device__ inline void store_rows(const FragAcc (&acc)[4], float* stage, bf16* dst, int r0,
+// Writes a warp's (16, D) fp32 accumulators as rows [r0, r0 + 16) of one
+// head, through a (16, kLdO) staging tile; rows past `rows` are dropped.
+template <typename T, int D, typename Acc>
+__device__ inline void store_rows(const Acc (&acc)[D / 16], float* stage, T* dst, int r0,
                                   int rows, int C, int lane) {
+  constexpr int V = kVecN<T>, ld = BwdCfg<T, D>::kLdO;
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(stage + n * 16, acc[n], kLdf, wmma::mem_row_major);
+  for (int n = 0; n < D / 16; ++n)
+    wmma::store_matrix_sync(stage + n * 16, acc[n], ld, wmma::mem_row_major);
   __syncwarp();
   const int row = lane >> 1, half = lane & 1;
   if (r0 + row < rows) {
-    const float* src = stage + row * kLdf + half * 32;
-    bf16* out = dst + (size_t)(r0 + row) * C + half * 32;
+    const float* src = stage + row * ld + half * (D / 2);
+    T* out = dst + (size_t)(r0 + row) * C + half * (D / 2);
 #pragma unroll
-    for (int j = 0; j < 32; j += 8) {
-      Vec8 pack;
+    for (int j = 0; j < D / 2; j += V) {
+      Vec<T> pack;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) pack.h[e] = __float2bfloat16(src[j + e]);
+      for (int e = 0; e < V; ++e) pack.h[e] = from_f<T>(src[j + e]);
       *reinterpret_cast<uint4*>(out + j) = pack.u;
     }
   }
   __syncwarp();
 }
 
-constexpr int kStatsSmem = 2 * kBT * kLdb * 2 + kWarps * 16 * kLdf * 4;
-
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_stats_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ o, const bf16* __restrict__ dout,
+attn_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ o, const T* __restrict__ dout,
                       float* __restrict__ lse, float* __restrict__ delta, int H, int Sq, int Sk,
                       int C, float scale_log2e) {
+  using M = Mma<T>;
+  constexpr int kLdD = BwdCfg<T, D>::kLdD;
+  constexpr int V = kVecN<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBT * kLdb;
-  float* Sw = reinterpret_cast<float*>(Ks + kBT * kLdb);
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + kBT * kLdD;
+  float* Sw = reinterpret_cast<float*>(Ks + kBT * kLdD);
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int q0 = blockIdx.y * kBT;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t head = (size_t)h * kD;
-  load_tile(Qs, q + (size_t)b * Sq * C + head, q0, Sq, C);
+  const size_t head = (size_t)h * D;
+  load_tile<T, D>(Qs, q + (size_t)b * Sq * C + head, q0, Sq, C);
   __syncthreads();
 
-  FragA qf[kD / 16];
+  typename M::A qf[D / M::K];
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], Qs + warp * 16 * kLdb + kk * 16, kLdb);
-  float* S = Sw + warp * 16 * kLdf;
+  for (int kk = 0; kk < D / M::K; ++kk)
+    load_op(qf[kk], Qs + warp * 16 * kLdD + kk * M::K, kLdD);
+  float* S = Sw + warp * 16 * kLdS;
   const int row = lane >> 1, half = lane & 1;
   float m_i = -INFINITY, l_i = 0.f;
 
   for (int k0 = 0; k0 < Sk; k0 += kBT) {
     __syncthreads();
-    load_tile(Ks, k + (size_t)b * Sk * C + head, k0, Sk, C);
+    load_tile<T, D>(Ks, k + (size_t)b * Sk * C + head, k0, Sk, C);
     __syncthreads();
 #pragma unroll
     for (int n = 0; n < kBT / 16; ++n) {
-      FragAcc acc;
+      typename M::Acc acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        FragBCol kf;
-        wmma::load_matrix_sync(kf, Ks + n * 16 * kLdb + kk * 16, kLdb);
+      for (int kk = 0; kk < D / M::K; ++kk) {
+        typename M::BCol kf;
+        load_op(kf, Ks + n * 16 * kLdD + kk * M::K, kLdD);
         wmma::mma_sync(acc, qf[kk], kf, acc);
       }
-      wmma::store_matrix_sync(S + n * 16, acc, kLdf, wmma::mem_row_major);
+      wmma::store_matrix_sync(S + n * 16, acc, kLdS, wmma::mem_row_major);
     }
     __syncwarp();
     const int kvalid = min(kBT, Sk - k0);
-    const float* srow = S + row * kLdf + half * 32;
+    const float* srow = S + row * kLdS + half * 32;
     float mx = -INFINITY;
     for (int j = 0; j < 32; ++j)
       if (half * 32 + j < kvalid) mx = fmaxf(mx, srow[j] * scale_log2e);
@@ -139,14 +167,14 @@ attn_bwd_stats_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qr = q0 + warp * 16 + row;
   float d = 0.f;
   if (qr < Sq) {
-    const bf16* orow = o + ((size_t)b * Sq + qr) * C + head + half * 32;
-    const bf16* drow = dout + ((size_t)b * Sq + qr) * C + head + half * 32;
-    for (int j = 0; j < 32; j += 8) {
-      Vec8 ov, dv;
+    const T* orow = o + ((size_t)b * Sq + qr) * C + head + half * (D / 2);
+    const T* drow = dout + ((size_t)b * Sq + qr) * C + head + half * (D / 2);
+    for (int j = 0; j < D / 2; j += V) {
+      Vec<T> ov, dv;
       ov.u = *reinterpret_cast<const uint4*>(orow + j);
       dv.u = *reinterpret_cast<const uint4*>(drow + j);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) d += __bfloat162float(ov.h[e]) * __bfloat162float(dv.h[e]);
+      for (int e = 0; e < V; ++e) d += to_f(ov.h[e]) * to_f(dv.h[e]);
     }
   }
   d += __shfl_xor_sync(0xffffffffu, d, 1);
@@ -168,243 +196,264 @@ __device__ inline void load_stats(float* lse_s, float* delta_s, const float* lse
   }
 }
 
-constexpr int kDkdvSmem = 4 * kBT * kLdb * 2 + 2 * kBT * 4 + kWarps * 16 * (2 * kLdf * 4 + 2 * kLdb * 2);
-
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Sk, int C,
+                     T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Sk, int C,
                      float scale, float scale_log2e) {
+  using M = Mma<T>;
+  using Cfg = BwdCfg<T, D>;
+  constexpr int kLdD = Cfg::kLdD, kLdP = Cfg::kLdP;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kBT * kLdb;
-  bf16* Qs = Vs + kBT * kLdb;
-  bf16* Ds = Qs + kBT * kLdb;
-  float* lse_s = reinterpret_cast<float*>(Ds + kBT * kLdb);
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + kBT * kLdD;
+  T* Qs = Vs + kBT * kLdD;
+  T* Ds = Qs + kBT * kLdD;
+  float* lse_s = reinterpret_cast<float*>(Ds + kBT * kLdD);
   float* delta_s = lse_s + kBT;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* St = delta_s + kBT + warp * 16 * 2 * kLdf;  // P^T (fp32), then staging
-  float* dPt = St + 16 * kLdf;
-  bf16* Pt = reinterpret_cast<bf16*>(delta_s + kBT + kWarps * 16 * 2 * kLdf) + warp * 16 * 2 * kLdb;
-  bf16* dSt = Pt + 16 * kLdb;
+  float* St = delta_s + kBT + warp * Cfg::kWarpF;  // S^T (fp32), then staging
+  float* dPt = St + 16 * kLdS;
+  T* Pt = reinterpret_cast<T*>(delta_s + kBT + kWarps * Cfg::kWarpF) + warp * 2 * 16 * kLdP;
+  T* dSt = Pt + 16 * kLdP;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int k0 = blockIdx.y * kBT;
-  const size_t head = (size_t)h * kD;
-  const bf16* qb = q + (size_t)b * Sq * C + head;
-  const bf16* db = dout + (size_t)b * Sq * C + head;
+  const size_t head = (size_t)h * D;
+  const T* qb = q + (size_t)b * Sq * C + head;
+  const T* db = dout + (size_t)b * Sq * C + head;
   const float* lse_b = lse + (size_t)blockIdx.x * Sq;
   const float* delta_b = delta + (size_t)blockIdx.x * Sq;
-  load_tile(Ks, k + (size_t)b * Sk * C + head, k0, Sk, C);
-  load_tile(Vs, v + (size_t)b * Sk * C + head, k0, Sk, C);
+  load_tile<T, D>(Ks, k + (size_t)b * Sk * C + head, k0, Sk, C);
+  load_tile<T, D>(Vs, v + (size_t)b * Sk * C + head, k0, Sk, C);
 
-  FragAcc dka[4], dva[4];
+  typename M::Acc dka[D / 16], dva[D / 16];
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
+  for (int n = 0; n < D / 16; ++n) {
     wmma::fill_fragment(dka[n], 0.f);
     wmma::fill_fragment(dva[n], 0.f);
   }
   const int row = lane >> 1, half = lane & 1;
-  const bf16* Kw = Ks + warp * 16 * kLdb;
-  const bf16* Vw = Vs + warp * 16 * kLdb;
+  const T* Kw = Ks + warp * 16 * kLdD;
+  const T* Vw = Vs + warp * 16 * kLdD;
 
   for (int q0 = 0; q0 < Sq; q0 += kBT) {
     __syncthreads();  // every warp is done with the previous query tile
-    load_tile(Qs, qb, q0, Sq, C);
-    load_tile(Ds, db, q0, Sq, C);
+    load_tile<T, D>(Qs, qb, q0, Sq, C);
+    load_tile<T, D>(Ds, db, q0, Sq, C);
     load_stats(lse_s, delta_s, lse_b, delta_b, q0, Sq);
     __syncthreads();
 
     // S^T = K_w Q^T and dP^T = V_w dO^T, (16 keys, 64 queries) each.
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      FragAcc s, dp;
+    for (int n = 0; n < kBT / 16; ++n) {
+      typename M::Acc s, dp;
       wmma::fill_fragment(s, 0.f);
       wmma::fill_fragment(dp, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        FragA a;
-        FragBCol bm;
-        wmma::load_matrix_sync(a, Kw + kk * 16, kLdb);
-        wmma::load_matrix_sync(bm, Qs + n * 16 * kLdb + kk * 16, kLdb);
+      for (int kk = 0; kk < D / M::K; ++kk) {
+        typename M::A a;
+        typename M::BCol bm;
+        load_op(a, Kw + kk * M::K, kLdD);
+        load_op(bm, Qs + n * 16 * kLdD + kk * M::K, kLdD);
         wmma::mma_sync(s, a, bm, s);
-        wmma::load_matrix_sync(a, Vw + kk * 16, kLdb);
-        wmma::load_matrix_sync(bm, Ds + n * 16 * kLdb + kk * 16, kLdb);
+        load_op(a, Vw + kk * M::K, kLdD);
+        load_op(bm, Ds + n * 16 * kLdD + kk * M::K, kLdD);
         wmma::mma_sync(dp, a, bm, dp);
       }
-      wmma::store_matrix_sync(St + n * 16, s, kLdf, wmma::mem_row_major);
-      wmma::store_matrix_sync(dPt + n * 16, dp, kLdf, wmma::mem_row_major);
+      wmma::store_matrix_sync(St + n * 16, s, kLdS, wmma::mem_row_major);
+      wmma::store_matrix_sync(dPt + n * 16, dp, kLdS, wmma::mem_row_major);
     }
     __syncwarp();
     {
-      const float* srow = St + row * kLdf + half * 32;
-      const float* dprow = dPt + row * kLdf + half * 32;
-      bf16* prow = Pt + row * kLdb + half * 32;
-      bf16* dsrow = dSt + row * kLdb + half * 32;
+      const float* srow = St + row * kLdS + half * 32;
+      const float* dprow = dPt + row * kLdS + half * 32;
+      T* prow = Pt + row * kLdP + half * 32;
+      T* dsrow = dSt + row * kLdP + half * 32;
       for (int j = 0; j < 32; ++j) {
         const int qi = half * 32 + j;
         const float p = exp2f(srow[j] * scale_log2e - lse_s[qi]);
-        prow[j] = __float2bfloat16(p);
-        dsrow[j] = __float2bfloat16(p * (dprow[j] - delta_s[qi]) * scale);
+        prow[j] = from_f<T>(p);
+        dsrow[j] = from_f<T>(p * (dprow[j] - delta_s[qi]) * scale);
       }
     }
     __syncwarp();
 
     // dV += P^T dO; dK += dS^T Q.
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < D / 16; ++n) {
 #pragma unroll
-      for (int kk = 0; kk < kBT / 16; ++kk) {
-        FragA a;
-        FragBRow bm;
-        wmma::load_matrix_sync(a, Pt + kk * 16, kLdb);
-        wmma::load_matrix_sync(bm, Ds + kk * 16 * kLdb + n * 16, kLdb);
+      for (int kk = 0; kk < kBT / M::K; ++kk) {
+        typename M::A a;
+        typename M::BRow bm;
+        load_op(a, Pt + kk * M::K, kLdP);
+        load_op(bm, Ds + kk * M::K * kLdD + n * 16, kLdD);
         wmma::mma_sync(dva[n], a, bm, dva[n]);
-        wmma::load_matrix_sync(a, dSt + kk * 16, kLdb);
-        wmma::load_matrix_sync(bm, Qs + kk * 16 * kLdb + n * 16, kLdb);
+        load_op(a, dSt + kk * M::K, kLdP);
+        load_op(bm, Qs + kk * M::K * kLdD + n * 16, kLdD);
         wmma::mma_sync(dka[n], a, bm, dka[n]);
       }
     }
   }
 
   const size_t out_b = (size_t)b * Sk * C + head;
-  store_rows(dka, St, dk + out_b, k0 + warp * 16, Sk, C, lane);
-  store_rows(dva, St, dv + out_b, k0 + warp * 16, Sk, C, lane);
+  store_rows<T, D>(dka, St, dk + out_b, k0 + warp * 16, Sk, C, lane);
+  store_rows<T, D>(dva, St, dv + out_b, k0 + warp * 16, Sk, C, lane);
 }
 
-constexpr int kDqSmem = 4 * kBT * kLdb * 2 + 2 * kBT * 4 + kWarps * 16 * (2 * kLdf * 4 + kLdb * 2);
-
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dq, int H, int Sq, int Sk, int C, float scale,
+                   T* __restrict__ dq, int H, int Sq, int Sk, int C, float scale,
                    float scale_log2e) {
+  using M = Mma<T>;
+  using Cfg = BwdCfg<T, D>;
+  constexpr int kLdD = Cfg::kLdD, kLdP = Cfg::kLdP;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ds = Qs + kBT * kLdb;
-  bf16* Ks = Ds + kBT * kLdb;
-  bf16* Vs = Ks + kBT * kLdb;
-  float* lse_s = reinterpret_cast<float*>(Vs + kBT * kLdb);
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ds = Qs + kBT * kLdD;
+  T* Ks = Ds + kBT * kLdD;
+  T* Vs = Ks + kBT * kLdD;
+  float* lse_s = reinterpret_cast<float*>(Vs + kBT * kLdD);
   float* delta_s = lse_s + kBT;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* S = delta_s + kBT + warp * 16 * 2 * kLdf;  // logits, then staging
-  float* dP = S + 16 * kLdf;
-  bf16* dS = reinterpret_cast<bf16*>(delta_s + kBT + kWarps * 16 * 2 * kLdf) + warp * 16 * kLdb;
+  float* S = delta_s + kBT + warp * Cfg::kWarpF;  // logits, then staging
+  float* dP = S + 16 * kLdS;
+  T* dS = reinterpret_cast<T*>(delta_s + kBT + kWarps * Cfg::kWarpF) + warp * 16 * kLdP;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int q0 = blockIdx.y * kBT;
-  const size_t head = (size_t)h * kD;
-  load_tile(Qs, q + (size_t)b * Sq * C + head, q0, Sq, C);
-  load_tile(Ds, dout + (size_t)b * Sq * C + head, q0, Sq, C);
+  const size_t head = (size_t)h * D;
+  load_tile<T, D>(Qs, q + (size_t)b * Sq * C + head, q0, Sq, C);
+  load_tile<T, D>(Ds, dout + (size_t)b * Sq * C + head, q0, Sq, C);
   load_stats(lse_s, delta_s, lse + (size_t)blockIdx.x * Sq, delta + (size_t)blockIdx.x * Sq,
              q0, Sq);
   __syncthreads();
 
-  FragA qf[kD / 16], df[kD / 16];
+  // The warp's q and dO rows are read from shared memory at every key tile
+  // (register-resident fragments would not fit at D = 128 in TF32).
+  const T* Qw = Qs + warp * 16 * kLdD;
+  const T* Dw = Ds + warp * 16 * kLdD;
+  typename M::Acc dqa[D / 16];
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], Qs + warp * 16 * kLdb + kk * 16, kLdb);
-    wmma::load_matrix_sync(df[kk], Ds + warp * 16 * kLdb + kk * 16, kLdb);
-  }
-  FragAcc dqa[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(dqa[n], 0.f);
+  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dqa[n], 0.f);
   const int row = lane >> 1, half = lane & 1;
   const float lse_r = lse_s[warp * 16 + row];
   const float delta_r = delta_s[warp * 16 + row];
-  const bf16* kb = k + (size_t)b * Sk * C + head;
-  const bf16* vb = v + (size_t)b * Sk * C + head;
+  const T* kb = k + (size_t)b * Sk * C + head;
+  const T* vb = v + (size_t)b * Sk * C + head;
 
   for (int k0 = 0; k0 < Sk; k0 += kBT) {
     __syncthreads();
-    load_tile(Ks, kb, k0, Sk, C);
-    load_tile(Vs, vb, k0, Sk, C);
+    load_tile<T, D>(Ks, kb, k0, Sk, C);
+    load_tile<T, D>(Vs, vb, k0, Sk, C);
     __syncthreads();
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      FragAcc s, dp;
+    for (int n = 0; n < kBT / 16; ++n) {
+      typename M::Acc s, dp;
       wmma::fill_fragment(s, 0.f);
       wmma::fill_fragment(dp, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        FragBCol bm;
-        wmma::load_matrix_sync(bm, Ks + n * 16 * kLdb + kk * 16, kLdb);
-        wmma::mma_sync(s, qf[kk], bm, s);
-        wmma::load_matrix_sync(bm, Vs + n * 16 * kLdb + kk * 16, kLdb);
-        wmma::mma_sync(dp, df[kk], bm, dp);
+      for (int kk = 0; kk < D / M::K; ++kk) {
+        typename M::A a;
+        typename M::BCol bm;
+        load_op(a, Qw + kk * M::K, kLdD);
+        load_op(bm, Ks + n * 16 * kLdD + kk * M::K, kLdD);
+        wmma::mma_sync(s, a, bm, s);
+        load_op(a, Dw + kk * M::K, kLdD);
+        load_op(bm, Vs + n * 16 * kLdD + kk * M::K, kLdD);
+        wmma::mma_sync(dp, a, bm, dp);
       }
-      wmma::store_matrix_sync(S + n * 16, s, kLdf, wmma::mem_row_major);
-      wmma::store_matrix_sync(dP + n * 16, dp, kLdf, wmma::mem_row_major);
+      wmma::store_matrix_sync(S + n * 16, s, kLdS, wmma::mem_row_major);
+      wmma::store_matrix_sync(dP + n * 16, dp, kLdS, wmma::mem_row_major);
     }
     __syncwarp();
     {
       const int kvalid = min(kBT, Sk - k0);
-      const float* srow = S + row * kLdf + half * 32;
-      const float* dprow = dP + row * kLdf + half * 32;
-      bf16* dsrow = dS + row * kLdb + half * 32;
+      const float* srow = S + row * kLdS + half * 32;
+      const float* dprow = dP + row * kLdS + half * 32;
+      T* dsrow = dS + row * kLdP + half * 32;
       for (int j = 0; j < 32; ++j) {
         const float p =
             (half * 32 + j < kvalid) ? exp2f(srow[j] * scale_log2e - lse_r) : 0.f;
-        dsrow[j] = __float2bfloat16(p * (dprow[j] - delta_r) * scale);
+        dsrow[j] = from_f<T>(p * (dprow[j] - delta_r) * scale);
       }
     }
     __syncwarp();
     // dQ += dS K
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < D / 16; ++n) {
 #pragma unroll
-      for (int kk = 0; kk < kBT / 16; ++kk) {
-        FragA a;
-        FragBRow bm;
-        wmma::load_matrix_sync(a, dS + kk * 16, kLdb);
-        wmma::load_matrix_sync(bm, Ks + kk * 16 * kLdb + n * 16, kLdb);
+      for (int kk = 0; kk < kBT / M::K; ++kk) {
+        typename M::A a;
+        typename M::BRow bm;
+        load_op(a, dS + kk * M::K, kLdP);
+        load_op(bm, Ks + kk * M::K * kLdD + n * 16, kLdD);
         wmma::mma_sync(dqa[n], a, bm, dqa[n]);
       }
     }
   }
-  store_rows(dqa, S, dq + (size_t)b * Sq * C + head, q0 + warp * 16, Sq, C, lane);
+  store_rows<T, D>(dqa, S, dq + (size_t)b * Sq * C + head, q0 + warp * 16, Sq, C, lane);
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   void* dq, void* dk, void* dv, void* lse, void* delta, int B, int H, int Sq,
+                   int Sk, int C, float scale, cudaStream_t s) {
+  using Cfg = BwdCfg<T, D>;
+  auto qp = static_cast<const T*>(q);
+  auto kp = static_cast<const T*>(k);
+  auto vp = static_cast<const T*>(v);
+  auto dp = static_cast<const T*>(dout);
+  auto lp = static_cast<float*>(lse);
+  auto tp = static_cast<float*>(delta);
+  const float sl2e = scale * 1.4426950408889634f;
+  const dim3 qgrid(B * H, (Sq + kBT - 1) / kBT);
+  cudaError_t err = set_smem(attn_bwd_stats_kernel<T, D>, Cfg::kStatsSmem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_stats_kernel<T, D><<<qgrid, kThreads, Cfg::kStatsSmem, s>>>(
+      qp, kp, static_cast<const T*>(o), dp, lp, tp, H, Sq, Sk, C, sl2e);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (dk != nullptr) {
+    if ((err = set_smem(attn_bwd_dkdv_kernel<T, D>, Cfg::kDkdvSmem)) != cudaSuccess) return err;
+    attn_bwd_dkdv_kernel<T, D><<<dim3(B * H, (Sk + kBT - 1) / kBT), kThreads, Cfg::kDkdvSmem,
+                                 s>>>(qp, kp, vp, dp, lp, tp, static_cast<T*>(dk),
+                                      static_cast<T*>(dv), H, Sq, Sk, C, scale, sl2e);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if ((err = set_smem(attn_bwd_dq_kernel<T, D>, Cfg::kDqSmem)) != cudaSuccess) return err;
+  attn_bwd_dq_kernel<T, D><<<qgrid, kThreads, Cfg::kDqSmem, s>>>(
+      qp, kp, vp, dp, lp, tp, static_cast<T*>(dq), H, Sq, Sk, C, scale, sl2e);
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace lvd
 
-// q, o, dout, dq: (B, Sq, C); k, v, dk, dv: (B, Sk, C); all bf16, C = H*64.
-// lse and delta: (B*H*Sq) fp32 scratch. dk and dv may both be null (only dq
-// is computed then).
+// q, o, dout, dq: (B, Sq, C); k, v, dk, dv: (B, Sk, C); all of one type
+// (dtype 0 bf16, 1 fp32), C = H*D with D in {64, 128}. lse and delta:
+// (B*H*Sq) fp32 scratch. dk and dv may both be null (only dq is computed
+// then).
 LVD_EXPORT int lvd_attention_packed_bwd(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, void* dq, void* dk,
                                         void* dv, void* lse, void* delta, int B, int H, int Sq,
-                                        int Sk, int C, float scale, void* stream) {
+                                        int Sk, int C, float scale, int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
-  if (C != H * kD || C % 8 != 0 || Sq <= 0 || Sk <= 0 || (dk == nullptr) != (dv == nullptr))
+  if (H <= 0 || C % H != 0 || Sq <= 0 || Sk <= 0 || (dk == nullptr) != (dv == nullptr))
     return cudaErrorInvalidValue;
+  const int D = C / H;
+  if (D != 64 && D != 128) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  auto qp = static_cast<const bf16*>(q);
-  auto kp = static_cast<const bf16*>(k);
-  auto vp = static_cast<const bf16*>(v);
-  auto dp = static_cast<const bf16*>(dout);
-  auto lp = static_cast<float*>(lse);
-  auto tp = static_cast<float*>(delta);
-  const float sl2e = scale * 1.4426950408889634f;
-  const dim3 qgrid(B * H, (Sq + kBT - 1) / kBT);
-  cudaError_t err = set_smem(attn_bwd_stats_kernel, kStatsSmem);
-  if (err != cudaSuccess) return err;
-  attn_bwd_stats_kernel<<<qgrid, kThreads, kStatsSmem, s>>>(
-      qp, kp, static_cast<const bf16*>(o), dp, lp, tp, H, Sq, Sk, C, sl2e);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (dk != nullptr) {
-    if ((err = set_smem(attn_bwd_dkdv_kernel, kDkdvSmem)) != cudaSuccess) return err;
-    attn_bwd_dkdv_kernel<<<dim3(B * H, (Sk + kBT - 1) / kBT), kThreads, kDkdvSmem, s>>>(
-        qp, kp, vp, dp, lp, tp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk, C,
-        scale, sl2e);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  if ((err = set_smem(attn_bwd_dq_kernel, kDqSmem)) != cudaSuccess) return err;
-  attn_bwd_dq_kernel<<<qgrid, kThreads, kDqSmem, s>>>(qp, kp, vp, dp, lp, tp,
-                                                       static_cast<bf16*>(dq), H, Sq, Sk, C,
-                                                       scale, sl2e);
-  return cudaGetLastError();
+  return dispatch(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    return D == 64 ? launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, Sq, Sk, C,
+                                   scale, s)
+                   : launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, Sq, Sk, C,
+                                    scale, s);
+  });
 }

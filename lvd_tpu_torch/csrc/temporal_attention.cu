@@ -18,7 +18,17 @@
 // carried over). Strides make the kernel take both the frames-major
 // (B, F, P, C) stream and the pixels-major (B, P, F, C) one. Rounding points
 // follow the plain version: q/k/v, probabilities, per-head outputs and the
-// projected output are bf16, statistics and accumulations fp32.
+// projected output are in the stream's type (bf16 or fp32), statistics and
+// accumulations fp32; fp32 runs its products in TF32.
+//
+// Tiles: the first of G = 4, 2, 1 pixels (R = G*F rows rounded up to 16)
+// whose layout fits 227 KB with the residual rows in shared memory; if none
+// fits, the residual rows live in the output tensor itself (each block owns
+// its rows; they are read by the LayerNorm and updated by the residual add,
+// never a WMMA operand) and the same G search runs again. At F = 24: bf16
+// C = 320 and 512 take G = 2 (R = 48; 139 and 193 KB), C = 640 G = 1
+// (R = 32; 152 KB); fp32 C = 320 takes G = 1 (R = 32; 166 KB), C = 512 and
+// 640 G = 1 with the residual in the output (R = 32; 173 and 205 KB).
 #include "common.cuh"
 
 namespace lvd {
@@ -27,62 +37,83 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kD = 64;
-constexpr int kLdh = 80;  // bf16 row stride of the per-head q/k/v tiles
 
 struct PairLayout {
-  int R, ldc;
+  int R, ldc, ldh;
+  bool ys_smem;
   size_t ys, lns, os, qs, ks, vs, S, P, scratch, total;
 };
 
-__host__ __device__ inline PairLayout pair_layout(int R, int C) {
+template <typename T>
+__host__ __device__ inline PairLayout pair_layout(int R, int C, bool ys_smem) {
   PairLayout L;
   L.R = R;
-  L.ldc = C + 16;
+  L.ldc = C + kPad<T>;
+  L.ldh = kD + kPad<T>;
+  L.ys_smem = ys_smem;
   size_t off = 0;
   auto take = [&](size_t bytes) {
     size_t at = off;
     off += (bytes + 127) / 128 * 128;
     return at;
   };
-  L.ys = take((size_t)R * L.ldc * 2);
-  L.lns = take((size_t)R * L.ldc * 2);
-  L.os = take((size_t)R * L.ldc * 2);
-  L.qs = take((size_t)R * kLdh * 2);
-  L.ks = take((size_t)R * kLdh * 2);
-  L.vs = take((size_t)R * kLdh * 2);
+  const size_t row_bytes = (size_t)R * L.ldc * sizeof(T);
+  L.ys = ys_smem ? take(row_bytes) : 0;
+  L.lns = take(row_bytes);
+  L.os = take(row_bytes);
+  L.qs = take((size_t)R * L.ldh * sizeof(T));
+  L.ks = take((size_t)R * L.ldh * sizeof(T));
+  L.vs = take((size_t)R * L.ldh * sizeof(T));
   L.S = take((size_t)R * R * 4);
-  L.P = take((size_t)R * R * 2);
+  L.P = take((size_t)R * R * sizeof(T));
   L.scratch = take((size_t)kWarps * 256 * 4);
   L.total = off;
   return L;
 }
 
+template <typename T>
 struct AttnWeights {
-  const float* ln_s;   // (C,) fp32
-  const float* ln_b;   // (C,) fp32
-  const bf16* wqkv;    // (C, 3C): [Wq | Wk | Wv]
-  const bf16* wo;      // (C, C)
-  const float* bo;     // (C,) fp32
+  const float* ln_s;  // (C,) fp32
+  const float* ln_b;  // (C,) fp32
+  const T* wqkv;      // (C, 3C): [Wq | Wk | Wv]
+  const T* wo;        // (C, C)
+  const float* bo;    // (C,) fp32
 };
 
-__device__ void one_attention(const AttnWeights& w, bf16* ys, bf16* lns, bf16* os, bf16* qs,
-                              bf16* ks, bf16* vs, float* S, bf16* P, float* scratch, int R,
-                              int ldc, int C, int H, int F, int valid_rows, float eps,
+// The residual rows of the block: in shared memory (stride ldc) or in the
+// output tensor (row r = g*F + f at f*sF + (p0 + g)*sP).
+template <typename T>
+struct Rows {
+  T* base;
+  int ldc;
+  bool smem;
+  long long sF, sP;
+  int F, p0;
+  __device__ T* row(int r) const {
+    return smem ? base + r * ldc : base + (r % F) * sF + (long long)(p0 + r / F) * sP;
+  }
+};
+
+template <typename T>
+__device__ void one_attention(const AttnWeights<T>& w, const Rows<T>& ys, T* lns, T* os, T* qs,
+                              T* ks, T* vs, float* S, T* P, float* scratch, int R, int ldc,
+                              int ldh, int C, int H, int F, int valid_rows, float eps,
                               float scale_log2e) {
+  using M = Mma<T>;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int RT = R / 16;
 
   // LayerNorm, one warp per row, fp32 statistics (m2 - mean^2).
   for (int r = warp; r < R; r += kWarps) {
-    bf16* dst = lns + r * ldc;
+    T* dst = lns + r * ldc;
     if (r >= valid_rows) {
-      for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.f);
+      for (int c = lane; c < C; c += 32) dst[c] = from_f<T>(0.f);
       continue;
     }
-    const bf16* src = ys + r * ldc;
+    const T* src = ys.row(r);
     float s1 = 0.f, s2 = 0.f;
     for (int c = lane; c < C; c += 32) {
-      const float x = __bfloat162float(src[c]);
+      const float x = to_f(src[c]);
       s1 += x;
       s2 += x * x;
     }
@@ -95,8 +126,8 @@ __device__ void one_attention(const AttnWeights& w, bf16* ys, bf16* lns, bf16* o
     const float var = fmaxf(s2 / C - mean * mean, 0.f);
     const float rstd = rsqrtf(var + eps);
     for (int c = lane; c < C; c += 32) {
-      const float x = __bfloat162float(src[c]);
-      dst[c] = __float2bfloat16((x - mean) * rstd * w.ln_s[c] + w.ln_b[c]);
+      const float x = to_f(src[c]);
+      dst[c] = from_f<T>((x - mean) * rstd * w.ln_s[c] + w.ln_b[c]);
     }
   }
   __syncthreads();
@@ -108,33 +139,33 @@ __device__ void one_attention(const AttnWeights& w, bf16* ys, bf16* lns, bf16* o
       const int mat = t / (RT * 4);
       const int rt = (t % (RT * 4)) / 4;
       const int ct = t % 4;
-      const bf16* bcol = w.wqkv + mat * C + h * kD + ct * 16;
-      FragAcc acc;
+      const T* bcol = w.wqkv + mat * C + h * kD + ct * 16;
+      typename M::Acc acc;
       wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < C; kk += 16) {
-        FragA a;
-        FragBRow bm;
-        wmma::load_matrix_sync(a, lns + rt * 16 * ldc + kk, ldc);
-        wmma::load_matrix_sync(bm, bcol + (size_t)kk * 3 * C, 3 * C);
+      for (int kk = 0; kk < C; kk += M::K) {
+        typename M::A a;
+        typename M::BRow bm;
+        load_op(a, lns + rt * 16 * ldc + kk, ldc);
+        load_op(bm, bcol + (size_t)kk * 3 * C, 3 * C);
         wmma::mma_sync(acc, a, bm, acc);
       }
-      bf16* dst = (mat == 0 ? qs : mat == 1 ? ks : vs) + rt * 16 * kLdh + ct * 16;
+      T* dst = (mat == 0 ? qs : mat == 1 ? ks : vs) + rt * 16 * ldh + ct * 16;
       drain_tile(acc, scr, lane,
-                 [&](int r, int c, float val) { dst[r * kLdh + c] = __float2bfloat16(val); });
+                 [&](int r, int c, float val) { dst[r * ldh + c] = from_f<T>(val); });
     }
     __syncthreads();
 
     // Logits for all row pairs of the tile; the softmax keeps each pixel's block.
     for (int t = warp; t < RT * RT; t += kWarps) {
       const int i = t / RT, j = t % RT;
-      FragAcc acc;
+      typename M::Acc acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < kD; kk += 16) {
-        FragA a;
-        FragBCol bm;
-        wmma::load_matrix_sync(a, qs + i * 16 * kLdh + kk, kLdh);
-        wmma::load_matrix_sync(bm, ks + j * 16 * kLdh + kk, kLdh);
+      for (int kk = 0; kk < kD; kk += M::K) {
+        typename M::A a;
+        typename M::BCol bm;
+        load_op(a, qs + i * 16 * ldh + kk, ldh);
+        load_op(bm, ks + j * 16 * ldh + kk, ldh);
         wmma::mma_sync(acc, a, bm, acc);
       }
       wmma::store_matrix_sync(S + i * 16 * R + j * 16, acc, R, wmma::mem_row_major);
@@ -142,8 +173,8 @@ __device__ void one_attention(const AttnWeights& w, bf16* ys, bf16* lns, bf16* o
     __syncthreads();
 
     for (int r = tid; r < R; r += kThreads) {
-      bf16* prow = P + r * R;
-      for (int c = 0; c < R; ++c) prow[c] = __float2bfloat16(0.f);
+      T* prow = P + r * R;
+      for (int c = 0; c < R; ++c) prow[c] = from_f<T>(0.f);
       if (r < valid_rows) {
         const float* srow = S + r * R;
         const int c0 = (r / F) * F;
@@ -153,7 +184,7 @@ __device__ void one_attention(const AttnWeights& w, bf16* ys, bf16* lns, bf16* o
         for (int c = c0; c < c0 + F; ++c) sum += exp2f(srow[c] * scale_log2e - mx);
         const float inv = 1.f / sum;
         for (int c = c0; c < c0 + F; ++c)
-          prow[c] = __float2bfloat16(exp2f(srow[c] * scale_log2e - mx) * inv);
+          prow[c] = from_f<T>(exp2f(srow[c] * scale_log2e - mx) * inv);
       }
     }
     __syncthreads();
@@ -161,59 +192,61 @@ __device__ void one_attention(const AttnWeights& w, bf16* ys, bf16* lns, bf16* o
     // Head output P V, written into its 64 columns of the concatenated output.
     for (int t = warp; t < RT * 4; t += kWarps) {
       const int i = t / 4, j = t % 4;
-      FragAcc acc;
+      typename M::Acc acc;
       wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < R; kk += 16) {
-        FragA a;
-        FragBRow bm;
-        wmma::load_matrix_sync(a, P + i * 16 * R + kk, R);
-        wmma::load_matrix_sync(bm, vs + kk * kLdh + j * 16, kLdh);
+      for (int kk = 0; kk < R; kk += M::K) {
+        typename M::A a;
+        typename M::BRow bm;
+        load_op(a, P + i * 16 * R + kk, R);
+        load_op(bm, vs + kk * ldh + j * 16, ldh);
         wmma::mma_sync(acc, a, bm, acc);
       }
-      bf16* dst = os + i * 16 * ldc + h * kD + j * 16;
+      T* dst = os + i * 16 * ldc + h * kD + j * 16;
       drain_tile(acc, scr, lane,
-                 [&](int r, int c, float val) { dst[r * ldc + c] = __float2bfloat16(val); });
+                 [&](int r, int c, float val) { dst[r * ldc + c] = from_f<T>(val); });
     }
     __syncthreads();
   }
 
-  // Output projection + bias, then the residual add, in place in ys.
+  // Output projection + bias, then the residual add on the valid rows.
   const int CT = C / 16;
   for (int t = warp; t < RT * CT; t += kWarps) {
     const int i = t / CT, j = t % CT;
-    FragAcc acc;
+    typename M::Acc acc;
     wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < C; kk += 16) {
-      FragA a;
-      FragBRow bm;
-      wmma::load_matrix_sync(a, os + i * 16 * ldc + kk, ldc);
-      wmma::load_matrix_sync(bm, w.wo + (size_t)kk * C + j * 16, C);
+    for (int kk = 0; kk < C; kk += M::K) {
+      typename M::A a;
+      typename M::BRow bm;
+      load_op(a, os + i * 16 * ldc + kk, ldc);
+      load_op(bm, w.wo + (size_t)kk * C + j * 16, C);
       wmma::mma_sync(acc, a, bm, acc);
     }
-    bf16* dst = ys + i * 16 * ldc + j * 16;
     const float* bias = w.bo + j * 16;
     drain_tile(acc, scr, lane, [&](int r, int c, float val) {
-      const float attn = bf16_round(val + bias[c]);
-      dst[r * ldc + c] = __float2bfloat16(__bfloat162float(dst[r * ldc + c]) + attn);
+      const int row = i * 16 + r;
+      if (row >= valid_rows) return;
+      T* dst = ys.row(row) + j * 16 + c;
+      const float attn = round_to<T>(val + bias[c]);
+      *dst = from_f<T>(to_f(*dst) + attn);
     });
   }
   __syncthreads();
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-temporal_pair_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, AttnWeights w1,
-                     AttnWeights w2, int F, int P, int C, int H, long long sB, long long sF,
-                     long long sP, int G, int R, float eps, float scale_log2e) {
+temporal_pair_kernel(const T* __restrict__ x, T* __restrict__ out, AttnWeights<T> w1,
+                     AttnWeights<T> w2, int F, int P, int C, int H, long long sB, long long sF,
+                     long long sP, int G, int R, bool ys_smem, float eps, float scale_log2e) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const PairLayout L = pair_layout(R, C);
-  bf16* ys = reinterpret_cast<bf16*>(smem + L.ys);
-  bf16* lns = reinterpret_cast<bf16*>(smem + L.lns);
-  bf16* os = reinterpret_cast<bf16*>(smem + L.os);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.qs);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L.ks);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L.vs);
+  const PairLayout L = pair_layout<T>(R, C, ys_smem);
+  T* lns = reinterpret_cast<T*>(smem + L.lns);
+  T* os = reinterpret_cast<T*>(smem + L.os);
+  T* qs = reinterpret_cast<T*>(smem + L.qs);
+  T* ks = reinterpret_cast<T*>(smem + L.ks);
+  T* vs = reinterpret_cast<T*>(smem + L.vs);
   float* S = reinterpret_cast<float*>(smem + L.S);
-  bf16* Pm = reinterpret_cast<bf16*>(smem + L.P);
+  T* Pm = reinterpret_cast<T*>(smem + L.P);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
 
   const int b = blockIdx.y;
@@ -221,72 +254,95 @@ temporal_pair_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, AttnWei
   const int g_here = min(G, P - p0);
   const int valid_rows = g_here * F;
   const int ldc = L.ldc;
-  const int c8n = C / 8;
+  constexpr int V = kVecN<T>;
+  const int cvn = C / V;
+  const T* xb = x + b * sB;
+  T* ob = out + b * sB;
+  const Rows<T> ys{ys_smem ? reinterpret_cast<T*>(smem + L.ys) : ob, ldc, ys_smem, sF, sP, F, p0};
 
-  // Row r = g*F + f holds frame f of pixel p0 + g.
-  for (int e = threadIdx.x; e < R * c8n; e += kThreads) {
-    const int r = e / c8n, c8 = e % c8n;
+  // Row r = g*F + f holds frame f of pixel p0 + g (padded rows are zero).
+  for (int e = threadIdx.x; e < R * cvn; e += kThreads) {
+    const int r = e / cvn, cv = e % cvn;
+    if (!ys_smem && r >= valid_rows) continue;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r < valid_rows) {
       const int g = r / F, f = r % F;
-      val = *reinterpret_cast<const uint4*>(x + b * sB + f * sF + (p0 + g) * sP + c8 * 8);
+      val = *reinterpret_cast<const uint4*>(xb + f * sF + (p0 + g) * sP + cv * V);
     }
-    *reinterpret_cast<uint4*>(ys + r * ldc + c8 * 8) = val;
+    *reinterpret_cast<uint4*>(ys.row(r) + cv * V) = val;
   }
   __syncthreads();
 
-  one_attention(w1, ys, lns, os, qs, ks, vs, S, Pm, scratch, R, ldc, C, H, F, valid_rows, eps,
-                scale_log2e);
-  one_attention(w2, ys, lns, os, qs, ks, vs, S, Pm, scratch, R, ldc, C, H, F, valid_rows, eps,
-                scale_log2e);
+  one_attention(w1, ys, lns, os, qs, ks, vs, S, Pm, scratch, R, ldc, L.ldh, C, H, F, valid_rows,
+                eps, scale_log2e);
+  one_attention(w2, ys, lns, os, qs, ks, vs, S, Pm, scratch, R, ldc, L.ldh, C, H, F, valid_rows,
+                eps, scale_log2e);
 
-  for (int e = threadIdx.x; e < valid_rows * c8n; e += kThreads) {
-    const int r = e / c8n, c8 = e % c8n;
+  if (!ys_smem) return;  // the rows already live in the output
+  for (int e = threadIdx.x; e < valid_rows * cvn; e += kThreads) {
+    const int r = e / cvn, cv = e % cvn;
     const int g = r / F, f = r % F;
-    *reinterpret_cast<uint4*>(out + b * sB + f * sF + (p0 + g) * sP + c8 * 8) =
-        *reinterpret_cast<const uint4*>(ys + r * ldc + c8 * 8);
+    *reinterpret_cast<uint4*>(ob + f * sF + (p0 + g) * sP + cv * V) =
+        *reinterpret_cast<const uint4*>(ys.row(r) + cv * V);
   }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, void* out, const void* const* wts, int B, int F, int P, int C,
+                   int H, long long sB, long long sF, long long sP, float eps,
+                   cudaStream_t stream) {
+  int G = 0, R = 0;
+  bool ys_smem = true;
+  for (int in_smem = 1; in_smem >= 0 && G == 0; --in_smem) {
+    const int candidates[3] = {4, 2, 1};
+    for (int g : candidates) {
+      const int r = round_up(g * F, 16);
+      if (r <= 128 && pair_layout<T>(r, C, in_smem).total <= (size_t)kMaxSmem) {
+        G = g;
+        R = r;
+        ys_smem = in_smem;
+        break;
+      }
+    }
+  }
+  if (G == 0) return cudaErrorInvalidValue;
+  const int smem = (int)pair_layout<T>(R, C, ys_smem).total;
+  cudaError_t err = set_smem(temporal_pair_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  auto weights = [&](int i) {
+    return AttnWeights<T>{static_cast<const float*>(wts[5 * i]),
+                          static_cast<const float*>(wts[5 * i + 1]),
+                          static_cast<const T*>(wts[5 * i + 2]),
+                          static_cast<const T*>(wts[5 * i + 3]),
+                          static_cast<const float*>(wts[5 * i + 4])};
+  };
+  dim3 grid((P + G - 1) / G, B);
+  const float scale_log2e = (1.0f / sqrtf((float)kD)) * 1.4426950408889634f;
+  temporal_pair_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), weights(0), weights(1), F, P, C, H, sB, sF,
+      sP, G, R, ys_smem, eps, scale_log2e);
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace lvd
 
-// x/out: bf16 with element (b, f, p, c) at b*sB + f*sF + p*sP + c (strides in
-// elements; c contiguous). Per attention i: ln scale/bias (C,) fp32,
-// wqkv (C, 3C) bf16, wo (C, C) bf16, bo (C,) fp32. C = H*64, C % 16 == 0.
+// x/out: (dtype 0 bf16, 1 fp32) with element (b, f, p, c) at b*sB + f*sF +
+// p*sP + c (strides in elements; c contiguous). Per attention i: ln
+// scale/bias (C,) fp32, wqkv (C, 3C) and wo (C, C) in x's type, bo (C,) fp32.
+// C = H*64.
 LVD_EXPORT int lvd_temporal_pair(const void* x, void* out, const void* ln1_s, const void* ln1_b,
                                  const void* wqkv1, const void* wo1, const void* bo1,
                                  const void* ln2_s, const void* ln2_b, const void* wqkv2,
                                  const void* wo2, const void* bo2, int B, int F, int P, int C,
                                  int H, long long sB, long long sF, long long sP, float eps,
-                                 void* stream) {
+                                 int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
-  if (C != H * kD || C % 16 != 0 || F <= 0 || P <= 0) return cudaErrorInvalidValue;
-  int G = 0, R = 0;
-  const int candidates[3] = {4, 2, 1};
-  for (int g : candidates) {
-    const int r = round_up(g * F, 16);
-    if (r <= 128 && pair_layout(r, C).total <= (size_t)kMaxSmem) {
-      G = g;
-      R = r;
-      break;
-    }
-  }
-  if (G == 0) return cudaErrorInvalidValue;
-  const int smem = (int)pair_layout(R, C).total;
-  cudaError_t err = set_smem(temporal_pair_kernel, smem);
-  if (err != cudaSuccess) return err;
-  AttnWeights w1{static_cast<const float*>(ln1_s), static_cast<const float*>(ln1_b),
-                 static_cast<const bf16*>(wqkv1), static_cast<const bf16*>(wo1),
-                 static_cast<const float*>(bo1)};
-  AttnWeights w2{static_cast<const float*>(ln2_s), static_cast<const float*>(ln2_b),
-                 static_cast<const bf16*>(wqkv2), static_cast<const bf16*>(wo2),
-                 static_cast<const float*>(bo2)};
-  dim3 grid((P + G - 1) / G, B);
-  const float scale_log2e = (1.0f / sqrtf((float)kD)) * 1.4426950408889634f;
-  temporal_pair_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), w1, w2, F, P, C, H, sB, sF, sP, G,
-      R, eps, scale_log2e);
-  return cudaGetLastError();
+  if (C != H * kD || F <= 0 || P <= 0) return cudaErrorInvalidValue;
+  const void* wts[10] = {ln1_s, ln1_b, wqkv1, wo1, bo1, ln2_s, ln2_b, wqkv2, wo2, bo2};
+  auto s = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, [&](auto tag) {
+    return launch<decltype(tag)>(x, out, wts, B, F, P, C, H, sB, sF, sP, eps, s);
+  });
 }

@@ -9,7 +9,14 @@ stream. Routing follows lvd_tpu's shape predicates:
   * feed-forward -> kernel C where C <= 640 (geglu_fused.py:370-388);
   * temporal conv -> kernel D at every level (temp_conv_fused.py:268-277),
     with the GroupNorm statistics a stock reduction;
-  * attention -> kernel A at every non-capturing site on the card.
+  * attention -> kernel A at every non-capturing site on the card;
+  * resnet GroupNorm -> SiLU -> 3x3 conv -> kernel I under
+    ``LVD_ENABLE_FUSED_SC=1`` where spatial_conv_fused.supported holds;
+  * q/k/v/out projections of the fused attention path -> kernel H under
+    ``LVD_FUSED_LINEAR=1`` (ops/attention.py).
+The kill switches ``LVD_DISABLE_FUSED_FF`` (ops/basic.feed_forward),
+``LVD_DISABLE_FUSED_TC`` (``_temp_conv``) and ``LVD_DISABLE_FLASH``
+(ops/attention.py) send their sites to stock ops, as in lvd_tpu.
 Where lvd_tpu leaves a shape to XLA (C = 1280), the port runs stock torch.
 Each kernel wrapper is an autograd Function (backward kernels E, F and G, or
 stock ops for D), so the guided energy differentiates through the walk.
@@ -23,6 +30,7 @@ frame-sharded path are not part of this port yet.
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
@@ -30,7 +38,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..config import UNet3DConfig
-from ..ops import temp_conv_fused, temporal_attention
+from ..ops import spatial_conv_fused, temp_conv_fused, temporal_attention
 from ..ops.attention import attention
 from ..ops.basic import (
     conv2d,
@@ -96,6 +104,17 @@ def _temporal_transformer(p, x, num_frames, num_heads, cfg):
 
 
 def _gn_silu_conv(norm_p, conv_p, x, cfg):
+    """GroupNorm -> SiLU -> 3x3 conv; under ``LVD_ENABLE_FUSED_SC=1`` (read
+    per call, as lvd_tpu reads it) the shapes lvd_tpu's predicate routes take
+    kernel I with its prologue, the GroupNorm statistics a stock reduction."""
+    if (os.environ.get("LVD_ENABLE_FUSED_SC") == "1"
+            and tuple(conv_p["w"].shape[:2]) == (3, 3)
+            and spatial_conv_fused.supported(x, conv_p["w"])):
+        a, b = group_norm_coeffs(norm_p, x, cfg.norm_num_groups, cfg.norm_eps)
+        bias = conv_p.get("b")
+        if bias is None:
+            bias = torch.zeros(conv_p["w"].shape[-1], dtype=x.dtype, device=x.device)
+        return spatial_conv_fused.norm_silu_conv2d(x, a, b, conv_p["w"], bias)
     return conv2d(conv_p, silu(group_norm(norm_p, x, cfg.norm_num_groups, cfg.norm_eps)))
 
 
@@ -113,7 +132,7 @@ def _temp_conv(p, x, num_frames, cfg):
     b = n // num_frames
     y4 = x.reshape(b, num_frames, h * w, c)
     identity = y4
-    if temp_conv_fused.supported(y4):
+    if os.environ.get("LVD_DISABLE_FUSED_TC") != "1" and temp_conv_fused.supported(y4):
         for name in ("conv1", "conv2", "conv3", "conv4"):
             blk = p[name]
             a, bc = group_norm_coeffs(blk["norm"], y4, cfg.norm_num_groups, 1e-5)

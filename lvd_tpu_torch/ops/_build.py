@@ -1,10 +1,11 @@
 """Builds the port's CUDA kernels and binds them through ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface; nothing includes PyTorch's headers, so the build takes
-seconds. It runs at first use, into ``lvd_tpu_torch/_build/<hash>/`` (listed
-in ``.gitignore``), keyed by a hash of the sources and flags, and leaves no
-lock file: the library is written under a temporary name and renamed.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links the objects into one shared
+library with a plain C interface; nothing includes PyTorch's headers. It
+runs at first use, into ``lvd_tpu_torch/_build/<hash>/`` (listed in
+``.gitignore``), keyed by a hash of the sources and flags, and leaves no lock
+file: the library is written under a temporary name and renamed.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0.
@@ -30,25 +31,31 @@ LIB_NAME = "liblvd_kernels.so"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
-# C entry points and their argument types (pointers and the stream as void*).
+# C entry points and their argument types (pointers and the stream as void*;
+# the int before the stream is the element type, DTYPE_CODES).
 SIGNATURES = {
-    "lvd_attention_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F, _P],
-    "lvd_geglu": [_P] * 6 + [_I] * 4 + [_P],
-    "lvd_temp_conv": [_P] * 6 + [_I] * 4 + [_P],
-    "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _P],
-    "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F, _P],
-    "lvd_geglu_bwd": [_P] * 6 + [_I] * 4 + [_P],
+    "lvd_attention_packed": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
+    "lvd_geglu": [_P] * 6 + [_I] * 4 + [_I, _P],
+    "lvd_temp_conv": [_P] * 6 + [_I] * 4 + [_I, _P],
+    "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
+    "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
+    "lvd_geglu_bwd": [_P] * 6 + [_I] * 4 + [_I, _P],
+    "lvd_linear": [_P] * 4 + [_I] * 4 + [_I, _P],
+    "lvd_conv3x3": [_P] * 6 + [_I] * 6 + [_I, _P],
 }
 # Entry points that return a byte count instead of a CUDA error code.
-SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 4}
+SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 5}
 
-# Filled by build(): seconds the nvcc call took (None when cached) and its log.
+# The element types the kernels take, by the code their entry points read.
+DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+
+# Filled by build(): seconds the nvcc calls took (None when cached) and their log.
 build_info: dict = {"seconds": None, "log": "", "path": None}
 
 
@@ -85,16 +92,27 @@ def build() -> Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objects = [out_dir / f"{src.stem}.{os.getpid()}.o" for src in sources()]
+    compiles = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources(), objects)]
+    logs = [f"== {src.name}\n{proc.communicate()[0]}" for src, proc in zip(sources(), compiles)]
+    failed = [src.name for src, proc in zip(sources(), compiles) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
+    build_info["log"] = "\n".join(logs)
     (out_dir / "build.log").write_text(build_info["log"])
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"lvd_tpu_torch: nvcc failed ({proc.returncode}):\n{build_info['log']}"
-        )
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"lvd_tpu_torch: nvcc failed on {failed}:\n{build_info['log']}")
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -145,13 +163,23 @@ def params_need_grad(tree) -> bool:
     return isinstance(tree, torch.Tensor) and tree.requires_grad
 
 
+def dtype_code(t: torch.Tensor, name: str) -> int:
+    """The entry points' code for t's type: bf16 or fp32; any other raises."""
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"{name}: the kernels take bf16 or fp32, got {t.dtype}")
+    return code
+
+
 def kernel_input(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
     """Validates a CUDA tensor for a kernel: type, device, contiguity and
-    alignment (the kernels load 16-byte vectors and 32-byte WMMA tiles)."""
+    alignment (the kernels load 16-byte vectors and 32-byte WMMA tiles).
+    ``dtype`` is the type this operand must have (the stream's bf16 or fp32,
+    or fp32 for statistics)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dtype != dtype or dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: expected {dtype} (bf16 or fp32), got {t.dtype}")
     t = t.contiguous()
     if t.data_ptr() % 256:
         t = t.clone()

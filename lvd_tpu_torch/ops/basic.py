@@ -12,6 +12,7 @@ Convolutions hand cuDNN a channels-last view, so no activation is relaid out.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -103,10 +104,12 @@ def geglu(p, x):
 
 def feed_forward(p, x):
     """BasicTransformerBlock FF: GEGLU -> Linear. Routed to the fused GEGLU
-    kernel on the shapes lvd_tpu routes to its Pallas kernel (C <= 640)."""
+    kernel on the shapes lvd_tpu routes to its Pallas kernel (C <= 640),
+    unless ``LVD_DISABLE_FUSED_FF=1`` (read per call, as lvd_tpu reads it)."""
     from . import geglu_fused
 
-    if geglu_fused.supported(p["proj"]["w"], p["out"]["w"], x):
+    if (os.environ.get("LVD_DISABLE_FUSED_FF") != "1"
+            and geglu_fused.supported(p["proj"]["w"], p["out"]["w"], x)):
         return geglu_fused.geglu_mlp(p, x)
     return linear(p["out"], geglu(p["proj"], x))
 

@@ -27,6 +27,7 @@ from . import _build
 GELU_FORM = os.environ.get("LVD_GELU_FORM", "tanh")
 
 MAX_CHANNELS = 640
+BWD_ROWS = 32  # rows per block of kernel G
 
 
 def _unfused(x, w1, b1, w2, b2):
@@ -87,7 +88,7 @@ def geglu_mlp_bwd_plain(p, x, dy):
 
 
 def _kernel_weights(p, x, name):
-    w1, b1, w2, b2 = (_build.kernel_input(t, torch.bfloat16, f"{name} weights")
+    w1, b1, w2, b2 = (_build.kernel_input(t, x.dtype, f"{name} weights")
                       for t in _weights(p, x.dtype))
     c = x.shape[-1]
     inner = w2.shape[0]
@@ -100,12 +101,13 @@ def _launch_forward(p, x):
     """Kernel C on a CUDA tensor."""
     _build.refuse_grad("geglu_mlp", x)
     c = x.shape[-1]
-    rows = _build.kernel_input(x.reshape(-1, c), torch.bfloat16, "geglu_mlp x")
+    code = _build.dtype_code(x, "geglu_mlp")
+    rows = _build.kernel_input(x.reshape(-1, c), x.dtype, "geglu_mlp x")
     w1, b1, w2, b2 = _kernel_weights(p, rows, "geglu_mlp")
     out = torch.empty_like(rows)
     err = _build.lib().lvd_geglu(
         rows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), rows.shape[0], c, w2.shape[0], int(GELU_FORM != "tanh"),
+        out.data_ptr(), rows.shape[0], c, w2.shape[0], int(GELU_FORM != "tanh"), code,
         _build.stream_of(rows))
     _build.check(err, "geglu_mlp")
     geglu_mlp.launches += 1
@@ -118,19 +120,23 @@ def geglu_mlp_bwd(p, x, dy):
         return geglu_mlp_bwd_plain(p, x, dy)
     _build.refuse_grad("geglu_mlp_bwd", x, dy)
     c = x.shape[-1]
-    rows = _build.kernel_input(x.reshape(-1, c), torch.bfloat16, "geglu_mlp_bwd x")
-    drows = _build.kernel_input(dy.reshape(-1, c), torch.bfloat16, "geglu_mlp_bwd dy")
+    code = _build.dtype_code(x, "geglu_mlp_bwd")
+    rows = _build.kernel_input(x.reshape(-1, c), x.dtype, "geglu_mlp_bwd x")
+    drows = _build.kernel_input(dy.reshape(-1, c), x.dtype, "geglu_mlp_bwd dy")
     if drows.shape != rows.shape:
         raise ValueError(f"geglu_mlp_bwd: dy {tuple(dy.shape)} for x {tuple(x.shape)}")
     w1, b1, w2, _ = _kernel_weights(p, rows, "geglu_mlp_bwd")
-    dx = torch.empty_like(rows)
+    n = rows.shape[0]
+    # In fp32 kernel G accumulates dx in the output itself, 32 rows a block.
+    padded = n if x.dtype == torch.bfloat16 else -(-n // BWD_ROWS) * BWD_ROWS
+    dx = torch.empty((padded, c), dtype=x.dtype, device=x.device)
     err = _build.lib().lvd_geglu_bwd(
         rows.data_ptr(), drows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        dx.data_ptr(), rows.shape[0], c, w2.shape[0], int(GELU_FORM != "tanh"),
+        dx.data_ptr(), n, c, w2.shape[0], int(GELU_FORM != "tanh"), code,
         _build.stream_of(rows))
     _build.check(err, "geglu_mlp_bwd")
     geglu_mlp_bwd.launches += 1
-    return dx.reshape(x.shape)
+    return dx[:n].reshape(x.shape)
 
 
 class Geglu(torch.autograd.Function):

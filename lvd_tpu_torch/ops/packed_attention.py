@@ -2,14 +2,16 @@
 plain versions (counterpart of lvd_tpu/ops/pallas_attention.py).
 
 ``attention_packed`` takes q (B, S_q, C) and k, v (B, S_k, C) with
-C = heads * 64 packed, as lvd_tpu's ``attention_packed`` does, and returns
+C = heads * D packed, as lvd_tpu's ``attention_packed`` does, and returns
 (B, S_q, C). It is a ``torch.autograd.Function``: on CUDA tensors the forward
 launches kernel A (csrc/packed_attention.cu, replacing
-``_pallas_attention_heads`` and ``_pallas_attention_shortkey``) and the
-backward kernel E (csrc/packed_attention_bwd.cu, replacing
-``_pallas_attention_bwd`` and ``_pallas_attention_bwd_heads``); on CPU
-tensors both run their plain versions. A raw launch on a tensor that
-requires grad raises (``_build.refuse_grad``).
+``_pallas_attention_heads`` and ``_pallas_attention_shortkey``, and with one
+head ``_pallas_attention``, the public sdpa()'s kernel) and the backward
+kernel E (csrc/packed_attention_bwd.cu, replacing ``_pallas_attention_bwd``
+and ``_pallas_attention_bwd_heads``); on CPU tensors both run their plain
+versions. The kernels take bf16 or fp32 and head dims D of 64 and 128; a
+larger D raises on the card (ROADMAP, open faults). A raw launch on a
+tensor that requires grad raises (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from . import _build
 
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)  # the head dims kernels A and E are built for
 
 
 def _split(t, num_heads):
@@ -74,22 +76,26 @@ def attention_packed_bwd_plain(q, k, v, o, do, scale: float, num_heads: int,
 def _check_shapes(name, q, k, v, num_heads):
     b, s_q, c = q.shape
     s_k = k.shape[1]
-    if c != num_heads * HEAD_DIM or k.shape != (b, s_k, c) or v.shape != k.shape:
+    if c % num_heads or k.shape != (b, s_k, c) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
-                         f"with {num_heads} heads of {HEAD_DIM}")
+                         f"with {num_heads} heads")
+    if c // num_heads not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {c // num_heads}; the kernels are built for "
+                         f"{HEAD_DIMS}")
 
 
 def _launch_forward(q, k, v, scale, num_heads):
     """Kernel A on CUDA tensors."""
     _build.refuse_grad("attention_packed", q, k, v)
-    q, k, v = (_build.kernel_input(t, torch.bfloat16, f"attention_packed {n}")
+    code = _build.dtype_code(q, "attention_packed")
+    q, k, v = (_build.kernel_input(t, q.dtype, f"attention_packed {n}")
                for t, n in ((q, "q"), (k, "k"), (v, "v")))
     _check_shapes("attention_packed", q, k, v, num_heads)
     b, s_q, c = q.shape
     out = torch.empty_like(q)
     err = _build.lib().lvd_attention_packed(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, num_heads, s_q, k.shape[1], c, float(scale), _build.stream_of(q))
+        b, num_heads, s_q, k.shape[1], c, float(scale), code, _build.stream_of(q))
     _build.check(err, "attention_packed")
     attention_packed.launches += 1
     return out
@@ -103,7 +109,8 @@ def attention_packed_bwd(q, k, v, o, do, scale: float, num_heads: int, need_dkdv
         dq, dk, dv = attention_packed_bwd_plain(q, k, v, o, do, scale, num_heads)
         return (dq, dk, dv) if need_dkdv else (dq, None, None)
     _build.refuse_grad("attention_packed_bwd", q, k, v, o, do)
-    q, k, v, o, do = (_build.kernel_input(t, torch.bfloat16, f"attention_packed_bwd {n}")
+    code = _build.dtype_code(q, "attention_packed_bwd")
+    q, k, v, o, do = (_build.kernel_input(t, q.dtype, f"attention_packed_bwd {n}")
                       for t, n in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")))
     _check_shapes("attention_packed_bwd", q, k, v, num_heads)
     if o.shape != q.shape or do.shape != q.shape:
@@ -119,7 +126,7 @@ def attention_packed_bwd(q, k, v, o, do, scale: float, num_heads: int, need_dkdv
     err = _build.lib().lvd_attention_packed_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         dq.data_ptr(), ptr(dk), ptr(dv), stats[0].data_ptr(), stats[1].data_ptr(),
-        b, num_heads, s_q, s_k, c, float(scale), _build.stream_of(q))
+        b, num_heads, s_q, s_k, c, float(scale), code, _build.stream_of(q))
     _build.check(err, "attention_packed_bwd")
     attention_packed_bwd.launches += 1
     return dq, dk, dv

@@ -50,11 +50,12 @@ def _launch_forward(x, a, b, w, bias):
     """Kernel D on CUDA tensors; w is (3, C, C) in x's type."""
     _build.refuse_grad("norm_silu_temporal_conv", x, a, b, w, bias)
     c = x.shape[-1]
-    x = _build.kernel_input(x, torch.bfloat16, "norm_silu_temporal_conv x")
+    code = _build.dtype_code(x, "norm_silu_temporal_conv")
+    x = _build.kernel_input(x, x.dtype, "norm_silu_temporal_conv x")
     a = _build.kernel_input(a, torch.float32, "norm_silu_temporal_conv a")
     b = _build.kernel_input(b, torch.float32, "norm_silu_temporal_conv b")
-    w = _build.kernel_input(w, torch.bfloat16, "norm_silu_temporal_conv w")
-    bias = _build.kernel_input(bias, torch.bfloat16, "norm_silu_temporal_conv bias")
+    w = _build.kernel_input(w, x.dtype, "norm_silu_temporal_conv w")
+    bias = _build.kernel_input(bias, x.dtype, "norm_silu_temporal_conv bias")
     bsz, f, p, _ = x.shape
     if w.shape != (3, c, c) or a.shape != (bsz, c) or b.shape != (bsz, c):
         raise ValueError(
@@ -62,7 +63,7 @@ def _launch_forward(x, a, b, w, bias):
     out = torch.empty_like(x)
     err = _build.lib().lvd_temp_conv(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), bsz, f, p, c, _build.stream_of(x))
+        out.data_ptr(), bsz, f, p, c, code, _build.stream_of(x))
     _build.check(err, "norm_silu_temporal_conv")
     norm_silu_temporal_conv.launches += 1
     return out

@@ -73,12 +73,19 @@ def supported(y, num_heads: int) -> bool:
     return c // num_heads == HEAD_DIM and c <= MAX_CHANNELS
 
 
-def _attn_weights(pa, ln):
+def _attn_weights(pa, ln, dtype):
+    """One attention's kernel operands: LayerNorm and output bias fp32, the
+    fused (C, 3C) qkv and (C, C) output weights in the stream's type."""
     f32 = lambda t: t.float().contiguous()
-    bf = lambda t: t.to(torch.bfloat16).contiguous()
+    cast = lambda t: t.to(dtype).contiguous()
     wqkv = torch.cat([pa["to_q"]["w"], pa["to_k"]["w"], pa["to_v"]["w"]], dim=1)
-    return [f32(ln["scale"]), f32(ln["bias"]), bf(wqkv), bf(pa["to_out"]["w"]),
+    return [f32(ln["scale"]), f32(ln["bias"]), cast(wqkv), cast(pa["to_out"]["w"]),
             f32(pa["to_out"]["b"])]
+
+
+def _pair_weights(p, dtype):
+    return _attn_weights(p["attn1"], p["norm1"], dtype) + _attn_weights(p["attn2"], p["norm2"],
+                                                                        dtype)
 
 
 def temporal_attention_pair_plain(p, y, num_heads: int, eps: float = 1e-5,
@@ -161,15 +168,16 @@ def _layout(y, frames_major):
 def _launch_forward(p, y, num_heads, eps, frames_major):
     """Kernel B on a CUDA tensor."""
     _build.refuse_grad("temporal_attention_pair", y)
-    y = _build.kernel_input(y, torch.bfloat16, "temporal_attention_pair y")
+    code = _build.dtype_code(y, "temporal_attention_pair")
+    y = _build.kernel_input(y, y.dtype, "temporal_attention_pair y")
     (b, f, pdim, c), strides = _layout(y, frames_major)
     if c != num_heads * HEAD_DIM:
         raise ValueError(f"temporal_attention_pair: C={c} is not {num_heads} heads of {HEAD_DIM}")
-    weights = _attn_weights(p["attn1"], p["norm1"]) + _attn_weights(p["attn2"], p["norm2"])
+    weights = _pair_weights(p, y.dtype)
     out = torch.empty_like(y)
     err = _build.lib().lvd_temporal_pair(
         y.data_ptr(), out.data_ptr(), *[w.data_ptr() for w in weights],
-        b, f, pdim, c, num_heads, *strides, float(eps), _build.stream_of(y))
+        b, f, pdim, c, num_heads, *strides, float(eps), code, _build.stream_of(y))
     _build.check(err, "temporal_attention_pair")
     temporal_attention_pair.launches += 1
     return out
@@ -181,22 +189,24 @@ def temporal_attention_pair_bwd(p, y, dy, num_heads: int, eps: float = 1e-5,
     if y.device.type == "cpu":
         return temporal_attention_pair_bwd_plain(p, y, dy, num_heads, eps, frames_major)
     _build.refuse_grad("temporal_attention_pair_bwd", y, dy)
-    y = _build.kernel_input(y, torch.bfloat16, "temporal_attention_pair_bwd y")
-    dy = _build.kernel_input(dy, torch.bfloat16, "temporal_attention_pair_bwd dy")
+    code = _build.dtype_code(y, "temporal_attention_pair_bwd")
+    y = _build.kernel_input(y, y.dtype, "temporal_attention_pair_bwd y")
+    dy = _build.kernel_input(dy, y.dtype, "temporal_attention_pair_bwd dy")
     (b, f, pdim, c), strides = _layout(y, frames_major)
     if c != num_heads * HEAD_DIM or dy.shape != y.shape:
         raise ValueError(f"temporal_attention_pair_bwd: y {tuple(y.shape)}, dy "
                          f"{tuple(dy.shape)} with {num_heads} heads of {HEAD_DIM}")
-    weights = _attn_weights(p["attn1"], p["norm1"]) + _attn_weights(p["attn2"], p["norm2"])
+    weights = _pair_weights(p, y.dtype)
     lib = _build.lib()
-    ws_bytes = lib.lvd_temporal_pair_bwd_workspace(b, f, pdim, c)
+    ws_bytes = lib.lvd_temporal_pair_bwd_workspace(b, f, pdim, c, code)
     if ws_bytes < 0:
         raise ValueError(f"temporal_attention_pair_bwd: unsupported shape {tuple(y.shape)}")
     ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=y.device)
     out = torch.empty_like(y)
     err = lib.lvd_temporal_pair_bwd(
         y.data_ptr(), dy.data_ptr(), out.data_ptr(), *[w.data_ptr() for w in weights],
-        ws.data_ptr(), b, f, pdim, c, num_heads, *strides, float(eps), _build.stream_of(y))
+        ws.data_ptr(), b, f, pdim, c, num_heads, *strides, float(eps), code,
+        _build.stream_of(y))
     _build.check(err, "temporal_attention_pair_bwd")
     temporal_attention_pair_bwd.launches += 1
     return out

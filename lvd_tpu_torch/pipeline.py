@@ -41,9 +41,10 @@ class PipelineModels:
 
 
 class TextToVideoPipeline:
-    def __init__(self, models: PipelineModels, dtype=torch.bfloat16, device=None):
+    def __init__(self, models: PipelineModels, dtype=torch.float32, device=None):
         """Runs on the card unless ``device="cpu"`` is asked for; the params
-        are cast to ``dtype`` and moved to the device once."""
+        are cast to ``dtype`` (fp32 by default, as lvd_tpu's pipeline) and
+        moved to the device once."""
         self.device = resolve_device(device)
         self.m = models
         self.preset = models.preset

@@ -39,21 +39,104 @@ def test_attention_kernel_matches_plain(cuda, s_q, s_k, c):
     assert _rel(out, ref) <= 2e-2
 
 
-def test_kernels_refuse_fp32(cuda):
+def test_kernels_take_fp32(cuda):
+    """fp32 goes through the kernels (no plain path on the card), within
+    the fp32 gate and closer to the fp32 plain version than bf16 gets."""
+    from lvd_tpu_torch.ops import _build
     from lvd_tpu_torch.ops import packed_attention as pa
     from lvd_tpu_torch.ops.attention import attention
     from lvd_tpu_torch.ops.basic import feed_forward
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
 
-    q = torch.randn(1, 64, 128, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 300, 128, generator=g, device=cuda) for _ in range(3))
+    before = pa.attention_packed.launches
+    out = pa.attention_packed(q, k, v, 0.125, 2)
+    low = pa.attention_packed(q.bfloat16(), k.bfloat16(), v.bfloat16(), 0.125, 2)
+    with exact_fp32():
+        ref = pa.attention_packed_plain(q, k, v, 0.125, 2)
+    assert pa.attention_packed.launches == before + 2 and out.dtype == torch.float32
+    assert _rel(out, ref) <= FP32_TOL and _rel(out, ref) < _rel(low, ref)
+    # The routing takes fp32 to the kernels too.
+    lin = lambda a, b: {"w": torch.randn(a, b, generator=g, device=cuda) * a ** -0.5,
+                        "b": torch.zeros(b, device=cuda)}
+    before = pa.attention_packed.launches
+    attention({n: lin(128, 128) for n in ("to_q", "to_k", "to_v", "to_out")}, q, None, 2)
+    assert pa.attention_packed.launches == before + 1
+    from lvd_tpu_torch.ops import geglu_fused as gf
+
+    before = gf.geglu_mlp.launches
+    x = torch.randn(2048, 128, generator=g, device=cuda)
+    feed_forward({"proj": lin(128, 1024), "out": lin(512, 128)}, x)
+    assert gf.geglu_mlp.launches == before + 1
+    # Any other type raises.
     with pytest.raises(TypeError):
-        pa.attention_packed(q, q, q, 0.125, 2)
-    # The routing takes fp32 to the kernels too: it raises, never runs plain.
-    lin = lambda a, b: {"w": torch.randn(a, b, device=cuda), "b": torch.zeros(b, device=cuda)}
+        pa.attention_packed(q.half(), k.half(), v.half(), 0.125, 2)
     with pytest.raises(TypeError):
-        attention({n: lin(128, 128) for n in ("to_q", "to_k", "to_v", "to_out")}, q, None, 2)
-    x = torch.randn(2048, 128, device=cuda)
-    with pytest.raises(TypeError):
-        feed_forward({"proj": lin(128, 1024), "out": lin(512, 128)}, x)
+        _build.dtype_code(q.double(), "test")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sdpa_long_keys_launch_kernels_a_and_e(cuda, d):
+    from lvd_tpu_torch.ops import packed_attention as pa
+    from lvd_tpu_torch.ops.attention import sdpa
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(2, 3, 300, d, generator=g, device=cuda).bfloat16().requires_grad_(True)
+               for _ in range(3))
+    fwd, bwd = pa.attention_packed.launches, pa.attention_packed_bwd.launches
+    out, probs = sdpa(q, k, v)
+    assert probs is None and pa.attention_packed.launches == fwd + 1
+    ct = torch.randn(out.shape, generator=g, device=cuda)
+    grads = torch.autograd.grad(out.float(), (q, k, v), ct)
+    assert pa.attention_packed_bwd.launches == bwd + 1
+    leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    flat = lambda t: t.reshape(6, 300, d)
+    ref = pa.attention_packed_plain(*(flat(t) for t in leaves), d ** -0.5, 1).reshape(out.shape)
+    assert _rel(out, ref) <= 2e-2
+    for got, want in zip(grads, torch.autograd.grad(ref, leaves, ct)):
+        assert _rel(got, want) <= 2e-2
+    # A head dim the kernels are not built for raises; it never runs a plain version.
+    wide = torch.randn(1, 1, 300, 192, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        sdpa(wide, wide, wide)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rows_12_13_14_match_plain(cuda, dtype):
+    """Kernel I with and without its prologue (ragged H*W, a W that is not a
+    power of 2) and kernel H with and without the transposed weight."""
+    from lvd_tpu_torch.ops import conv3x3 as c3
+    from lvd_tpu_torch.ops import linear_fused as lf
+    from lvd_tpu_torch.ops import spatial_conv_fused as scf
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
+    g = torch.Generator(device=cuda).manual_seed(8)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=cuda) * scale
+    x, a, b = r(3, 5, 9, 136), 1 + r(3, 136, scale=0.1), r(3, 136, scale=0.1)
+    w, bias = r(3, 3, 136, 72, scale=(9 * 136) ** -0.5), r(72, scale=0.1)
+    before = scf.norm_silu_conv2d.launches
+    out = scf.norm_silu_conv2d(x.to(dtype), a, b, w.to(dtype), bias.to(dtype))
+    assert scf.norm_silu_conv2d.launches == before + 1
+    with exact_fp32():
+        ref = scf.norm_silu_conv2d_plain(x, a, b, w, bias)
+    assert _rel(out, ref) <= tol
+    x, w = r(2, 8, 12, 128), r(3, 3, 128, 64, scale=(9 * 128) ** -0.5)
+    before = c3.conv3x3.launches
+    out = c3.conv3x3(x.to(dtype), w.to(dtype))
+    assert c3.conv3x3.launches == before + 1
+    with exact_fp32():
+        assert _rel(out, c3.conv3x3_plain(x, w)) <= tol
+    x, w, bias = r(77 * 3, 256), r(256, 384, scale=256 ** -0.5), r(384, scale=0.1)
+    before = lf.linear_rows.launches
+    out = lf.linear_rows(x.to(dtype), w.to(dtype), bias.to(dtype))
+    dx = lf.linear_rows(out, w.to(dtype), None, trans_w=True)
+    assert lf.linear_rows.launches == before + 2
+    with exact_fp32():
+        ref = lf.linear_plain(x, w, bias)
+        assert _rel(out, ref) <= tol
+        assert _rel(dx, lf.linear_plain(out.float(), w.transpose(0, 1))) <= tol
 
 
 def test_selfcheck_passes(cuda):

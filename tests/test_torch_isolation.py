@@ -73,8 +73,8 @@ def test_entry_points_raise_without_card(monkeypatch):
 
 
 def _wrapper_calls():
-    from lvd_tpu_torch.ops import geglu_fused, packed_attention, temp_conv_fused
-    from lvd_tpu_torch.ops import temporal_attention
+    from lvd_tpu_torch.ops import conv3x3, geglu_fused, linear_fused, packed_attention
+    from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
 
     g = torch.Generator().manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=g)
@@ -98,11 +98,19 @@ def _wrapper_calls():
                                     lambda: temp_conv_fused.norm_silu_temporal_conv(
                                         y, torch.ones(1, c), torch.zeros(1, c),
                                         r(3, 1, 1, c, c) * 0.05, torch.zeros(c))),
+        "linear": (linear_fused.linear_rows,
+                   lambda: linear_fused.linear({"w": r(c, c) * 0.1}, r(2, 5, c))),
+        "norm_silu_conv2d": (spatial_conv_fused.norm_silu_conv2d,
+                             lambda: spatial_conv_fused.norm_silu_conv2d(
+                                 r(2, 5, 9, 16), torch.ones(2, 16), torch.zeros(2, 16),
+                                 r(3, 3, 16, 8) * 0.1, torch.zeros(8))),
+        "conv3x3": (conv3x3.conv3x3, lambda: conv3x3.conv3x3(r(2, 8, 8, 64), r(3, 3, 64, 64) * 0.05)),
     }
 
 
 @pytest.mark.parametrize("name", ["attention_packed", "temporal_attention_pair", "geglu_mlp",
-                                  "norm_silu_temporal_conv"])
+                                  "norm_silu_temporal_conv", "linear", "norm_silu_conv2d",
+                                  "conv3x3"])
 def test_wrapper_takes_plain_path_on_cpu_without_counting(name, monkeypatch):
     from lvd_tpu_torch.ops import _build
 
@@ -122,10 +130,16 @@ def test_routing_predicates_ignore_dtype(dtype):
     """The UNet routes by shape alone, as lvd_tpu does: off the CPU (here the
     meta device) an fp32 tensor reaches the kernel wrapper, which raises on
     the card, instead of a plain path."""
-    from lvd_tpu_torch.ops import geglu_fused, temp_conv_fused, temporal_attention
+    from lvd_tpu_torch.ops import geglu_fused, linear_fused, spatial_conv_fused
+    from lvd_tpu_torch.ops import temp_conv_fused, temporal_attention
 
     y = torch.zeros(1, 24, 8, 320, dtype=dtype, device="meta")
     assert temporal_attention.supported(y, 5)
     assert temp_conv_fused.supported(y)
     x = torch.zeros(2048, 320, dtype=dtype, device="meta")
     assert geglu_fused.supported(torch.zeros(320, 2560), torch.zeros(1280, 320), x)
+    # The opt-in kernels' predicates weigh the type as lvd_tpu's do, by itemsize.
+    assert spatial_conv_fused.supported(torch.zeros(48, 20, 36, 640, dtype=dtype, device="meta"),
+                                        torch.zeros(3, 3, 640, 640, device="meta"))
+    assert linear_fused.supported(torch.zeros(640, 640, device="meta"),
+                                  torch.zeros(8, 640, dtype=dtype, device="meta"))
