@@ -17,7 +17,8 @@ Phases, each fatal on failure:
                CFG forward's shapes, H (projections, row 14) at the q/k/v/out
                and text k/v shapes, the backwards E-G at the guided energy
                walk's, and the public entry points sdpa() (A and E with one
-               head, row 1) and conv3x3() (I without prologue, row 13);
+               head, row 1, D = 64 to 256), conv3x3() (I without prologue,
+               row 13) and geglu_mlp() where it streams (J, row 9);
   4. reference - one full-width CFG UNet forward through the kernels (bf16)
                against the plain path (fp32) on the same inputs, with weights
                whose attention/FF/temporal-conv branches are not zero-init,
@@ -53,9 +54,15 @@ Phases, each fatal on failure:
  10. fp32    - one full-width CFG UNet forward in TextToVideoPipeline's
                default type (fp32) through the kernels against the plain
                path in fp32, TF32 off on both;
- 11. entry points - the public sdpa() (forward and backward) and conv3x3()
-               at L0 shapes, counts zeroed just before and read just after:
-               kernels A, E and I must have run;
+ 11. entry points - the public sdpa() (forward and backward) at D = 64
+               (L0 shape), 192 and 256 (the D-sliced A and E), conv3x3() at
+               L0, and geglu_mlp() with the seeded UNet's feed-forward
+               weights where lvd_tpu streams them (C = 1280 block at
+               (8640, 1280) in bf16, C = 640 block at (34560, 640) in fp32),
+               forward and dx through autograd, each against its plain
+               version on fp32 copies; counts zeroed just before and read
+               just after: kernels A, E, I and J (twice) must have run, and
+               G must not (lvd_tpu's dx there is the stock VJP);
  12. profile - one CFG UNet forward and one guided update under
                torch.profiler: device time per kernel and for the stock ops,
                and the device's idle share.
@@ -346,7 +353,7 @@ def gradient_phase(torch, models):
 
 
 def wrappers():
-    """Every kernel wrapper, A-I, by kernel name (sdpa() counts on A's)."""
+    """Every kernel wrapper, A-J, by kernel name (sdpa() counts on A's)."""
     from lvd_tpu_torch.ops import conv3x3, geglu_fused, linear_fused, packed_attention
     from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
 
@@ -361,6 +368,7 @@ def wrappers():
         "linear": linear_fused.linear_rows,
         "norm_silu_conv2d": spatial_conv_fused.norm_silu_conv2d,
         "conv3x3": conv3x3.conv3x3,
+        "geglu_stream": geglu_fused.geglu_stream,
     }
 
 
@@ -476,6 +484,7 @@ KERNEL_SYMBOLS = {  # substrings of the kernels' device symbols
     "geglu_mlp_bwd": "geglu_bwd_kernel",
     "linear": "linear_kernel",
     "conv3x3 (kernel I)": "conv3x3_kernel",
+    "geglu_stream": "geglu_stream_kernel",
 }
 
 
@@ -626,46 +635,84 @@ def fp32_phase(torch, models):
     return rel
 
 
-def entry_point_phase(torch):
+def _ff_of(params, level):
+    """The feed-forward params of the first transformer block of down block
+    ``level`` (1: C = 640, 2: C = 1280)."""
+    return params["down_blocks"][level]["layers"][0]["attn"]["blocks"][0]["ff"]
+
+
+ENTRY_SDPA = [(48, 5, 2880, 64), (8, 4, 1024, 192), (8, 4, 1024, 256)]  # (B, H, S, D)
+
+
+def entry_point_phase(torch, models):
     """The public sdpa() (long keys: kernel A forward, E backward, one head)
-    and conv3x3() (kernel I without prologue) at L0 shapes, in bf16, held to
-    their plain versions on fp32 copies."""
-    from lvd_tpu_torch.ops import attention, conv3x3, packed_attention
-    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+    at D = 64, 192 and 256, conv3x3() (kernel I without prologue) at L0, and
+    geglu_mlp() (kernel J forward, the stock VJP for dx) with the seeded
+    UNet's feed-forward weights, each held to its plain version on fp32
+    copies: 2e-2 in bf16, the fp32 gate in fp32."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import attention, conv3x3, geglu_fused, packed_attention
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    b, h, s, d = 48, 5, 2880, 64
-    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
-               .requires_grad_(True) for _ in range(3))
-    do = torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
-    x = torch.randn((48, 40, 72, 320), generator=gen, device="cuda").bfloat16()
+    randn = lambda shape, dt: torch.randn(shape, generator=gen, device="cuda").to(dt)
+    sdpa_in = [tuple(randn(shape, torch.bfloat16).requires_grad_(True) for _ in range(3))
+               + (randn(shape, torch.bfloat16),) for shape in ENTRY_SDPA]
+    x = randn((48, 40, 72, 320), torch.bfloat16)
     w = (torch.randn((3, 3, 320, 320), generator=gen, device="cuda") * 2880 ** -0.5).bfloat16()
+    ff_in = [(_ff_of(models.unet_params, 2), randn((8640, 1280), torch.bfloat16)),
+             (cast_tree(_ff_of(models.unet_params, 1), torch.float32),
+              randn((34560, 640), torch.float32))]
+    ff_in = [(p, xx.requires_grad_(True), randn(xx.shape, xx.dtype)) for p, xx in ff_in]
     zero_launches()
-    with torch.enable_grad():
-        out, _ = attention.sdpa(q, k, v)
-    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    sdpa_out = []
+    for q, k, v, do in sdpa_in:
+        with torch.enable_grad():
+            out, _ = attention.sdpa(q, k, v)
+        sdpa_out.append((out, torch.autograd.grad(out, (q, k, v), do)))
     y = conv3x3.conv3x3(x, w)
+    ff_out = []
+    for p, xx, dy in ff_in:
+        with torch.enable_grad():
+            out = geglu_fused.geglu_mlp(p, xx)
+        ff_out.append((out, torch.autograd.grad(out, xx, dy)[0]))
     torch.cuda.synchronize()
     launches = read_launches()
-    flat = lambda t: t.detach().float().reshape(b * h, s, d)
-    with torch.no_grad(), exact_fp32():
-        ref_o = packed_attention.attention_packed_plain(flat(q), flat(k), flat(v), d ** -0.5, 1)
-        ref_g = packed_attention.attention_packed_bwd_plain(
-            flat(q), flat(k), flat(v), flat(out), flat(do), d ** -0.5, 1)
-        ref_y = conv3x3.conv3x3_plain(x.float(), w.float())
     rel = lambda a, r: ((a.float() - r).abs().max() / r.abs().max()).item()
-    errs = {"sdpa": rel(flat(out), ref_o),
-            "sdpa_bwd": max(rel(flat(g), r) for g, r in zip((dq, dk, dv), ref_g)),
-            "conv3x3": rel(y, ref_y)}
+    errs, tols = {}, {}
+    with exact_fp32():
+        for (q, k, v, do), (out, grads) in zip(sdpa_in, sdpa_out):
+            b, h, s, d = q.shape
+            flat = lambda t: t.detach().float().reshape(b * h, s, d)
+            ref_o = packed_attention.attention_packed_plain(flat(q), flat(k), flat(v),
+                                                            d ** -0.5, 1)
+            ref_g = packed_attention.attention_packed_bwd_plain(
+                flat(q), flat(k), flat(v), flat(out), flat(do), d ** -0.5, 1)
+            errs[f"sdpa_d{d}"] = rel(flat(out), ref_o)
+            errs[f"sdpa_bwd_d{d}"] = max(rel(flat(g), r) for g, r in zip(grads, ref_g))
+        errs["conv3x3"] = rel(y, conv3x3.conv3x3_plain(x.float(), w.float()))
+        for (p, xx, dy), (out, dx) in zip(ff_in, ff_out):
+            leaf = xx.detach().float().requires_grad_(True)
+            with torch.enable_grad():
+                ref = geglu_fused.geglu_stream_plain(cast_tree(p, torch.float32), leaf)
+                (ref_dx,) = torch.autograd.grad(ref, leaf, dy.float())
+            name = f"geglu_mlp_{str(xx.dtype).replace('torch.', '')}"
+            errs[name], errs[name + "_dx"] = rel(out, ref), rel(dx, ref_dx)
+            tols[name] = tols[name + "_dx"] = 2e-2 if xx.dtype == torch.bfloat16 else FP32_TOL
     entry = {"sdpa": launches["attention_packed"], "sdpa_bwd": launches["attention_packed_bwd"],
-             "conv3x3": launches["conv3x3"]}
-    log(f"[entry] sdpa() {tuple(q.shape)} and conv3x3() {tuple(x.shape)} -> {tuple(y.shape)}, "
-        f"bf16 against the plain versions (fp32): {json.dumps(errs)}; launches "
-        f"{json.dumps(entry)}")
-    if min(entry.values()) <= 0:
-        raise SystemExit(f"[entry] kernels never launched by the entry points: {entry}")
-    if max(errs.values()) > 2e-2:
-        raise SystemExit("[entry] an entry point disagrees with its plain version")
+             "conv3x3": launches["conv3x3"], "geglu_stream": launches["geglu_stream"]}
+    log(f"[entry] sdpa() at {ENTRY_SDPA}, conv3x3() {tuple(x.shape)} -> {tuple(y.shape)} "
+        f"(bf16) and geglu_mlp() at (8640, 1280) bf16 and (34560, 640) fp32, against the "
+        f"plain versions (fp32): {json.dumps(errs)}; launches {json.dumps(entry)}, "
+        f"geglu_mlp_bwd {launches['geglu_mlp_bwd']}")
+    want = {"sdpa": len(ENTRY_SDPA), "sdpa_bwd": len(ENTRY_SDPA), "conv3x3": 1,
+            "geglu_stream": len(ff_in)}
+    if entry != want or launches["geglu_mlp_bwd"] != 0:
+        raise SystemExit(f"[entry] launches {entry} and geglu_mlp_bwd "
+                         f"{launches['geglu_mlp_bwd']}, expected {want} and 0")
+    bad = {k: e for k, e in errs.items() if not e <= tols.get(k, 2e-2)}
+    if bad:
+        raise SystemExit(f"[entry] an entry point disagrees with its plain version: {bad}")
     return entry
 
 
@@ -721,7 +768,7 @@ def main() -> int:
     del pipe
     knob_launches = knob_phase(torch)
     fp32_phase(torch, models)
-    entry_launches = entry_point_phase(torch)
+    entry_launches = entry_point_phase(torch, models)
     torch.cuda.empty_cache()
     profile_phase(torch, models)
 

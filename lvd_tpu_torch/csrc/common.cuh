@@ -119,6 +119,14 @@ inline cudaError_t dispatch(int dtype, Fn fn) {
   return cudaErrorInvalidValue;
 }
 
+// The GEGLU gate's GELU in fp32, in the form LVD_GELU_FORM names: the erf
+// form (exact != 0) or the tanh form (kernels C and J).
+__device__ inline float gelu(float g, int exact) {
+  if (exact) return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
+  const float z = 0.7978845608028654f * (g + 0.044715f * g * g * g);
+  return 0.5f * g * (1.f + tanhf(z));
+}
+
 // Stores one accumulator tile to the warp's scratch (256 floats) and hands
 // each lane its share of the values: fn(r, c, value) with r, c in [0, 16).
 template <typename Acc, typename Fn>

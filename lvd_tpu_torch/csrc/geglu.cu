@@ -36,12 +36,6 @@ constexpr int geglu_smem() {
          kBM * (kBI + kPad<T>) * (int)sizeof(T) + kWarps * 256 * 4;
 }
 
-__device__ inline float gelu(float g, int exact) {
-  if (exact) return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
-  const float z = 0.7978845608028654f * (g + 0.044715f * g * g * g);
-  return 0.5f * g * (1.f + tanhf(z));
-}
-
 template <typename T, int NF>
 __global__ void __launch_bounds__(kThreads)
 geglu_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,

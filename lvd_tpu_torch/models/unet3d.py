@@ -6,7 +6,8 @@ Frames fold into the batch for every 2D op ((B, F, H, W, C) ->
 stream. Routing follows lvd_tpu's shape predicates:
   * temporal attention pair -> kernel B where C <= 640 and heads are 64 wide
     (temporal_attention.py:501-513), else the plain pixels-major pair;
-  * feed-forward -> kernel C where C <= 640 (geglu_fused.py:370-388);
+  * feed-forward -> kernel C where its weights stay resident, C <= 640 in
+    bf16 and C <= 320 in fp32 (geglu_fused.py:370-388);
   * temporal conv -> kernel D at every level (temp_conv_fused.py:268-277),
     with the GroupNorm statistics a stock reduction;
   * attention -> kernel A at every non-capturing site on the card;
@@ -17,7 +18,8 @@ stream. Routing follows lvd_tpu's shape predicates:
 The kill switches ``LVD_DISABLE_FUSED_FF`` (ops/basic.feed_forward),
 ``LVD_DISABLE_FUSED_TC`` (``_temp_conv``) and ``LVD_DISABLE_FLASH``
 (ops/attention.py) send their sites to stock ops, as in lvd_tpu.
-Where lvd_tpu leaves a shape to XLA (C = 1280), the port runs stock torch.
+Where lvd_tpu leaves a shape to XLA (C = 1280; C = 640 in fp32), the port
+runs stock torch.
 Each kernel wrapper is an autograd Function (backward kernels E, F and G, or
 stock ops for D), so the guided energy differentiates through the walk.
 

@@ -42,6 +42,7 @@ SIGNATURES = {
     "lvd_attention_packed": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
     "lvd_geglu": [_P] * 6 + [_I] * 4 + [_I, _P],
+    "lvd_geglu_stream": [_P] * 6 + [_I] * 4 + [_I, _P],
     "lvd_temp_conv": [_P] * 6 + [_I] * 4 + [_I, _P],
     "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
     "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
@@ -50,7 +51,12 @@ SIGNATURES = {
     "lvd_conv3x3": [_P] * 6 + [_I] * 6 + [_I, _P],
 }
 # Entry points that return a byte count instead of a CUDA error code.
-SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 5}
+SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 5,
+                "lvd_geglu_stream_smem": [_I] * 2}
+
+# Dynamic shared memory one block may use on sm_90 (227 KB; kMaxSmem in
+# csrc/common.cuh), against which a size query's answer is checked.
+MAX_SMEM = 232448
 
 # The element types the kernels take, by the code their entry points read.
 DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}

@@ -61,8 +61,8 @@ def attention_bh(q, k, v, scale: float):
     """Attention on (B, H, S, D) tensors (lvd_tpu's ``attention_bh``): the
     contiguous (B*H, S, D) view is kernel A's packed layout with one head,
     so no relayout. On the card, bf16 or fp32 with D % 64 == 0 take kernels
-    A and E (D of 64 and 128; a larger D raises); other shapes take lvd_tpu's
-    chunked route. On the CPU, the kernels' plain versions."""
+    A and E (lvd_tpu's row-1 predicate); other shapes take lvd_tpu's chunked
+    route. On the CPU, the kernels' plain versions."""
     b, h, s_q, d = q.shape
     flat = lambda t: t.reshape(b * h, t.shape[2], d)
     if q.is_cuda and not (d % 64 == 0 and q.dtype in (torch.bfloat16, torch.float32)):

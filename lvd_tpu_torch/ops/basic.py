@@ -104,8 +104,9 @@ def geglu(p, x):
 
 def feed_forward(p, x):
     """BasicTransformerBlock FF: GEGLU -> Linear. Routed to the fused GEGLU
-    kernel on the shapes lvd_tpu routes to its Pallas kernel (C <= 640),
-    unless ``LVD_DISABLE_FUSED_FF=1`` (read per call, as lvd_tpu reads it)."""
+    on the shapes lvd_tpu routes to its Pallas kernel (resident weights:
+    C <= 640 in bf16, C <= 320 in fp32), unless ``LVD_DISABLE_FUSED_FF=1``
+    (read per call, as lvd_tpu reads it)."""
     from . import geglu_fused
 
     if (os.environ.get("LVD_DISABLE_FUSED_FF") != "1"

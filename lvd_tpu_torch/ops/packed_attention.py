@@ -9,9 +9,10 @@ launches kernel A (csrc/packed_attention.cu, replacing
 head ``_pallas_attention``, the public sdpa()'s kernel) and the backward
 kernel E (csrc/packed_attention_bwd.cu, replacing ``_pallas_attention_bwd``
 and ``_pallas_attention_bwd_heads``); on CPU tensors both run their plain
-versions. The kernels take bf16 or fp32 and head dims D of 64 and 128; a
-larger D raises on the card (ROADMAP, open faults). A raw launch on a
-tensor that requires grad raises (``_build.refuse_grad``).
+versions. The kernels take bf16 or fp32 and any head dim D % 64 == 0, as
+lvd_tpu's predicates do (D of 64 and 128 in their own instantiations, every
+other D in a D-sliced form). A raw launch on a tensor that requires grad
+raises (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -19,9 +20,6 @@ from __future__ import annotations
 import torch
 
 from . import _build
-
-HEAD_DIMS = (64, 128)  # the head dims kernels A and E are built for
-
 
 def _split(t, num_heads):
     b, s, c = t.shape
@@ -79,9 +77,8 @@ def _check_shapes(name, q, k, v, num_heads):
     if c % num_heads or k.shape != (b, s_k, c) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          f"with {num_heads} heads")
-    if c // num_heads not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {c // num_heads}; the kernels are built for "
-                         f"{HEAD_DIMS}")
+    if (c // num_heads) % 64:
+        raise ValueError(f"{name}: head dim {c // num_heads}; the kernels take D % 64 == 0")
 
 
 def _launch_forward(q, k, v, scale, num_heads):

@@ -12,8 +12,11 @@ text k/v shapes, with the dx call of their backward; the backwards E-G at
 the shapes of the guided energy walk (the cond-only UNet walk of batch 24
 down to the last captured site). The public entry points conv3x3() (kernel
 I without prologue, row 13) and sdpa() (kernel A with one head, row 1, and
-E in its backward) run at L0-sized shapes. A backward is checked on each of
-its outputs (dq, dk and dv for E; dq alone where the walk asks for no
+E in its backward; D = 192 and 256 in their D-sliced form) run at L0-sized
+shapes; kernel J (row 9), which the public geglu_mlp() runs where lvd_tpu's
+``_fused_rows`` streams its weights, at the feed-forward shapes of that
+branch (C = 1280 in bf16; C = 640 and 1280 in fp32). A backward is checked on
+each of its outputs (dq, dk and dv for E; dq alone where the walk asks for no
 dk/dv, at the text cross-attention).
 
 Each kernel also runs in fp32 at its largest path shape, against the plain
@@ -72,7 +75,13 @@ LINEAR_SHAPES = [(34560, 640, 640), (8640, 1280, 1280), (3696, 1024, 640),
                  (3696, 1024, 1280)]
 # The public entry points: conv3x3() at the L0 resnet widths, sdpa() (B, H, S, D).
 CONV3X3_SHAPES = [(48, 40, 72, cin, 320) for cin in (320, 640, 960)]
-SDPA_SHAPES = [(48, 5, 2880, 64), (8, 4, 1024, 128)]
+SDPA_SHAPES = [(48, 5, 2880, 64), (8, 4, 1024, 128), (8, 4, 1024, 192), (8, 4, 1024, 256)]
+# Kernel J (rows, C), inner = 4C, where lvd_tpu's _fused_rows streams: in bf16
+# the L2 feed-forward of the CFG forward (2 x 24 x 180 rows), L3, and the L2
+# of the cond-only guided walk; in fp32 (the pipeline's default) L1 and L2.
+# (34560, 640) runs in bf16 too, as the reading its fp32 check must beat.
+GEGLU_STREAM_SHAPES = [(8640, 1280), (2160, 1280), (4320, 1280), (34560, 640)]
+GEGLU_STREAM_FP32_SHAPES = [(34560, 640), (8640, 1280)]
 # The shapes the guided energy walk's backward gives each backward kernel.
 ATTN_BWD_SHAPES = [  # (batch, S_q, S_k, C): self-attention at every level, uncaptured cross
     (24, 2880, 2880, 320), (24, 720, 720, 640), (24, 180, 180, 1280), (24, 45, 45, 1280),
@@ -102,6 +111,8 @@ SOURCES = {  # kernel wrapper -> (CUDA source, the TPU kernels it replaces)
                          "lvd_tpu/ops/spatial_conv_fused.py:110 _fused"),
     "conv3x3": ("lvd_tpu_torch/csrc/conv3x3.cu", "lvd_tpu/ops/conv3x3.py:64 _conv3x3_pallas"),
     "sdpa": ("lvd_tpu_torch/csrc/packed_attention.cu", f"{_A}:109 _pallas_attention"),
+    "geglu_stream": ("lvd_tpu_torch/csrc/geglu_stream.cu",
+                     "lvd_tpu/ops/geglu_fused.py:194 _fused_rows"),
 }
 
 
@@ -245,6 +256,24 @@ def check_geglu(gen, shape, dtype=torch.bfloat16):
     flops = 6.0 * rows * c * inner
     nbytes = x.element_size() * (2 * rows * c + 3 * c * inner + 2 * inner + c)
     return _record("geglu_mlp", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops, nbytes)
+
+
+def check_geglu_stream(gen, shape, dtype=torch.bfloat16):
+    """Kernel J, launched directly (the public geglu_mlp() routes to it
+    wherever lvd_tpu's _fused_rows streams)."""
+    rows, c = shape
+    inner = 4 * c
+    p = _cast({"proj": _linear_p(gen, c, 2 * inner), "out": _linear_p(gen, inner, c)}, dtype)
+    x = _randn(gen, (rows, c)).to(dtype)
+    fn = lambda: geglu_fused.geglu_stream(p, x)
+    out = _launched(geglu_fused.geglu_stream, fn)
+    ref = _ref(geglu_fused.geglu_stream_plain, p, x)
+    ms = time_ms(fn)
+    plain_ms = time_ms(lambda: geglu_fused.geglu_stream_plain(p, x), 1, 2)
+    flops = 6.0 * rows * c * inner
+    nbytes = x.element_size() * (2 * rows * c + 3 * c * inner + 2 * inner + c)
+    return _record("geglu_stream", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops,
+                   nbytes)
 
 
 def check_temp_conv(gen, shape, dtype=torch.bfloat16):
@@ -476,15 +505,17 @@ BF16_PLAN = ([(check_attention, s) for s in ATTN_SHAPES]
              + [(check_linear, s) for s in LINEAR_SHAPES]
              + [(check_spatial_conv, s) for s in SCONV_SHAPES]
              + [(check_conv3x3, s) for s in CONV3X3_SHAPES]
-             + [(check_sdpa, s) for s in SDPA_SHAPES])
-# Each kernel in fp32 at its first (largest) path shape, and sdpa() at both
-# head dims.
+             + [(check_sdpa, s) for s in SDPA_SHAPES]
+             + [(check_geglu_stream, s) for s in GEGLU_STREAM_SHAPES])
+# Each kernel in fp32 at its first (largest) path shape, sdpa() at every head
+# dim, and kernel J at its fp32 shapes.
 FP32_PLAN = [(fn, shapes[0]) for fn, shapes in (
     (check_attention, ATTN_SHAPES), (check_pair, PAIR_SHAPES), (check_geglu, GEGLU_SHAPES),
     (check_temp_conv, TCONV_SHAPES), (check_attention_bwd, ATTN_BWD_SHAPES),
     (check_pair_bwd, PAIR_BWD_SHAPES), (check_geglu_bwd, GEGLU_BWD_SHAPES),
     (check_linear, LINEAR_SHAPES), (check_spatial_conv, SCONV_SHAPES),
-    (check_conv3x3, CONV3X3_SHAPES))] + [(check_sdpa, s) for s in SDPA_SHAPES]
+    (check_conv3x3, CONV3X3_SHAPES))] + [(check_sdpa, s) for s in SDPA_SHAPES] + [
+    (check_geglu_stream, s) for s in GEGLU_STREAM_FP32_SHAPES]
 PLAN = ([(fn, s, torch.bfloat16) for fn, s in BF16_PLAN]
         + [(fn, s, torch.float32) for fn, s in FP32_PLAN])
 

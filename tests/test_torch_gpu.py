@@ -76,8 +76,10 @@ def test_kernels_take_fp32(cuda):
         _build.dtype_code(q.double(), "test")
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_sdpa_long_keys_launch_kernels_a_and_e(cuda, d):
+    """D = 64 and 128 run their own instantiations, 192 and 256 the D-sliced
+    form of kernels A and E."""
     from lvd_tpu_torch.ops import packed_attention as pa
     from lvd_tpu_torch.ops.attention import sdpa
 
@@ -96,10 +98,65 @@ def test_sdpa_long_keys_launch_kernels_a_and_e(cuda, d):
     assert _rel(out, ref) <= 2e-2
     for got, want in zip(grads, torch.autograd.grad(ref, leaves, ct)):
         assert _rel(got, want) <= 2e-2
-    # A head dim the kernels are not built for raises; it never runs a plain version.
-    wide = torch.randn(1, 1, 300, 192, device=cuda).bfloat16()
-    with pytest.raises(ValueError, match="head dim"):
-        sdpa(wide, wide, wide)
+
+
+def _ff_params(c, inner, g, cuda):
+    r = lambda *s, scale: torch.randn(*s, generator=g, device=cuda) * scale
+    return {"proj": {"w": r(c, 2 * inner, scale=c ** -0.5), "b": r(2 * inner, scale=0.1)},
+            "out": {"w": r(inner, c, scale=inner ** -0.5), "b": r(c, scale=0.1)}}
+
+
+@pytest.mark.parametrize("form", ["tanh", "exact"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_geglu_stream_kernel_matches_plain(cuda, dtype, form, monkeypatch):
+    """Kernel J at a ragged row count with a C that is not a multiple of 16
+    (masked tails), and at C = 1280, against its plain version; then the
+    public geglu_mlp at C = 1280, which launches J forward and takes the
+    stock VJP for dx, as lvd_tpu does."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    monkeypatch.setattr(gf, "GELU_FORM", form)
+    tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for rows, c, inner in [(300, 136, 512), (70, 1280, 5120)]:
+        p = _ff_params(c, inner, g, cuda)
+        x = torch.randn(rows, c, generator=g, device=cuda)
+        before = gf.geglu_stream.launches
+        out = gf.geglu_stream(cast_tree(p, dtype), x.to(dtype))
+        assert gf.geglu_stream.launches == before + 1 and out.dtype == dtype
+        with exact_fp32():
+            assert _rel(out, gf.geglu_stream_plain(p, x)) <= tol
+    x = torch.randn(2, 35, 1280, generator=g, device=cuda).to(dtype).requires_grad_(True)
+    fwd, bwd = gf.geglu_stream.launches, gf.geglu_mlp_bwd.launches
+    out = gf.geglu_mlp(cast_tree(p, dtype), x)
+    ct = torch.randn(out.shape, generator=g, device=cuda)
+    (dx,) = torch.autograd.grad(out.float(), x, ct)
+    assert gf.geglu_stream.launches == fwd + 1 and gf.geglu_mlp_bwd.launches == bwd
+    leaf = x.detach().float().requires_grad_(True)
+    with exact_fp32():
+        ref = gf.geglu_mlp_plain(p, leaf)
+        (ref_dx,) = torch.autograd.grad(ref, leaf, ct)
+    assert _rel(out, ref) <= tol and _rel(dx, ref_dx) <= tol
+
+
+def test_geglu_resident_width_kernel_g_cannot_take_raises(cuda):
+    """C = 72: lvd_tpu keeps the weights resident forward and backward;
+    kernel C's template does not cover the width, so J runs the forward, and
+    the dx, which lvd_tpu gives its resident kernel, raises with the reason
+    rather than run a plain version."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import geglu_fused as gf
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    p = cast_tree(_ff_params(72, 256, g, cuda), torch.bfloat16)
+    x = torch.randn(64, 72, generator=g, device=cuda).bfloat16().requires_grad_(True)
+    before = gf.geglu_stream.launches
+    out = gf.geglu_mlp(p, x)
+    assert gf.geglu_stream.launches == before + 1
+    with pytest.raises(ValueError, match="kernel G is built for"):
+        out.float().sum().backward()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

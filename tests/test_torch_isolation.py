@@ -94,6 +94,11 @@ def _wrapper_calls():
         "geglu_mlp": (geglu_fused.geglu_mlp,
                       lambda: geglu_fused.geglu_mlp(
                           {"proj": lin(c, 8 * c), "out": lin(4 * c, c)}, r(3, c))),
+        # inner 4352 puts the weights past lvd_tpu's resident budget: kernel J's route.
+        "geglu_stream": (geglu_fused.geglu_stream,
+                         lambda: geglu_fused.geglu_mlp(
+                             {"proj": lin(2 * c, 68 * c), "out": lin(34 * c, 2 * c)},
+                             r(3, 2 * c))),
         "norm_silu_temporal_conv": (temp_conv_fused.norm_silu_temporal_conv,
                                     lambda: temp_conv_fused.norm_silu_temporal_conv(
                                         y, torch.ones(1, c), torch.zeros(1, c),
@@ -109,8 +114,8 @@ def _wrapper_calls():
 
 
 @pytest.mark.parametrize("name", ["attention_packed", "temporal_attention_pair", "geglu_mlp",
-                                  "norm_silu_temporal_conv", "linear", "norm_silu_conv2d",
-                                  "conv3x3"])
+                                  "geglu_stream", "norm_silu_temporal_conv", "linear",
+                                  "norm_silu_conv2d", "conv3x3"])
 def test_wrapper_takes_plain_path_on_cpu_without_counting(name, monkeypatch):
     from lvd_tpu_torch.ops import _build
 
@@ -127,9 +132,10 @@ def test_wrapper_takes_plain_path_on_cpu_without_counting(name, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_routing_predicates_ignore_dtype(dtype):
-    """The UNet routes by shape alone, as lvd_tpu does: off the CPU (here the
-    meta device) an fp32 tensor reaches the kernel wrapper, which raises on
-    the card, instead of a plain path."""
+    """The UNet's predicates do not turn fp32 away from the kernels: off the
+    CPU (here the meta device) an fp32 tensor reaches a kernel wrapper, not a
+    plain path, wherever lvd_tpu's predicate holds; the GEGLU and opt-in
+    predicates weigh the type by its size, as lvd_tpu's do."""
     from lvd_tpu_torch.ops import geglu_fused, linear_fused, spatial_conv_fused
     from lvd_tpu_torch.ops import temp_conv_fused, temporal_attention
 

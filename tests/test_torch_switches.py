@@ -205,11 +205,11 @@ def test_pipeline_default_dtype_matches_lvd_tpu():
     assert default(TPipe) == torch.float32
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_sdpa_long_keys_matches_attention_bh(d):
     """The port's sdpa() with 300 keys (kernel A and E with one head on the
-    card) against lvd_tpu's attention_bh (its _chunked_sdpa on the CPU),
-    forward and gradient."""
+    card; D = 192 and 256 in their D-sliced form) against lvd_tpu's
+    attention_bh (its _chunked_sdpa on the CPU), forward and gradient."""
     rng = np.random.default_rng(5)
     q, k, v, ct = (_normal(rng, (2, 2, 300, d)) for _ in range(4))
     ref, vjp = jax.vjp(lambda a, b, c: j_pa.attention_bh(a, b, c, d ** -0.5),
