@@ -7,7 +7,9 @@ Phases, each fatal on failure:
   1. device  - the card's name and power limit;
   2. build   - nvcc builds lvd_tpu_torch/csrc/*.cu, one process per source,
                all started together, then one link (seconds and the -Xptxas
-               -v register / shared-memory / spill lines);
+               -v register / shared-memory / spill lines, one record of
+               registers and spills per kernel A and E instantiation, and
+               their dynamic shared memory per block);
   3. kernels - every kernel at every shape the Zeroscope path gives it, in
                bf16, against its plain PyTorch version on fp32 copies, and
                each kernel in fp32 at its largest shape against the plain
@@ -140,6 +142,43 @@ def build_phase():
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"[build] {line.strip()}")
+    for rec in ptxas_summary(_build.build_info["log"], ("packed_attention.cu",
+                                                        "packed_attention_bwd.cu")):
+        log(f"[build] ptxas A/E {json.dumps(rec)}")
+    lib = _build.lib()
+    smem = {}
+    for dtype, code in (("bf16", 0), ("fp32", 1)):
+        for d, form in ((64, "D64"), (128, "D128"), (192, "sliced")):
+            smem[f"A {dtype} {form}"] = lib.lvd_attention_packed_smem(d, code)
+            smem[f"E dkdv {dtype} {form}"] = lib.lvd_attention_packed_bwd_smem(d, code, 0)
+            smem[f"E dq {dtype} {form}"] = lib.lvd_attention_packed_bwd_smem(d, code, 1)
+    log(f"[build] A/E dynamic shared memory per block (bytes): {json.dumps(smem)}")
+
+
+def ptxas_summary(build_log, sources):
+    """Registers and spill bytes of every kernel that nvcc -Xptxas -v
+    reported for the given sources, one record per kernel."""
+    import re
+
+    records, source, rec = [], None, None
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+            continue
+        if source not in sources:
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            short = re.search(r"attn_[a-z0-9_]+(I[^E]*E)?", name)  # identifier, template args
+            rec = {"source": source, "kernel": name if short is None else short.group(0)}
+            records.append(rec)
+        elif rec is not None and "spill stores" in line:
+            nums = [int(n) for n in re.findall(r"(\d+) bytes", line)]
+            rec["stack_bytes"], rec["spill_store_bytes"], rec["spill_load_bytes"] = nums[:3]
+        elif rec is not None and "Used" in line and "registers" in line:
+            rec["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return records
 
 
 def kernel_phase():
@@ -257,7 +296,7 @@ def detached_route():
     from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
 
     nothing = lambda n: staticmethod(lambda ctx, *grads: (None,) * n)
-    with _swapped([(packed_attention.PackedAttention, "backward", nothing(5)),
+    with _swapped([(packed_attention.PackedAttention, "backward", nothing(6)),
                    (temporal_attention.TemporalPair, "backward", nothing(5)),
                    (geglu_fused.Geglu, "backward", nothing(2)),
                    (temp_conv_fused.NormSiluTemporalConv, "backward", nothing(5)),

@@ -68,6 +68,17 @@ __device__ inline void load_op(Frag& f, const T* p, unsigned ld) {
   }
 }
 
+// The shared-memory (32-bit) address of a generic pointer into shared memory.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two floats rounded to a bf16 pair, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // Largest dynamic shared memory one block may use on sm_90 (227 KB).
 constexpr int kMaxSmem = 232448;
 

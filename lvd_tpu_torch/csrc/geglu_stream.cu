@@ -33,10 +33,15 @@
 // gated chunk is not rounded).
 // Takes C % 8 == 0 (16-byte vector loads; tails past C are masked) and
 // inner % 128 == 0 (the wrapper asks 256, as lvd_tpu does). Shared memory:
-// the accumulator 16 x (Ca + 8) fp32 with Ca = C rounded up to 128, one
-// staging buffer shared by steps 1 and 3, the gated tile and a per-warp
-// (2, 16, 16) fp32 h/g scratch: 137.5 KB in bf16 and 175.5 KB in fp32 at
-// C = 1280; the widest C that fits is 2688 in bf16 and 1920 in fp32.
+// the accumulator 16 x (Cs + 8) fp32, one staging buffer shared by steps 1
+// and 3, the gated tile and a per-warp (2, 16, 16) fp32 h/g scratch:
+// 137.5 KB in bf16 and 175.5 KB in fp32 at C = 1280. Cs is the output
+// column slice of one block: C rounded up to 128 wherever that fits (every
+// width up to 2688 in bf16 and 2048 in fp32), else the widest multiple of
+// 128 that does, with a second grid dimension over the slices (a separate
+// instantiation, so the one-slice form keeps its code). Each slice's
+// block recomputes the gated chunks over the full C; lvd_tpu streams any
+// width, and this keeps the port's J from refusing one.
 #include "common.cuh"
 
 namespace lvd {
@@ -63,25 +68,37 @@ struct StreamCfg {
   static constexpr int kGatedBytes = kBM * kLdG * (int)sizeof(T);
   static constexpr int kScratchBytes = kWarps * 2 * 256 * 4;
 
-  // Accumulator row stride (floats): C rounded up to the W2 tile, plus 8.
-  __host__ __device__ static int ld_acc(int C) { return round_up(C, kBN) + 8; }
-  __host__ __device__ static int smem(int C) {
-    return kBM * ld_acc(C) * 4 + kStageBytes + kGatedBytes + kScratchBytes;
+  // Accumulator row stride (floats) for an output slice of cs columns (a
+  // multiple of the W2 tile), and the block's shared memory.
+  __host__ __device__ static int ld_acc(int cs) { return cs + 8; }
+  __host__ __device__ static int smem(int cs) {
+    return kBM * ld_acc(cs) * 4 + kStageBytes + kGatedBytes + kScratchBytes;
+  }
+  // The widest output slice (a multiple of kBN, at most C rounded up to kBN)
+  // whose block fits in shared memory.
+  static int slice(int C) {
+    int cs = round_up(C, kBN);
+    while (cs > kBN && smem(cs) > kMaxSmem) cs -= kBN;
+    return cs;
   }
 };
 
-template <typename T>
+// kSliced: a grid over output-column slices of cs columns (blockIdx.y);
+// otherwise one block covers every column (cs unused), the form every
+// width up to 2688 in bf16 and 2048 in fp32 takes.
+template <typename T, bool kSliced>
 __global__ void __launch_bounds__(kThreads)
 geglu_stream_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                     const T* __restrict__ b1, const T* __restrict__ w2,
                     const T* __restrict__ b2, T* __restrict__ out, int R, int C, int I,
-                    int exact) {
+                    int cs, int exact) {
   using M = Mma<T>;
   using Cfg = StreamCfg<T>;
   constexpr int V = kVecN<T>;
   constexpr int kLdX = Cfg::kLdX, kLdW1 = Cfg::kLdW1, kLdW2 = Cfg::kLdW2, kLdG = Cfg::kLdG;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = Cfg::ld_acc(C);
+  const int c_pad = round_up(C, kBN);
+  const int lda = Cfg::ld_acc(kSliced ? cs : c_pad);
   float* acc = reinterpret_cast<float*>(smem);
   unsigned char* stage = smem + kBM * lda * 4;
   T* xs = reinterpret_cast<T*>(stage);
@@ -93,7 +110,9 @@ geglu_stream_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                warp * 512;
   const int r0 = blockIdx.x * kBM;
   const size_t ld1 = 2 * (size_t)I;
-  const int c_pad = round_up(C, kBN);  // accumulator columns
+  // Output columns [n_lo, n_hi) of this block's slice, within C rounded up.
+  const int n_lo = kSliced ? blockIdx.y * cs : 0;
+  const int n_hi = kSliced ? min(n_lo + cs, c_pad) : c_pad;
 
   for (int e = tid; e < kBM * lda; e += kThreads) acc[e] = 0.f;
 
@@ -142,8 +161,8 @@ geglu_stream_kernel(const T* __restrict__ x, const T* __restrict__ w1,
       gated[r * kLdG + c] = from_f<T>(hv * gelu(gv, exact));
     }
 
-    // 3. acc += gated W2[i0:i0+128, :], one 128-column tile at a time.
-    for (int n0 = 0; n0 < c_pad; n0 += kBN) {
+    // 3. acc += gated W2[i0:i0+128, slice], one 128-column tile at a time.
+    for (int n0 = n_lo; n0 < n_hi; n0 += kBN) {
       __syncthreads();  // the gated tile is complete; the stage buffer is free
       for (int e = tid; e < kBI * (kBN / V); e += kThreads) {
         const int r = e / (kBN / V), col = n0 + (e % (kBN / V)) * V;
@@ -152,7 +171,7 @@ geglu_stream_kernel(const T* __restrict__ x, const T* __restrict__ w1,
         *reinterpret_cast<uint4*>(w2s + r * kLdW2 + col - n0) = val;
       }
       __syncthreads();
-      float* tile = acc + n0 + warp * 16;
+      float* tile = acc + (n0 - n_lo) + warp * 16;
       typename M::Acc o;
       wmma::load_matrix_sync(o, tile, lda, wmma::mem_row_major);
 #pragma unroll
@@ -168,26 +187,32 @@ geglu_stream_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
   __syncthreads();
 
-  for (int e = tid; e < kBM * (C / V); e += kThreads) {
-    const int r = e / (C / V), col = (e % (C / V)) * V;
+  // Vectors of the slice's valid columns.
+  const int wv = kSliced ? (min(n_lo + cs, C) - n_lo) / V : C / V;
+  for (int e = tid; e < kBM * wv; e += kThreads) {
+    const int r = e / wv, col = (e % wv) * V;
     if (r0 + r >= R) continue;
     Vec<T> pack;
 #pragma unroll
-    for (int j = 0; j < V; ++j) pack.h[j] = from_f<T>(acc[r * lda + col + j] + to_f(b2[col + j]));
-    *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * C + col) = pack.u;
+    for (int j = 0; j < V; ++j)
+      pack.h[j] = from_f<T>(acc[r * lda + col + j] + to_f(b2[n_lo + col + j]));
+    *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * C + n_lo + col) = pack.u;
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                    void* out, int R, int C, int I, int exact, cudaStream_t stream) {
-  const int smem = StreamCfg<T>::smem(C);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(geglu_stream_kernel<T>, smem);
+  const int cs = StreamCfg<T>::slice(C);
+  const int smem = StreamCfg<T>::smem(cs);
+  const bool sliced = cs < round_up(C, kBN);
+  auto kernel = sliced ? geglu_stream_kernel<T, true> : geglu_stream_kernel<T, false>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  geglu_stream_kernel<T><<<(R + kBM - 1) / kBM, kThreads, smem, stream>>>(
+  const dim3 grid((R + kBM - 1) / kBM, (C + cs - 1) / cs);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), R, C, I,
+      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), R, C, I, cs,
       exact);
   return cudaGetLastError();
 }
@@ -195,16 +220,10 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
 }  // namespace
 }  // namespace lvd
 
-// Bytes of dynamic shared memory kernel J needs at width C (dtype 0 bf16,
-// 1 fp32); more than 232448 cannot launch.
-LVD_EXPORT long long lvd_geglu_stream_smem(int C, int dtype) {
-  using namespace lvd;
-  return dtype == kBF16 ? StreamCfg<bf16>::smem(C) : StreamCfg<float>::smem(C);
-}
-
 // x: (R, C), w1: (C, 2I) = [W1h | W1g], b1: (2I,), w2: (I, C), b2: (C,),
 // out: (R, C); all of one type (dtype 0 bf16, 1 fp32). C % 8 == 0,
-// I % 128 == 0, any R > 0.
+// I % 128 == 0, any R > 0, any C (column slices where C is too wide for
+// one block's accumulator).
 LVD_EXPORT int lvd_geglu_stream(const void* x, const void* w1, const void* b1, const void* w2,
                                 const void* b2, void* out, int R, int C, int I, int exact,
                                 int dtype, void* stream) {

@@ -1,7 +1,8 @@
 // Kernel E: the backward of exact-softmax attention on head-packed
-// (B, S, H*D) tensors, any head dim D % 64 == 0, bf16 or fp32: dq, dk, dv from q, k,
-// v, o and dO. The public sdpa()'s backward (lvd_tpu's `_flash_bwd`, row 3)
-// is this kernel with one head.
+// (B, S, H*D) tensors, any head dim D % 64 == 0, bf16 or fp32: dq, dk, dv
+// from q, k, v, o, dO and the base-2 log-sum-exp that kernel A wrote in the
+// forward. The public sdpa()'s backward (lvd_tpu's `_flash_bwd`, row 3) is
+// this kernel with one head.
 //
 // Replaces lvd_tpu/ops/pallas_attention.py `_pallas_attention_bwd`
 // (`_attn_bwd_kernel`, (BH, S, D) layout) and `_pallas_attention_bwd_heads`
@@ -11,45 +12,50 @@
 // also takes the short-key sites (77 text tokens, 45 and 180 keys), which
 // lvd_tpu recomputed through XLA.
 //
-// Math (per head, as the TPU kernel): P = softmax(Q K^T * scale);
+// Math (per head, as the TPU kernel): P = exp2(S * scale * log2(e) - lse);
 // delta = rowsum(dO * O); dV = P^T dO; dS = P * (dO V^T - delta) * scale;
 // dQ = dS K; dK = dS^T Q. P is rounded to the tensors' type for dV, dS for
-// dQ and dK (no rounding in fp32, whose products run in TF32); every product
-// accumulates in fp32.
+// dQ and dK (fp32 products run in TF32); every product accumulates in fp32.
 //
-// Bound on this card: at the self-attention shapes the five (S, S, 64)
+// Bound on this card: at the self-attention shapes the five (S, S, D)
 // products per head dominate (10 * B * S^2 * C operations), so the backward
 // is tensor-core bound; at the 77-key sites it reads q, o, dO and writes dq
-// once and is bound by memory. Design, three launches on one stream, no
-// atomics:
-//   1. stats: per (batch*head, 64-query tile), the base-2 log-sum-exp of the
-//      scaled logits (online max over 64-key tiles, as kernel A) and delta;
-//      A keeps no softmax statistics, so E recomputes them here.
-//   2. dk/dv: per (batch*head, 64-key tile), four warps of 16 keys walk
-//      every query tile and accumulate dK and dV in registers.
-//   3. dq: per (batch*head, 64-query tile), four warps of 16 queries walk
-//      every key tile and accumulate dQ in registers.
+// once and is bound by memory. The log-sum-exp comes from kernel A, so no
+// launch recomputes the statistics; three launches on one stream, no
+// atomics (deterministic):
+//   1. delta: rowsum(dO * O) per (batch*head, query), a memory-bound pass;
+//   2. dk/dv: per (64-key tile, batch*head), four warps of 16 keys stream
+//      the query tiles (q, dO, lse and delta in a two-stage cp.async ring)
+//      and run S^T, dP^T, dV and dK (4 products);
+//   3. dq: per (64-query tile, batch*head), four warps of 16 queries stream
+//      the 64-key K/V tiles (two-stage cp.async ring) and run S, dP and dQ
+//      (3 products).
+// That is 7 (S_q, S_k, D) products against the math's 5: dq could instead
+// be summed from launch 2 with fp32 atomics (5 products, not reproducible
+// run to run); the separate launch keeps the gradient deterministic.
+// D = 64 and 128 keep every accumulator in registers on mma.sync (m16n8k16
+// bf16, m16n8k8 TF32; csrc/warp_mma.cuh): S^T, dP^T, P^T and dS^T of a warp
+// never leave its registers, and the accumulator tiles feed the next
+// product's A operand directly. Launch 2 streams 64 queries a tile at D = 64
+// and 32 at D = 128, so dK + dV (D floats a thread) and S^T + dP^T (the tile
+// width) stay within the register file without spilling.
 // Heads are read at column offset h*D of the packed rows (no relayout).
-// Shared memory of the three launches (stats / dk-dv / dq): bf16 D=64
-// 38 / 97 / 87 KB; bf16 D=128 54 / 129 / 119 KB; fp32 D=64 54 / 145 /
-// 127 KB; fp32 D=128 86 / 209 / 191 KB. The dq launch reads the warp's q
-// and dO rows from shared memory at every key tile, so D = 128 in TF32
-// does not run out of registers.
 // Ragged query and key tails are masked: a query past S_q gets log-sum-exp
-// +inf (P = 0), a key past S_k gets P = 0. Launch 2 is skipped when the
-// caller needs no dk/dv (cross-attention keys come from the text).
+// +inf (P = 0), a key past S_k gets P = 0 (its rows are zero-filled).
+// Launch 2 is skipped when the caller needs no dk/dv (cross-attention keys
+// come from the text).
 //
 // Head dims other than 64 and 128 (any D % 64 == 0, which lvd_tpu's
-// predicates take) run a D-sliced form of the same three launches. Launch 1
-// sums the logits over D in 64-wide chunks of q and k staged in shared
-// memory. In launches 2 and 3, block z of a tile owns columns [64z, 64z + 64)
-// of dK and dV, or of dQ: for each tile pair it sums S and dP = dO V^T over
-// D in 64-wide chunks (the partial sums kept in the warp's fp32 shared
-// tiles, so registers do not grow), then forms P and dS and multiplies them
-// into its slice of q, dO or k. Shared memory and registers are those of
-// D = 64 plus two (launch 2) or one (launch 3) slice tiles (fp32: 54 / 181 /
-// 145 KB); each of the D/64 blocks recomputes S and dP.
+// predicates take) run a D-sliced form of launches 2 and 3 on WMMA: block z
+// of a tile owns columns [64z, 64z + 64) of dK and dV, or of dQ: for each
+// tile pair it sums S and dP = dO V^T over D in 64-wide chunks (the partial
+// sums kept in the warp's fp32 shared tiles, so registers do not grow),
+// then forms P and dS and multiplies them into its slice of q, dO or k.
+// Shared memory and registers are those of D = 64 plus two (launch 2) or one
+// (launch 3) slice tiles (fp32: 181 / 145 KB); each of the D/64 blocks
+// recomputes S and dP.
 #include "common.cuh"
+#include "warp_mma.cuh"
 
 namespace lvd {
 namespace {
@@ -68,7 +74,6 @@ struct BwdCfg {
   // tile of store_rows.
   static constexpr int kWarpF = (2 * 16 * kLdS > 16 * kLdO) ? 2 * 16 * kLdS : 16 * kLdO;
   static constexpr int kTile = kBT * kLdD * (int)sizeof(T);
-  static constexpr int kStatsSmem = 2 * kTile + kWarps * 16 * kLdS * 4;
   static constexpr int kDkdvSmem =
       4 * kTile + 2 * kBT * 4 + kWarps * (kWarpF * 4 + 2 * 16 * kLdP * (int)sizeof(T));
   static constexpr int kDqSmem =
@@ -111,104 +116,6 @@ __device__ inline void store_rows(const Acc (&acc)[D / 16], float* stage, T* dst
     }
   }
   __syncwarp();
-}
-
-// The running row max and sum of one (16, 64) tile of raw logits S of a
-// warp (base 2, keys past kvalid masked); each row is owned by two lanes.
-__device__ inline void online_stats(const float* S, int kvalid, float scale_log2e, int lane,
-                                    float& m_i, float& l_i) {
-  const int row = lane >> 1, half = lane & 1;
-  const float* srow = S + row * kLdS + half * 32;
-  float mx = -INFINITY;
-  for (int j = 0; j < 32; ++j)
-    if (half * 32 + j < kvalid) mx = fmaxf(mx, srow[j] * scale_log2e);
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  const float m_new = fmaxf(m_i, mx);
-  float sum = 0.f;
-  for (int j = 0; j < 32; ++j)
-    if (half * 32 + j < kvalid) sum += exp2f(srow[j] * scale_log2e - m_new);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  l_i = l_i * exp2f(m_i - m_new) + sum;
-  m_i = m_new;
-  __syncwarp();
-}
-
-// Writes query qr's log-sum-exp and delta = rowsum(dO * O) over its D
-// columns (two lanes a row, D/2 columns each).
-template <typename T>
-__device__ inline void store_stats(const T* o, const T* dout, float* lse, float* delta,
-                                   float m_i, float l_i, int b, int qr, int Sq, int C,
-                                   size_t head, int D, int lane) {
-  constexpr int V = kVecN<T>;
-  const int half = lane & 1;
-  float d = 0.f;
-  if (qr < Sq) {
-    const T* orow = o + ((size_t)b * Sq + qr) * C + head + half * (D / 2);
-    const T* drow = dout + ((size_t)b * Sq + qr) * C + head + half * (D / 2);
-    for (int j = 0; j < D / 2; j += V) {
-      Vec<T> ov, dv;
-      ov.u = *reinterpret_cast<const uint4*>(orow + j);
-      dv.u = *reinterpret_cast<const uint4*>(drow + j);
-#pragma unroll
-      for (int e = 0; e < V; ++e) d += to_f(ov.h[e]) * to_f(dv.h[e]);
-    }
-  }
-  d += __shfl_xor_sync(0xffffffffu, d, 1);
-  if (qr < Sq && half == 0) {
-    const size_t at = (size_t)blockIdx.x * Sq + qr;
-    lse[at] = m_i + log2f(l_i);
-    delta[at] = d;
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ o, const T* __restrict__ dout,
-                      float* __restrict__ lse, float* __restrict__ delta, int H, int Sq, int Sk,
-                      int C, float scale_log2e) {
-  using M = Mma<T>;
-  constexpr int kLdD = BwdCfg<T, D>::kLdD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + kBT * kLdD;
-  float* Sw = reinterpret_cast<float*>(Ks + kBT * kLdD);
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * kBT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t head = (size_t)h * D;
-  load_tile<T, D>(Qs, q + (size_t)b * Sq * C + head, q0, Sq, C);
-  __syncthreads();
-
-  typename M::A qf[D / M::K];
-#pragma unroll
-  for (int kk = 0; kk < D / M::K; ++kk)
-    load_op(qf[kk], Qs + warp * 16 * kLdD + kk * M::K, kLdD);
-  float* S = Sw + warp * 16 * kLdS;
-  float m_i = -INFINITY, l_i = 0.f;
-
-  for (int k0 = 0; k0 < Sk; k0 += kBT) {
-    __syncthreads();
-    load_tile<T, D>(Ks, k + (size_t)b * Sk * C + head, k0, Sk, C);
-    __syncthreads();
-#pragma unroll
-    for (int n = 0; n < kBT / 16; ++n) {
-      typename M::Acc acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / M::K; ++kk) {
-        typename M::BCol kf;
-        load_op(kf, Ks + n * 16 * kLdD + kk * M::K, kLdD);
-        wmma::mma_sync(acc, qf[kk], kf, acc);
-      }
-      wmma::store_matrix_sync(S + n * 16, acc, kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    online_stats(S, min(kBT, Sk - k0), scale_log2e, lane, m_i, l_i);
-  }
-  store_stats(o, dout, lse, delta, m_i, l_i, b, q0 + warp * 16 + (lane >> 1), Sq, C, head, D,
-              lane);
 }
 
 // Loads the per-row statistics of query tile q0: rows past Sq get lse = +inf
@@ -260,185 +167,6 @@ __device__ inline void ds_tile(const float* S, const float* dP, T* dS, int ldp, 
   __syncwarp();
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Sk, int C,
-                     float scale, float scale_log2e) {
-  using M = Mma<T>;
-  using Cfg = BwdCfg<T, D>;
-  constexpr int kLdD = Cfg::kLdD, kLdP = Cfg::kLdP;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + kBT * kLdD;
-  T* Qs = Vs + kBT * kLdD;
-  T* Ds = Qs + kBT * kLdD;
-  float* lse_s = reinterpret_cast<float*>(Ds + kBT * kLdD);
-  float* delta_s = lse_s + kBT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* St = delta_s + kBT + warp * Cfg::kWarpF;  // S^T (fp32), then staging
-  float* dPt = St + 16 * kLdS;
-  T* Pt = reinterpret_cast<T*>(delta_s + kBT + kWarps * Cfg::kWarpF) + warp * 2 * 16 * kLdP;
-  T* dSt = Pt + 16 * kLdP;
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int k0 = blockIdx.y * kBT;
-  const size_t head = (size_t)h * D;
-  const T* qb = q + (size_t)b * Sq * C + head;
-  const T* db = dout + (size_t)b * Sq * C + head;
-  const float* lse_b = lse + (size_t)blockIdx.x * Sq;
-  const float* delta_b = delta + (size_t)blockIdx.x * Sq;
-  load_tile<T, D>(Ks, k + (size_t)b * Sk * C + head, k0, Sk, C);
-  load_tile<T, D>(Vs, v + (size_t)b * Sk * C + head, k0, Sk, C);
-
-  typename M::Acc dka[D / 16], dva[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dka[n], 0.f);
-    wmma::fill_fragment(dva[n], 0.f);
-  }
-  const T* Kw = Ks + warp * 16 * kLdD;
-  const T* Vw = Vs + warp * 16 * kLdD;
-
-  for (int q0 = 0; q0 < Sq; q0 += kBT) {
-    __syncthreads();  // every warp is done with the previous query tile
-    load_tile<T, D>(Qs, qb, q0, Sq, C);
-    load_tile<T, D>(Ds, db, q0, Sq, C);
-    load_stats(lse_s, delta_s, lse_b, delta_b, q0, Sq);
-    __syncthreads();
-
-    // S^T = K_w Q^T and dP^T = V_w dO^T, (16 keys, 64 queries) each.
-#pragma unroll
-    for (int n = 0; n < kBT / 16; ++n) {
-      typename M::Acc s, dp;
-      wmma::fill_fragment(s, 0.f);
-      wmma::fill_fragment(dp, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / M::K; ++kk) {
-        typename M::A a;
-        typename M::BCol bm;
-        load_op(a, Kw + kk * M::K, kLdD);
-        load_op(bm, Qs + n * 16 * kLdD + kk * M::K, kLdD);
-        wmma::mma_sync(s, a, bm, s);
-        load_op(a, Vw + kk * M::K, kLdD);
-        load_op(bm, Ds + n * 16 * kLdD + kk * M::K, kLdD);
-        wmma::mma_sync(dp, a, bm, dp);
-      }
-      wmma::store_matrix_sync(St + n * 16, s, kLdS, wmma::mem_row_major);
-      wmma::store_matrix_sync(dPt + n * 16, dp, kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    pt_dst_tile(St, dPt, Pt, dSt, kLdP, lse_s, delta_s, lane, scale, scale_log2e);
-
-    // dV += P^T dO; dK += dS^T Q.
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < kBT / M::K; ++kk) {
-        typename M::A a;
-        typename M::BRow bm;
-        load_op(a, Pt + kk * M::K, kLdP);
-        load_op(bm, Ds + kk * M::K * kLdD + n * 16, kLdD);
-        wmma::mma_sync(dva[n], a, bm, dva[n]);
-        load_op(a, dSt + kk * M::K, kLdP);
-        load_op(bm, Qs + kk * M::K * kLdD + n * 16, kLdD);
-        wmma::mma_sync(dka[n], a, bm, dka[n]);
-      }
-    }
-  }
-
-  const size_t out_b = (size_t)b * Sk * C + head;
-  store_rows<T, D>(dka, St, dk + out_b, k0 + warp * 16, Sk, C, lane);
-  store_rows<T, D>(dva, St, dv + out_b, k0 + warp * 16, Sk, C, lane);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   T* __restrict__ dq, int H, int Sq, int Sk, int C, float scale,
-                   float scale_log2e) {
-  using M = Mma<T>;
-  using Cfg = BwdCfg<T, D>;
-  constexpr int kLdD = Cfg::kLdD, kLdP = Cfg::kLdP;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ds = Qs + kBT * kLdD;
-  T* Ks = Ds + kBT * kLdD;
-  T* Vs = Ks + kBT * kLdD;
-  float* lse_s = reinterpret_cast<float*>(Vs + kBT * kLdD);
-  float* delta_s = lse_s + kBT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* S = delta_s + kBT + warp * Cfg::kWarpF;  // logits, then staging
-  float* dP = S + 16 * kLdS;
-  T* dS = reinterpret_cast<T*>(delta_s + kBT + kWarps * Cfg::kWarpF) + warp * 16 * kLdP;
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * kBT;
-  const size_t head = (size_t)h * D;
-  load_tile<T, D>(Qs, q + (size_t)b * Sq * C + head, q0, Sq, C);
-  load_tile<T, D>(Ds, dout + (size_t)b * Sq * C + head, q0, Sq, C);
-  load_stats(lse_s, delta_s, lse + (size_t)blockIdx.x * Sq, delta + (size_t)blockIdx.x * Sq,
-             q0, Sq);
-  __syncthreads();
-
-  // The warp's q and dO rows are read from shared memory at every key tile
-  // (register-resident fragments would not fit at D = 128 in TF32).
-  const T* Qw = Qs + warp * 16 * kLdD;
-  const T* Dw = Ds + warp * 16 * kLdD;
-  typename M::Acc dqa[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dqa[n], 0.f);
-  const float lse_r = lse_s[warp * 16 + (lane >> 1)];
-  const float delta_r = delta_s[warp * 16 + (lane >> 1)];
-  const T* kb = k + (size_t)b * Sk * C + head;
-  const T* vb = v + (size_t)b * Sk * C + head;
-
-  for (int k0 = 0; k0 < Sk; k0 += kBT) {
-    __syncthreads();
-    load_tile<T, D>(Ks, kb, k0, Sk, C);
-    load_tile<T, D>(Vs, vb, k0, Sk, C);
-    __syncthreads();
-#pragma unroll
-    for (int n = 0; n < kBT / 16; ++n) {
-      typename M::Acc s, dp;
-      wmma::fill_fragment(s, 0.f);
-      wmma::fill_fragment(dp, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / M::K; ++kk) {
-        typename M::A a;
-        typename M::BCol bm;
-        load_op(a, Qw + kk * M::K, kLdD);
-        load_op(bm, Ks + n * 16 * kLdD + kk * M::K, kLdD);
-        wmma::mma_sync(s, a, bm, s);
-        load_op(a, Dw + kk * M::K, kLdD);
-        load_op(bm, Vs + n * 16 * kLdD + kk * M::K, kLdD);
-        wmma::mma_sync(dp, a, bm, dp);
-      }
-      wmma::store_matrix_sync(S + n * 16, s, kLdS, wmma::mem_row_major);
-      wmma::store_matrix_sync(dP + n * 16, dp, kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    ds_tile(S, dP, dS, kLdP, min(kBT, Sk - k0), lse_r, delta_r, lane, scale, scale_log2e);
-    // dQ += dS K
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < kBT / M::K; ++kk) {
-        typename M::A a;
-        typename M::BRow bm;
-        load_op(a, dS + kk * M::K, kLdP);
-        load_op(bm, Ks + kk * M::K * kLdD + n * 16, kLdD);
-        wmma::mma_sync(dqa[n], a, bm, dqa[n]);
-      }
-    }
-  }
-  store_rows<T, D>(dqa, S, dq + (size_t)b * Sq * C + head, q0 + warp * 16, Sq, C, lane);
-}
-
 // ---- The D-sliced form, for head dims other than 64 and 128 ----
 // Every tile is (64, 64) of BwdCfg<T, 64>; `a` and `b` are a head's rows at
 // column offset d0 (chunks) or at the block's slice.
@@ -485,40 +213,6 @@ __device__ inline void slice_product(Acc (&acc)[4], const T* A, int lda, const T
       wmma::mma_sync(acc[n], a, bm, acc[n]);
     }
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_sliced_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ o, const T* __restrict__ dout,
-                             float* __restrict__ lse, float* __restrict__ delta, int H, int Sq,
-                             int Sk, int C, int D, float scale_log2e) {
-  constexpr int kLdD = BwdCfg<T, 64>::kLdD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + kBT * kLdD;
-  float* Sw = reinterpret_cast<float*>(Ks + kBT * kLdD);
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * kBT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t head = (size_t)h * D;
-  const T* qb = q + (size_t)b * Sq * C + head;
-  const T* kb = k + (size_t)b * Sk * C + head;
-  float* S = Sw + warp * 16 * kLdS;
-  float m_i = -INFINITY, l_i = 0.f;
-  for (int k0 = 0; k0 < Sk; k0 += kBT) {
-    for (int d0 = 0; d0 < D; d0 += 64) {
-      __syncthreads();
-      load_tile<T, 64>(Qs, qb + d0, q0, Sq, C);
-      load_tile<T, 64>(Ks, kb + d0, k0, Sk, C);
-      __syncthreads();
-      chunk_logits(S, Qs + warp * 16 * kLdD, Ks, d0 == 0);
-    }
-    __syncwarp();
-    online_stats(S, min(kBT, Sk - k0), scale_log2e, lane, m_i, l_i);
-  }
-  store_stats(o, dout, lse, delta, m_i, l_i, b, q0 + warp * 16 + (lane >> 1), Sq, C, head, D,
-              lane);
 }
 
 // Block (head, key tile, z): dK and dV columns [64z, 64z + 64).
@@ -656,9 +350,229 @@ attn_bwd_sliced_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     lane);
 }
 
+// ---- Launch 1: delta = rowsum(dO * O) ----
+
+// One thread per (batch, query, head) row of D values; delta is laid out
+// (B*H, Sq) like the log-sum-exp.
 template <typename T>
-cudaError_t launch_sliced(const void* q, const void* k, const void* v, const void* o,
-                          const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
+__global__ void __launch_bounds__(256)
+attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                      float* __restrict__ delta, int B, int H, int Sq, int C) {
+  constexpr int V = kVecN<T>;
+  const int D = C / H;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // head fastest
+  if (idx >= (long long)B * Sq * H) return;
+  const int h = (int)(idx % H);
+  const long long bq = idx / H;
+  const int b = (int)(bq / Sq), qq = (int)(bq % Sq);
+  const T* orow = o + bq * C + (size_t)h * D;
+  const T* drow = dout + bq * C + (size_t)h * D;
+  float d = 0.f;
+  for (int j = 0; j < D; j += V) {
+    Vec<T> ov, dv;
+    ov.u = *reinterpret_cast<const uint4*>(orow + j);
+    dv.u = *reinterpret_cast<const uint4*>(drow + j);
+#pragma unroll
+    for (int e = 0; e < V; ++e) d += to_f(ov.h[e]) * to_f(dv.h[e]);
+  }
+  delta[((size_t)b * H + h) * Sq + qq] = d;
+}
+
+// ---- D = 64 and 128: register-resident products on mma.sync ----
+
+template <typename T, int D>
+struct RegBwdCfg {
+  static constexpr int kLd = D + wm::WarpMma<T>::kPadE;  // tile rows, elements
+  static constexpr int kBKey = 64;                       // dk/dv: keys per block
+  static constexpr int kBQ = D == 64 ? 64 : 32;          // dk/dv: queries per streamed tile
+  static constexpr int kBQd = 64;                        // dq: queries per block
+  static constexpr int kBKd = 64;                        // dq: keys per streamed tile
+  // dk/dv: K, V, two stages of (q, dO) and of (lse, delta).
+  static constexpr int kDkdvSmem = (2 * kBKey + 4 * kBQ) * kLd * (int)sizeof(T) + 4 * kBQ * 4;
+  // dq: q, dO, two stages of (K, V).
+  static constexpr int kDqSmem = (2 * kBQd + 4 * kBKd) * kLd * (int)sizeof(T);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     int H, int Sq, int Sk, int C, float scale, float scale_log2e) {
+  using Cfg = RegBwdCfg<T, D>;
+  using W = wm::WarpMma<T>;
+  constexpr int ld = Cfg::kLd, BQ = Cfg::kBQ, NQ = BQ / 8, ND = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + Cfg::kBKey * ld;
+  T* QDs = Vs + Cfg::kBKey * ld;  // stage s: q at 2s, dO at 2s + 1 (BQ rows each)
+  float* stats = reinterpret_cast<float*>(QDs + 4 * BQ * ld);  // stage s: lse, then delta
+  const int k0 = blockIdx.x * Cfg::kBKey;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t head = (size_t)h * D;
+  const T* qb = q + (size_t)b * Sq * C + head;
+  const T* db = dout + (size_t)b * Sq * C + head;
+  const float* lse_b = lse + (size_t)bh * Sq;
+  const float* delta_b = delta + (size_t)bh * Sq;
+  const int nq = (Sq + BQ - 1) / BQ;
+
+  // Query tile i into stage i & 1: q and dO asynchronously, the statistics
+  // directly (a query past S_q gets lse = +inf, so P = 0).
+  auto load_stage = [&](int i) {
+    T* qs = QDs + 2 * (i & 1) * BQ * ld;
+    wm::cp_rows<T, D>(qs, ld, qb, i * BQ, BQ, Sq, C, kThreads);
+    wm::cp_rows<T, D>(qs + BQ * ld, ld, db, i * BQ, BQ, Sq, C, kThreads);
+    float* st = stats + 2 * (i & 1) * BQ;
+    for (int r = threadIdx.x; r < BQ; r += kThreads) {
+      const int qi = i * BQ + r;
+      st[r] = qi < Sq ? lse_b[qi] : INFINITY;
+      st[BQ + r] = qi < Sq ? delta_b[qi] : 0.f;
+    }
+  };
+  wm::cp_rows<T, D>(Ks, ld, k + (size_t)b * Sk * C + head, k0, Cfg::kBKey, Sk, C, kThreads);
+  wm::cp_rows<T, D>(Vs, ld, v + (size_t)b * Sk * C + head, k0, Cfg::kBKey, Sk, C, kThreads);
+  load_stage(0);
+  wm::cp_async_commit();
+
+  float dka[ND][4] = {}, dva[ND][4] = {};
+  const T* Kw = Ks + warp * 16 * ld;
+  const T* Vw = Vs + warp * 16 * ld;
+  const int t2 = 2 * (lane % 4);
+  for (int i = 0; i < nq; ++i) {
+    if (i + 1 < nq) load_stage(i + 1);  // that stage is free since the last barrier
+    wm::cp_async_commit();
+    wm::cp_async_wait<1>();
+    __syncthreads();
+    const T* Qt = QDs + 2 * (i & 1) * BQ * ld;
+    const T* Dt = Qt + BQ * ld;
+    const float* st = stats + 2 * (i & 1) * BQ;
+
+    // S^T = K_w Q^T and dP^T = V_w dO^T: the warp's 16 keys x BQ queries.
+    float sa[NQ][4] = {}, dpa[NQ][4] = {};
+    wm::mma_rows_nk<T, NQ>(sa, Kw, Qt, ld, D, lane);
+    wm::mma_rows_nk<T, NQ>(dpa, Vw, Dt, ld, D, lane);
+    // P^T and dS^T in place; element e of tile c is query 8c + t2 + (e & 1).
+#pragma unroll
+    for (int c = 0; c < NQ; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * c + t2 + (e & 1);
+        const float p = exp2f(fmaf(sa[c][e], scale_log2e, -st[qi]));
+        sa[c][e] = p;
+        dpa[c][e] = p * (dpa[c][e] - st[BQ + qi]) * scale;
+      }
+    }
+    // dV += P^T dO; dK += dS^T Q.
+    wm::mma_acc_kn<T, NQ, ND>(dva, sa, Dt, ld, lane);
+    wm::mma_acc_kn<T, NQ, ND>(dka, dpa, Qt, ld, lane);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  const int row0 = k0 + warp * 16 + lane / 4;
+  T* dkb = dk + (size_t)b * Sk * C + head + t2;
+  T* dvb = dv + (size_t)b * Sk * C + head + t2;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    if (row0 < Sk) {
+      W::store2(dkb + (size_t)row0 * C + 8 * n, dka[n][0], dka[n][1]);
+      W::store2(dvb + (size_t)row0 * C + 8 * n, dva[n][0], dva[n][1]);
+    }
+    if (row0 + 8 < Sk) {
+      W::store2(dkb + (size_t)(row0 + 8) * C + 8 * n, dka[n][2], dka[n][3]);
+      W::store2(dvb + (size_t)(row0 + 8) * C + 8 * n, dva[n][2], dva[n][3]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dq, int H, int Sq, int Sk,
+                   int C, float scale, float scale_log2e) {
+  using Cfg = RegBwdCfg<T, D>;
+  using W = wm::WarpMma<T>;
+  constexpr int ld = Cfg::kLd, BK = Cfg::kBKd, NK = BK / 8, ND = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ds = Qs + Cfg::kBQd * ld;
+  T* KVs = Ds + Cfg::kBQd * ld;  // stage s: K at 2s, V at 2s + 1
+  const int q0 = blockIdx.x * Cfg::kBQd;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t head = (size_t)h * D;
+  const T* kb = k + (size_t)b * Sk * C + head;
+  const T* vb = v + (size_t)b * Sk * C + head;
+  const int nk = (Sk + BK - 1) / BK;
+
+  wm::cp_rows<T, D>(Qs, ld, q + (size_t)b * Sq * C + head, q0, Cfg::kBQd, Sq, C, kThreads);
+  wm::cp_rows<T, D>(Ds, ld, dout + (size_t)b * Sq * C + head, q0, Cfg::kBQd, Sq, C, kThreads);
+  wm::cp_rows<T, D>(KVs, ld, kb, 0, BK, Sk, C, kThreads);
+  wm::cp_rows<T, D>(KVs + BK * ld, ld, vb, 0, BK, Sk, C, kThreads);
+  wm::cp_async_commit();
+
+  // The statistics of the lane's two rows (past S_q: P = 0).
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const float* lse_b = lse + (size_t)bh * Sq;
+  const float* delta_b = delta + (size_t)bh * Sq;
+  const float lse0 = row0 < Sq ? lse_b[row0] : INFINITY;
+  const float lse1 = row0 + 8 < Sq ? lse_b[row0 + 8] : INFINITY;
+  const float dl0 = row0 < Sq ? delta_b[row0] : 0.f;
+  const float dl1 = row0 + 8 < Sq ? delta_b[row0 + 8] : 0.f;
+  const int t2 = 2 * (lane % 4);
+
+  float dqa[ND][4] = {};
+  for (int j = 0; j < nk; ++j) {
+    if (j + 1 < nk) {
+      T* nxt = KVs + 2 * ((j + 1) & 1) * BK * ld;
+      wm::cp_rows<T, D>(nxt, ld, kb, (j + 1) * BK, BK, Sk, C, kThreads);
+      wm::cp_rows<T, D>(nxt + BK * ld, ld, vb, (j + 1) * BK, BK, Sk, C, kThreads);
+    }
+    wm::cp_async_commit();
+    wm::cp_async_wait<1>();
+    __syncthreads();
+    const T* Kt = KVs + 2 * (j & 1) * BK * ld;
+    const T* Vt = Kt + BK * ld;
+
+    // S = Q_w K^T and dP = dO_w V^T: the warp's 16 queries x BK keys.
+    float sa[NK][4] = {}, dpa[NK][4] = {};
+    wm::mma_rows_nk<T, NK>(sa, Qs + warp * 16 * ld, Kt, ld, D, lane);
+    wm::mma_rows_nk<T, NK>(dpa, Ds + warp * 16 * ld, Vt, ld, D, lane);
+    const bool tail = (j + 1) * BK > Sk;
+#pragma unroll
+    for (int c = 0; c < NK; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(sa[c][e], scale_log2e, e < 2 ? -lse0 : -lse1));
+        const float ds = p * (dpa[c][e] - (e < 2 ? dl0 : dl1)) * scale;
+        dpa[c][e] = (tail && j * BK + 8 * c + t2 + (e & 1) >= Sk) ? 0.f : ds;
+      }
+    }
+    wm::mma_acc_kn<T, NK, ND>(dqa, dpa, Kt, ld, lane);  // dQ += dS K
+    __syncthreads();
+  }
+
+  T* dqb = dq + (size_t)b * Sq * C + head + t2;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    if (row0 < Sq) W::store2(dqb + (size_t)row0 * C + 8 * n, dqa[n][0], dqa[n][1]);
+    if (row0 + 8 < Sq) W::store2(dqb + (size_t)(row0 + 8) * C + 8 * n, dqa[n][2], dqa[n][3]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta, int B, int H, int Sq,
+                         int C, cudaStream_t s) {
+  const long long rows = (long long)B * Sq * H;
+  attn_bwd_delta_kernel<T><<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, B, H, Sq, C);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_sliced(const void* q, const void* k, const void* v, const void* dout,
+                          void* dq, void* dk, void* dv, const float* lse, const float* delta,
                           int B, int H, int Sq, int Sk, int C, int D, float scale,
                           cudaStream_t s) {
   using Cfg = BwdCfg<T, 64>;
@@ -668,56 +582,45 @@ cudaError_t launch_sliced(const void* q, const void* k, const void* v, const voi
   auto kp = static_cast<const T*>(k);
   auto vp = static_cast<const T*>(v);
   auto dp = static_cast<const T*>(dout);
-  auto lp = static_cast<float*>(lse);
-  auto tp = static_cast<float*>(delta);
   const float sl2e = scale * 1.4426950408889634f;
   const int qt = (Sq + kBT - 1) / kBT, kt = (Sk + kBT - 1) / kBT, nd = D / 64;
-  cudaError_t err = set_smem(attn_bwd_sliced_stats_kernel<T>, Cfg::kStatsSmem);
-  if (err != cudaSuccess) return err;
-  attn_bwd_sliced_stats_kernel<T><<<dim3(B * H, qt), kThreads, Cfg::kStatsSmem, s>>>(
-      qp, kp, static_cast<const T*>(o), dp, lp, tp, H, Sq, Sk, C, D, sl2e);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  cudaError_t err;
   if (dk != nullptr) {
     if ((err = set_smem(attn_bwd_sliced_dkdv_kernel<T>, kDkdvSmem)) != cudaSuccess) return err;
     attn_bwd_sliced_dkdv_kernel<T><<<dim3(B * H, kt, nd), kThreads, kDkdvSmem, s>>>(
-        qp, kp, vp, dp, lp, tp, static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, C, D,
+        qp, kp, vp, dp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, C, D,
         scale, sl2e);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if ((err = set_smem(attn_bwd_sliced_dq_kernel<T>, kDqSmem)) != cudaSuccess) return err;
   attn_bwd_sliced_dq_kernel<T><<<dim3(B * H, qt, nd), kThreads, kDqSmem, s>>>(
-      qp, kp, vp, dp, lp, tp, static_cast<T*>(dq), H, Sq, Sk, C, D, scale, sl2e);
+      qp, kp, vp, dp, lse, delta, static_cast<T*>(dq), H, Sq, Sk, C, D, scale, sl2e);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   void* dq, void* dk, void* dv, void* lse, void* delta, int B, int H, int Sq,
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                   void* dk, void* dv, const float* lse, const float* delta, int B, int H, int Sq,
                    int Sk, int C, float scale, cudaStream_t s) {
-  using Cfg = BwdCfg<T, D>;
+  using Cfg = RegBwdCfg<T, D>;
   auto qp = static_cast<const T*>(q);
   auto kp = static_cast<const T*>(k);
   auto vp = static_cast<const T*>(v);
   auto dp = static_cast<const T*>(dout);
-  auto lp = static_cast<float*>(lse);
-  auto tp = static_cast<float*>(delta);
   const float sl2e = scale * 1.4426950408889634f;
-  const dim3 qgrid(B * H, (Sq + kBT - 1) / kBT);
-  cudaError_t err = set_smem(attn_bwd_stats_kernel<T, D>, Cfg::kStatsSmem);
-  if (err != cudaSuccess) return err;
-  attn_bwd_stats_kernel<T, D><<<qgrid, kThreads, Cfg::kStatsSmem, s>>>(
-      qp, kp, static_cast<const T*>(o), dp, lp, tp, H, Sq, Sk, C, sl2e);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  cudaError_t err;
   if (dk != nullptr) {
     if ((err = set_smem(attn_bwd_dkdv_kernel<T, D>, Cfg::kDkdvSmem)) != cudaSuccess) return err;
-    attn_bwd_dkdv_kernel<T, D><<<dim3(B * H, (Sk + kBT - 1) / kBT), kThreads, Cfg::kDkdvSmem,
-                                 s>>>(qp, kp, vp, dp, lp, tp, static_cast<T*>(dk),
-                                      static_cast<T*>(dv), H, Sq, Sk, C, scale, sl2e);
+    const dim3 grid((Sk + Cfg::kBKey - 1) / Cfg::kBKey, B * H);
+    attn_bwd_dkdv_kernel<T, D><<<grid, kThreads, Cfg::kDkdvSmem, s>>>(
+        qp, kp, vp, dp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, C, scale,
+        sl2e);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if ((err = set_smem(attn_bwd_dq_kernel<T, D>, Cfg::kDqSmem)) != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T, D><<<qgrid, kThreads, Cfg::kDqSmem, s>>>(
-      qp, kp, vp, dp, lp, tp, static_cast<T*>(dq), H, Sq, Sk, C, scale, sl2e);
+  const dim3 grid((Sq + Cfg::kBQd - 1) / Cfg::kBQd, B * H);
+  attn_bwd_dq_kernel<T, D><<<grid, kThreads, Cfg::kDqSmem, s>>>(
+      qp, kp, vp, dp, lse, delta, static_cast<T*>(dq), H, Sq, Sk, C, scale, sl2e);
   return cudaGetLastError();
 }
 
@@ -726,27 +629,47 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 
 // q, o, dout, dq: (B, Sq, C); k, v, dk, dv: (B, Sk, C); all of one type
 // (dtype 0 bf16, 1 fp32), C = H*D with D % 64 == 0 (64 and 128 run their
-// own instantiations, every other D the D-sliced form). lse and delta:
-// (B*H*Sq) fp32 scratch. dk and dv may both be null (only dq is computed
+// own kernels, every other D the D-sliced form). lse: (B*H, Sq) fp32, the
+// base-2 log-sum-exp kernel A wrote for these q, k (required); delta:
+// (B*H, Sq) fp32 scratch. dk and dv may both be null (only dq is computed
 // then).
 LVD_EXPORT int lvd_attention_packed_bwd(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, void* dq, void* dk,
-                                        void* dv, void* lse, void* delta, int B, int H, int Sq,
-                                        int Sk, int C, float scale, int dtype, void* stream) {
+                                        void* dv, const void* lse, void* delta, int B, int H,
+                                        int Sq, int Sk, int C, float scale, int dtype,
+                                        void* stream) {
   using namespace lvd;
   cudaGetLastError();
-  if (H <= 0 || C % H != 0 || Sq <= 0 || Sk <= 0 || (dk == nullptr) != (dv == nullptr))
+  if (H <= 0 || C % H != 0 || Sq <= 0 || Sk <= 0 || (dk == nullptr) != (dv == nullptr) ||
+      lse == nullptr || delta == nullptr)
     return cudaErrorInvalidValue;
   const int D = C / H;
   if (D % 64 != 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, [&](auto tag) {
+  auto l = static_cast<const float*>(lse);
+  auto dl = static_cast<float*>(delta);
+  return dispatch(dtype, [&](auto tag) -> cudaError_t {
     using T = decltype(tag);
-    if (D == 64)
-      return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, Sq, Sk, C, scale, s);
+    cudaError_t err = launch_delta<T>(o, dout, dl, B, H, Sq, C, s);
+    if (err != cudaSuccess) return err;
+    if (D == 64) return launch<T, 64>(q, k, v, dout, dq, dk, dv, l, dl, B, H, Sq, Sk, C, scale, s);
     if (D == 128)
-      return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, Sq, Sk, C, scale, s);
-    return launch_sliced<T>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, H, Sq, Sk, C, D, scale,
-                            s);
+      return launch<T, 128>(q, k, v, dout, dq, dk, dv, l, dl, B, H, Sq, Sk, C, scale, s);
+    return launch_sliced<T>(q, k, v, dout, dq, dk, dv, l, dl, B, H, Sq, Sk, C, D, scale, s);
   });
+}
+
+// Bytes of dynamic shared memory one block of kernel E's dk/dv (kind 0) or
+// dq (kind 1) launch takes at head dim D (dtype 0 bf16, 1 fp32): the
+// D = 64 / 128 kernels, else the D-sliced form.
+LVD_EXPORT long long lvd_attention_packed_bwd_smem(int D, int dtype, int kind) {
+  using namespace lvd;
+  auto pick = [&](auto tag) -> long long {
+    using T = decltype(tag);
+    using S = BwdCfg<T, 64>;
+    if (D == 64) return kind == 0 ? RegBwdCfg<T, 64>::kDkdvSmem : RegBwdCfg<T, 64>::kDqSmem;
+    if (D == 128) return kind == 0 ? RegBwdCfg<T, 128>::kDkdvSmem : RegBwdCfg<T, 128>::kDqSmem;
+    return kind == 0 ? S::kDkdvSmem + 2 * S::kTile : S::kDqSmem + S::kTile;
+  };
+  return dtype == kBF16 ? pick(bf16{}) : pick(float{});
 }

@@ -39,7 +39,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points and their argument types (pointers and the stream as void*;
 # the int before the stream is the element type, DTYPE_CODES).
 SIGNATURES = {
-    "lvd_attention_packed": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    "lvd_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
     "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
     "lvd_geglu": [_P] * 6 + [_I] * 4 + [_I, _P],
     "lvd_geglu_stream": [_P] * 6 + [_I] * 4 + [_I, _P],
@@ -50,13 +50,11 @@ SIGNATURES = {
     "lvd_linear": [_P] * 4 + [_I] * 4 + [_I, _P],
     "lvd_conv3x3": [_P] * 6 + [_I] * 6 + [_I, _P],
 }
-# Entry points that return a byte count instead of a CUDA error code.
+# Entry points that return a byte count instead of a CUDA error code (a
+# workspace size, or the dynamic shared memory of kernels A and E).
 SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 5,
-                "lvd_geglu_stream_smem": [_I] * 2}
-
-# Dynamic shared memory one block may use on sm_90 (227 KB; kMaxSmem in
-# csrc/common.cuh), against which a size query's answer is checked.
-MAX_SMEM = 232448
+                "lvd_attention_packed_smem": [_I] * 2,
+                "lvd_attention_packed_bwd_smem": [_I] * 3}
 
 # The element types the kernels take, by the code their entry points read.
 DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}

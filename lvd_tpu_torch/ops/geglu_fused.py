@@ -10,8 +10,9 @@ It is a ``torch.autograd.Function`` in x, routed as lvd_tpu routes it:
   ``_fused_rows_resident``); everywhere else kernel J (csrc/geglu_stream.cu,
   replacing the k-streaming branch of ``_fused_rows``);
 - dx: where lvd_tpu's ``_fused_bwd`` takes its resident dx kernel, kernel G
-  (csrc/geglu_bwd.cu, replacing ``_fused_rows_bwd_resident``); everywhere
-  else the autograd VJP of ``_unfused`` on stock ops, lvd_tpu's own route.
+  (csrc/geglu_bwd.cu, replacing ``_fused_rows_bwd_resident``; any width that
+  route gives it); everywhere else the autograd VJP of ``_unfused`` on stock
+  ops, lvd_tpu's own route.
 On CPU tensors each kernel is replaced by its plain version. Weight
 gradients are not part of this slice: on the card a parameter that requires
 grad raises, on the CPU the plain formulation's autograd gives them.
@@ -30,7 +31,7 @@ from . import _build
 # "tanh" (default) or "exact" (erf, the torch reference's form).
 GELU_FORM = os.environ.get("LVD_GELU_FORM", "tanh")
 
-MAX_CHANNELS = 640  # the widest C kernels C and G are built for
+MAX_CHANNELS = 640  # the widest C of kernel C and of kernel G's resident form
 BWD_ROWS = 32  # rows per block of kernel G
 STREAM_INNER = 256  # kernel J's inner dim must be a multiple (lvd_tpu's block_k)
 
@@ -53,8 +54,9 @@ def _resident_form_ok(c, inner, itemsize, chunk_mod):
 
 
 def _covers(c, inner):
-    """Whether kernels C and G are built for this width (C = 64..640 in
-    steps of 64, inner in 64-wide chunks)."""
+    """Whether kernel C, and kernel G's resident form, are built for this
+    width (C = 64..640 in steps of 64, inner in 64-wide chunks); G takes
+    every other width in a general form."""
     return c % 64 == 0 and 0 < c <= MAX_CHANNELS and inner % 64 == 0
 
 
@@ -163,7 +165,8 @@ def _launch_forward(p, x):
 
 def geglu_stream(p, x):
     """Kernel J on a CUDA tensor: the k-streaming forward, for any row
-    count, C % 8 == 0 and inner % 256 == 0."""
+    count, any C % 8 == 0 (wide C in output-column slices) and
+    inner % 256 == 0."""
     _build.refuse_grad("geglu_stream", x)
     c = x.shape[-1]
     code = _build.dtype_code(x, "geglu_stream")
@@ -174,14 +177,8 @@ def geglu_stream(p, x):
         raise ValueError(f"geglu_stream: C={c}, inner={inner}; kernel J takes C % 8 == 0 and "
                          f"inner % {STREAM_INNER} == 0 (lvd_tpu's streaming form raises on "
                          "such an inner too)")
-    lib = _build.lib()
-    smem = lib.lvd_geglu_stream_smem(c, code)
-    if smem > _build.MAX_SMEM:
-        raise ValueError(f"geglu_stream: C={c} in {x.dtype} needs {smem} bytes of shared "
-                         f"memory for its (16, C) fp32 accumulator, more than the "
-                         f"{_build.MAX_SMEM} a block may use")
     out = torch.empty_like(rows)
-    err = lib.lvd_geglu_stream(
+    err = _build.lib().lvd_geglu_stream(
         rows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         out.data_ptr(), rows.shape[0], c, inner, int(GELU_FORM != "tanh"), code,
         _build.stream_of(rows))
@@ -196,10 +193,6 @@ def geglu_mlp_bwd(p, x, dy):
         return geglu_mlp_bwd_plain(p, x, dy)
     _build.refuse_grad("geglu_mlp_bwd", x, dy)
     c, inner = x.shape[-1], p["out"]["w"].shape[0]
-    if not _covers(c, inner):
-        raise ValueError(f"geglu_mlp_bwd: C={c}, inner={inner}: lvd_tpu takes its resident dx "
-                         "kernel here, but kernel G is built for C = 64..640 in steps of 64 "
-                         "and inner % 64 == 0 (ROADMAP C)")
     code = _build.dtype_code(x, "geglu_mlp_bwd")
     rows = _build.kernel_input(x.reshape(-1, c), x.dtype, "geglu_mlp_bwd x")
     drows = _build.kernel_input(dy.reshape(-1, c), x.dtype, "geglu_mlp_bwd dy")
@@ -207,8 +200,10 @@ def geglu_mlp_bwd(p, x, dy):
         raise ValueError(f"geglu_mlp_bwd: dy {tuple(dy.shape)} for x {tuple(x.shape)}")
     w1, b1, w2, _ = _kernel_weights(p, rows, "geglu_mlp_bwd")
     n = rows.shape[0]
-    # In fp32 kernel G accumulates dx in the output itself, 32 rows a block.
-    padded = n if x.dtype == torch.bfloat16 else -(-n // BWD_ROWS) * BWD_ROWS
+    # In fp32 kernel G's resident form accumulates dx in the output itself,
+    # 32 rows a block; every other width writes dx rows directly.
+    resident_fp32 = x.dtype == torch.float32 and _covers(c, inner)
+    padded = -(-n // BWD_ROWS) * BWD_ROWS if resident_fp32 else n
     dx = torch.empty((padded, c), dtype=x.dtype, device=x.device)
     err = _build.lib().lvd_geglu_bwd(
         rows.data_ptr(), drows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),

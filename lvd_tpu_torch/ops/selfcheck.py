@@ -302,12 +302,13 @@ def check_attention_bwd(gen, shape, dtype=torch.bfloat16):
     q, k, v = (_randn(gen, (b, s, c)).to(dtype) for s in (s_q, s_k, s_k))
     do = _randn(gen, (b, s_q, c)).to(dtype)
     scale = 64 ** -0.5
-    with torch.no_grad():
-        o = packed_attention.attention_packed(q, k, v, scale, heads)
+    # Kernel E reads the log-sum-exp kernel A writes for it.
+    o, lse = packed_attention.attention_packed_with_lse(q, k, v, scale, heads)
     # The energy walk needs dk/dv at self-attention only (cross-attention
     # keys come from the text); check and time the call the walk makes.
     need_kv = s_q == s_k
-    fn = lambda: packed_attention.attention_packed_bwd(q, k, v, o, do, scale, heads, need_kv)
+    fn = lambda: packed_attention.attention_packed_bwd(q, k, v, o, do, scale, heads, need_kv,
+                                                       lse=lse)
     out = fn()
     ref = _ref(packed_attention.attention_packed_bwd_plain, q, k, v, o, do, scale, heads)
     if not need_kv:

@@ -141,22 +141,103 @@ def test_geglu_stream_kernel_matches_plain(cuda, dtype, form, monkeypatch):
     assert _rel(out, ref) <= tol and _rel(dx, ref_dx) <= tol
 
 
-def test_geglu_resident_width_kernel_g_cannot_take_raises(cuda):
-    """C = 72: lvd_tpu keeps the weights resident forward and backward;
-    kernel C's template does not cover the width, so J runs the forward, and
-    the dx, which lvd_tpu gives its resident kernel, raises with the reason
-    rather than run a plain version."""
+@pytest.mark.parametrize("c,inner", [(72, 256), (1280, 1024)])
+def test_geglu_resident_width_launches_kernel_g(cuda, c, inner):
+    """Widths lvd_tpu gives its resident dx kernel that kernel C's template
+    does not cover (C = 72; C = 1280 with inner 1024 in bf16): J runs the
+    forward and kernel G's general form the dx, within 2e-2 of the plain
+    version on fp32 copies."""
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.ops import geglu_fused as gf
 
     g = torch.Generator(device=cuda).manual_seed(10)
-    p = cast_tree(_ff_params(72, 256, g, cuda), torch.bfloat16)
-    x = torch.randn(64, 72, generator=g, device=cuda).bfloat16().requires_grad_(True)
+    p = _ff_params(c, inner, g, cuda)
+    x = torch.randn(100, c, generator=g, device=cuda)
+    dy = torch.randn(100, c, generator=g, device=cuda)
+    assert gf.dx_route(c, inner, torch.bfloat16) == "G"
+    leaf = x.bfloat16().requires_grad_(True)
+    fwd, bwd = gf.geglu_stream.launches, gf.geglu_mlp_bwd.launches
+    out = gf.geglu_mlp(cast_tree(p, torch.bfloat16), leaf)
+    (dx,) = torch.autograd.grad(out, leaf, dy.bfloat16())
+    assert gf.geglu_stream.launches == fwd + 1 and gf.geglu_mlp_bwd.launches == bwd + 1
+    err = _rel(dx, gf.geglu_mlp_bwd_plain(p, x, dy))
+    print(f"kernel G dx, C={c} inner={inner} bf16: max|d|/max|ref| {err:.3g}")  # shown under -s
+    assert err <= 2e-2
+
+
+@pytest.mark.parametrize("c,dtype", [(2816, torch.bfloat16), (2048, torch.float32),
+                                     (2176, torch.float32)])
+def test_geglu_stream_wide_widths(cuda, c, dtype):
+    """Kernel J past one block's accumulator (2688 columns in bf16, 2048 in
+    fp32) runs a grid over output-column slices, against its plain version
+    on fp32 copies (2e-2 in bf16, the fp32 gate in fp32)."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    p = _ff_params(c, 4 * c, g, cuda)
+    x = torch.randn(40, c, generator=g, device=cuda)
     before = gf.geglu_stream.launches
-    out = gf.geglu_mlp(p, x)
-    assert gf.geglu_stream.launches == before + 1
-    with pytest.raises(ValueError, match="kernel G is built for"):
-        out.float().sum().backward()
+    out = gf.geglu_stream(cast_tree(p, dtype), x.to(dtype))
+    assert gf.geglu_stream.launches == before + 1 and out.dtype == dtype
+    with exact_fp32():
+        ref = gf.geglu_stream_plain(p, x)
+    err = _rel(out, ref)
+    print(f"kernel J, C={c} {dtype}: max|d|/max|ref| {err:.3g}")  # shown under -s
+    assert err <= (2e-2 if dtype == torch.bfloat16 else FP32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s_q,s_k", [(45, 77), (77, 77), (180, 180), (720, 720), (2880, 2880),
+                                     (2880, 77)])
+def test_attention_lse_and_backward_match_plain(cuda, dtype, s_q, s_k):
+    """Kernel A's log-sum-exp against the plain version's (1e-3 of max|ref|)
+    at ragged query counts against its 128-query tile, and kernel E from it
+    against the plain backward on fp32 copies, dk/dv requested or not."""
+    from lvd_tpu_torch.ops import packed_attention as pa
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn(2, s, 128, generator=g, device=cuda) for s in (s_q, s_k, s_k))
+    do = torch.randn(2, s_q, 128, generator=g, device=cuda)
+    low = [t.to(dtype) for t in (q, k, v, do)]
+    out, lse = pa.attention_packed_with_lse(*low[:3], 0.125, 2)
+    with exact_fp32():
+        ref, ref_lse = pa.attention_packed_plain(*(t.float() for t in low[:3]), 0.125, 2,
+                                                 return_lse=True)
+        ref_g = pa.attention_packed_bwd_plain(*(t.float() for t in low[:3]), out.float(),
+                                              low[3].float(), 0.125, 2)
+    tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
+    assert lse.shape == (4, s_q) and _rel(lse, ref_lse) <= 1e-3 and _rel(out, ref) <= tol
+    before = pa.attention_packed_bwd.launches
+    grads = pa.attention_packed_bwd(*low[:3], out, low[3], 0.125, 2, True, lse=lse)
+    dq_only = pa.attention_packed_bwd(*low[:3], out, low[3], 0.125, 2, False, lse=lse)
+    assert pa.attention_packed_bwd.launches == before + 2
+    assert dq_only[1] is None and dq_only[2] is None and torch.equal(dq_only[0], grads[0])
+    for got, want in zip(grads, ref_g):
+        assert _rel(got, want) <= tol
+    with pytest.raises(RuntimeError, match="log-sum-exp"):
+        pa.attention_packed_bwd(*low[:3], out, low[3], 0.125, 2)
+
+
+def test_attention_writes_lse_only_under_autograd(cuda):
+    """The no-grad forward (the UNet's CFG forward) passes kernel A a null
+    log-sum-exp pointer; a forward that autograd records asks for one."""
+    from lvd_tpu_torch.ops import packed_attention as pa
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (torch.randn(2, 300, 128, generator=g, device=cuda).bfloat16().requires_grad_(True)
+               for _ in range(3))
+    launches, lse = pa.attention_packed.launches, pa.attention_packed.lse_launches
+    with torch.no_grad():
+        pa.attention_packed(q, k, v, 0.125, 2)
+    pa.attention_packed(q.detach(), k.detach(), v.detach(), 0.125, 2)
+    assert pa.attention_packed.launches == launches + 2
+    assert pa.attention_packed.lse_launches == lse
+    out = pa.attention_packed(q, k, v, 0.125, 2)
+    assert pa.attention_packed.lse_launches == lse + 1
+    torch.autograd.grad(out.float().sum(), (q, k, v))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -311,7 +392,7 @@ def test_backward_kernels_refuse_inputs_that_require_grad(cuda):
     with pytest.raises(RuntimeError, match="autograd.Function"):
         pa.attention_packed_bwd(q, q, q, q, q, 0.125, 2)
     with pytest.raises(RuntimeError, match="autograd.Function"):
-        pa._launch_forward(q, q, q, 0.125, 2)
+        pa._launch_forward(q, q, q, 0.125, 2, False)
     p = cast_tree(_pair_params(128, g, cuda), torch.bfloat16)
     with pytest.raises(RuntimeError, match="autograd.Function"):
         ta.temporal_attention_pair_bwd(p, x, x, 2, 1e-5, frames_major=True)
