@@ -8,8 +8,8 @@ Phases, each fatal on failure:
   2. build   - nvcc builds lvd_tpu_torch/csrc/*.cu, one process per source,
                all started together, then one link (seconds and the -Xptxas
                -v register / shared-memory / spill lines, one record of
-               registers and spills per kernel A and E instantiation, and
-               their dynamic shared memory per block);
+               registers and spills per kernel A, E, H and I instantiation,
+               and their dynamic shared memory per block);
   3. kernels - every kernel at every shape the Zeroscope path gives it, in
                bf16, against its plain PyTorch version on fp32 copies, and
                each kernel in fp32 at its largest shape against the plain
@@ -51,8 +51,10 @@ Phases, each fatal on failure:
                second is read at import): phases 4 and 5 again, now with the
                resnet convs on kernel I and the projections on kernel H, and
                the guided generation of phase 7, which is this slice's main
-               path: every kernel A-I must have run. A non-zero exit of the
-               child fails the smoke;
+               path: every kernel A-I must have run, and every launch of H
+               and I must have taken the new form (wgmma / mma_sync, never
+               I's WMMA form); then one profiled CFG forward under the
+               switches. A non-zero exit of the child fails the smoke;
  10. fp32    - one full-width CFG UNet forward in TextToVideoPipeline's
                default type (fp32) through the kernels against the plain
                path in fp32, TF32 off on both;
@@ -63,8 +65,9 @@ Phases, each fatal on failure:
                (8640, 1280) in bf16, C = 640 block at (34560, 640) in fp32),
                forward and dx through autograd, each against its plain
                version on fp32 copies; counts zeroed just before and read
-               just after: kernels A, E, I and J (twice) must have run, and
-               G must not (lvd_tpu's dx there is the stock VJP);
+               just after: kernels A, E, I (in its wgmma form) and J (twice)
+               must have run, and G must not (lvd_tpu's dx there is the
+               stock VJP);
  12. profile - one CFG UNet forward and one guided update under
                torch.profiler: device time per kernel and for the stock ops,
                and the device's idle share.
@@ -132,7 +135,7 @@ def device_phase(torch):
     return name
 
 
-def build_phase():
+def build_phase(torch):
     from lvd_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -142,9 +145,8 @@ def build_phase():
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"[build] {line.strip()}")
-    for rec in ptxas_summary(_build.build_info["log"], ("packed_attention.cu",
-                                                        "packed_attention_bwd.cu")):
-        log(f"[build] ptxas A/E {json.dumps(rec)}")
+    for rec in ptxas_summary(_build.build_info["log"], PTXAS_SOURCES):
+        log(f"[build] ptxas A/E/H/I {json.dumps(rec)}")
     lib = _build.lib()
     smem = {}
     for dtype, code in (("bf16", 0), ("fp32", 1)):
@@ -152,7 +154,21 @@ def build_phase():
             smem[f"A {dtype} {form}"] = lib.lvd_attention_packed_smem(d, code)
             smem[f"E dkdv {dtype} {form}"] = lib.lvd_attention_packed_bwd_smem(d, code, 0)
             smem[f"E dq {dtype} {form}"] = lib.lvd_attention_packed_bwd_smem(d, code, 1)
-    log(f"[build] A/E dynamic shared memory per block (bytes): {json.dumps(smem)}")
+        smem[f"H {dtype}"] = lib.lvd_linear_smem(code)
+    from lvd_tpu_torch.ops.conv3x3 import launch_plan
+
+    for w in (72, 36, 18, 9):  # the planes' widths: conv3x3() at L0, the resnet convs L1-L3
+        for cout in (320, 640):
+            for dtype, code in (("bf16", 0), ("fp32", 1)):
+                plan = launch_plan(w, 640, cout, (torch.bfloat16, torch.float32)[code])
+                smem[f"I {dtype} W={w} Cout={cout} {plan['form']}"] = lib.lvd_conv3x3_smem(
+                    plan["code"], plan["box_rows"], plan["boxes"], plan["block_cout"], code)
+    smem["I wmma bf16 / fp32"] = [lib.lvd_conv3x3_smem(0, 0, 0, 64, c) for c in (0, 1)]
+    log(f"[build] A/E/H/I dynamic shared memory per block (bytes): {json.dumps(smem)}")
+
+
+# Sources whose kernels get one ptxas record each (registers, spills).
+PTXAS_SOURCES = ("packed_attention.cu", "packed_attention_bwd.cu", "linear.cu", "conv3x3.cu")
 
 
 def ptxas_summary(build_log, sources):
@@ -170,8 +186,9 @@ def ptxas_summary(build_log, sources):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            short = re.search(r"attn_[a-z0-9_]+(I[^E]*E)?", name)  # identifier, template args
-            rec = {"source": source, "kernel": name if short is None else short.group(0)}
+            # the kernel's length-prefixed identifier and its template arguments
+            short = re.search(r"\d((?:attn|linear|conv3x3)_\w*?kernel\w*?I\w*?EE)", name)
+            rec = {"source": source, "kernel": name if short is None else short.group(1)}
             records.append(rec)
         elif rec is not None and "spill stores" in line:
             nums = [int(n) for n in re.findall(r"(\d+) bytes", line)]
@@ -414,10 +431,28 @@ def wrappers():
 def zero_launches():
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_form"):
+            fn.launches_by_form = dict.fromkeys(fn.launches_by_form, 0)
 
 
 def read_launches():
     return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def read_forms():
+    """Launches per form of kernels H and I (linear_rows, norm_silu_conv2d,
+    conv3x3)."""
+    return {name: dict(fn.launches_by_form) for name, fn in wrappers().items()
+            if hasattr(fn, "launches_by_form")}
+
+
+def check_new_forms(phase, forms):
+    """Fails unless every launch of H and I took the new form (wgmma in
+    bf16, mma_sync in fp32): every UNet and conv3x3() shape has Cin and Cout
+    % 64 == 0, and only other widths take I's WMMA form."""
+    old = {name: f["wmma"] for name, f in forms.items() if f.get("wmma")}
+    if old:
+        raise SystemExit(f"[{phase}] launches of the WMMA form on the path: {old}")
 
 
 FORWARD_KERNELS = ("attention_packed", "temporal_attention_pair", "geglu_mlp",
@@ -513,7 +548,7 @@ def certification_phase(torch, pipe):
     return eff
 
 
-KERNEL_SYMBOLS = {  # substrings of the kernels' device symbols
+KERNEL_SYMBOLS = {  # substrings of the kernels' device symbols (H's and I's: every form)
     "attention_packed": "attn_packed_kernel",
     "temporal_attention_pair": "temporal_pair_kernel",
     "geglu_mlp": "geglu_kernel",
@@ -521,8 +556,8 @@ KERNEL_SYMBOLS = {  # substrings of the kernels' device symbols
     "attention_packed_bwd": "attn_bwd_",
     "temporal_attention_pair_bwd": "temporal_pair_bwd_kernel",
     "geglu_mlp_bwd": "geglu_bwd_kernel",
-    "linear": "linear_kernel",
-    "conv3x3 (kernel I)": "conv3x3_kernel",
+    "linear": "::linear_",
+    "conv3x3 (kernel I)": "::conv3x3_",
     "geglu_stream": "geglu_stream_kernel",
 }
 
@@ -533,6 +568,21 @@ def profile_phase(torch, models):
     the kernels and the stock ops; idle share = 1 - busy / wall."""
     from lvd_tpu_torch.diffusion import dpm_solver as dpm
     from lvd_tpu_torch.diffusion.sampler import energy_and_grad
+
+    text = profile_cfg_forward(torch, models, "one CFG UNet forward")
+    cfg = models.preset.unet
+    guide = flagship_guidance()
+    pack = guidance_tensors(guide)
+    lat = seeded_latents(torch)
+    t = int(dpm.make_coeffs(models.preset.scheduler, 40).timestep[0])
+    _profile(torch, "one guided update", lambda: energy_and_grad(
+        models.unet_params, cfg, lat, t, text[1:], pack, guide["attn_keys"], guide["config"],
+        torch.bfloat16))
+
+
+def profile_cfg_forward(torch, models, label):
+    """One bf16 CFG UNet forward at the generation's shapes under the
+    profiler; returns its (2, 77, C) text embedding."""
     from lvd_tpu_torch.models.unet3d import apply_unet3d
 
     cfg = models.preset.unet
@@ -541,15 +591,8 @@ def profile_phase(torch, models):
     text = torch.randn((2, 77, cfg.cross_attention_dim), generator=gen,
                        device="cuda").bfloat16()
     with torch.no_grad():
-        _profile(torch, "one CFG UNet forward",
-                 lambda: apply_unet3d(models.unet_params, cfg, sample, 500, text))
-    guide = flagship_guidance()
-    pack = guidance_tensors(guide)
-    lat = seeded_latents(torch)
-    t = int(dpm.make_coeffs(models.preset.scheduler, 40).timestep[0])
-    _profile(torch, "one guided update", lambda: energy_and_grad(
-        models.unet_params, cfg, lat, t, text[1:], pack, guide["attn_keys"], guide["config"],
-        torch.bfloat16))
+        _profile(torch, label, lambda: apply_unet3d(models.unet_params, cfg, sample, 500, text))
+    return text
 
 
 def _profile(torch, label, fn):
@@ -605,31 +648,37 @@ def knob_child(torch) -> int:
     log(f"[reference] launches: {json.dumps(ref_launches)}")
     if ref_launches["linear"] <= 0 or ref_launches["norm_silu_conv2d"] <= 0:
         raise SystemExit("[reference] the switches did not route kernels H and I")
+    check_new_forms("reference", read_forms())
     gradient_phase(torch, models)
     _, launches = guided_generation_phase(torch, models, KNOB_KERNELS)
-    print("KNOB_LAUNCHES " + json.dumps(launches), flush=True)
+    forms = read_forms()
+    log(f"[guided] launches of H and I by form: {json.dumps(forms)}")
+    check_new_forms("guided", forms)
+    profile_cfg_forward(torch, models, "one CFG UNet forward under the switches")
+    print("KNOB_LAUNCHES " + json.dumps({"launches": launches, "forms": forms}), flush=True)
     return 0
 
 
 def knob_phase(torch):
     """Runs knob_child in a child process with KNOBS set (LVD_FUSED_LINEAR is
-    read at import); its output is echoed, a non-zero exit is fatal."""
+    read at import); its output is echoed, a non-zero exit is fatal. Returns
+    the guided generation's launches and H's and I's launches by form."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--knob-phase"],
                           env={**os.environ, **KNOBS}, capture_output=True, text=True,
                           timeout=900)
-    launches = None
+    knob = None
     for line in proc.stdout.splitlines():
         if line.startswith("KNOB_LAUNCHES "):
-            launches = json.loads(line[len("KNOB_LAUNCHES "):])
+            knob = json.loads(line[len("KNOB_LAUNCHES "):])
         else:
             log(f"[knobs] {line}")
     log(f"[knobs] child exit {proc.returncode} after {time.perf_counter() - t0:.1f} s")
-    if proc.returncode != 0 or launches is None:
+    if proc.returncode != 0 or knob is None:
         log(proc.stderr[-8000:])
         raise SystemExit("[knobs] the knob phase failed")
-    return launches
+    return knob["launches"], knob["forms"]
 
 
 def fp32_phase(torch, models):
@@ -717,6 +766,7 @@ def entry_point_phase(torch, models):
         ff_out.append((out, torch.autograd.grad(out, xx, dy)[0]))
     torch.cuda.synchronize()
     launches = read_launches()
+    forms = read_forms()["conv3x3"]
     rel = lambda a, r: ((a.float() - r).abs().max() / r.abs().max()).item()
     errs, tols = {}, {}
     with exact_fp32():
@@ -743,23 +793,24 @@ def entry_point_phase(torch, models):
     log(f"[entry] sdpa() at {ENTRY_SDPA}, conv3x3() {tuple(x.shape)} -> {tuple(y.shape)} "
         f"(bf16) and geglu_mlp() at (8640, 1280) bf16 and (34560, 640) fp32, against the "
         f"plain versions (fp32): {json.dumps(errs)}; launches {json.dumps(entry)}, "
-        f"geglu_mlp_bwd {launches['geglu_mlp_bwd']}")
+        f"geglu_mlp_bwd {launches['geglu_mlp_bwd']}, conv3x3 by form {json.dumps(forms)}")
     want = {"sdpa": len(ENTRY_SDPA), "sdpa_bwd": len(ENTRY_SDPA), "conv3x3": 1,
             "geglu_stream": len(ff_in)}
-    if entry != want or launches["geglu_mlp_bwd"] != 0:
-        raise SystemExit(f"[entry] launches {entry} and geglu_mlp_bwd "
-                         f"{launches['geglu_mlp_bwd']}, expected {want} and 0")
+    if entry != want or launches["geglu_mlp_bwd"] != 0 or forms["wgmma"] != 1:
+        raise SystemExit(f"[entry] launches {entry}, geglu_mlp_bwd "
+                         f"{launches['geglu_mlp_bwd']} and conv3x3 by form {forms}, expected "
+                         f"{want}, 0 and one wgmma launch")
     bad = {k: e for k, e in errs.items() if not e <= tols.get(k, 2e-2)}
     if bad:
         raise SystemExit(f"[entry] an entry point disagrees with its plain version: {bad}")
-    return entry
+    return entry, {"conv3x3": forms}
 
 
-def kernels_line(records, knob_launches, entry_launches):
+def kernels_line(records, knob_launches, entry_launches, forms):
     """One entry per kernel wrapper of selfcheck.SOURCES: its bf16 numbers at
     its largest path shape, its worst errors in bf16 and fp32, and its
     launches on this slice's main path (the entry points for sdpa() and
-    conv3x3())."""
+    conv3x3()); H's and I's with their launches by form."""
     from lvd_tpu_torch.ops.selfcheck import SOURCES
 
     kernels = []
@@ -779,6 +830,8 @@ def kernels_line(records, knob_launches, entry_launches):
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": main["shape"],
         })
+        if kname in forms:
+            kernels[-1]["forms"] = forms[kname]
     return kernels
 
 
@@ -792,7 +845,7 @@ def main() -> int:
         return knob_child(torch)
     t_start = time.perf_counter()
     name = device_phase(torch)
-    build_phase()
+    build_phase(torch)
     records = kernel_phase()
 
     from lvd_tpu_torch.models.loader import random_pipeline_models
@@ -805,13 +858,13 @@ def main() -> int:
     pipe, _ = guided_generation_phase(torch, models)
     certification_phase(torch, pipe)
     del pipe
-    knob_launches = knob_phase(torch)
+    knob_launches, knob_forms = knob_phase(torch)
     fp32_phase(torch, models)
-    entry_launches = entry_point_phase(torch, models)
+    entry_launches, entry_forms = entry_point_phase(torch, models)
     torch.cuda.empty_cache()
     profile_phase(torch, models)
 
-    kernels = kernels_line(records, knob_launches, entry_launches)
+    kernels = kernels_line(records, knob_launches, entry_launches, {**knob_forms, **entry_forms})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

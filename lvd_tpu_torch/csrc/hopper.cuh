@@ -1,6 +1,7 @@
-// Hopper building blocks of kernel A's bf16 form: mbarriers, TMA tile loads
-// (cp.async.bulk.tensor), warpgroup products (wgmma) with shared-memory
-// descriptors, and the host-side tensor-map encoder.
+// Hopper building blocks of the bf16 wgmma kernels (A, H, I): mbarriers, TMA
+// tile loads (cp.async.bulk.tensor), warpgroup products (wgmma) with
+// shared-memory descriptors, the accumulator epilogue, and the host-side
+// tensor-map encoder.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a box of
 // 64 bf16 columns (128 bytes) by R rows lands as R rows of 128 bytes, the
@@ -13,6 +14,9 @@
 //    tile + 32 * kk bytes;
 //  - MN-major (rows are the contraction index, as V's rows are keys): one
 //    k16 step is two 8-row groups, so step kk starts at tile + 2048 * kk.
+//    An operand wider than 64 columns is stored as 64-column blocks of
+//    R x 128 bytes one after another; the descriptor's leading byte offset
+//    (LBO) is the distance between two blocks (desc_sw128_mn).
 // The accumulator of m64nNk16 gives warp w of the warpgroup rows 16w..16w+15;
 // lane l holds, for each 8-column chunk c, (row l/4, columns 8c + 2(l%4) + 0,
 // 1) in d[4c], d[4c+1] and the same columns of row l/4 + 8 in d[4c+2],
@@ -64,7 +68,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Orders this thread's generic-proxy writes to shared memory before later
+// asynchronous-proxy (TMA) accesses of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Barrier `id` (1-15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- TMA ----
+// One box of a 2-D tensor map at (c0, c1) (column, row); rows or columns
+// outside the tensor (negative included) read as zero.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 // Copies one box of a 3-D tensor map at coordinates (c0, c1, c2) (innermost
 // first) into shared memory; completion is counted on `bar` in bytes.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -88,8 +112,17 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Waits until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Descriptor of an MN-major operand of 64-column blocks `lbo_bytes` apart
+// (see the note at the top), each block a 128-byte-swizzled tile.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t lbo_bytes) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (64ull << 32) | (1ull << 62);
 }
 // Keeps the compiler from moving reads or writes of accumulator registers
 // across a wgmma wait.
@@ -139,6 +172,82 @@ __device__ __forceinline__ void wgmma_rs_n64_tn(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d += A B, m64n128k16, bf16 in, fp32 accumulators; A from shared memory
+// K-major, B from shared memory MN-major (transposed: N contiguous, two
+// 64-column blocks, desc_sw128_mn).
+__device__ __forceinline__ void wgmma_ss_n128_tn(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A B, m64n128k16, bf16 in, fp32 accumulators; A from registers (the
+// m16n8k16 A-fragment layout, e.g. from ldmatrix x4), B from shared memory
+// MN-major (two 64-column blocks, desc_sw128_mn).
+__device__ __forceinline__ void wgmma_rs_n128_tn(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B at width 64 * NB (1 or 2), A from registers, B MN-major.
+template <int NB>
+__device__ __forceinline__ void wgmma_rs_tn(float (&d)[NB * 32], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  if constexpr (NB == 2) {
+    wgmma_rs_n128_tn(d, a, b);
+  } else {
+    wgmma_rs_n64_tn(d, a, b);
+  }
+}
+
+// The epilogue of a warpgroup's m64 x (64 NB) fp32 accumulators: plus the
+// bias (fp32, before the one rounding), rounded to bf16 and written to rows
+// [0, 64) of `out` (row stride `ld` elements) where row < rows_valid, with
+// 16-byte stores. The accumulators go through `stage`: NB tiles of 64 x 64
+// bf16 (8 KB each, the warpgroup's own), `stride` elements apart, chunk c
+// of row r at c ^ (r % 8). Each warp stages and stores only its own 16
+// rows, so no barrier is needed. `bias` points at the tile's first column,
+// or is null.
+template <int NB>
+__device__ __forceinline__ void store_acc_bf16(const float (&acc)[NB * 32], bf16* stage,
+                                               int stride, const bf16* bias, bf16* out,
+                                               size_t ld, int rows_valid) {
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int r = lane / 4, cq = 2 * (lane % 4);
+#pragma unroll
+  for (int c = 0; c < 8 * NB; ++c) {
+    const int col = 8 * c + cq;
+    const float b0 = bias == nullptr ? 0.f : __bfloat162float(bias[col]);
+    const float b1 = bias == nullptr ? 0.f : __bfloat162float(bias[col + 1]);
+    bf16* st = stage + (c / 8) * stride + (warp * 16) * 64 + (((c % 8) ^ r) * 8) + cq;
+    *reinterpret_cast<uint32_t*>(st + r * 64) = pack_bf16(acc[4 * c] + b0, acc[4 * c + 1] + b1);
+    *reinterpret_cast<uint32_t*>(st + (r + 8) * 64) =
+        pack_bf16(acc[4 * c + 2] + b0, acc[4 * c + 3] + b1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < NB; ++h) {
+    const bf16* st = stage + h * stride + (warp * 16) * 64;
+#pragma unroll
+    for (int i = lane; i < 16 * 8; i += 32) {
+      const int rr = i / 8, cc = i % 8;
+      if (warp * 16 + rr < rows_valid)
+        *reinterpret_cast<uint4*>(out + (size_t)(warp * 16 + rr) * ld + h * 64 + cc * 8) =
+            *reinterpret_cast<const uint4*>(st + rr * 64 + ((cc ^ (rr % 8)) * 8));
+    }
+  }
+}
+
 }  // namespace hop
 
 // ---- host: tensor maps ----
@@ -184,6 +293,30 @@ inline cudaError_t make_map_bsc(CUtensorMap* map, const void* base, int B, int S
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-D map over a (rows, cols) row-major bf16 tensor with boxes of 64
+// columns x `box_rows` rows (<= 256), 128-byte swizzle. Boxes reaching
+// outside the tensor read zeros there.
+inline cudaError_t make_map_2d(CUtensorMap* map, const void* base, long long rows, int cols,
+                               int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The first 1024-byte boundary at or after p (a 128-byte-swizzled tile
+// must start on one).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 }  // namespace lvd

@@ -7,89 +7,278 @@
 // VJP takes dx through the same kernel on W^T.
 //
 // Bound on this card: at the projection shapes (K = N = 640 or 1280, R up
-// to 34560 rows) 2*R*K*N operations against (R*K + K*N + R*N) elements, so
-// the product is tensor-core bound. Design: a plain tiled GEMM
-// (tile_gemm.cuh) - one block per (64-row, 64-column) output tile, K in
-// 32-wide chunks staged in shared memory (29 KB bf16, 37 KB fp32), WMMA
-// with fp32 accumulation (TF32 for fp32), the bias added in fp32 before the
-// one rounding to the output type, as `_linear_kernel` does. Ragged rows
-// (48 x 77 text tokens) are masked. With `trans_w` the weight (N, K) is read
-// as its transpose: the chunk loader gathers W[n, k0:k0+32] rows and writes
-// them transposed into the (32, 64) B chunk, so no transposed copy of W is
-// ever made. No double buffering yet: the loads and the products of a chunk
-// do not overlap.
-#include "tile_gemm.cuh"
+// to 34560 rows, and the 48 x 77 text rows) 2*R*K*N operations against
+// (R*K + K*N + R*N) elements, so the product is tensor-core bound. lvd_tpu's
+// predicate gives K % 128 == 0 and N % 128 == 0; R is ragged.
+//
+// bf16: a warp-specialised wgmma GEMM, one block per (128-row, 128-column)
+// output tile (not persistent). One producer warp keeps a ring of four
+// stages in flight with TMA: a (128 rows, 64-deep K) tile of x and the
+// matching (64-deep K, 128 columns) tile of W, 32 KB a stage, 128-byte
+// swizzled, on 2-D tensor maps; rows past R read as zero. Two consumer
+// warpgroups each own 64 rows x 128 columns (m64n128k16, accumulators in
+// registers, one group of products kept in flight while the next stage is
+// waited for). The two forms differ only in W's operand: the forward reads
+// W (K, N) N-contiguous as an MN-major B (two 64-column TMA boxes), the
+// dx form reads W (N, K) K-contiguous as a K-major B (one box of 128
+// rows); no transposed copy of W is made. The epilogue adds the bias in
+// fp32 before the one rounding to bf16, as `_linear_kernel` does, and
+// writes 16-byte stores through the warpgroup's own rows of the first two
+// A stages (free once its last product completed); rows past R are not
+// stored.
+//
+// fp32 (TF32): wgmma takes TF32 operands only K-major, so the forward's W
+// would need a transpose in shared memory. Instead: mma.sync m16n8k8 with
+// register accumulators, eight warps a (128, 128) tile (each 32 x 64), K
+// in 32-deep chunks through a three-stage cp.async ring (rows padded by 16
+// bytes, or 32 for the (K, N) tile, so the fragment reads are free of bank
+// conflicts), the same fp32 bias epilogue.
+#include "common.cuh"
+#include "hopper.cuh"
+#include "warp_mma.cuh"
 
 namespace lvd {
 namespace {
 
-template <typename T, bool kTransW>
-__global__ void __launch_bounds__(TileGemm<T>::kThreads)
-linear_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
-              T* __restrict__ y, int R, int K, int N) {
-  using G = TileGemm<T>;
-  constexpr int V = kVecN<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* As = G::a_chunk(smem);
-  T* Bs = G::b_chunk(smem);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = blockIdx.x * G::BM;
-  const int n0 = blockIdx.y * G::BN;
+// ---- bf16: TMA ring + wgmma ----
 
-  typename G::Acc acc[G::BN / 16];
-  G::zero(acc);
-  for (int k0 = 0; k0 < K; k0 += G::BK) {
-    __syncthreads();  // every warp is done with the previous chunk
-    for (int e = tid; e < G::BM * (G::BK / V); e += G::kThreads) {
-      const int r = e / (G::BK / V), cv = e % (G::BK / V);
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r0 + r < R) val = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * K + k0 + cv * V);
-      *reinterpret_cast<uint4*>(As + r * G::kLdA + cv * V) = val;
+struct WgLin {
+  static constexpr int BM = 128, BN = 128, BK = 64, kStages = 4;
+  static constexpr int kThreads = 2 * 128 + 32;  // consumer warpgroups, then the producer warp
+  static constexpr int kATile = BM * BK * 2;     // 16 KB
+  static constexpr int kBTile = BK * BN * 2;     // 16 KB
+  static constexpr int kStageBytes = kATile + kBTile;
+  static constexpr int kBarOff = kStages * kStageBytes;
+  // The ring, the barriers, and slack to align the start to 1024.
+  static constexpr int kSmem = kBarOff + 2 * kStages * 8 + 1024;
+};
+
+template <bool kTransW>
+__global__ void __launch_bounds__(WgLin::kThreads, 1)
+linear_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_w, const bf16* __restrict__ bias,
+                    bf16* __restrict__ y, int R, int K, int N) {
+  using C = WgLin;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* empty = full + C::kStages;
+  const int n0 = blockIdx.x * C::BN, r0 = blockIdx.y * C::BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nk = K / C::BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    if constexpr (kTransW) {
-      // B[k][n] = W[n0 + n][k0 + k], W (N, K) row-major.
-      for (int e = tid; e < G::BN * (G::BK / V); e += G::kThreads) {
-        const int n = e / (G::BK / V), cv = e % (G::BK / V);
-        Vec<T> val;
-        val.u = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + n) * K + k0 + cv * V);
-#pragma unroll
-        for (int i = 0; i < V; ++i) Bs[(cv * V + i) * G::kLdB + n] = val.h[i];
-      }
-    } else {
-      // B[k][n] = W[k0 + k][n0 + n], W (K, N) row-major.
-      for (int e = tid; e < G::BK * (G::BN / V); e += G::kThreads) {
-        const int k = e / (G::BN / V), cv = e % (G::BN / V);
-        *reinterpret_cast<uint4*>(Bs + k * G::kLdB + cv * V) =
-            *reinterpret_cast<const uint4*>(w + (size_t)(k0 + k) * N + n0 + cv * V);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer: one lane issues every TMA load
+    if (lane == 0) {
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % C::kStages;
+        if (j >= C::kStages) hop::mbar_wait(&empty[s], (j / C::kStages - 1) & 1);
+        hop::mbar_expect_tx(&full[s], C::kStageBytes);
+        bf16* As = reinterpret_cast<bf16*>(smem + s * C::kStageBytes);
+        bf16* Bs = As + C::BM * C::BK;
+        hop::tma_load_2d(As, &tm_x, &full[s], j * C::BK, r0);
+        if constexpr (kTransW) {
+          hop::tma_load_2d(Bs, &tm_w, &full[s], j * C::BK, n0);  // (128 n, 64 k)
+        } else {
+          hop::tma_load_2d(Bs, &tm_w, &full[s], n0, j * C::BK);  // (64 k, 64 n) x 2
+          hop::tma_load_2d(Bs + 64 * 64, &tm_w, &full[s], n0 + 64, j * C::BK);
+        }
       }
     }
-    __syncthreads();
-    G::mma_chunk(acc, As, Bs, warp);
+    return;
   }
 
-  G::store_tile(acc, G::stage(smem, warp), warp, lane, [&](int r, int c, float v) {
-    if (r0 + r >= R) return;
-    const float b = bias == nullptr ? 0.f : to_f(bias[n0 + c]);
-    y[(size_t)(r0 + r) * N + n0 + c] = from_f<T>(v + b);
-  });
+  // Consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile.
+  const int wg = warp / 4;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int j = 0; j < nk; ++j) {
+    const int s = j % C::kStages;
+    hop::mbar_wait(&full[s], (j / C::kStages) & 1);
+    const bf16* As = reinterpret_cast<const bf16*>(smem + s * C::kStageBytes) + wg * 64 * 64;
+    const bf16* Bs = reinterpret_cast<const bf16*>(smem + s * C::kStageBytes) + C::BM * C::BK;
+    hop::fence_regs(acc);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hop::desc_sw128(As + kk * 16);
+      if constexpr (kTransW) {
+        hop::wgmma_ss_n128(acc, da, hop::desc_sw128(Bs + kk * 16), 1);
+      } else {
+        hop::wgmma_ss_n128_tn(acc, da, hop::desc_sw128_mn(Bs + kk * 16 * 64, 64 * 64 * 2));
+      }
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();  // the previous stage's products are done
+    hop::fence_regs(acc);
+    if (j > 0) {
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[(j - 1) % C::kStages]);
+    }
+  }
+  hop::wgmma_wait<0>();
+  hop::fence_regs(acc);
+
+  // Stage through this warpgroup's rows of the A tiles of stages 0 and 1:
+  // every TMA load into them has landed and every product that read them
+  // is done (the other warpgroup reads only its own rows and the B tiles).
+  bf16* stage = reinterpret_cast<bf16*>(smem) + wg * 64 * 64;
+  hop::store_acc_bf16<2>(acc, stage, C::kStageBytes / 2, bias == nullptr ? nullptr : bias + n0,
+                         y + (size_t)(r0 + wg * 64) * N + n0, N, R - r0 - wg * 64);
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* w, const void* bias, void* y, int R, int K, int N,
-                   int trans_w, cudaStream_t stream) {
-  using G = TileGemm<T>;
-  const dim3 grid((R + G::BM - 1) / G::BM, N / G::BN);
-  auto xs = static_cast<const T*>(x);
-  auto ws = static_cast<const T*>(w);
-  auto bs = static_cast<const T*>(bias);
-  auto ys = static_cast<T*>(y);
+cudaError_t launch_wgmma(const void* x, const void* w, const void* bias, void* y, int R, int K,
+                         int N, int trans_w, cudaStream_t stream) {
+  using C = WgLin;
+  CUtensorMap tx, tw;
+  cudaError_t err = make_map_2d(&tx, x, R, K, C::BM);
+  if (err == cudaSuccess)
+    err = trans_w ? make_map_2d(&tw, w, N, K, C::BN) : make_map_2d(&tw, w, K, N, C::BK);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(N / C::BN, (R + C::BM - 1) / C::BM);
+  auto bs = static_cast<const bf16*>(bias);
+  auto ys = static_cast<bf16*>(y);
+  if (trans_w) {
+    if ((err = set_smem(linear_wgmma_kernel<true>, C::kSmem)) != cudaSuccess) return err;
+    linear_wgmma_kernel<true><<<grid, C::kThreads, C::kSmem, stream>>>(tx, tw, bs, ys, R, K, N);
+  } else {
+    if ((err = set_smem(linear_wgmma_kernel<false>, C::kSmem)) != cudaSuccess) return err;
+    linear_wgmma_kernel<false><<<grid, C::kThreads, C::kSmem, stream>>>(tx, tw, bs, ys, R, K, N);
+  }
+  return cudaGetLastError();
+}
+
+// ---- fp32: mma.sync TF32 + cp.async ring ----
+
+struct F32Lin {
+  static constexpr int BM = 128, BN = 128, BK = 32, kStages = 3, kWarps = 8;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kLdA = BK + 4;   // x tile (128, 32) and the (N, K) W tile (128, 32)
+  static constexpr int kLdB = BN + 8;   // the (K, N) W tile (32, 128)
+  static constexpr int kATile = BM * kLdA;  // floats
+  static constexpr int kBTile = BN * kLdA > BK * kLdB ? BN * kLdA : BK * kLdB;
+  static constexpr int kStage = kATile + kBTile;
+  static constexpr int kSmem = kStages * kStage * 4;  // 108 KB
+};
+
+template <bool kTransW>
+__device__ __forceinline__ void lin_load_f32(float* As, float* Bs, const float* x, const float* w,
+                                             int r0, int n0, int k0, int R, int K, int N) {
+  using C = F32Lin;
+  for (int e = threadIdx.x; e < C::BM * (C::BK / 4); e += C::kThreads) {
+    const int r = e / (C::BK / 4), cv = e % (C::BK / 4);
+    const bool ok = r0 + r < R;
+    wm::cp_async16(As + r * C::kLdA + cv * 4, x + (ok ? (size_t)(r0 + r) * K + k0 + cv * 4 : 0),
+                   ok);
+  }
+  if constexpr (kTransW) {  // Bs[n][k] = W[n0 + n][k0 + k], W (N, K)
+    for (int e = threadIdx.x; e < C::BN * (C::BK / 4); e += C::kThreads) {
+      const int n = e / (C::BK / 4), cv = e % (C::BK / 4);
+      wm::cp_async16(Bs + n * C::kLdA + cv * 4, w + (size_t)(n0 + n) * K + k0 + cv * 4, true);
+    }
+  } else {  // Bs[k][n] = W[k0 + k][n0 + n], W (K, N)
+    for (int e = threadIdx.x; e < C::BK * (C::BN / 4); e += C::kThreads) {
+      const int k = e / (C::BN / 4), cv = e % (C::BN / 4);
+      wm::cp_async16(Bs + k * C::kLdB + cv * 4, w + (size_t)(k0 + k) * N + n0 + cv * 4, true);
+    }
+  }
+}
+
+template <bool kTransW>
+__global__ void __launch_bounds__(F32Lin::kThreads)
+linear_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ bias, float* __restrict__ y, int R, int K, int N) {
+  using C = F32Lin;
+  using W = wm::WarpMma<float>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  const int n0 = blockIdx.x * C::BN, r0 = blockIdx.y * C::BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm_ = warp % 4, wn = warp / 4;  // rows 32 wm_, columns 64 wn
+  const int nk = K / C::BK;
+
+#pragma unroll
+  for (int s = 0; s < C::kStages - 1; ++s) {
+    if (s < nk)
+      lin_load_f32<kTransW>(ring + s * C::kStage, ring + s * C::kStage + C::kATile, x, w, r0, n0,
+                            s * C::BK, R, K, N);
+    wm::cp_async_commit();
+  }
+  float acc[2][8][4] = {};
+  for (int j = 0; j < nk; ++j) {
+    wm::cp_async_wait<C::kStages - 2>();
+    __syncthreads();  // stage j landed for all; stage j - 1 is free
+    const int nxt = j + C::kStages - 1;
+    if (nxt < nk) {
+      float* st = ring + (nxt % C::kStages) * C::kStage;
+      lin_load_f32<kTransW>(st, st + C::kATile, x, w, r0, n0, nxt * C::BK, R, K, N);
+    }
+    wm::cp_async_commit();
+    const float* As = ring + (j % C::kStages) * C::kStage;
+    const float* Bs = As + C::kATile;
+#pragma unroll
+    for (int kk = 0; kk < C::BK; kk += 8) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) W::load_a(a[mt], As + (32 * wm_ + 16 * mt) * C::kLdA + kk, C::kLdA, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b0[2], b1[2];
+        if constexpr (kTransW) {
+          W::load_b_nk(b0, b1, Bs + (64 * wn + 16 * np) * C::kLdA + kk, C::kLdA, lane);
+        } else {
+          W::load_b_rows(b0, b1, Bs + kk * C::kLdB + 64 * wn + 16 * np, C::kLdB, lane);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          W::mma(acc[mt][2 * np], a[mt], b0);
+          W::mma(acc[mt][2 * np + 1], a[mt], b1);
+        }
+      }
+    }
+  }
+  wm::cp_async_wait<0>();
+
+  const int g = lane / 4, cq = 2 * (lane % 4);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int row = r0 + 32 * wm_ + 16 * mt + g;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = n0 + 64 * wn + 8 * nt + cq;
+      const float b0 = bias == nullptr ? 0.f : bias[col];
+      const float b1 = bias == nullptr ? 0.f : bias[col + 1];
+      if (row < R) W::store2(y + (size_t)row * N + col, acc[mt][nt][0] + b0, acc[mt][nt][1] + b1);
+      if (row + 8 < R)
+        W::store2(y + (size_t)(row + 8) * N + col, acc[mt][nt][2] + b0, acc[mt][nt][3] + b1);
+    }
+  }
+}
+
+cudaError_t launch_f32(const void* x, const void* w, const void* bias, void* y, int R, int K,
+                       int N, int trans_w, cudaStream_t stream) {
+  using C = F32Lin;
+  const dim3 grid(N / C::BN, (R + C::BM - 1) / C::BM);
+  auto xs = static_cast<const float*>(x);
+  auto ws = static_cast<const float*>(w);
+  auto bs = static_cast<const float*>(bias);
+  auto ys = static_cast<float*>(y);
   cudaError_t err;
   if (trans_w) {
-    if ((err = set_smem(linear_kernel<T, true>, G::kSmem)) != cudaSuccess) return err;
-    linear_kernel<T, true><<<grid, G::kThreads, G::kSmem, stream>>>(xs, ws, bs, ys, R, K, N);
+    if ((err = set_smem(linear_f32_kernel<true>, C::kSmem)) != cudaSuccess) return err;
+    linear_f32_kernel<true><<<grid, C::kThreads, C::kSmem, stream>>>(xs, ws, bs, ys, R, K, N);
   } else {
-    if ((err = set_smem(linear_kernel<T, false>, G::kSmem)) != cudaSuccess) return err;
-    linear_kernel<T, false><<<grid, G::kThreads, G::kSmem, stream>>>(xs, ws, bs, ys, R, K, N);
+    if ((err = set_smem(linear_f32_kernel<false>, C::kSmem)) != cudaSuccess) return err;
+    linear_f32_kernel<false><<<grid, C::kThreads, C::kSmem, stream>>>(xs, ws, bs, ys, R, K, N);
   }
   return cudaGetLastError();
 }
@@ -98,15 +287,28 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* y, int 
 }  // namespace lvd
 
 // x: (R, K); w: (K, N), or (N, K) read transposed with trans_w; bias: (N,)
-// or null; y: (R, N); all of one type (dtype 0 bf16, 1 fp32). K % 32 == 0,
-// N % 64 == 0.
+// or null; y: (R, N); all of one type (dtype 0 bf16: the wgmma form, K % 64
+// == 0; 1 fp32: the mma.sync form, K % 32 == 0); N % 128 == 0.
 LVD_EXPORT int lvd_linear(const void* x, const void* w, const void* bias, void* y, int R, int K,
                           int N, int trans_w, int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
-  if (R <= 0 || K <= 0 || N <= 0 || K % 32 != 0 || N % 64 != 0) return cudaErrorInvalidValue;
+  if (R <= 0 || K <= 0 || N <= 0 || N % 128 != 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, [&](auto tag) {
-    return launch<decltype(tag)>(x, w, bias, y, R, K, N, trans_w, s);
-  });
+  if (dtype == kBF16) {
+    if (K % WgLin::BK != 0) return cudaErrorInvalidValue;
+    return launch_wgmma(x, w, bias, y, R, K, N, trans_w, s);
+  }
+  if (dtype == kF32) {
+    if (K % F32Lin::BK != 0) return cudaErrorInvalidValue;
+    return launch_f32(x, w, bias, y, R, K, N, trans_w, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Bytes of dynamic shared memory one block of kernel H takes (dtype 0 bf16,
+// 1 fp32).
+LVD_EXPORT long long lvd_linear_smem(int dtype) {
+  using namespace lvd;
+  return dtype == kBF16 ? WgLin::kSmem : F32Lin::kSmem;
 }

@@ -363,7 +363,7 @@ attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       }
     }
     hop::wgmma_commit();
-    hop::wgmma_wait_all();
+    hop::wgmma_wait<0>();
     hop::fence_regs(sacc);
 
     if ((j + 1) * BK > Sk) {  // keys past S_k
@@ -424,7 +424,7 @@ attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
         hop::wgmma_rs_n64_tn(oacc[hh], pa[kk], hop::desc_sw128(Vt + hh * BK * 64 + kk * 16 * 64));
     }
     hop::wgmma_commit();
-    hop::wgmma_wait_all();
+    hop::wgmma_wait<0>();
 #pragma unroll
     for (int hh = 0; hh < NH; ++hh) hop::fence_regs(oacc[hh]);
     __syncwarp();

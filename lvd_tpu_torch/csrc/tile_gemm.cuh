@@ -1,5 +1,5 @@
-// A 64 x 64 output tile of a matrix product for one block of four warps,
-// shared by kernels H (linear.cu) and I (conv3x3.cu).
+// A 64 x 64 output tile of a matrix product for one block of four warps:
+// the WMMA form of kernel I (conv3x3.cu), for widths % 64 != 0.
 //
 // The block stages a (64, 32) A chunk and a (32, 64) B chunk in shared
 // memory per step of the K loop; warp w owns output rows [16w, 16w + 16) and

@@ -145,6 +145,16 @@ struct WarpMma<float> {
     b1[0] = tf32(s[2 * t * ld + 8 + g]);
     b1[1] = tf32(s[(2 * t + 1) * ld + 8 + g]);
   }
+  // B of two n-tiles from a tile whose rows are k (n contiguous), for an A
+  // operand read with load_a: rows t and t + 4, as m16n8k8 takes them.
+  __device__ static void load_b_rows(uint32_t (&b0)[2], uint32_t (&b1)[2], const float* s,
+                                     int ld, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    b0[0] = tf32(s[t * ld + g]);
+    b0[1] = tf32(s[(t + 4) * ld + g]);
+    b1[0] = tf32(s[t * ld + 8 + g]);
+    b1[1] = tf32(s[(t + 4) * ld + 8 + g]);
+  }
   template <int NT>
   __device__ static void acc_to_a(uint32_t (&a)[4], const float (&c)[NT][4], int kk) {
     a[0] = tf32(c[kk][0]);

@@ -48,13 +48,15 @@ SIGNATURES = {
     "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
     "lvd_geglu_bwd": [_P] * 6 + [_I] * 4 + [_I, _P],
     "lvd_linear": [_P] * 4 + [_I] * 4 + [_I, _P],
-    "lvd_conv3x3": [_P] * 6 + [_I] * 6 + [_I, _P],
+    "lvd_conv3x3": [_P] * 6 + [_I] * 10 + [_I, _P],
 }
 # Entry points that return a byte count instead of a CUDA error code (a
-# workspace size, or the dynamic shared memory of kernels A and E).
+# workspace size, or the dynamic shared memory of kernels A, E, H and I).
 SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 5,
                 "lvd_attention_packed_smem": [_I] * 2,
-                "lvd_attention_packed_bwd_smem": [_I] * 3}
+                "lvd_attention_packed_bwd_smem": [_I] * 3,
+                "lvd_linear_smem": [_I],
+                "lvd_conv3x3_smem": [_I] * 5}
 
 # The element types the kernels take, by the code their entry points read.
 DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}

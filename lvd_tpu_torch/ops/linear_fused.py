@@ -11,6 +11,11 @@ has none, as lvd_tpu passes it), the backward takes dx through kernel H on
 W^T (read transposed, no copy) where ``supported(W^T, dy)`` holds, else a
 stock product, and dw and db as stock products, as lvd_tpu leaves them to
 XLA. On CPU tensors both run their plain versions.
+
+Kernel H has two forms, by element type (``kernel_form``): ``wgmma`` in
+bf16 (K % 64 == 0) and ``mma_sync`` (TF32) in fp32 (K % 32 == 0), both with
+N % 128 == 0, which lvd_tpu's predicate guarantees for the forward and the
+dx call; ``linear_rows.launches_by_form`` counts each.
 """
 
 from __future__ import annotations
@@ -28,6 +33,19 @@ def supported(w, x) -> bool:
     c, n = w.shape
     return (x.dim() >= 2 and x.shape[-1] == c and c % 128 == 0 and n % 128 == 0
             and c * n * x.element_size() <= MAX_WEIGHT_BYTES)
+
+
+FORMS = ("wgmma", "mma_sync")
+BLOCK_N = 128  # output columns per block of either form
+BLOCK_K = {torch.bfloat16: 64, torch.float32: 32}  # K chunk of each form
+
+
+def kernel_form(dtype, k: int, n: int):
+    """Kernel H's form for an (R, k) x (k, n) product of this type, or None
+    where it takes none (n % 128 or k % BLOCK_K)."""
+    if dtype not in BLOCK_K or n % BLOCK_N or k % BLOCK_K[dtype]:
+        return None
+    return "wgmma" if dtype == torch.bfloat16 else "mma_sync"
 
 
 def linear_plain(x, w, b=None):
@@ -51,14 +69,18 @@ def linear_rows(x, w, b=None, trans_w: bool = False):
     b = None if b is None else _build.kernel_input(b, x.dtype, "linear b")
     r, k = x.shape
     n = w.shape[0] if trans_w else w.shape[1]
-    if (w.shape[1] if trans_w else w.shape[0]) != k or (b is not None and b.shape != (n,)):
-        raise ValueError(f"linear: x {tuple(x.shape)}, w {tuple(w.shape)} (trans_w={trans_w})")
+    form = kernel_form(x.dtype, k, n)
+    if (w.shape[1] if trans_w else w.shape[0]) != k or (b is not None and b.shape != (n,)) \
+            or form is None:
+        raise ValueError(f"linear: x {tuple(x.shape)}, w {tuple(w.shape)} (trans_w={trans_w}); "
+                         f"kernel H takes N % {BLOCK_N} == 0 and K % {BLOCK_K[x.dtype]} == 0")
     y = torch.empty((r, n), dtype=x.dtype, device=x.device)
     err = _build.lib().lvd_linear(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
         r, k, n, int(trans_w), code, _build.stream_of(x))
     _build.check(err, "linear")
     linear_rows.launches += 1
+    linear_rows.launches_by_form[form] += 1
     return y
 
 
@@ -108,3 +130,4 @@ def maybe_linear(p, x):
 
 
 linear_rows.launches = 0
+linear_rows.launches_by_form = dict.fromkeys(FORMS, 0)

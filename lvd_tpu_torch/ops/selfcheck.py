@@ -25,6 +25,9 @@ bf16 reading, so a kernel that rounded fp32 to bf16 would fail. Every
 reference runs with ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` off.
 
+Kernels H and I record the form each call took (``launches_by_form``:
+``wgmma`` in bf16, ``mma_sync`` in fp32, I's ``wmma`` for widths % 64 != 0).
+
 Each shape is also timed with CUDA events: the kernel, the plain version
 on the same inputs, and where one PyTorch call computes the same function
 (``scaled_dot_product_attention`` and its backward for A, E and sdpa,
@@ -380,6 +383,14 @@ def _launched(wrapper, fn):
     return out
 
 
+def _launched_form(wrapper, fn):
+    """``_launched`` for kernels H and I: (fn's result, the form it took)."""
+    before = dict(wrapper.launches_by_form)
+    out = _launched(wrapper, fn)
+    (form,) = [k for k, n in wrapper.launches_by_form.items() if n != before[k]]
+    return out, form
+
+
 def _nchw_conv(x, w, bias=None):
     """F.conv2d on a channels-last view (cuDNN), the yardstick of kernel I."""
     return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), bias, padding=1)
@@ -395,7 +406,7 @@ def check_spatial_conv(gen, shape, dtype=torch.bfloat16):
     if not spatial_conv_fused.supported(x, w):
         raise RuntimeError(f"norm_silu_conv2d: {shape} {dtype} is not a routed shape")
     fn = lambda: spatial_conv_fused.norm_silu_conv2d(x, a, sh, w, bias)
-    out = _launched(spatial_conv_fused.norm_silu_conv2d, fn)
+    out, form = _launched_form(spatial_conv_fused.norm_silu_conv2d, fn)
     ref = _ref(spatial_conv_fused.norm_silu_conv2d_plain, x, a, sh, w, bias)
     ms = time_ms(fn)
     plain_ms = time_ms(lambda: spatial_conv_fused.norm_silu_conv2d_plain(x, a, sh, w, bias),
@@ -405,7 +416,7 @@ def check_spatial_conv(gen, shape, dtype=torch.bfloat16):
     flops = 18.0 * pix * cin * cout
     nbytes = x.element_size() * (pix * (cin + cout) + 9 * cin * cout + cout) + 4.0 * 2 * n * cin
     return _record("norm_silu_conv2d", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops,
-                   nbytes, lib_ms)
+                   nbytes, lib_ms) | {"form": form}
 
 
 def check_conv3x3(gen, shape, dtype=torch.bfloat16):
@@ -415,7 +426,7 @@ def check_conv3x3(gen, shape, dtype=torch.bfloat16):
     if not conv3x3.supported(x, w):
         raise RuntimeError(f"conv3x3: {shape} {dtype} is not a routed shape")
     fn = lambda: conv3x3.conv3x3(x, w)
-    out = _launched(conv3x3.conv3x3, fn)
+    out, form = _launched_form(conv3x3.conv3x3, fn)
     ref = _ref(conv3x3.conv3x3_plain, x, w)
     ms = time_ms(fn)
     plain_ms = time_ms(lambda: conv3x3.conv3x3_plain(x, w), 1, 2)
@@ -424,7 +435,7 @@ def check_conv3x3(gen, shape, dtype=torch.bfloat16):
     flops = 18.0 * pix * cin * cout
     nbytes = x.element_size() * (pix * (cin + cout) + 9 * cin * cout)
     return _record("conv3x3", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops, nbytes,
-                   lib_ms)
+                   lib_ms) | {"form": form}
 
 
 def check_linear(gen, shape, dtype=torch.bfloat16):
@@ -437,20 +448,21 @@ def check_linear(gen, shape, dtype=torch.bfloat16):
     dy = _randn(gen, (rows, n)).to(dtype)
     item = x.element_size()
     fwd = lambda: linear_fused.linear_rows(x, w, b)
-    out = _launched(linear_fused.linear_rows, fwd)
+    out, form = _launched_form(linear_fused.linear_rows, fwd)
     ref = _ref(linear_fused.linear_plain, x, w, b)
     records = [_record(
         "linear", shape, dtype, out, ref, DEFAULT_TOL, time_ms(fwd),
         time_ms(lambda: linear_fused.linear_plain(x, w, b), 1, 2), 2.0 * rows * c * n,
-        item * (rows * c + c * n + n + rows * n), time_ms(lambda: torch.addmm(b, x, w)))]
+        item * (rows * c + c * n + n + rows * n), time_ms(lambda: torch.addmm(b, x, w)))
+        | {"form": form}]
     bwd = lambda: linear_fused.linear_rows(dy, w, None, trans_w=True)
-    out = _launched(linear_fused.linear_rows, bwd)
+    out, form = _launched_form(linear_fused.linear_rows, bwd)
     ref = _ref(lambda dd, ww: linear_fused.linear_plain(dd, ww.transpose(0, 1)), dy, w)
     records.append(_record(
         "linear", [rows, n, c, "dx"], dtype, out, ref, DEFAULT_TOL, time_ms(bwd),
         time_ms(lambda: linear_fused.linear_plain(dy, w.transpose(0, 1)), 1, 2),
         2.0 * rows * c * n, item * (rows * n + c * n + rows * c),
-        time_ms(lambda: torch.matmul(dy, w.transpose(0, 1)))))
+        time_ms(lambda: torch.matmul(dy, w.transpose(0, 1)))) | {"form": form})
     return records
 
 

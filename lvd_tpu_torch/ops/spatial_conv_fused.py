@@ -13,7 +13,9 @@ affine (a, b) fp32 from ``ops.basic.group_norm_coeffs`` and the HWIO weight
 forward launches kernel I, on CPU tensors it runs ``_unfused``. Its
 backward is the stock VJP of ``_unfused`` recomputed, as lvd_tpu's is XLA's
 VJP of the same function; it returns dx, da, db, dw and dbias, so the
-latent gradient also flows through the GroupNorm statistics a and b.
+latent gradient also flows through the GroupNorm statistics a and b. The
+kernel's form follows ``conv3x3.launch_plan``, counted per form in
+``norm_silu_conv2d.launches_by_form``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, conv3x3
 
 _VMEM_BUDGET = 12 * 1024 * 1024  # lvd_tpu's working-set budget for one plane
 
@@ -64,25 +66,17 @@ def norm_silu_conv2d_plain(x, a, b, conv_w, conv_b):
 def _launch_forward(x, a, b, w, bias):
     """Kernel I with its prologue on CUDA tensors; w is (9, Cin, Cout)."""
     _build.refuse_grad("norm_silu_conv2d", x, a, b, w, bias)
-    code = _build.dtype_code(x, "norm_silu_conv2d")
     x = _build.kernel_input(x, x.dtype, "norm_silu_conv2d x")
     a = _build.kernel_input(a, torch.float32, "norm_silu_conv2d a")
     b = _build.kernel_input(b, torch.float32, "norm_silu_conv2d b")
     w = _build.kernel_input(w, x.dtype, "norm_silu_conv2d w")
     bias = _build.kernel_input(bias, x.dtype, "norm_silu_conv2d bias")
-    n, h, wdim, cin = x.shape
-    cout = w.shape[-1]
-    if w.shape != (9, cin, cout) or a.shape != (n, cin) or b.shape != (n, cin) \
+    n, cin, cout = x.shape[0], x.shape[-1], w.shape[-1]
+    if x.dim() != 4 or w.shape != (9, cin, cout) or a.shape != (n, cin) or b.shape != (n, cin) \
             or bias.shape != (cout,):
         raise ValueError(f"norm_silu_conv2d: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"a {tuple(a.shape)}, bias {tuple(bias.shape)}")
-    out = torch.empty((n, h, wdim, cout), dtype=x.dtype, device=x.device)
-    err = _build.lib().lvd_conv3x3(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        n, h, wdim, cin, cout, 1, code, _build.stream_of(x))
-    _build.check(err, "norm_silu_conv2d")
-    norm_silu_conv2d.launches += 1
-    return out
+    return conv3x3.launch(x, a, b, w, bias, "norm_silu_conv2d", norm_silu_conv2d)
 
 
 class NormSiluConv2d(torch.autograd.Function):
@@ -116,3 +110,4 @@ def norm_silu_conv2d(x, a, b, conv_w, conv_b):
 
 
 norm_silu_conv2d.launches = 0
+norm_silu_conv2d.launches_by_form = dict.fromkeys(conv3x3.FORMS, 0)

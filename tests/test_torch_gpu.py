@@ -277,6 +277,88 @@ def test_rows_12_13_14_match_plain(cuda, dtype):
         assert _rel(dx, lf.linear_plain(out.float(), w.transpose(0, 1))) <= tol
 
 
+def _by_form(counter, fn):
+    """fn()'s result and the forms of kernel H or I it launched."""
+    before = dict(counter.launches_by_form)
+    out = fn()
+    return out, {k: n - before[k] for k, n in counter.launches_by_form.items() if n != before[k]}
+
+
+# Kernel H at every projection shape of the path (selfcheck.LINEAR_SHAPES),
+# and the ragged 231-row case of test_rows_12_13_14_match_plain.
+H_SHAPES = [(34560, 640, 640), (8640, 1280, 1280), (3696, 1024, 640), (3696, 1024, 1280),
+            (231, 256, 384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,c,n", H_SHAPES)
+def test_linear_forms_match_plain(cuda, rows, c, n, dtype):
+    """Kernel H's forward and its dx on W^T (read transposed) in its new
+    form (wgmma in bf16, mma_sync in fp32) against linear_plain on fp32
+    copies: 2e-2 in bf16, 5e-3 in fp32."""
+    from lvd_tpu_torch.ops import linear_fused as lf
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
+    form = "wgmma" if dtype == torch.bfloat16 else "mma_sync"
+    g = torch.Generator(device=cuda).manual_seed(9)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=cuda) * scale
+    x, w, bias, dy = r(rows, c), r(c, n, scale=c ** -0.5), r(n, scale=0.1), r(rows, n)
+    out, forms = _by_form(lf.linear_rows, lambda: lf.linear_rows(x.to(dtype), w.to(dtype),
+                                                                 bias.to(dtype)))
+    assert forms == {form: 1}
+    dx, forms = _by_form(lf.linear_rows, lambda: lf.linear_rows(dy.to(dtype), w.to(dtype), None,
+                                                                trans_w=True))
+    assert forms == {form: 1}
+    with exact_fp32():
+        assert _rel(out, lf.linear_plain(x, w, bias)) <= tol
+        assert _rel(dx, lf.linear_plain(dy, w.transpose(0, 1))) <= tol
+
+
+# Kernel I: (N, H, W, Cin, Cout).
+I_SHAPES = [
+    (3, 5, 9, 64, 64),        # 45-pixel frames: every 128-pixel tile spans frames
+    (4, 5, 9, 128, 128),
+    (2, 8, 72, 64, 128),      # W = 72: a 274-row window in two TMA boxes
+    (48, 20, 36, 1280, 640),  # L1 at full width
+    (3, 5, 9, 136, 72),       # Cin, Cout % 64 != 0: the WMMA form
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("prologue", [True, False])
+@pytest.mark.parametrize("shape", I_SHAPES)
+def test_conv_forms_match_plain(cuda, shape, prologue, dtype):
+    """Kernel I with and without its prologue in the form launch_plan
+    names (the halo-window form for Cin, Cout % 64 == 0, else WMMA)
+    against the plain version on fp32 copies: 2e-2 in bf16, 5e-3 in fp32."""
+    from lvd_tpu_torch.ops import conv3x3 as c3
+    from lvd_tpu_torch.ops import spatial_conv_fused as scf
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    n, h, wd, cin, cout = shape
+    tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
+    form = c3.launch_plan(wd, cin, cout, dtype)["form"]
+    assert (form == "wmma") == bool(cin % 64 or cout % 64)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=cuda) * scale
+    x, w = r(n, h, wd, cin), r(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    if prologue:
+        a, b, bias = 1 + r(n, cin, scale=0.1), r(n, cin, scale=0.1), r(cout, scale=0.1)
+        out, forms = _by_form(scf.norm_silu_conv2d, lambda: scf.norm_silu_conv2d(
+            x.to(dtype), a, b, w.to(dtype), bias.to(dtype)))
+        with exact_fp32():
+            ref = scf.norm_silu_conv2d_plain(x, a, b, w, bias)
+    else:
+        out, forms = _by_form(c3.conv3x3, lambda: c3._launch(x.to(dtype), w.to(dtype)))
+        with exact_fp32():
+            ref = c3.conv3x3_plain(x, w)
+    assert forms == {form: 1}
+    err = _rel(out, ref)
+    print(f"kernel I {shape} prologue={prologue} {dtype} {form}: {err:.3g}")
+    assert err <= tol
+
+
 def test_selfcheck_passes(cuda):
     from lvd_tpu_torch.ops import selfcheck
 
