@@ -8,8 +8,8 @@ Phases, each fatal on failure:
   2. build   - nvcc builds lvd_tpu_torch/csrc/*.cu, one process per source,
                all started together, then one link (seconds and the -Xptxas
                -v register / shared-memory / spill lines, one record of
-               registers and spills per kernel A, E, H and I instantiation,
-               and their dynamic shared memory per block);
+               registers and spills per kernel A, C, D, E, H and I
+               instantiation, and their dynamic shared memory per block);
   3. kernels - every kernel at every shape the Zeroscope path gives it, in
                bf16, against its plain PyTorch version on fp32 copies, and
                each kernel in fp32 at its largest shape against the plain
@@ -37,11 +37,12 @@ Phases, each fatal on failure:
                CLIP and VAE widths, 24 frames, 576x320, CFG 9.0) from seeded
                random bf16 weights, 4 DPM-Solver++ steps, through the entry
                points a user calls; launch counts are zeroed just before and
-               read just after, and every forward kernel A-D must have run;
+               read just after, and every forward kernel A-D must have run,
+               every C and D launch in its new form (wgmma);
   7. guided generation - the flagship layout (one box moving left to right)
                and GuidanceConfig through the same entry point with
                ``backward_guidance``, 4 steps with guidance on the first 2;
-               every kernel A-G must have run;
+               every kernel A-G must have run, C and D in their new form;
   8. certification - guidance_effect at full width, 16 guided updates at
                the first timestep: the in-box attention share must rise by
                more than lvd_tpu's flagship gate (gain > 1.004) and the
@@ -51,9 +52,9 @@ Phases, each fatal on failure:
                second is read at import): phases 4 and 5 again, now with the
                resnet convs on kernel I and the projections on kernel H, and
                the guided generation of phase 7, which is this slice's main
-               path: every kernel A-I must have run, and every launch of H
-               and I must have taken the new form (wgmma / mma_sync, never
-               I's WMMA form); then one profiled CFG forward under the
+               path: every kernel A-I must have run, and every launch of C,
+               D, H and I must have taken the new form (wgmma / mma_sync,
+               never a WMMA form); then one profiled CFG forward under the
                switches. A non-zero exit of the child fails the smoke;
  10. fp32    - one full-width CFG UNet forward in TextToVideoPipeline's
                default type (fp32) through the kernels against the plain
@@ -146,7 +147,7 @@ def build_phase(torch):
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"[build] {line.strip()}")
     for rec in ptxas_summary(_build.build_info["log"], PTXAS_SOURCES):
-        log(f"[build] ptxas A/E/H/I {json.dumps(rec)}")
+        log(f"[build] ptxas A/C/D/E/H/I {json.dumps(rec)}")
     lib = _build.lib()
     smem = {}
     for dtype, code in (("bf16", 0), ("fp32", 1)):
@@ -164,11 +165,17 @@ def build_phase(torch):
                 smem[f"I {dtype} W={w} Cout={cout} {plan['form']}"] = lib.lvd_conv3x3_smem(
                     plan["code"], plan["box_rows"], plan["boxes"], plan["block_cout"], code)
     smem["I wmma bf16 / fp32"] = [lib.lvd_conv3x3_smem(0, 0, 0, 64, c) for c in (0, 1)]
-    log(f"[build] A/E/H/I dynamic shared memory per block (bytes): {json.dumps(smem)}")
+    for c in (320, 512, 640):  # kernel C at the path's widths
+        smem[f"C wgmma bf16 C={c}"] = lib.lvd_geglu_smem(1, c, 0)
+        smem[f"C wmma fp32 C={c}"] = lib.lvd_geglu_smem(0, c, 1)
+    smem["D wgmma bf16 F=24"] = lib.lvd_temp_conv_smem(24, 0)
+    smem["D mma_sync fp32 F=24"] = lib.lvd_temp_conv_smem(24, 1)
+    log(f"[build] A/C/D/E/H/I dynamic shared memory per block (bytes): {json.dumps(smem)}")
 
 
 # Sources whose kernels get one ptxas record each (registers, spills).
-PTXAS_SOURCES = ("packed_attention.cu", "packed_attention_bwd.cu", "linear.cu", "conv3x3.cu")
+PTXAS_SOURCES = ("packed_attention.cu", "packed_attention_bwd.cu", "linear.cu", "conv3x3.cu",
+                 "geglu.cu", "temp_conv.cu")
 
 
 def ptxas_summary(build_log, sources):
@@ -187,7 +194,8 @@ def ptxas_summary(build_log, sources):
         if m:
             name = m.group(1)
             # the kernel's length-prefixed identifier and its template arguments
-            short = re.search(r"\d((?:attn|linear|conv3x3)_\w*?kernel\w*?I\w*?EE)", name)
+            short = re.search(r"\d((?:attn|linear|conv3x3|geglu|temp_conv)_\w*?kernel"
+                              r"(?:\w*?I\w*?EE)?)", name)
             rec = {"source": source, "kernel": name if short is None else short.group(1)}
             records.append(rec)
         elif rec is not None and "spill stores" in line:
@@ -440,16 +448,18 @@ def read_launches():
 
 
 def read_forms():
-    """Launches per form of kernels H and I (linear_rows, norm_silu_conv2d,
-    conv3x3)."""
+    """Launches per form of kernels C, D, H and I (geglu_mlp,
+    norm_silu_temporal_conv, linear_rows, norm_silu_conv2d, conv3x3)."""
     return {name: dict(fn.launches_by_form) for name, fn in wrappers().items()
             if hasattr(fn, "launches_by_form")}
 
 
 def check_new_forms(phase, forms):
-    """Fails unless every launch of H and I took the new form (wgmma in
-    bf16, mma_sync in fp32): every UNet and conv3x3() shape has Cin and Cout
-    % 64 == 0, and only other widths take I's WMMA form."""
+    """Fails unless every launch of C, D, H and I took the new form (wgmma
+    in bf16, mma_sync in fp32 for D, H and I): every UNet and conv3x3()
+    shape has Cin and Cout % 64 == 0, and only other widths take I's WMMA
+    form; C's WMMA form is its fp32 form, and the paths this is called on
+    run bf16."""
     old = {name: f["wmma"] for name, f in forms.items() if f.get("wmma")}
     if old:
         raise SystemExit(f"[{phase}] launches of the WMMA form on the path: {old}")
@@ -492,6 +502,9 @@ def generation_phase(torch, models):
     missing = [name for name in FORWARD_KERNELS if launches[name] <= 0]
     if missing:
         raise SystemExit(f"[generation] kernels never launched on the main path: {missing}")
+    forms = read_forms()
+    log(f"[generation] launches of C, D, H and I by form: {json.dumps(forms)}")
+    check_new_forms("generation", forms)
     return launches
 
 
@@ -527,6 +540,9 @@ def guided_generation_phase(torch, models, kernels=GUIDED_KERNELS):
     missing = [name for name in kernels if launches[name] <= 0]
     if missing:
         raise SystemExit(f"[guided] kernels never launched on the guided path: {missing}")
+    forms = read_forms()
+    log(f"[guided] launches of C, D, H and I by form: {json.dumps(forms)}")
+    check_new_forms("guided", forms)
     return pipe, launches
 
 
@@ -548,11 +564,11 @@ def certification_phase(torch, pipe):
     return eff
 
 
-KERNEL_SYMBOLS = {  # substrings of the kernels' device symbols (H's and I's: every form)
+KERNEL_SYMBOLS = {  # substrings of the kernels' device symbols (C's, D's, H's, I's: every form)
     "attention_packed": "attn_packed_kernel",
     "temporal_attention_pair": "temporal_pair_kernel",
-    "geglu_mlp": "geglu_kernel",
-    "norm_silu_temporal_conv": "temp_conv_kernel",
+    "geglu_mlp": "::geglu_w",
+    "norm_silu_temporal_conv": "::temp_conv_w",
     "attention_packed_bwd": "attn_bwd_",
     "temporal_attention_pair_bwd": "temporal_pair_bwd_kernel",
     "geglu_mlp_bwd": "geglu_bwd_kernel",
@@ -652,8 +668,6 @@ def knob_child(torch) -> int:
     gradient_phase(torch, models)
     _, launches = guided_generation_phase(torch, models, KNOB_KERNELS)
     forms = read_forms()
-    log(f"[guided] launches of H and I by form: {json.dumps(forms)}")
-    check_new_forms("guided", forms)
     profile_cfg_forward(torch, models, "one CFG UNet forward under the switches")
     print("KNOB_LAUNCHES " + json.dumps({"launches": launches, "forms": forms}), flush=True)
     return 0
@@ -662,7 +676,8 @@ def knob_child(torch) -> int:
 def knob_phase(torch):
     """Runs knob_child in a child process with KNOBS set (LVD_FUSED_LINEAR is
     read at import); its output is echoed, a non-zero exit is fatal. Returns
-    the guided generation's launches and H's and I's launches by form."""
+    the guided generation's launches and C's, D's, H's and I's launches by
+    form."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--knob-phase"],
@@ -810,7 +825,8 @@ def kernels_line(records, knob_launches, entry_launches, forms):
     """One entry per kernel wrapper of selfcheck.SOURCES: its bf16 numbers at
     its largest path shape, its worst errors in bf16 and fp32, and its
     launches on this slice's main path (the entry points for sdpa() and
-    conv3x3()); H's and I's with their launches by form."""
+    conv3x3()); C's, D's, H's and I's with their launches by form, C's and
+    D's with the same products' time through torch.matmul."""
     from lvd_tpu_torch.ops.selfcheck import SOURCES
 
     kernels = []
@@ -832,6 +848,8 @@ def kernels_line(records, knob_launches, entry_launches, forms):
         })
         if kname in forms:
             kernels[-1]["forms"] = forms[kname]
+        if "products_ms" in main:
+            kernels[-1]["products_ms"] = main["products_ms"]
     return kernels
 
 

@@ -9,17 +9,63 @@
 // per row against ~4*C bytes of row traffic, so the kernel is tensor-core
 // bound; unfused, the (R, 8C) projection and the (R, 4C) gated activation
 // would each make a round trip through device memory (354 MB and 177 MB per
-// L0 instance in bf16). Design: one block per 32-row tile keeps its x rows in
-// shared memory and walks the inner dimension in 64-wide chunks: h and g for
-// the chunk come from WMMA products (fp32), the gate is applied in fp32 and
-// rounded to bf16 in shared memory, and the chunk is multiplied straight into
-// W2, accumulating the (32, C) output in registers. The weights are read
-// from device memory (L2-resident: 3*C*4C bf16 is at most 9.8 MB). C is a
-// template parameter (C = 64*NF) so the output accumulators stay in
-// registers. fp32 tensors take the same tiles with fp32 x rows and gated
-// chunk in shared memory (116 KB at C = 640, against 72 KB in bf16) and
-// TF32 products; the gated chunk is not rounded.
+// L0 instance in bf16). The structure is flash attention's forward: x is Q,
+// a chunk of W1 is K, the gate is the softmax, a chunk of W2 is V, and the
+// output is O. Every 64-row block streams all 3*C*4C weights (at most 9.8
+// MB, L2-resident), 64 operations a weight byte.
+//
+// bf16 (the `wgmma` form; C = 64..640 step 64, inner % 64 == 0): one block
+// per 64 rows, warp-specialised. A producer warp loads the x tile once
+// (C/64 swizzled 64-column TMA boxes, rows past R read as zero) and streams
+// the weights through a ring of 16 KB stages (up to 8). Per 64-wide inner
+// chunk k: C/64 stages of W1, each 64 input rows x [h32 | g32 | h32' |
+// g32'] (the two warpgroups' 32-column halves of the chunk, W1h's columns
+// beside W1g's: the wrapper passes W1 with its columns interleaved in 32s,
+// ops/geglu_fused.py `interleave_w1`), then the stages of W2, each 64
+// inner rows x two 64-column output blocks, all MN-major (N-contiguous).
+// The two consumer warpgroups:
+//  - GEMM1: warpgroup j computes [h | g] for its 32 inner columns of the
+//    chunk as one m64n64 product over C (wgmma, A = the x tile K-major, two
+//    K-tiles a group), so h and g of an inner column sit in the same
+//    thread's registers;
+//  - the gate: + b1, gelu (tanh form on tanh.approx, or the exact erf form,
+//    LVD_GELU_FORM), h * gelu(g), rounded to bf16 (where lvd_tpu rounds it)
+//    and written to a 64 x 64 gated tile in shared memory (8 KB, double
+//    buffered), ordered before the products by a proxy fence and a named
+//    barrier of both warpgroups;
+//  - GEMM2: warpgroup j accumulates output blocks 2i + j from the gated
+//    tile and W2's stage, and does not wait for them: the next chunk's
+//    GEMM1 issues behind them, so the tensor cores drain once a chunk (for
+//    the gate), not twice;
+//  - the epilogue adds b2 in fp32, rounds once, and stores 16 bytes a lane
+//    through the x tile (free after the last GEMM1).
+// With 9 warps a block the SM's four register files cap a thread at 168
+// registers, and ptxas does not raise its allocation after setmaxnreg. At
+// C >= 448 (C/4 output and 32 [h | g] accumulators a thread would spill,
+// and spilled accumulators serialize every wgmma), two blocks share each
+// 64-row tile, each writing half of the output blocks and recomputing
+// GEMM1: 5/3 of the products, no spills. Without the producer warp (up to
+// 255 registers, thread 0 issuing the loads) the kernel measured slower at
+// every width. Timing variants that skip the weight loads or the products
+// showed that the products with their per-stage handoffs and the drain at
+// the gate, not the weights' L2 stream, set the pace (PERF.md, PR 10).
+// Two blocks on neighbouring row tiles can form a thread-block cluster in
+// which each weight box is loaded once and multicast by TMA into both
+// blocks' rings: each block issues one of a stage's two boxes, a stage is
+// freed only when every consumer warp of the cluster has released it
+// (remote mbarrier arrivals), and the blocks meet at a cluster barrier at
+// start and end. It halves the weights' L2 reads, but measured slower at
+// every width (the loads are not what bounds the kernel), so the wrapper
+// launches clusters of 1.
+//
+// fp32 (the `wmma` form, kept): one block per 32-row tile keeps its x rows
+// in shared memory and walks the inner dimension in 64-wide chunks: h and g
+// from WMMA TF32 products (fp32), the gate in fp32 (not rounded), and the
+// chunk multiplied straight into W2, the (32, C) output in registers; the
+// weights are read from device memory (L2-resident). 116 KB of shared
+// memory at C = 640.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace lvd {
 namespace {
@@ -38,7 +84,7 @@ constexpr int geglu_smem() {
 
 template <typename T, int NF>
 __global__ void __launch_bounds__(kThreads)
-geglu_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
+geglu_wmma_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
              const T* __restrict__ w2, const T* __restrict__ b2, T* __restrict__ out, int R,
              int I, int exact) {
   using M = Mma<T>;
@@ -134,49 +180,356 @@ geglu_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restr
 }
 
 template <typename T, int NF>
-cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-                   void* out, int R, int I, int exact, cudaStream_t stream) {
+cudaError_t launch_wmma(const void* x, const void* w1, const void* b1, const void* w2,
+                        const void* b2, void* out, int R, int I, int exact, cudaStream_t stream) {
   constexpr int smem = geglu_smem<T, NF>();
-  cudaError_t err = set_smem(geglu_kernel<T, NF>, smem);
+  cudaError_t err = set_smem(geglu_wmma_kernel<T, NF>, smem);
   if (err != cudaSuccess) return err;
-  geglu_kernel<T, NF><<<(R + kBM - 1) / kBM, kThreads, smem, stream>>>(
+  geglu_wmma_kernel<T, NF><<<(R + kBM - 1) / kBM, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
       static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), R, I, exact);
   return cudaGetLastError();
 }
 
-template <typename T>
+// ---- bf16: TMA weight ring (cluster multicast) + wgmma ----
+
+template <int NF>
+struct WgGeglu {
+  static constexpr int BM = 64;                  // rows a block
+  static constexpr int kThreads = 2 * 128 + 32;  // consumer warpgroups, then the producer warp
+  // Output blocks a block writes: all C/64, or at C >= 448 one half (two
+  // blocks on the same rows, each recomputing GEMM1), so that a thread's
+  // accumulators fit the 168 registers 9 warps a block leave it.
+  static constexpr int kSplit = NF >= 7 ? 2 : 1;
+  static constexpr int NO = (NF + kSplit - 1) / kSplit;
+  static constexpr int NA = (NO + 1) / 2;        // output blocks of warpgroup 0 (1 has NO / 2)
+  static constexpr int kStage = 16384;           // two 64 x 64 bf16 blocks
+  static constexpr int kX = NF * 8192;           // the x tile: NF blocks of 64 rows x 64 columns
+  static constexpr int kGated = 2 * 8192;        // the gated chunk, double-buffered
+  static constexpr int kFixed = kX + kGated + 256 + 1024;  // + barriers, alignment slack
+  static constexpr int kFit = (kMaxSmem - kFixed) / kStage;
+  static constexpr int kStages = kFit > 8 ? 8 : kFit;
+  static constexpr int kSmem = kStages * kStage + kFixed;
+};
+
+// The gate's GELU in fp32: the tanh form on the special-function unit's
+// tanh, or the exact erf form.
+__device__ __forceinline__ float gelu_gate(float g, int exact) {
+  if (exact) return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
+  const float hg = 0.5f * g;
+  return fmaf(hg, hop::tanh_approx(g * fmaf(0.0356774081f, g * g, 0.7978845608f)), hg);
+}
+
+template <int NF, int CS>
+__global__ void __launch_bounds__(WgGeglu<NF>::kThreads, 1)
+geglu_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_w1,
+                   const __grid_constant__ CUtensorMap tm_w2, const bf16* __restrict__ b1,
+                   const bf16* __restrict__ b2, bf16* __restrict__ out, int R, int I,
+                   int exact) {
+  using G = WgGeglu<NF>;
+  constexpr int NS = G::kStages;
+  constexpr int C = 64 * NF;
+  constexpr int U = NF + G::NA;  // stages an inner chunk takes
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ring = smem;
+  bf16* xs = reinterpret_cast<bf16*>(smem + NS * G::kStage);
+  bf16* gated = xs + NF * 4096;
+  uint64_t* full = reinterpret_cast<uint64_t*>(gated + 2 * 4096);
+  uint64_t* empty = full + NS;
+  uint64_t* xfull = empty + NS;
+  const int r0 = blockIdx.x * G::BM;
+  const int o0 = blockIdx.y * G::NO;  // this block's first output block
+  const int nk = I / 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint32_t rank = CS > 1 ? hop::cluster_rank() : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8 * CS);  // every consumer warp of the cluster
+    }
+    hop::mbar_init(xfull, 1);
+    hop::mbar_fence_init();
+  }
+  if constexpr (CS > 1) {
+    hop::cluster_sync();  // every block's barriers exist before any multicast
+  } else {
+    __syncthreads();
+  }
+
+  if (warp == 8) {  // the producer warp: one lane issues every TMA load
+    if (lane == 0) {
+      hop::mbar_expect_tx(xfull, NF * 8192);
+      for (int kt = 0; kt < NF; ++kt) hop::tma_load_2d(xs + kt * 4096, &tm_x, xfull, 64 * kt, r0);
+      // Stage v (chunk v / U) holds W1 rows 64 j .. of both warpgroups'
+      // [h32 | g32] blocks (box h) for j = v % U < NF, else W2 rows of the
+      // chunk for output blocks o0 + 2 (j - NF) + h; in a cluster of two,
+      // block h loads box h for both.
+      for (int v = 0; v < nk * U; ++v) {
+        const int s = v % NS, k = v / U, j = v % U;
+        if (v >= NS) hop::mbar_wait(&empty[s], (v / NS - 1) & 1);
+        hop::mbar_expect_tx(&full[s], G::kStage);
+        for (int h = rank; h < 2; h += CS) {
+          void* d = ring + s * G::kStage + h * 8192;
+          const CUtensorMap* map = j < NF ? &tm_w1 : &tm_w2;
+          const int c0 = j < NF ? 64 * (2 * k + h) : 64 * (o0 + 2 * (j - NF) + h);
+          const int c1 = 64 * (j < NF ? j : k);
+          if constexpr (CS > 1) {
+            hop::tma_load_2d_mc(d, map, &full[s], c0, c1, 0x3);
+          } else {
+            hop::tma_load_2d(d, map, &full[s], c0, c1);
+          }
+        }
+      }
+    }
+    if constexpr (CS > 1) {
+      __syncwarp();
+      hop::cluster_sync();  // no block leaves while others may still signal it
+    }
+    return;
+  }
+  auto wait_full = [&](int uu) { hop::mbar_wait(&full[uu % NS], (uu / NS) & 1); };
+  auto release = [&](int uu) {
+    __syncwarp();
+    if (lane == 0) {
+      if constexpr (CS > 1) {
+        for (int c = 0; c < CS; ++c) hop::mbar_arrive_cluster(&empty[uu % NS], c);
+      } else {
+        hop::mbar_arrive(&empty[uu % NS]);
+      }
+    }
+  };
+
+  // Warpgroup wg computes inner columns 64 k + 32 wg .. + 31 of each chunk
+  // and output blocks 2 i + wg.
+  const int wg = warp / 4, wq = warp % 4;
+  const int r4 = lane / 4, cq = 2 * (lane % 4);
+  float acc[G::NA][32];
+#pragma unroll
+  for (int i = 0; i < G::NA; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+  float hg[32];
+  // Stages u.. are consumed in order; `done` is the first not yet released.
+  // A stage is released once the wgmma group that read it has completed:
+  // after each wait<1>, every stage before the newest group's.
+  int u = 0, done = 0;
+  auto release_to = [&](int end) {
+    for (; done < end; ++done) release(done);
+  };
+  hop::mbar_wait(xfull, 0);
+  for (int k = 0; k < nk; ++k) {
+    // GEMM1: [h | g] = x [W1h | W1g] over C, 64 rows x (32 + 32) columns,
+    // two K-tiles (stages) a wgmma group. The first group's wait also
+    // retires the previous chunk's GEMM2 groups, which ran on the tensor
+    // cores while this chunk's first products were issued.
+#pragma unroll
+    for (int kt = 0; kt < NF; kt += 2) {
+      constexpr int kPair = 2;
+      const int n = NF - kt < kPair ? NF - kt : kPair;
+      wait_full(u);
+      if (n == 2) wait_full(u + 1);
+      hop::fence_regs(hg);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < kPair; ++t) {
+        if (t < n) {
+          const bf16* Bs =
+              reinterpret_cast<const bf16*>(ring + ((u + t) % NS) * G::kStage) + wg * 4096;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hop::wgmma_ss_n64_tn(hg, hop::desc_sw128(xs + (kt + t) * 4096 + kk * 16),
+                                 hop::desc_sw128_mn(Bs + kk * 16 * 64, 8192),
+                                 kt + t > 0 || kk > 0);
+        }
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();
+      release_to(u);
+      u += n;
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_regs(hg);
+    release_to(u);
+
+    // The gate: column 8 c + cq (+1) of h is hg[4 c (+1)], of g hg[4 (c + 4) (+1)];
+    // + 2 for row r4 + 8.
+    bf16* gt = gated + (k & 1) * 4096;
+    const int i0 = 64 * k + 32 * wg;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = 8 * c + cq;
+      const float2 bh = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + i0 + col));
+      const float2 bg =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + I + i0 + col));
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float h0 = hg[4 * c + 2 * hf] + bh.x, h1 = hg[4 * c + 2 * hf + 1] + bh.y;
+        const float g0 = hg[4 * (c + 4) + 2 * hf] + bg.x;
+        const float g1 = hg[4 * (c + 4) + 2 * hf + 1] + bg.y;
+        const int row = 16 * wq + r4 + 8 * hf;
+        *reinterpret_cast<uint32_t*>(gt + row * 64 + (((4 * wg + c) ^ r4) * 8) + cq) =
+            pack_bf16(h0 * gelu_gate(g0, exact), h1 * gelu_gate(g1, exact));
+      }
+    }
+    hop::fence_proxy_async();
+    hop::bar_sync(1, 256);  // both halves of the gated chunk are in place
+
+    // GEMM2: out[:, block o0 + 2 s2 + wg] += gated W2[chunk rows, that block],
+    // one group a stage, not waited for here (the next chunk's GEMM1 issues
+    // behind it). A block past this block's share (odd counts) reads zeros
+    // or another block's weights and is never stored; no branch around the
+    // wgmma: a warpgroup-dependent one would serialize them.
+#pragma unroll
+    for (int s2 = 0; s2 < G::NA; ++s2, ++u) {
+      wait_full(u);
+      const bf16* Bs = reinterpret_cast<const bf16*>(ring + (u % NS) * G::kStage) + wg * 4096;
+      hop::fence_regs(acc[s2]);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_ss_n64_tn(acc[s2], hop::desc_sw128(gt + kk * 16),
+                             hop::desc_sw128_mn(Bs + kk * 16 * 64, 8192), 1);
+      hop::wgmma_commit();
+    }
+  }
+  hop::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < G::NA; ++i) hop::fence_regs(acc[i]);
+  release_to(u);
+
+  // Epilogue through x tile block 2 s2 + wg (both warpgroups passed the
+  // last chunk's barrier, so no GEMM1 reads the x tile any more).
+  const int valid = NF - o0 < G::NO ? NF - o0 : G::NO;
+#pragma unroll
+  for (int s2 = 0; s2 < G::NA; ++s2) {
+    const int blk = 2 * s2 + wg;
+    if (blk < valid)
+      hop::store_acc_bf16<1>(acc[s2], xs + blk * 4096, 4096, b2 + 64 * (o0 + blk),
+                             out + (size_t)r0 * C + 64 * (o0 + blk), C, R - r0);
+  }
+  if constexpr (CS > 1) hop::cluster_sync();  // no block leaves while others may signal it
+}
+
+template <int NF, int CS>
+cudaError_t launch_wgmma(const void* x, const void* w1, const void* b1, const void* w2,
+                         const void* b2, void* out, int R, int I, int exact,
+                         cudaStream_t stream) {
+  using G = WgGeglu<NF>;
+  constexpr int C = 64 * NF;
+  CUtensorMap tx, tw1, tw2;
+  cudaError_t err = make_map_2d(&tx, x, R, C, 64);
+  if (err == cudaSuccess) err = make_map_2d(&tw1, w1, C, 2 * I, 64);
+  if (err == cudaSuccess) err = make_map_2d(&tw2, w2, I, C, 64);
+  if (err == cudaSuccess) err = set_smem(geglu_wgmma_kernel<NF, CS>, G::kSmem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (R + G::BM - 1) / G::BM;
+  const dim3 grid((blocks + CS - 1) / CS * CS, G::kSplit);
+  auto b1p = static_cast<const bf16*>(b1);
+  auto b2p = static_cast<const bf16*>(b2);
+  auto outp = static_cast<bf16*>(out);
+  if constexpr (CS == 1) {
+    geglu_wgmma_kernel<NF, 1><<<grid, G::kThreads, G::kSmem, stream>>>(tx, tw1, tw2, b1p, b2p,
+                                                                       outp, R, I, exact);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(G::kThreads);
+    cfg.dynamicSmemBytes = G::kSmem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CS;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, geglu_wgmma_kernel<NF, CS>, tx, tw1, tw2, b1p, b2p, outp, R,
+                             I, exact);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
+}
+
+// One width: the wgmma form (form 1, bf16) at this cluster size, or the
+// WMMA form (form 0, fp32).
+template <int NF>
+cudaError_t launch_width(const void* x, const void* w1, const void* b1, const void* w2,
+                         const void* b2, void* out, int R, int I, int exact, int form,
+                         int cluster, cudaStream_t s) {
+  if (form == 0) return launch_wmma<float, NF>(x, w1, b1, w2, b2, out, R, I, exact, s);
+  if (cluster == 2) return launch_wgmma<NF, 2>(x, w1, b1, w2, b2, out, R, I, exact, s);
+  return launch_wgmma<NF, 1>(x, w1, b1, w2, b2, out, R, I, exact, s);
+}
+
 cudaError_t launch_c(const void* x, const void* w1, const void* b1, const void* w2,
-                     const void* b2, void* out, int R, int C, int I, int exact,
-                     cudaStream_t s) {
+                     const void* b2, void* out, int R, int C, int I, int exact, int form,
+                     int cluster, cudaStream_t s) {
   switch (C / 64) {
-    case 1: return launch<T, 1>(x, w1, b1, w2, b2, out, R, I, exact, s);
-    case 2: return launch<T, 2>(x, w1, b1, w2, b2, out, R, I, exact, s);
-    case 3: return launch<T, 3>(x, w1, b1, w2, b2, out, R, I, exact, s);
-    case 4: return launch<T, 4>(x, w1, b1, w2, b2, out, R, I, exact, s);
-    case 5: return launch<T, 5>(x, w1, b1, w2, b2, out, R, I, exact, s);
-    case 6: return launch<T, 6>(x, w1, b1, w2, b2, out, R, I, exact, s);
-    case 7: return launch<T, 7>(x, w1, b1, w2, b2, out, R, I, exact, s);
-    case 8: return launch<T, 8>(x, w1, b1, w2, b2, out, R, I, exact, s);
-    case 9: return launch<T, 9>(x, w1, b1, w2, b2, out, R, I, exact, s);
-    default: return launch<T, 10>(x, w1, b1, w2, b2, out, R, I, exact, s);
+    case 1: return launch_width<1>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
+    case 2: return launch_width<2>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
+    case 3: return launch_width<3>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
+    case 4: return launch_width<4>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
+    case 5: return launch_width<5>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
+    case 6: return launch_width<6>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
+    case 7: return launch_width<7>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
+    case 8: return launch_width<8>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
+    case 9: return launch_width<9>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
+    default: return launch_width<10>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
+  }
+}
+
+template <int NF>
+long long smem_width(int form) {
+  return form == 1 ? WgGeglu<NF>::kSmem : geglu_smem<float, NF>();
+}
+
+long long smem_c(int C, int form) {
+  switch (C / 64) {
+    case 1: return smem_width<1>(form);
+    case 2: return smem_width<2>(form);
+    case 3: return smem_width<3>(form);
+    case 4: return smem_width<4>(form);
+    case 5: return smem_width<5>(form);
+    case 6: return smem_width<6>(form);
+    case 7: return smem_width<7>(form);
+    case 8: return smem_width<8>(form);
+    case 9: return smem_width<9>(form);
+    default: return smem_width<10>(form);
   }
 }
 
 }  // namespace
 }  // namespace lvd
 
-// x: (R, C), w1: (C, 2I) = [W1h | W1g], b1: (2I,), w2: (I, C), b2: (C,),
-// out: (R, C); all of one type (dtype 0 bf16, 1 fp32). C in {64, 128, ...,
-// 640}, I % 64 == 0.
+// x: (R, C), b1: (2I,), w2: (I, C), b2: (C,), out: (R, C); all of one type
+// (dtype 0 bf16, 1 fp32). C in {64, 128, ..., 640}, I % 64 == 0. form 1 is
+// the wgmma form (bf16; `cluster` blocks of 64 rows share each weight box:
+// 1 or 2), whose w1 (C, 2I) holds W1h's and W1g's columns interleaved in
+// 32s ([h 0..31 | g 0..31 | h 32..63 | ...]); form 0 the WMMA form (fp32),
+// whose w1 is [W1h | W1g].
 LVD_EXPORT int lvd_geglu(const void* x, const void* w1, const void* b1, const void* w2,
-                         const void* b2, void* out, int R, int C, int I, int exact, int dtype,
-                         void* stream) {
+                         const void* b2, void* out, int R, int C, int I, int exact, int form,
+                         int cluster, int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
-  if (C % 64 != 0 || C < 64 || C > 640 || I % kBI != 0 || R <= 0) return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, [&](auto tag) {
-    return launch_c<decltype(tag)>(x, w1, b1, w2, b2, out, R, C, I, exact, s);
-  });
+  if (C % 64 != 0 || C < 64 || C > 640 || I % kBI != 0 || I <= 0 || R <= 0 ||
+      dtype != (form == 1 ? kBF16 : kF32) || (form != 0 && form != 1) ||
+      (form == 1 && cluster != 1 && cluster != 2))
+    return cudaErrorInvalidValue;
+  return launch_c(x, w1, b1, w2, b2, out, R, C, I, exact, form, cluster,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of dynamic shared memory one block of kernel C takes at width C:
+// the wgmma form (form 1, bf16) or the WMMA form (form 0, fp32); 0 for
+// arguments the kernel does not take.
+LVD_EXPORT long long lvd_geglu_smem(int form, int C, int dtype) {
+  using namespace lvd;
+  if (C % 64 != 0 || C < 64 || C > 640 || (form != 0 && form != 1) ||
+      dtype != (form == 1 ? kBF16 : kF32))
+    return 0;
+  return smem_c(C, form);
 }

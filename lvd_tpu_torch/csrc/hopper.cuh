@@ -1,7 +1,7 @@
-// Hopper building blocks of the bf16 wgmma kernels (A, H, I): mbarriers, TMA
-// tile loads (cp.async.bulk.tensor), warpgroup products (wgmma) with
-// shared-memory descriptors, the accumulator epilogue, and the host-side
-// tensor-map encoder.
+// Hopper building blocks of the bf16 wgmma kernels (A, C, D, H, I):
+// mbarriers, TMA tile loads (cp.async.bulk.tensor, multicast to a thread-block
+// cluster), warpgroup products (wgmma) with shared-memory descriptors, the
+// accumulator epilogue, and the host-side tensor-map encoder.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a box of
 // 64 bf16 columns (128 bytes) by R rows lands as R rows of 128 bytes, the
@@ -100,6 +100,52 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Copies one box of a 4-D tensor map at coordinates (c0, c1, c2, c3)
+// (innermost first) into shared memory; completion is counted on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+// A 2-D box written at the same shared-memory offset in every block of the
+// cluster named by `mask` (bit i: cluster rank i); each destination block's
+// barrier at `bar`'s offset counts the bytes that land there.
+__device__ __forceinline__ void tma_load_2d_mc(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                               int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+// ---- thread-block clusters ----
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster arrives and waits; orders
+// each thread's earlier shared-memory writes and remote arrivals before
+// the other blocks' later accesses.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// One arrival on the barrier at `bar`'s offset in the cluster's block `rank`
+// (this block included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
 // ---- wgmma ----
 // Descriptor of a 128-byte-swizzled tile (see the note at the top).
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
@@ -185,6 +231,20 @@ __device__ __forceinline__ void wgmma_ss_n128_tn(float (&d)[64], uint64_t a, uin
       : "l"(a), "l"(b), "r"(1));
 }
 
+// d (+)= A B, m64n64k16, bf16 in, fp32 accumulators; A from shared memory
+// K-major, B from shared memory MN-major (one 64-column block); accumulate
+// = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64_tn(float (&d)[32], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d += A B, m64n128k16, bf16 in, fp32 accumulators; A from registers (the
 // m16n8k16 A-fragment layout, e.g. from ldmatrix x4), B from shared memory
 // MN-major (two 64-column blocks, desc_sw128_mn).
@@ -248,6 +308,14 @@ __device__ __forceinline__ void store_acc_bf16(const float (&acc)[NB * 32], bf16
   }
 }
 
+// tanh in fp32 on the special-function unit (one instruction; relative
+// error about 2^-11, below a bf16 rounding).
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 }  // namespace hop
 
 // ---- host: tensor maps ----
@@ -307,6 +375,23 @@ inline cudaError_t make_map_2d(CUtensorMap* map, const void* base, long long row
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A map of `rank` (2-5) dimensions over a bf16 tensor: dims innermost
+// first, the byte strides of dims 1.. (multiples of 16), and the box
+// (box[0] = 64: 128-byte rows under the 128-byte swizzle). Elements
+// outside the tensor read as zero.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

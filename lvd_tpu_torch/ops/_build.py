@@ -41,7 +41,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "lvd_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
     "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
-    "lvd_geglu": [_P] * 6 + [_I] * 4 + [_I, _P],
+    "lvd_geglu": [_P] * 6 + [_I] * 6 + [_I, _P],
     "lvd_geglu_stream": [_P] * 6 + [_I] * 4 + [_I, _P],
     "lvd_temp_conv": [_P] * 6 + [_I] * 4 + [_I, _P],
     "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
@@ -51,12 +51,14 @@ SIGNATURES = {
     "lvd_conv3x3": [_P] * 6 + [_I] * 10 + [_I, _P],
 }
 # Entry points that return a byte count instead of a CUDA error code (a
-# workspace size, or the dynamic shared memory of kernels A, E, H and I).
+# workspace size, or the dynamic shared memory of kernels A, C, D, E, H and I).
 SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 5,
                 "lvd_attention_packed_smem": [_I] * 2,
                 "lvd_attention_packed_bwd_smem": [_I] * 3,
                 "lvd_linear_smem": [_I],
-                "lvd_conv3x3_smem": [_I] * 5}
+                "lvd_conv3x3_smem": [_I] * 5,
+                "lvd_geglu_smem": [_I] * 3,
+                "lvd_temp_conv_smem": [_I] * 2}
 
 # The element types the kernels take, by the code their entry points read.
 DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}

@@ -25,8 +25,13 @@ bf16 reading, so a kernel that rounded fp32 to bf16 would fail. Every
 reference runs with ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` off.
 
-Kernels H and I record the form each call took (``launches_by_form``:
-``wgmma`` in bf16, ``mma_sync`` in fp32, I's ``wmma`` for widths % 64 != 0).
+Kernels C, D, H and I record the form each call took (``launches_by_form``:
+``wgmma`` in bf16; ``mma_sync`` in fp32 for D, H and I, C's kept ``wmma``
+form in fp32; I's ``wmma`` for widths % 64 != 0). C and D also time
+the same products alone through ``torch.matmul`` on pre-made operands
+(``products_ms``: x W1 and gated W2; the three shifted products): not a
+library call for the same function, and the port never calls it. C's bf16
+checks also time the kernel alone at each cluster size (``cluster_ms``).
 
 Each shape is also timed with CUDA events: the kernel, the plain version
 on the same inputs, and where one PyTorch call computes the same function
@@ -252,13 +257,25 @@ def check_geglu(gen, shape, dtype=torch.bfloat16):
     inner = 4 * c
     p = _cast({"proj": _linear_p(gen, c, 2 * inner), "out": _linear_p(gen, inner, c)}, dtype)
     x = _randn(gen, (rows, c)).to(dtype)
-    out = geglu_fused.geglu_mlp(p, x)
+    fn = lambda: geglu_fused.geglu_mlp(p, x)
+    out, form = _launched_form(geglu_fused.geglu_mlp, fn)
     ref = _ref(lambda pp, xx: geglu_fused._unfused(*_geglu_args(pp, xx)), p, x)
-    ms = time_ms(lambda: geglu_fused.geglu_mlp(p, x))
+    ms = time_ms(fn)
     plain_ms = time_ms(lambda: geglu_fused._unfused(*_geglu_args(p, x)), 1, 2)
+    # The same two products alone on pre-made operands (x W1, gated W2).
+    gated = _randn(gen, (rows, inner)).to(dtype)
+    w1, w2 = p["proj"]["w"], p["out"]["w"]
+    products_ms = time_ms(lambda: (torch.matmul(x, w1), torch.matmul(gated, w2)))
+    del gated
+    extra = {"form": form, "products_ms": products_ms}
+    if form == "wgmma":  # the launch alone at each cluster size (weights shared by multicast)
+        with torch.no_grad():
+            extra["cluster_ms"] = {cl: time_ms(lambda: geglu_fused._launch_forward(p, x, cl))
+                                   for cl in geglu_fused.CLUSTERS}
     flops = 6.0 * rows * c * inner
     nbytes = x.element_size() * (2 * rows * c + 3 * c * inner + 2 * inner + c)
-    return _record("geglu_mlp", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops, nbytes)
+    return _record("geglu_mlp", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops,
+                   nbytes) | extra
 
 
 def check_geglu_stream(gen, shape, dtype=torch.bfloat16):
@@ -287,16 +304,22 @@ def check_temp_conv(gen, shape, dtype=torch.bfloat16):
     w = _randn(gen, (3, 1, 1, c, c), (3 * c) ** -0.5).to(dtype)
     bias = _randn(gen, (c,), 0.1).to(dtype)
     fn = lambda: temp_conv_fused.norm_silu_temporal_conv(x, a, sh, w, bias)
-    out = fn()
+    out, form = _launched_form(temp_conv_fused.norm_silu_temporal_conv, fn)
     ref = _ref(temp_conv_fused.norm_silu_temporal_conv_plain, x, a, sh, w, bias)
     ms = time_ms(fn)
     plain_ms = time_ms(lambda: temp_conv_fused.norm_silu_temporal_conv_plain(x, a, sh, w, bias),
                        1, 2)
+    # The three frame-shifted products alone on pre-made operands.
+    w3 = w.reshape(3, c, c)
+    z_prev, z_next = x[:, :-1].contiguous(), x[:, 1:].contiguous()
+    products_ms = time_ms(lambda: (torch.matmul(x, w3[1]), torch.matmul(z_prev, w3[0]),
+                                   torch.matmul(z_next, w3[2])))
+    del z_prev, z_next
     n = b * f * pdim
     flops = 6.0 * n * c * c
     nbytes = x.element_size() * (2 * n * c + 3 * c * c + c) + 4.0 * 2 * b * c
     return _record("norm_silu_temporal_conv", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms,
-                   flops, nbytes)
+                   flops, nbytes) | {"form": form, "products_ms": products_ms}
 
 
 def check_attention_bwd(gen, shape, dtype=torch.bfloat16):
@@ -384,7 +407,8 @@ def _launched(wrapper, fn):
 
 
 def _launched_form(wrapper, fn):
-    """``_launched`` for kernels H and I: (fn's result, the form it took)."""
+    """``_launched`` for kernels C, D, H and I: (fn's result, the form it
+    took)."""
     before = dict(wrapper.launches_by_form)
     out = _launched(wrapper, fn)
     (form,) = [k for k, n in wrapper.launches_by_form.items() if n != before[k]]

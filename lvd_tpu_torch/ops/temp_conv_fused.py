@@ -6,8 +6,13 @@ plain version (counterpart of lvd_tpu/ops/temp_conv_fused.py).
 from ``ops.basic.group_norm_coeffs`` and the conv3d weight (3, 1, 1, C, C).
 It is a ``torch.autograd.Function``: on a CUDA tensor the forward launches
 kernel D (csrc/temp_conv.cu, replacing ``_fused``), on a CPU tensor it runs
-``_unfused``. lvd_tpu has no Pallas backward here (its ``_stage_bwd`` is
-XLA's VJP of the unfused recompute), so the backward recomputes ``_unfused``
+``_unfused``. Kernel D has two forms on one frame-window implicit GEMM
+(``launch_plan``): ``wgmma`` in bf16 and ``mma_sync`` (TF32) in fp32;
+``norm_silu_temporal_conv.launches_by_form`` counts each. ``window_rows``
+and ``tap_rows`` are the windows' index arithmetic, which the CPU tests
+hold to lvd_tpu's kernel. lvd_tpu has no Pallas backward here (its
+``_stage_bwd`` is XLA's VJP of the unfused recompute), so the backward
+recomputes ``_unfused``
 with stock torch ops and returns the gradients of every input that needs
 one: dx, da and db (a and b are GroupNorm statistics of x, so the latent
 gradient flows through them too), and the weight and bias gradients.
@@ -32,6 +37,35 @@ def _unfused(x, a, b, w, bias):
     y[:, 1:] += z[:, :-1] @ w[0]
     y[:, :-1] += z[:, 1:] @ w[2]
     return y + bias.to(x.dtype)
+
+
+FORMS = ("wgmma", "mma_sync")
+PIXEL_TILE = 8  # pixels of one window: a frame is one 8-row, 1024-byte swizzle atom
+START_FRAME = -1  # the window's first frame
+
+
+def launch_plan(f: int, dtype) -> dict:
+    """Kernel D's form for F frames of this type: ``wgmma`` in bf16,
+    ``mma_sync`` (TF32) in fp32, on the same windows: frames START_FRAME ..
+    F (8 (F + 2) rows loaded, zero outside [0, F)), padded to
+    ``window_rows`` so that every m64 tile's taps stay inside it."""
+    return {"form": "wgmma" if dtype == torch.bfloat16 else "mma_sync",
+            "m_tiles": -(-PIXEL_TILE * f // 64),
+            "window_rows": window_rows(f), "loaded_rows": PIXEL_TILE * (f + 2)}
+
+
+def window_rows(f: int) -> int:
+    """Rows of one pixel tile's window: the m64 tiles of the 8 F output rows
+    and the two frames the taps reach past them."""
+    return 64 * -(-PIXEL_TILE * f // 64) + 2 * PIXEL_TILE
+
+
+def tap_rows(f: int):
+    """(3, 64 * m_tiles) int tensor: the window row that output row r
+    (frame r // 8, pixel r % 8 of the tile) reads for tap k: r + 8 k, so
+    tap k of m64 tile t is the window from row 64 t + 8 k on."""
+    m = 64 * -(-PIXEL_TILE * f // 64)
+    return torch.arange(m)[None, :] + PIXEL_TILE * torch.arange(3)[:, None]
 
 
 def supported(x) -> bool:
@@ -60,12 +94,14 @@ def _launch_forward(x, a, b, w, bias):
     if w.shape != (3, c, c) or a.shape != (bsz, c) or b.shape != (bsz, c):
         raise ValueError(
             f"norm_silu_temporal_conv: x {tuple(x.shape)}, w {tuple(w.shape)}, a {tuple(a.shape)}")
+    plan = launch_plan(f, x.dtype)
     out = torch.empty_like(x)
     err = _build.lib().lvd_temp_conv(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(),
         out.data_ptr(), bsz, f, p, c, code, _build.stream_of(x))
     _build.check(err, "norm_silu_temporal_conv")
     norm_silu_temporal_conv.launches += 1
+    norm_silu_temporal_conv.launches_by_form[plan["form"]] += 1
     return out
 
 
@@ -98,3 +134,4 @@ def norm_silu_temporal_conv(x, a, b, conv_w, conv_b):
 
 
 norm_silu_temporal_conv.launches = 0
+norm_silu_temporal_conv.launches_by_form = dict.fromkeys(FORMS, 0)

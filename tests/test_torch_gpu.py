@@ -489,3 +489,98 @@ def test_backward_kernels_refuse_inputs_that_require_grad(cuda):
     ff["out"]["w"].requires_grad_(True)
     with pytest.raises(RuntimeError, match="training slice"):
         gf.geglu_mlp(ff, x.detach())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gelu", ["tanh", "exact"])
+@pytest.mark.parametrize("c", [64, 320, 512, 576, 640])
+def test_geglu_forms_match_plain(cuda, c, gelu, dtype, monkeypatch):
+    """The public geglu_mlp at kernel C's widths (inner = 4C, 2085 ragged
+    rows) in the form launch_plan names (wgmma in bf16, the kept wmma form
+    in fp32; fp32 C >= 512 is lvd_tpu's streaming route, kernel J), forward
+    and dx through autograd, against the plain version on fp32 copies: 2e-2
+    in bf16, 5e-3 in fp32 and below the bf16 reading."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    monkeypatch.setattr(gf, "GELU_FORM", gelu)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    p = _ff_params(c, 4 * c, g, cuda)
+    x = torch.randn(2085, c, generator=g, device=cuda)
+    dy = torch.randn(2085, c, generator=g, device=cuda)
+    with exact_fp32():
+        leaf = x.clone().requires_grad_(True)
+        ref = gf.geglu_mlp_plain(p, leaf)
+        (ref_dx,) = torch.autograd.grad(ref, leaf, dy)
+    errs = {}
+    for dt in (torch.bfloat16, dtype):
+        route = gf.forward_kernel(c, 4 * c, dt)
+        before = dict(gf.geglu_mlp.launches_by_form), gf.geglu_stream.launches
+        xl = x.to(dt).requires_grad_(True)
+        out = gf.geglu_mlp(cast_tree(p, dt), xl)
+        (dx,) = torch.autograd.grad(out, xl, dy.to(dt))
+        forms = {k: n - before[0][k] for k, n in gf.geglu_mlp.launches_by_form.items()
+                 if n != before[0][k]}
+        if route == "C":
+            assert forms == {gf.launch_plan(c, dt)["form"]: 1}
+        else:
+            assert forms == {} and gf.geglu_stream.launches == before[1] + 1
+        errs[dt] = max(_rel(out, ref), _rel(dx, ref_dx))
+    print(f"geglu C={c} {gelu} {dtype}: {errs}")
+    if dtype == torch.bfloat16:
+        assert errs[dtype] <= 2e-2
+    else:
+        assert errs[dtype] <= FP32_TOL and errs[dtype] < errs[torch.bfloat16]
+
+
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("c", [320, 640])
+def test_geglu_wgmma_cluster_sizes(cuda, c, cluster):
+    """Kernel C's wgmma form at each cluster size (1: no multicast; 2: each
+    weight box multicast to both blocks), 4099 rows so the last cluster has
+    a block past R."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import geglu_fused as gf
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    p = _ff_params(c, 4 * c, g, cuda)
+    x = torch.randn(4099, c, generator=g, device=cuda)
+    with torch.no_grad():
+        out = gf._launch_forward(cast_tree(p, torch.bfloat16), x.bfloat16(), cluster)
+    assert _rel(out, gf.geglu_mlp_plain(p, x)) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [64, 320, 1280])
+@pytest.mark.parametrize("p", [13, 45, 2880])
+@pytest.mark.parametrize("f", [5, 16, 24, 32])
+def test_temp_conv_forms_match_plain(cuda, f, p, c, dtype):
+    """Kernel D in the form launch_plan names (wgmma in bf16, mma_sync in
+    fp32) at frame counts whose 8 F rows fill 1, 2, 3 and 4 m64 tiles,
+    ragged pixel counts, and narrow to wide channels, forward and the
+    gradients through autograd, against the plain version on fp32 copies:
+    2e-2 in bf16, 5e-3 in fp32."""
+    from lvd_tpu_torch.ops import temp_conv_fused as tc
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
+    g = torch.Generator(device=cuda).manual_seed(13)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=cuda) * scale
+    x, a, b = r(2, f, p, c), 1 + r(2, c, scale=0.1), r(2, c, scale=0.1)
+    w, bias = r(3, 1, 1, c, c, scale=(3 * c) ** -0.5), r(c, scale=0.1)
+    dy = r(2, f, p, c)
+    before = dict(tc.norm_silu_temporal_conv.launches_by_form)
+    xl = x.to(dtype).requires_grad_(True)
+    out = tc.norm_silu_temporal_conv(xl, a, b, w.to(dtype), bias.to(dtype))
+    (dx,) = torch.autograd.grad(out, xl, dy.to(dtype))
+    forms = {k: n - before[k] for k, n in tc.norm_silu_temporal_conv.launches_by_form.items()
+             if n != before[k]}
+    assert forms == {tc.launch_plan(f, dtype)["form"]: 1}
+    with exact_fp32():
+        leaf = x.clone().requires_grad_(True)
+        ref = tc.norm_silu_temporal_conv_plain(leaf, a, b, w, bias)
+        (ref_dx,) = torch.autograd.grad(ref, leaf, dy)
+    err = max(_rel(out, ref), _rel(dx, ref_dx))
+    print(f"kernel D F={f} P={p} C={c} {dtype}: {err:.3g}")
+    assert err <= tol

@@ -1,5 +1,5 @@
-"""Kernels H and I: which form each path shape takes, and kernel I's window
-and tap arithmetic, on the CPU.
+"""Kernels C, D, H and I: which form each path shape takes, and the index
+arithmetic of their Hopper forms, on the CPU.
 
 The CUDA kernels run only on the card; what a CPU run can hold is the
 Python that chooses their forms and the index arithmetic the halo-window
@@ -15,7 +15,23 @@ form of kernel I uses (``ops/conv3x3.py``: ``launch_plan``,
   equals lvd_tpu's conv3x3 (its Pallas kernel in interpret mode where its
   row blocks tile H, else its XLA route) and, with the GroupNorm-SiLU
   prologue applied to the window, lvd_tpu's ``spatial_conv_fused._unfused``,
-  at 1e-5 of max|ref| in fp32.
+  at 1e-5 of max|ref| in fp32;
+- every ``GEGLU_SHAPES`` / ``TCONV_SHAPES`` shape that lvd_tpu's predicates
+  route takes kernel C's / D's ``wgmma`` form in bf16, and in fp32 C's kept
+  ``wmma`` form and D's ``mma_sync`` form; so does every width C's route
+  gives it;
+- kernel D's launch plan (``ops/temp_conv_fused.py``: one window per
+  8-pixel tile from frame -1, tap k of output row r at window row r + 8 k,
+  zero rows for frames outside [0, F) and pixels past P, padded m64 tiles
+  whose rows are NaN here and must never reach the output) times the
+  (3C, C) weight equals lvd_tpu's ``temp_conv_fused._fused`` in interpret
+  mode and ``_unfused``, at F = 5 and 24 with a ragged P;
+- kernel C's chunk plan (``ops/geglu_fused.py``: 64-row blocks, per 64-wide
+  inner chunk each warpgroup's [h | g] columns as a 64-column block of the
+  interleaved w1, the gated chunk rounded to the stream's type, each
+  warpgroup's output blocks, split over two blocks at C >= 448) equals
+  lvd_tpu's
+  ``_fused_rows_resident`` in interpret mode and ``_unfused``.
 """
 
 import numpy as np
@@ -25,14 +41,20 @@ import pytest
 import torch
 
 from lvd_tpu.ops import conv3x3 as j_c3
+from lvd_tpu.ops import geglu_fused as j_gf
 from lvd_tpu.ops import linear_fused as j_lf
 from lvd_tpu.ops import spatial_conv_fused as j_scf
+from lvd_tpu.ops import temp_conv_fused as j_tc
 from lvd_tpu_torch.ops import conv3x3 as t_c3
+from lvd_tpu_torch.ops import geglu_fused as t_gf
 from lvd_tpu_torch.ops import linear_fused as t_lf
 from lvd_tpu_torch.ops import selfcheck
+from lvd_tpu_torch.ops import temp_conv_fused as t_tc
 
 TOL = 1e-5
 NEW_FORM = {"bfloat16": "wgmma", "float32": "mma_sync"}
+# Kernel C: wgmma in bf16; fp32 keeps the WMMA form (ROADMAP B).
+C_FORM = {"bfloat16": "wgmma", "float32": "wmma"}
 
 
 @pytest.fixture
@@ -132,3 +154,128 @@ def test_window_taps_give_lvd_tpu_conv(shape):
     ref = j_scf._unfused(*map(jnp.asarray, (x, a, b, wk.reshape(9, cin, cout), bias)))
     got = _im2col_conv(torch.from_numpy(x), w9, z_of) + torch.from_numpy(bias)
     _close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_routed_geglu_and_temp_conv_shapes_take_their_forms(on_tpu, dtype):
+    tdt = getattr(torch, dtype)
+    routed = []
+    for rows, c in selfcheck.GEGLU_SHAPES:
+        w1, w2 = jnp.zeros((c, 8 * c)), jnp.zeros((4 * c, c))
+        if j_gf.supported(w1, w2, jax.ShapeDtypeStruct((rows, c), jnp.dtype(dtype))):
+            routed.append(c)
+            assert t_gf.forward_kernel(c, 4 * c, tdt) == "C"
+            assert t_gf.launch_plan(c, tdt)["form"] == C_FORM[dtype]
+    # fp32 weights of C = 512 and 640 exceed lvd_tpu's 10 MiB resident budget.
+    assert routed == {"bfloat16": [320, 512, 640], "float32": [320]}[dtype]
+    # Every width kernel C's route gives it takes the same form.
+    for c in range(64, 641, 64):
+        for inner in (256, 4 * c):
+            if t_gf.forward_kernel(c, inner, tdt) == "C":
+                assert t_gf.launch_plan(c, tdt)["form"] == C_FORM[dtype]
+    for shape in selfcheck.TCONV_SHAPES:
+        assert j_tc.supported(jax.ShapeDtypeStruct(shape, jnp.dtype(dtype)))
+        assert t_tc.supported(torch.empty(shape, dtype=tdt, device="meta"))
+        assert t_tc.launch_plan(shape[1], tdt)["form"] == NEW_FORM[dtype]
+
+
+def _window_temp_conv(x, a, b, w, bias):
+    """Kernel D's wgmma form in torch: per (batch, 8-pixel tile) one window
+    of rows (frame, pixel) for frames -1 .. F (zero outside [0, F) and past
+    P, the prologue applied to the rest), padded to window_rows with NaN;
+    tap k of output row r reads window row r + 8 k; rows r < 8 F of pixels
+    inside P are stored."""
+    bsz, f, p, c = x.shape
+    pt = t_tc.PIXEL_TILE
+    plan = t_tc.launch_plan(f, torch.bfloat16)
+    taps = t_tc.tap_rows(f)
+    assert plan["form"] == "wgmma" and taps.max() < plan["window_rows"]
+    assert t_tc.START_FRAME == -1 and plan["loaded_rows"] == pt * (f + 2)
+    frames = torch.arange(f + 2) + t_tc.START_FRAME
+    out = torch.full_like(x, float("nan"))
+    for bi in range(bsz):
+        z = torch.nn.functional.silu(x[bi] * a[bi] + b[bi])  # (F, P, C)
+        for p0 in range(0, p, pt):
+            pix = p0 + torch.arange(pt)
+            ok = ((frames >= 0) & (frames < f))[:, None] & (pix < p)[None, :]
+            loaded = z[frames.clamp(0, f - 1)][:, pix.clamp(max=p - 1)]  # (F + 2, 8, C)
+            loaded = torch.where(ok[..., None], loaded, torch.zeros(()))
+            win = torch.full((plan["window_rows"], c), float("nan"))
+            win[:plan["loaded_rows"]] = loaded.reshape(-1, c)
+            y = sum(win[taps[k]] @ w[k] for k in range(3))  # (64 m_tiles, C)
+            for r in range(pt * f):
+                if p0 + r % pt < p:
+                    out[bi, r // pt, p0 + r % pt] = y[r] + bias
+    return out
+
+
+@pytest.mark.parametrize("f", [5, 24])
+def test_temp_conv_window_plan_gives_lvd_tpu(f):
+    """P = 13: two pixel tiles, the second ragged (and lvd_tpu's Pallas
+    grid cut into 8-pixel blocks, ragged too)."""
+    bsz, p, c = 2, 13, 64
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((bsz, f, p, c)).astype(np.float32)
+    a = (1 + 0.2 * rng.standard_normal((bsz, c))).astype(np.float32)
+    b = (0.2 * rng.standard_normal((bsz, c))).astype(np.float32)
+    w = (rng.standard_normal((3, c, c)) * (3 * c) ** -0.5).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    got = _window_temp_conv(*map(torch.from_numpy, (x, a, b, w, bias))).numpy()
+    args = tuple(map(jnp.asarray, (x, a, b, w, bias)))
+    _close(got, j_tc._fused(*args, block_p=8, interpret=True))
+    _close(got, j_tc._unfused(*args))
+
+
+def _chunk_plan_geglu(x, w1, b1, w2, b2):
+    """Kernel C's wgmma form in torch: 64-row blocks (rows past R zero);
+    per 64-wide inner chunk k, warpgroup j's [h | g] = x w1[:, gemm1_columns]
+    + b1, its 32 gated columns h * gelu(g) rounded to the stream's type into
+    the 64-wide gated chunk, and each warpgroup's output blocks accumulated
+    from the whole chunk; + b2 at the end."""
+    r, c = x.shape
+    inner = w2.shape[0]
+    rb, ch = t_gf.ROW_BLOCK, t_gf.INNER_CHUNK
+    halves = range(t_gf.output_split(c))
+    blocks = [sum((t_gf.output_blocks(c, j, hf) for hf in halves), []) for j in (0, 1)]
+    assert sorted(blocks[0] + blocks[1]) == list(range(c // 64))
+    w1i = t_gf.interleave_w1(w1, inner)
+    out = torch.empty_like(x)
+    for r0 in range(0, r, rb):
+        xb = torch.zeros(rb, c)
+        xb[:min(rb, r - r0)] = x[r0:r0 + rb]
+        acc = torch.zeros(rb, c)
+        for k in range(inner // ch):
+            gated = torch.empty(rb, ch)
+            for j in (0, 1):
+                cols = t_gf.gemm1_columns(k, j, inner)
+                blk = slice(64 * (2 * k + j), 64 * (2 * k + j) + 64)  # the kernel's TMA box
+                assert torch.equal(w1i[:, blk], w1[:, cols])
+                hg = xb @ w1i[:, blk] + b1[cols]
+                gated[:, 32 * j:32 * j + 32] = (hg[:, :32] * t_gf._gelu(hg[:, 32:])).to(x.dtype)
+            for j in (0, 1):
+                for blk in blocks[j]:
+                    cs = slice(64 * blk, 64 * blk + 64)
+                    acc[:, cs] += gated @ w2[ch * k:ch * k + ch, cs]
+        out[r0:r0 + rb] = (acc + b2)[:min(rb, r - r0)]
+    return out
+
+
+@pytest.mark.parametrize("form", ["tanh", "exact"])
+@pytest.mark.parametrize("c", [192, 576])
+def test_geglu_chunk_plan_gives_lvd_tpu(form, c, monkeypatch):
+    """C = 192 (three output blocks: two for warpgroup 0, one for 1) and
+    576 (nine, split over two blocks of five and four), inner 256 (four
+    chunks), 200 rows (the last 64-row block ragged)."""
+    monkeypatch.setattr(j_gf, "GELU_FORM", form)
+    monkeypatch.setattr(t_gf, "GELU_FORM", form)
+    r, inner = 200, 256
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((r, c)).astype(np.float32)
+    w1 = (rng.standard_normal((c, 2 * inner)) * c ** -0.5).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(2 * inner)).astype(np.float32)
+    w2 = (rng.standard_normal((inner, c)) * inner ** -0.5).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    got = _chunk_plan_geglu(*map(torch.from_numpy, (x, w1, b1, w2, b2))).numpy()
+    args = tuple(map(jnp.asarray, (x, w1, b1, w2, b2)))
+    _close(got, j_gf._fused_rows_resident(*args, block_m=64, nk=2, interpret=True))
+    _close(got, j_gf._unfused(*args))
