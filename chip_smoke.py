@@ -167,7 +167,8 @@ def build_phase(torch):
     smem["I wmma bf16 / fp32"] = [lib.lvd_conv3x3_smem(0, 0, 0, 64, c) for c in (0, 1)]
     for c in (320, 512, 640):  # kernel C at the path's widths
         smem[f"C wgmma bf16 C={c}"] = lib.lvd_geglu_smem(1, c, 0)
-        smem[f"C wmma fp32 C={c}"] = lib.lvd_geglu_smem(0, c, 1)
+        f32 = ("mma_sync", 2) if c <= 384 else ("wmma", 0)
+        smem[f"C {f32[0]} fp32 C={c}"] = lib.lvd_geglu_smem(f32[1], c, 1)
     smem["D wgmma bf16 F=24"] = lib.lvd_temp_conv_smem(24, 0)
     smem["D mma_sync fp32 F=24"] = lib.lvd_temp_conv_smem(24, 1)
     log(f"[build] A/C/D/E/H/I dynamic shared memory per block (bytes): {json.dumps(smem)}")
@@ -456,10 +457,10 @@ def read_forms():
 
 def check_new_forms(phase, forms):
     """Fails unless every launch of C, D, H and I took the new form (wgmma
-    in bf16, mma_sync in fp32 for D, H and I): every UNet and conv3x3()
-    shape has Cin and Cout % 64 == 0, and only other widths take I's WMMA
-    form; C's WMMA form is its fp32 form, and the paths this is called on
-    run bf16."""
+    in bf16, mma_sync in fp32): every UNet and conv3x3() shape has Cin and
+    Cout % 64 == 0, and only other widths take I's WMMA form; C's WMMA form
+    is kept for fp32 C > 384, which the paths this is called on never
+    reach."""
     old = {name: f["wmma"] for name, f in forms.items() if f.get("wmma")}
     if old:
         raise SystemExit(f"[{phase}] launches of the WMMA form on the path: {old}")

@@ -58,7 +58,18 @@
 // every width (the loads are not what bounds the kernel), so the wrapper
 // launches clusters of 1.
 //
-// fp32 (the `wmma` form, kept): one block per 32-row tile keeps its x rows
+// fp32 at C <= 384 (the `mma_sync` form): the same 64-row blocks and
+// chunks on mma.sync m16n8k8 in TF32, operands through a four-stage
+// cp.async ring of 32-row weight tiles (rows padded to 136 floats) with
+// the x tile resident (rows padded to C + 4 floats): each half of the 8
+// warps computes its [h32 | g32] for 16 rows a warp, the gate runs in
+// registers in fp32 (not rounded) into a shared 64 x 64 fp32 gated tile,
+// and each half accumulates its output blocks (2i + half) from it, A from
+// the gated tile. One __syncthreads a stage orders the ring and the gated
+// tile. 171 KB of shared memory at C = 320.
+//
+// fp32 at C >= 448 (the `wmma` form, kept; lvd_tpu's route reaches it only
+// with an inner dimension well under 4C): one block per 32-row tile keeps its x rows
 // in shared memory and walks the inner dimension in 64-wide chunks: h and g
 // from WMMA TF32 products (fp32), the gate in fp32 (not rounded), and the
 // chunk multiplied straight into W2, the (32, C) output in registers; the
@@ -66,6 +77,7 @@
 // memory at C = 640.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "warp_mma.cuh"
 
 namespace lvd {
 namespace {
@@ -453,13 +465,187 @@ cudaError_t launch_wgmma(const void* x, const void* w1, const void* b1, const vo
   }
 }
 
-// One width: the wgmma form (form 1, bf16) at this cluster size, or the
-// WMMA form (form 0, fp32).
+// ---- fp32 at C <= 384: mma.sync TF32, cp.async ring ----
+
+template <int NF>
+struct F32Geglu {
+  static constexpr int BM = 64, kThreads = 256, kStages = 4;
+  static constexpr int C = 64 * NF;
+  static constexpr int NA = (NF + 1) / 2;
+  static constexpr int kLdX = C + 4;     // x tile rows (floats)
+  static constexpr int kLdW = 128 + 8;   // weight tile rows (floats)
+  static constexpr int kLdG = 64 + 4;    // gated tile rows (floats)
+  static constexpr int kStage = 32 * kLdW;  // one 32-row weight tile (floats)
+  static constexpr int U = C / 32 + 2 * NA;  // stages an inner chunk takes
+  static constexpr int kSmem = (BM * kLdX + kStages * kStage + BM * kLdG) * 4;
+};
+
+template <int NF>
+__global__ void __launch_bounds__(F32Geglu<NF>::kThreads, 1)
+geglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                 const float* __restrict__ b1, const float* __restrict__ w2,
+                 const float* __restrict__ b2, float* __restrict__ out, int R, int I, int exact) {
+  using G = F32Geglu<NF>;
+  using M = wm::WarpMma<float>;
+  constexpr int C = G::C, NS = G::kStages, U = G::U, KT = C / 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  float* ring = xs + G::BM * G::kLdX;
+  float* gs = ring + NS * G::kStage;
+  const int r0 = blockIdx.x * G::BM;
+  const int total = (I / 64) * U;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, wr = warp % 4;  // inner half / output-block parity; rows 16 wr ..
+  const int g = lane / 4, t = lane % 4;
+
+  // Stage v (chunk v / U): for j = v % U < C/32 the interleaved W1 rows
+  // 32 j .. x the chunk's 128 columns (both halves' [h32 | g32]); else W2
+  // rows 64 k + 32 (j' % 2) .. x output blocks 2 (j' / 2) and + 1,
+  // j' = j - C/32 (columns past C read as zero).
+  auto load = [&](int v) {
+    float* st = ring + (v % NS) * G::kStage;
+    const int k = v / U, j = v % U;
+    for (int e = threadIdx.x; e < 32 * 32; e += G::kThreads) {
+      const int r = e / 32, cv = e % 32;
+      const float* src;
+      bool ok = true;
+      if (j < KT) {
+        src = w1 + (size_t)(32 * j + r) * (2 * I) + 128 * k + cv * 4;
+      } else {
+        const int jj = j - KT, col = 64 * 2 * (jj / 2) + cv * 4;
+        ok = col < C;
+        src = w2 + (size_t)(64 * k + 32 * (jj % 2) + r) * C + (ok ? col : 0);
+      }
+      wm::cp_async16(st + r * G::kLdW + cv * 4, src, ok);
+    }
+  };
+  for (int e = threadIdx.x; e < G::BM * (C / 4); e += G::kThreads) {
+    const int r = e / (C / 4), cv = e % (C / 4);
+    const bool ok = r0 + r < R;
+    wm::cp_async16(xs + r * G::kLdX + cv * 4, x + (ok ? (size_t)(r0 + r) * C + cv * 4 : 0), ok);
+  }
+#pragma unroll
+  for (int v = 0; v < NS - 1; ++v) {
+    if (v < total) load(v);
+    wm::cp_async_commit();
+  }
+
+  float hg[8][4];
+  float acc[G::NA][8][4] = {};
+  const float* xw = xs + (16 * wr) * G::kLdX;
+  const float* gw = gs + (16 * wr) * G::kLdG;
+  for (int v = 0; v < total; ++v) {
+    wm::cp_async_wait<NS - 2>();
+    __syncthreads();  // stage v (and the gated tile's writes) visible; stage v - 1 free
+    if (v + NS - 1 < total) load(v + NS - 1);
+    wm::cp_async_commit();
+    const float* st = ring + (v % NS) * G::kStage;
+    const int k = v / U, j = v % U;
+    if (j < KT) {  // GEMM1: [h | g] over input rows 32 j ..
+      if (j == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hg[nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 32; kk += 8) {
+        uint32_t a[4];
+        M::load_a(a, xw + 32 * j + kk, G::kLdX, lane);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t b0[2], b1[2];
+          M::load_b_rows(b0, b1, st + kk * G::kLdW + 64 * wg + 16 * np, G::kLdW, lane);
+          M::mma(hg[2 * np], a, b0);
+          M::mma(hg[2 * np + 1], a, b1);
+        }
+      }
+      if (j == KT - 1) {
+        // The gate: column 8 nt + 2t (+1) of h is hg[nt][0 (1)], of g
+        // hg[nt + 4][...]; [2], [3] for row g + 8.
+        const int i0 = 64 * k + 32 * wg;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = 8 * nt + 2 * t;
+          const float bh0 = b1[i0 + col], bh1 = b1[i0 + col + 1];
+          const float bg0 = b1[I + i0 + col], bg1 = b1[I + i0 + col + 1];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float h0 = hg[nt][2 * hf] + bh0, h1 = hg[nt][2 * hf + 1] + bh1;
+            const float g0 = hg[nt + 4][2 * hf] + bg0, g1 = hg[nt + 4][2 * hf + 1] + bg1;
+            M::store2(gs + (16 * wr + g + 8 * hf) * G::kLdG + 32 * wg + col, h0 * gelu(g0, exact),
+                      h1 * gelu(g1, exact));
+          }
+        }
+      }
+    } else {  // GEMM2: inner rows 32 (jj % 2) .. of output blocks 2 (jj / 2) + wg
+      const int jj = j - KT, s2 = jj / 2, h = jj % 2;
+#pragma unroll
+      for (int i = 0; i < G::NA; ++i) {
+        if (i == s2) {
+#pragma unroll
+          for (int kk = 0; kk < 32; kk += 8) {
+            uint32_t a[4];
+            M::load_a(a, gw + 32 * h + kk, G::kLdG, lane);
+#pragma unroll
+            for (int np = 0; np < 4; ++np) {
+              uint32_t b0[2], b1[2];
+              M::load_b_rows(b0, b1, st + kk * G::kLdW + 64 * wg + 16 * np, G::kLdW, lane);
+              M::mma(acc[i][2 * np], a, b0);
+              M::mma(acc[i][2 * np + 1], a, b1);
+            }
+          }
+        }
+      }
+    }
+  }
+  wm::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < G::NA; ++i) {
+    const int blk = 2 * i + wg;
+    if (blk >= NF) continue;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = r0 + 16 * wr + g + 8 * hf;
+      if (row >= R) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = 64 * blk + 8 * nt + 2 * t;
+        M::store2(out + (size_t)row * C + col, acc[i][nt][2 * hf] + b2[col],
+                  acc[i][nt][2 * hf + 1] + b2[col + 1]);
+      }
+    }
+  }
+}
+
+template <int NF>
+cudaError_t launch_f32(const void* x, const void* w1, const void* b1, const void* w2,
+                       const void* b2, void* out, int R, int I, int exact, cudaStream_t stream) {
+  using G = F32Geglu<NF>;
+  cudaError_t err = set_smem(geglu_f32_kernel<NF>, G::kSmem);
+  if (err != cudaSuccess) return err;
+  geglu_f32_kernel<NF><<<(R + G::BM - 1) / G::BM, G::kThreads, G::kSmem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(out), R,
+      I, exact);
+  return cudaGetLastError();
+}
+
+// One width: the wgmma form (form 1, bf16) at this cluster size, the
+// mma_sync form (form 2, fp32, C <= 384) or the WMMA form (form 0, fp32).
 template <int NF>
 cudaError_t launch_width(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* b2, void* out, int R, int I, int exact, int form,
                          int cluster, cudaStream_t s) {
   if (form == 0) return launch_wmma<float, NF>(x, w1, b1, w2, b2, out, R, I, exact, s);
+  if (form == 2) {
+    if constexpr (NF <= 6) {
+      return launch_f32<NF>(x, w1, b1, w2, b2, out, R, I, exact, s);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
   if (cluster == 2) return launch_wgmma<NF, 2>(x, w1, b1, w2, b2, out, R, I, exact, s);
   return launch_wgmma<NF, 1>(x, w1, b1, w2, b2, out, R, I, exact, s);
 }
@@ -483,7 +669,9 @@ cudaError_t launch_c(const void* x, const void* w1, const void* b1, const void* 
 
 template <int NF>
 long long smem_width(int form) {
-  return form == 1 ? WgGeglu<NF>::kSmem : geglu_smem<float, NF>();
+  if (form == 1) return WgGeglu<NF>::kSmem;
+  if (form == 2) return NF <= 6 ? F32Geglu<(NF <= 6 ? NF : 6)>::kSmem : 0;
+  return geglu_smem<float, NF>();
 }
 
 long long smem_c(int C, int form) {
@@ -507,28 +695,28 @@ long long smem_c(int C, int form) {
 // x: (R, C), b1: (2I,), w2: (I, C), b2: (C,), out: (R, C); all of one type
 // (dtype 0 bf16, 1 fp32). C in {64, 128, ..., 640}, I % 64 == 0. form 1 is
 // the wgmma form (bf16; `cluster` blocks of 64 rows share each weight box:
-// 1 or 2), whose w1 (C, 2I) holds W1h's and W1g's columns interleaved in
-// 32s ([h 0..31 | g 0..31 | h 32..63 | ...]); form 0 the WMMA form (fp32),
-// whose w1 is [W1h | W1g].
+// 1 or 2) and form 2 the mma_sync form (fp32, C <= 384), whose w1 (C, 2I)
+// holds W1h's and W1g's columns interleaved in 32s ([h 0..31 | g 0..31 |
+// h 32..63 | ...]); form 0 the WMMA form (fp32), whose w1 is [W1h | W1g].
 LVD_EXPORT int lvd_geglu(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* b2, void* out, int R, int C, int I, int exact, int form,
                          int cluster, int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
   if (C % 64 != 0 || C < 64 || C > 640 || I % kBI != 0 || I <= 0 || R <= 0 ||
-      dtype != (form == 1 ? kBF16 : kF32) || (form != 0 && form != 1) ||
-      (form == 1 && cluster != 1 && cluster != 2))
+      dtype != (form == 1 ? kBF16 : kF32) || form < 0 || form > 2 ||
+      (form == 1 && cluster != 1 && cluster != 2) || (form == 2 && C > 384))
     return cudaErrorInvalidValue;
   return launch_c(x, w1, b1, w2, b2, out, R, C, I, exact, form, cluster,
                   static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of dynamic shared memory one block of kernel C takes at width C:
-// the wgmma form (form 1, bf16) or the WMMA form (form 0, fp32); 0 for
-// arguments the kernel does not take.
+// the wgmma form (form 1, bf16), the mma_sync form (form 2, fp32) or the
+// WMMA form (form 0, fp32); 0 for arguments the kernel does not take.
 LVD_EXPORT long long lvd_geglu_smem(int form, int C, int dtype) {
   using namespace lvd;
-  if (C % 64 != 0 || C < 64 || C > 640 || (form != 0 && form != 1) ||
+  if (C % 64 != 0 || C < 64 || C > 640 || form < 0 || form > 2 ||
       dtype != (form == 1 ? kBF16 : kF32))
     return 0;
   return smem_c(C, form);

@@ -14,9 +14,10 @@ It is a ``torch.autograd.Function`` in x, routed as lvd_tpu routes it:
   route gives it); everywhere else the autograd VJP of ``_unfused`` on stock
   ops, lvd_tpu's own route.
 On CPU tensors each kernel is replaced by its plain version. Kernel C has
-two forms (``launch_plan``): ``wgmma`` in bf16 (64-row blocks, W1 passed
-with its columns interleaved, ``interleave_w1``) and the kept ``wmma`` form
-in fp32; ``geglu_mlp.launches_by_form`` counts each. ``gemm1_columns`` and
+three forms (``launch_plan``): ``wgmma`` in bf16 and ``mma_sync`` in fp32
+(64-row blocks, W1 passed with its columns interleaved, ``interleave_w1``)
+and the kept ``wmma`` form for fp32 C > 384; ``geglu_mlp.launches_by_form``
+counts each. ``gemm1_columns`` and
 ``output_blocks`` are the wgmma form's chunk plan, which the CPU tests hold
 to lvd_tpu's resident kernel. Weight gradients are not part of this slice:
 on the card a parameter that requires grad raises, on the CPU the plain
@@ -41,7 +42,8 @@ BWD_ROWS = 32  # rows per block of kernel G
 STREAM_INNER = 256  # kernel J's inner dim must be a multiple (lvd_tpu's block_k)
 
 
-FORMS = ("wgmma", "wmma")
+FORMS = ("wgmma", "mma_sync", "wmma")
+F32_MAX_CHANNELS = 384  # the widest C of the mma_sync form (its x tile stays resident)
 ROW_BLOCK = 64  # rows a block of the wgmma form
 INNER_CHUNK = 64  # inner columns a chunk: 32 for each of the two consumer warpgroups
 # Blocks of the wgmma form that share each weight load by TMA multicast (1
@@ -53,12 +55,17 @@ CLUSTER = 1
 
 def launch_plan(c: int, dtype, cluster: int = CLUSTER) -> dict:
     """Kernel C's form at width ``c``: ``wgmma`` in bf16 (every width the
-    route gives it: C = 64..640 step 64, inner % 64 == 0), the kept
-    ``wmma`` form in fp32. At C >= 448 two blocks share each 64-row tile,
-    each writing half of the output blocks (``output_split``)."""
-    if dtype != torch.bfloat16:
-        return {"form": "wmma", "code": 0, "cluster": 1}
-    return {"form": "wgmma", "code": 1, "cluster": cluster}
+    route gives it: C = 64..640 step 64, inner % 64 == 0; at C >= 448 two
+    blocks share each 64-row tile, each writing half of the output blocks,
+    ``output_split``); in fp32 ``mma_sync`` (TF32) up to
+    F32_MAX_CHANNELS, the kept ``wmma`` form wider (lvd_tpu's route gives
+    fp32 C >= 448 to kernel C only with an inner dimension well under 4C).
+    Both Hopper forms read w1 interleaved (``interleave_w1``)."""
+    if dtype == torch.bfloat16:
+        return {"form": "wgmma", "code": 1, "cluster": cluster}
+    if c <= F32_MAX_CHANNELS:
+        return {"form": "mma_sync", "code": 2, "cluster": 1}
+    return {"form": "wmma", "code": 0, "cluster": 1}
 
 
 def output_split(c: int) -> int:
@@ -216,7 +223,7 @@ def _launch_forward(p, x, cluster: int = CLUSTER):
     rows = _build.kernel_input(x.reshape(-1, c), x.dtype, "geglu_mlp x")
     w1, b1, w2, b2 = _kernel_weights(p, rows, "geglu_mlp")
     plan = launch_plan(c, x.dtype, cluster)
-    if plan["form"] == "wgmma":
+    if plan["form"] != "wmma":
         w1 = interleave_w1(w1, w2.shape[0])
     out = torch.empty_like(rows)
     err = _build.lib().lvd_geglu(

@@ -26,8 +26,8 @@ reference runs with ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` off.
 
 Kernels C, D, H and I record the form each call took (``launches_by_form``:
-``wgmma`` in bf16; ``mma_sync`` in fp32 for D, H and I, C's kept ``wmma``
-form in fp32; I's ``wmma`` for widths % 64 != 0). C and D also time
+``wgmma`` in bf16, ``mma_sync`` in fp32; C's kept ``wmma`` form for fp32
+C > 384, I's for widths % 64 != 0). C and D also time
 the same products alone through ``torch.matmul`` on pre-made operands
 (``products_ms``: x W1 and gated W2; the three shifted products): not a
 library call for the same function, and the port never calls it. C's bf16

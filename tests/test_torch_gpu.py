@@ -496,10 +496,10 @@ def test_backward_kernels_refuse_inputs_that_require_grad(cuda):
 @pytest.mark.parametrize("c", [64, 320, 512, 576, 640])
 def test_geglu_forms_match_plain(cuda, c, gelu, dtype, monkeypatch):
     """The public geglu_mlp at kernel C's widths (inner = 4C, 2085 ragged
-    rows) in the form launch_plan names (wgmma in bf16, the kept wmma form
-    in fp32; fp32 C >= 512 is lvd_tpu's streaming route, kernel J), forward
-    and dx through autograd, against the plain version on fp32 copies: 2e-2
-    in bf16, 5e-3 in fp32 and below the bf16 reading."""
+    rows) in the form launch_plan names (wgmma in bf16, mma_sync in fp32;
+    fp32 C >= 512 is lvd_tpu's streaming route, kernel J), forward and dx
+    through autograd, against the plain version on fp32 copies: 2e-2 in
+    bf16, 5e-3 in fp32 and below the bf16 reading."""
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.ops import geglu_fused as gf
     from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
@@ -584,3 +584,24 @@ def test_temp_conv_forms_match_plain(cuda, f, p, c, dtype):
     err = max(_rel(out, ref), _rel(dx, ref_dx))
     print(f"kernel D F={f} P={p} C={c} {dtype}: {err:.3g}")
     assert err <= tol
+
+
+@pytest.mark.parametrize("c,inner", [(384, 1536), (448, 256), (640, 256)])
+def test_geglu_fp32_forms_match_plain(cuda, c, inner):
+    """Kernel C in fp32 at its widest mma_sync width (C = 384) and at widths
+    lvd_tpu's route gives it only with a small inner dimension, which keep
+    the WMMA form, against the plain version in fp32 with TF32 off (5e-3)."""
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    assert gf.forward_kernel(c, inner, torch.float32) == "C"
+    g = torch.Generator(device=cuda).manual_seed(14)
+    p = _ff_params(c, inner, g, cuda)
+    x = torch.randn(2085, c, generator=g, device=cuda)
+    before = dict(gf.geglu_mlp.launches_by_form)
+    with torch.no_grad():
+        out = gf.geglu_mlp(p, x)
+    forms = {k: n - before[k] for k, n in gf.geglu_mlp.launches_by_form.items() if n != before[k]}
+    assert forms == {gf.launch_plan(c, torch.float32)["form"]: 1}
+    with exact_fp32():
+        assert _rel(out, gf.geglu_mlp_plain(p, x)) <= FP32_TOL

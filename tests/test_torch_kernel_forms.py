@@ -17,9 +17,9 @@ form of kernel I uses (``ops/conv3x3.py``: ``launch_plan``,
   prologue applied to the window, lvd_tpu's ``spatial_conv_fused._unfused``,
   at 1e-5 of max|ref| in fp32;
 - every ``GEGLU_SHAPES`` / ``TCONV_SHAPES`` shape that lvd_tpu's predicates
-  route takes kernel C's / D's ``wgmma`` form in bf16, and in fp32 C's kept
-  ``wmma`` form and D's ``mma_sync`` form; so does every width C's route
-  gives it;
+  route takes kernel C's / D's new form (``wgmma`` in bf16, ``mma_sync`` in
+  fp32), and so does every width C's route gives it but fp32 C > 384 (C =
+  512 with inner 256), which keeps the WMMA form;
 - kernel D's launch plan (``ops/temp_conv_fused.py``: one window per
   8-pixel tile from frame -1, tap k of output row r at window row r + 8 k,
   zero rows for frames outside [0, F) and pixels past P, padded m64 tiles
@@ -53,8 +53,8 @@ from lvd_tpu_torch.ops import temp_conv_fused as t_tc
 
 TOL = 1e-5
 NEW_FORM = {"bfloat16": "wgmma", "float32": "mma_sync"}
-# Kernel C: wgmma in bf16; fp32 keeps the WMMA form (ROADMAP B).
-C_FORM = {"bfloat16": "wgmma", "float32": "wmma"}
+# Kernel C in fp32 takes mma_sync up to C = 384 and keeps the WMMA form wider.
+C_FP32_MAX = 384
 
 
 @pytest.fixture
@@ -165,14 +165,19 @@ def test_routed_geglu_and_temp_conv_shapes_take_their_forms(on_tpu, dtype):
         if j_gf.supported(w1, w2, jax.ShapeDtypeStruct((rows, c), jnp.dtype(dtype))):
             routed.append(c)
             assert t_gf.forward_kernel(c, 4 * c, tdt) == "C"
-            assert t_gf.launch_plan(c, tdt)["form"] == C_FORM[dtype]
+            assert t_gf.launch_plan(c, tdt)["form"] == NEW_FORM[dtype]
     # fp32 weights of C = 512 and 640 exceed lvd_tpu's 10 MiB resident budget.
     assert routed == {"bfloat16": [320, 512, 640], "float32": [320]}[dtype]
-    # Every width kernel C's route gives it takes the same form.
+    # Every width kernel C's route gives it takes the new form, but fp32
+    # C > 384, which the route gives C only with a small inner dimension
+    # (C = 512, inner 256), keeps the WMMA form.
     for c in range(64, 641, 64):
         for inner in (256, 4 * c):
             if t_gf.forward_kernel(c, inner, tdt) == "C":
-                assert t_gf.launch_plan(c, tdt)["form"] == C_FORM[dtype]
+                kept = dtype == "float32" and c > C_FP32_MAX
+                assert t_gf.launch_plan(c, tdt)["form"] == ("wmma" if kept else NEW_FORM[dtype])
+    assert (t_gf.forward_kernel(512, 256, torch.float32), t_gf.launch_plan(512, torch.float32)["form"]) \
+        == ("C", "wmma")
     for shape in selfcheck.TCONV_SHAPES:
         assert j_tc.supported(jax.ShapeDtypeStruct(shape, jnp.dtype(dtype)))
         assert t_tc.supported(torch.empty(shape, dtype=tdt, device="meta"))
