@@ -827,7 +827,8 @@ def kernels_line(records, knob_launches, entry_launches, forms):
     its largest path shape, its worst errors in bf16 and fp32, and its
     launches on this slice's main path (the entry points for sdpa() and
     conv3x3()); C's, D's, H's and I's with their launches by form, C's and
-    D's with the same products' time through torch.matmul."""
+    D's with the same products' time through torch.matmul, C's with the
+    time of the interleaved copy of W1 its ms includes."""
     from lvd_tpu_torch.ops.selfcheck import SOURCES
 
     kernels = []
@@ -849,8 +850,9 @@ def kernels_line(records, knob_launches, entry_launches, forms):
         })
         if kname in forms:
             kernels[-1]["forms"] = forms[kname]
-        if "products_ms" in main:
-            kernels[-1]["products_ms"] = main["products_ms"]
+        for key in ("products_ms", "copy_ms"):
+            if key in main:
+                kernels[-1][key] = main[key]
     return kernels
 
 

@@ -21,9 +21,12 @@
 // chunk k: C/64 stages of W1, each 64 input rows x [h32 | g32 | h32' |
 // g32'] (the two warpgroups' 32-column halves of the chunk, W1h's columns
 // beside W1g's: the wrapper passes W1 with its columns interleaved in 32s,
-// ops/geglu_fused.py `interleave_w1`), then the stages of W2, each 64
-// inner rows x two 64-column output blocks, all MN-major (N-contiguous).
-// The two consumer warpgroups:
+// a copy made per call, ops/geglu_fused.py `interleave_w1`), then the
+// stages of W2, each 64 inner rows x two 64-column output blocks, all
+// MN-major (N-contiguous). Loading W1 as stored instead, as four 32-column
+// boxes a stage under the 64-byte swizzle, measured 8-21% slower on an
+// H100 than the kernel and its copy together (PERF.md). The two consumer
+// warpgroups:
 //  - GEMM1: warpgroup j computes [h | g] for its 32 inner columns of the
 //    chunk as one m64n64 product over C (wgmma, A = the x tile K-major, two
 //    K-tiles a group), so h and g of an inner column sit in the same
@@ -44,19 +47,19 @@
 // C >= 448 (C/4 output and 32 [h | g] accumulators a thread would spill,
 // and spilled accumulators serialize every wgmma), two blocks share each
 // 64-row tile, each writing half of the output blocks and recomputing
-// GEMM1: 5/3 of the products, no spills. Without the producer warp (up to
-// 255 registers, thread 0 issuing the loads) the kernel measured slower at
-// every width. Timing variants that skip the weight loads or the products
-// showed that the products with their per-stage handoffs and the drain at
-// the gate, not the weights' L2 stream, set the pace (PERF.md, PR 10).
-// Two blocks on neighbouring row tiles can form a thread-block cluster in
-// which each weight box is loaded once and multicast by TMA into both
-// blocks' rings: each block issues one of a stage's two boxes, a stage is
-// freed only when every consumer warp of the cluster has released it
-// (remote mbarrier arrivals), and the blocks meet at a cluster barrier at
-// start and end. It halves the weights' L2 reads, but measured slower at
-// every width (the loads are not what bounds the kernel), so the wrapper
-// launches clusters of 1.
+// GEMM1, no spills. Both warpgroups issue ceil(NO / 2) GEMM2 blocks (NO:
+// the block's output blocks), so an odd NO computes one block that is
+// never stored: 16/15 of the needed products at C = 320, 5/3 at 512 and
+// about 1.73x at 640. Without the producer warp (up to 255 registers,
+// thread 0 issuing the loads) the kernel measured slower at every width.
+// Timing variants that skip the weight loads or the products showed that
+// the products with their per-stage handoffs and the drain at the gate,
+// not the weights' L2 stream, set the pace (PERF.md); sharing each
+// weight box between two blocks by TMA multicast measured slower too.
+//
+// The wrapper's launch plan (ops/geglu_fused.py `launch_plan`: rows a
+// block, inner columns a chunk, blocks a row tile) is passed in, and a
+// plan the form was not built for is refused.
 //
 // fp32 at C <= 384 (the `mma_sync` form): the same 64-row blocks and
 // chunks on mma.sync m16n8k8 in TF32, operands through a four-stage
@@ -203,7 +206,7 @@ cudaError_t launch_wmma(const void* x, const void* w1, const void* b1, const voi
   return cudaGetLastError();
 }
 
-// ---- bf16: TMA weight ring (cluster multicast) + wgmma ----
+// ---- bf16: TMA weight ring + wgmma ----
 
 template <int NF>
 struct WgGeglu {
@@ -232,7 +235,7 @@ __device__ __forceinline__ float gelu_gate(float g, int exact) {
   return fmaf(hg, hop::tanh_approx(g * fmaf(0.0356774081f, g * g, 0.7978845608f)), hg);
 }
 
-template <int NF, int CS>
+template <int NF>
 __global__ void __launch_bounds__(WgGeglu<NF>::kThreads, 1)
 geglu_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                    const __grid_constant__ CUtensorMap tm_w1,
@@ -255,63 +258,46 @@ geglu_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int o0 = blockIdx.y * G::NO;  // this block's first output block
   const int nk = I / 64;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const uint32_t rank = CS > 1 ? hop::cluster_rank() : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NS; ++s) {
       hop::mbar_init(&full[s], 1);
-      hop::mbar_init(&empty[s], 8 * CS);  // every consumer warp of the cluster
+      hop::mbar_init(&empty[s], 8);  // every consumer warp
     }
     hop::mbar_init(xfull, 1);
     hop::mbar_fence_init();
   }
-  if constexpr (CS > 1) {
-    hop::cluster_sync();  // every block's barriers exist before any multicast
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
 
   if (warp == 8) {  // the producer warp: one lane issues every TMA load
     if (lane == 0) {
       hop::mbar_expect_tx(xfull, NF * 8192);
       for (int kt = 0; kt < NF; ++kt) hop::tma_load_2d(xs + kt * 4096, &tm_x, xfull, 64 * kt, r0);
-      // Stage v (chunk v / U) holds W1 rows 64 j .. of both warpgroups'
-      // [h32 | g32] blocks (box h) for j = v % U < NF, else W2 rows of the
-      // chunk for output blocks o0 + 2 (j - NF) + h; in a cluster of two,
-      // block h loads box h for both.
+      // Stage v (chunk v / U) holds, in its half h, W1 rows 64 j .. of
+      // warpgroup h's [h32 | g32] block (the interleaved W1's 64-column block
+      // 2 k + h) for j = v % U < NF, else W2 rows of the chunk for output
+      // block o0 + 2 (j - NF) + h. The map and coordinates are selected,
+      // not branched on: with two load sites under a branch the kernel's
+      // UNet launches measured 4-5% slower on an H100 (same registers).
       for (int v = 0; v < nk * U; ++v) {
         const int s = v % NS, k = v / U, j = v % U;
         if (v >= NS) hop::mbar_wait(&empty[s], (v / NS - 1) & 1);
         hop::mbar_expect_tx(&full[s], G::kStage);
-        for (int h = rank; h < 2; h += CS) {
+        for (int h = 0; h < 2; ++h) {
           void* d = ring + s * G::kStage + h * 8192;
           const CUtensorMap* map = j < NF ? &tm_w1 : &tm_w2;
           const int c0 = j < NF ? 64 * (2 * k + h) : 64 * (o0 + 2 * (j - NF) + h);
           const int c1 = 64 * (j < NF ? j : k);
-          if constexpr (CS > 1) {
-            hop::tma_load_2d_mc(d, map, &full[s], c0, c1, 0x3);
-          } else {
-            hop::tma_load_2d(d, map, &full[s], c0, c1);
-          }
+          hop::tma_load_2d(d, map, &full[s], c0, c1);
         }
       }
-    }
-    if constexpr (CS > 1) {
-      __syncwarp();
-      hop::cluster_sync();  // no block leaves while others may still signal it
     }
     return;
   }
   auto wait_full = [&](int uu) { hop::mbar_wait(&full[uu % NS], (uu / NS) & 1); };
   auto release = [&](int uu) {
     __syncwarp();
-    if (lane == 0) {
-      if constexpr (CS > 1) {
-        for (int c = 0; c < CS; ++c) hop::mbar_arrive_cluster(&empty[uu % NS], c);
-      } else {
-        hop::mbar_arrive(&empty[uu % NS]);
-      }
-    }
+    if (lane == 0) hop::mbar_arrive(&empty[uu % NS]);
   };
 
   // Warpgroup wg computes inner columns 64 k + 32 wg .. + 31 of each chunk
@@ -422,10 +408,9 @@ geglu_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       hop::store_acc_bf16<1>(acc[s2], xs + blk * 4096, 4096, b2 + 64 * (o0 + blk),
                              out + (size_t)r0 * C + 64 * (o0 + blk), C, R - r0);
   }
-  if constexpr (CS > 1) hop::cluster_sync();  // no block leaves while others may signal it
 }
 
-template <int NF, int CS>
+template <int NF>
 cudaError_t launch_wgmma(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* b2, void* out, int R, int I, int exact,
                          cudaStream_t stream) {
@@ -435,34 +420,13 @@ cudaError_t launch_wgmma(const void* x, const void* w1, const void* b1, const vo
   cudaError_t err = make_map_2d(&tx, x, R, C, 64);
   if (err == cudaSuccess) err = make_map_2d(&tw1, w1, C, 2 * I, 64);
   if (err == cudaSuccess) err = make_map_2d(&tw2, w2, I, C, 64);
-  if (err == cudaSuccess) err = set_smem(geglu_wgmma_kernel<NF, CS>, G::kSmem);
+  if (err == cudaSuccess) err = set_smem(geglu_wgmma_kernel<NF>, G::kSmem);
   if (err != cudaSuccess) return err;
-  const int blocks = (R + G::BM - 1) / G::BM;
-  const dim3 grid((blocks + CS - 1) / CS * CS, G::kSplit);
-  auto b1p = static_cast<const bf16*>(b1);
-  auto b2p = static_cast<const bf16*>(b2);
-  auto outp = static_cast<bf16*>(out);
-  if constexpr (CS == 1) {
-    geglu_wgmma_kernel<NF, 1><<<grid, G::kThreads, G::kSmem, stream>>>(tx, tw1, tw2, b1p, b2p,
-                                                                       outp, R, I, exact);
-    return cudaGetLastError();
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(G::kThreads);
-    cfg.dynamicSmemBytes = G::kSmem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CS;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, geglu_wgmma_kernel<NF, CS>, tx, tw1, tw2, b1p, b2p, outp, R,
-                             I, exact);
-    return err != cudaSuccess ? err : cudaGetLastError();
-  }
+  const dim3 grid((R + G::BM - 1) / G::BM, G::kSplit);
+  geglu_wgmma_kernel<NF><<<grid, G::kThreads, G::kSmem, stream>>>(
+      tx, tw1, tw2, static_cast<const bf16*>(b1), static_cast<const bf16*>(b2),
+      static_cast<bf16*>(out), R, I, exact);
+  return cudaGetLastError();
 }
 
 // ---- fp32 at C <= 384: mma.sync TF32, cp.async ring ----
@@ -632,12 +596,23 @@ cudaError_t launch_f32(const void* x, const void* w1, const void* b1, const void
   return cudaGetLastError();
 }
 
-// One width: the wgmma form (form 1, bf16) at this cluster size, the
-// mma_sync form (form 2, fp32, C <= 384) or the WMMA form (form 0, fp32).
+// Whether the launch plan (rows a block, inner columns a chunk, blocks on
+// one row tile) is the one this width's form was built for.
+template <int NF>
+bool plan_fits(int form, int row_block, int inner_chunk, int split) {
+  if (inner_chunk != kBI) return false;  // every form walks the inner dim in 64s
+  if (form == 1) return row_block == WgGeglu<NF>::BM && split == WgGeglu<NF>::kSplit;
+  if (form == 2) return NF <= 6 && row_block == F32Geglu<(NF <= 6 ? NF : 6)>::BM && split == 1;
+  return row_block == kBM && split == 1;
+}
+
+// One width: the wgmma form (form 1, bf16), the mma_sync form (form 2,
+// fp32, C <= 384) or the WMMA form (form 0, fp32).
 template <int NF>
 cudaError_t launch_width(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* b2, void* out, int R, int I, int exact, int form,
-                         int cluster, cudaStream_t s) {
+                         int row_block, int inner_chunk, int split, cudaStream_t s) {
+  if (!plan_fits<NF>(form, row_block, inner_chunk, split)) return cudaErrorInvalidValue;
   if (form == 0) return launch_wmma<float, NF>(x, w1, b1, w2, b2, out, R, I, exact, s);
   if (form == 2) {
     if constexpr (NF <= 6) {
@@ -646,25 +621,27 @@ cudaError_t launch_width(const void* x, const void* w1, const void* b1, const vo
       return cudaErrorInvalidValue;
     }
   }
-  if (cluster == 2) return launch_wgmma<NF, 2>(x, w1, b1, w2, b2, out, R, I, exact, s);
-  return launch_wgmma<NF, 1>(x, w1, b1, w2, b2, out, R, I, exact, s);
+  return launch_wgmma<NF>(x, w1, b1, w2, b2, out, R, I, exact, s);
 }
 
 cudaError_t launch_c(const void* x, const void* w1, const void* b1, const void* w2,
                      const void* b2, void* out, int R, int C, int I, int exact, int form,
-                     int cluster, cudaStream_t s) {
+                     int row_block, int inner_chunk, int split, cudaStream_t s) {
+#define LVD_WIDTH(nf) \
+  launch_width<nf>(x, w1, b1, w2, b2, out, R, I, exact, form, row_block, inner_chunk, split, s)
   switch (C / 64) {
-    case 1: return launch_width<1>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
-    case 2: return launch_width<2>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
-    case 3: return launch_width<3>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
-    case 4: return launch_width<4>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
-    case 5: return launch_width<5>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
-    case 6: return launch_width<6>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
-    case 7: return launch_width<7>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
-    case 8: return launch_width<8>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
-    case 9: return launch_width<9>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
-    default: return launch_width<10>(x, w1, b1, w2, b2, out, R, I, exact, form, cluster, s);
+    case 1: return LVD_WIDTH(1);
+    case 2: return LVD_WIDTH(2);
+    case 3: return LVD_WIDTH(3);
+    case 4: return LVD_WIDTH(4);
+    case 5: return LVD_WIDTH(5);
+    case 6: return LVD_WIDTH(6);
+    case 7: return LVD_WIDTH(7);
+    case 8: return LVD_WIDTH(8);
+    case 9: return LVD_WIDTH(9);
+    default: return LVD_WIDTH(10);
   }
+#undef LVD_WIDTH
 }
 
 template <int NF>
@@ -694,20 +671,20 @@ long long smem_c(int C, int form) {
 
 // x: (R, C), b1: (2I,), w2: (I, C), b2: (C,), out: (R, C); all of one type
 // (dtype 0 bf16, 1 fp32). C in {64, 128, ..., 640}, I % 64 == 0. form 1 is
-// the wgmma form (bf16; `cluster` blocks of 64 rows share each weight box:
-// 1 or 2) and form 2 the mma_sync form (fp32, C <= 384), whose w1 (C, 2I)
-// holds W1h's and W1g's columns interleaved in 32s ([h 0..31 | g 0..31 |
-// h 32..63 | ...]); form 0 the WMMA form (fp32), whose w1 is [W1h | W1g].
+// the wgmma form (bf16) and form 2 the mma_sync form (fp32, C <= 384),
+// whose w1 (C, 2I) holds W1h's and W1g's columns interleaved in 32s ([h
+// 0..31 | g 0..31 | h 32..63 | ...]); form 0 the WMMA form (fp32), whose w1
+// is [W1h | W1g]. row_block, inner_chunk and split are the wrapper's launch
+// plan; one the form was not built for is refused.
 LVD_EXPORT int lvd_geglu(const void* x, const void* w1, const void* b1, const void* w2,
                          const void* b2, void* out, int R, int C, int I, int exact, int form,
-                         int cluster, int dtype, void* stream) {
+                         int row_block, int inner_chunk, int split, int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
   if (C % 64 != 0 || C < 64 || C > 640 || I % kBI != 0 || I <= 0 || R <= 0 ||
-      dtype != (form == 1 ? kBF16 : kF32) || form < 0 || form > 2 ||
-      (form == 1 && cluster != 1 && cluster != 2) || (form == 2 && C > 384))
+      dtype != (form == 1 ? kBF16 : kF32) || form < 0 || form > 2 || (form == 2 && C > 384))
     return cudaErrorInvalidValue;
-  return launch_c(x, w1, b1, w2, b2, out, R, C, I, exact, form, cluster,
+  return launch_c(x, w1, b1, w2, b2, out, R, C, I, exact, form, row_block, inner_chunk, split,
                   static_cast<cudaStream_t>(stream));
 }
 

@@ -1,7 +1,7 @@
 // Hopper building blocks of the bf16 wgmma kernels (A, C, D, H, I):
-// mbarriers, TMA tile loads (cp.async.bulk.tensor, multicast to a thread-block
-// cluster), warpgroup products (wgmma) with shared-memory descriptors, the
-// accumulator epilogue, and the host-side tensor-map encoder.
+// mbarriers, TMA tile loads (cp.async.bulk.tensor), warpgroup products
+// (wgmma) with shared-memory descriptors, the accumulator epilogue, and the
+// host-side tensor-map encoder.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a box of
 // 64 bf16 columns (128 bytes) by R rows lands as R rows of 128 bytes, the
@@ -109,40 +109,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
-      : "memory");
-}
-// A 2-D box written at the same shared-memory offset in every block of the
-// cluster named by `mask` (bit i: cluster rank i); each destination block's
-// barrier at `bar`'s offset counts the bytes that land there.
-__device__ __forceinline__ void tma_load_2d_mc(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                               int c0, int c1, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1)
-      : "memory");
-}
-// ---- thread-block clusters ----
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// Every thread of every block of the cluster arrives and waits; orders
-// each thread's earlier shared-memory writes and remote arrivals before
-// the other blocks' later accesses.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-// One arrival on the barrier at `bar`'s offset in the cluster's block `rank`
-// (this block included).
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
-  asm volatile(
-      "{\n.reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
-          smem_u32(bar)),
-      "r"(rank)
       : "memory");
 }
 

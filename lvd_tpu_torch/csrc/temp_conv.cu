@@ -62,13 +62,16 @@ namespace {
 
 struct WgTc {
   static constexpr int kTiles = 2;  // 8-pixel tiles a block: one consumer warpgroup each
+  // Pixels of a window (a frame is then one 8-row, 1024-byte swizzle
+  // atom) and the frame its first rows hold; the fp32 form shares both.
+  static constexpr int kPixels = 8, kStartFrame = -1;
   static constexpr int kThreads = kTiles * 128 + 32;
   static constexpr int kWBytes = 3 * 64 * 64 * 2;  // a chunk's three tap slices
-  __host__ __device__ static int m_tiles(int F) { return (8 * F + 63) / 64; }
+  __host__ __device__ static int m_tiles(int F) { return (kPixels * F + 63) / 64; }
   // A window's rows: the m64 tiles and the two frames the taps reach past
   // them (8 F + 16 of them come from TMA; the rest only feed rows never
   // stored).
-  __host__ __device__ static int win_rows(int F) { return 64 * m_tiles(F) + 16; }
+  __host__ __device__ static int win_rows(int F) { return 64 * m_tiles(F) + 2 * kPixels; }
   __host__ __device__ static int win_bytes(int F) { return win_rows(F) * 128; }
   __host__ __device__ static int stage_bytes(int F) { return kTiles * win_bytes(F) + kWBytes; }
   // Two stages, four barriers, and slack to align the start to 1024.
@@ -116,7 +119,8 @@ temp_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         hop::mbar_expect_tx(&full[s], bytes);
         unsigned char* st = smem + s * stage_bytes;
         for (int t = 0; t < W::kTiles; ++t)
-          hop::tma_load_4d(st + t * win_bytes, &tm_x, &full[s], cc * 64, (tile0 + t) * 8, -1, b);
+          hop::tma_load_4d(st + t * win_bytes, &tm_x, &full[s], cc * 64, (tile0 + t) * W::kPixels,
+                           W::kStartFrame, b);
         for (int k = 0; k < 3; ++k)
           hop::tma_load_2d(st + W::kTiles * win_bytes + k * 8192, &tm_w, &full[s], n0,
                            k * C + cc * 64);
@@ -260,7 +264,7 @@ cudaError_t launch_wgmma(const void* x, const void* a, const void* b, const void
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)P, (cuuint64_t)F, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)P * C * 2,
                                  (cuuint64_t)F * P * C * 2};
-  const cuuint32_t box[4] = {64, 8, (cuuint32_t)F + 2, 1};
+  const cuuint32_t box[4] = {64, W::kPixels, (cuuint32_t)F + 2, 1};
   CUtensorMap tx, tw;
   cudaError_t err = make_map(&tx, x, 4, dims, strides, box);
   if (err == cudaSuccess) err = make_map_2d(&tw, w, 3LL * C, C, 64);
@@ -438,14 +442,21 @@ cudaError_t launch_f32(const void* x, const void* a, const void* b, const void* 
 }  // namespace lvd
 
 // x/out: (B, F, P, C) and w: (3, C, C) [tap][in][out], bias: (C,), all of one
-// type (dtype 0 bf16: the wgmma form; 1 fp32: the mma_sync form); a, b:
-// (B, C) fp32. C % 64 == 0, F <= 32.
+// type (dtype 0 bf16: form 1, the wgmma form; 1 fp32: form 2, the mma_sync
+// form); a, b: (B, C) fp32. C % 64 == 0, F <= 32. pixel_tile, start_frame,
+// m_tiles and window_rows are the wrapper's launch plan (pixels a window,
+// its first frame, the m64 tiles of its output rows, its rows); one the
+// kernel was not built for is refused.
 LVD_EXPORT int lvd_temp_conv(const void* x, const void* a, const void* b, const void* w,
-                             const void* bias, void* out, int B, int F, int P, int C, int dtype,
-                             void* stream) {
+                             const void* bias, void* out, int B, int F, int P, int C, int form,
+                             int pixel_tile, int start_frame, int m_tiles, int window_rows,
+                             int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
-  if (C % 64 != 0 || C <= 0 || F <= 0 || F > 32 || P <= 0 || B <= 0)
+  if (C % 64 != 0 || C <= 0 || F <= 0 || F > 32 || P <= 0 || B <= 0 ||
+      form != (dtype == kBF16 ? 1 : 2) || pixel_tile != WgTc::kPixels ||
+      start_frame != WgTc::kStartFrame ||
+      m_tiles != WgTc::m_tiles(F) || window_rows != WgTc::win_rows(F))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return launch_wgmma(x, a, b, w, bias, out, B, F, P, C, s);

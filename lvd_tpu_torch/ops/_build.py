@@ -41,9 +41,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "lvd_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
     "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
-    "lvd_geglu": [_P] * 6 + [_I] * 6 + [_I, _P],
+    "lvd_geglu": [_P] * 6 + [_I] * 8 + [_I, _P],
     "lvd_geglu_stream": [_P] * 6 + [_I] * 4 + [_I, _P],
-    "lvd_temp_conv": [_P] * 6 + [_I] * 4 + [_I, _P],
+    "lvd_temp_conv": [_P] * 6 + [_I] * 9 + [_I, _P],
     "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
     "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
     "lvd_geglu_bwd": [_P] * 6 + [_I] * 4 + [_I, _P],

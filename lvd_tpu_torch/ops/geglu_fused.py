@@ -16,10 +16,12 @@ It is a ``torch.autograd.Function`` in x, routed as lvd_tpu routes it:
 On CPU tensors each kernel is replaced by its plain version. Kernel C has
 three forms (``launch_plan``): ``wgmma`` in bf16 and ``mma_sync`` in fp32
 (64-row blocks, W1 passed with its columns interleaved, ``interleave_w1``)
-and the kept ``wmma`` form for fp32 C > 384; ``geglu_mlp.launches_by_form``
-counts each. ``gemm1_columns`` and
-``output_blocks`` are the wgmma form's chunk plan, which the CPU tests hold
-to lvd_tpu's resident kernel. Weight gradients are not part of this slice:
+and the kept ``wmma`` form for fp32 C > 384;
+``geglu_mlp.launches_by_form`` counts each. The plan (rows a block, inner
+columns a chunk, blocks on one row tile) is passed to the kernel, which
+refuses one it was not built for; ``gemm1_columns`` and ``output_blocks``
+derive the wgmma form's chunk plan from it, which the CPU tests hold to
+lvd_tpu's resident kernel. Weight gradients are not part of this slice:
 on the card a parameter that requires grad raises, on the CPU the plain
 formulation's autograd gives them.
 """
@@ -44,62 +46,56 @@ STREAM_INNER = 256  # kernel J's inner dim must be a multiple (lvd_tpu's block_k
 
 FORMS = ("wgmma", "mma_sync", "wmma")
 F32_MAX_CHANNELS = 384  # the widest C of the mma_sync form (its x tile stays resident)
-ROW_BLOCK = 64  # rows a block of the wgmma form
-INNER_CHUNK = 64  # inner columns a chunk: 32 for each of the two consumer warpgroups
-# Blocks of the wgmma form that share each weight load by TMA multicast (1
-# or 2). 1: clusters of 2 measured slower at every path width on an H100
-# (ops/selfcheck.py's cluster_ms, PERF.md).
-CLUSTERS = (1, 2)
-CLUSTER = 1
+INNER_CHUNK = 64  # inner columns a chunk, every form: 32 for each of two warpgroups
 
 
-def launch_plan(c: int, dtype, cluster: int = CLUSTER) -> dict:
-    """Kernel C's form at width ``c``: ``wgmma`` in bf16 (every width the
-    route gives it: C = 64..640 step 64, inner % 64 == 0; at C >= 448 two
-    blocks share each 64-row tile, each writing half of the output blocks,
-    ``output_split``); in fp32 ``mma_sync`` (TF32) up to
-    F32_MAX_CHANNELS, the kept ``wmma`` form wider (lvd_tpu's route gives
-    fp32 C >= 448 to kernel C only with an inner dimension well under 4C).
-    Both Hopper forms read w1 interleaved (``interleave_w1``)."""
+def launch_plan(c: int, dtype) -> dict:
+    """Kernel C's form at width ``c`` and its launch plan, which the kernel
+    checks: ``wgmma`` in bf16 (every width the route gives it: C = 64..640
+    step 64, inner % 64 == 0), 64 rows a block, and at C >= 448 ``split``
+    = 2 blocks on each 64-row tile, each writing half of the output blocks
+    and recomputing GEMM1, so that a thread's accumulators fit the 168
+    registers a block of 9 warps leaves it; in fp32 ``mma_sync`` (TF32) up
+    to F32_MAX_CHANNELS, 64 rows a block, and the kept ``wmma`` form wider,
+    32 rows a block (lvd_tpu's route gives fp32 C >= 448 to kernel C only
+    with an inner dimension well under 4C)."""
     if dtype == torch.bfloat16:
-        return {"form": "wgmma", "code": 1, "cluster": cluster}
-    if c <= F32_MAX_CHANNELS:
-        return {"form": "mma_sync", "code": 2, "cluster": 1}
-    return {"form": "wmma", "code": 0, "cluster": 1}
-
-
-def output_split(c: int) -> int:
-    """Blocks of the wgmma form on one 64-row tile, each writing a share
-    of the C/64 output blocks (and recomputing GEMM1): 2 at C >= 448, so
-    that a thread's accumulators fit the 168 registers a block of 9 warps
-    leaves it, else 1."""
-    return 2 if c // 64 >= 7 else 1
+        form, code, rows, split = "wgmma", 1, 64, 2 if c // 64 >= 7 else 1
+    elif c <= F32_MAX_CHANNELS:
+        form, code, rows, split = "mma_sync", 2, 64, 1
+    else:
+        form, code, rows, split = "wmma", 0, 32, 1
+    return {"form": form, "code": code, "row_block": rows, "inner_chunk": INNER_CHUNK,
+            "split": split}
 
 
 def gemm1_columns(k: int, wg: int, inner: int):
-    """The 64 columns of w1 (C, 2 inner) that warpgroup ``wg``'s first
-    product of inner chunk ``k`` reads, in the order its accumulator holds
-    them: the chunk's 32 inner columns 64 k + 32 wg .. of W1h, then the
-    same 32 of W1g."""
-    cols = INNER_CHUNK * k + 32 * wg + torch.arange(32)
+    """The 64 columns of w1 (C, 2 inner) = [W1h | W1g] that warpgroup
+    ``wg``'s first product of inner chunk ``k`` reads, in the order its
+    accumulator holds them: the chunk's 32 inner columns 64 k + 32 wg ..
+    of W1h, then the same 32 of W1g."""
+    cols = INNER_CHUNK * k + INNER_CHUNK // 2 * wg + torch.arange(INNER_CHUNK // 2)
     return torch.cat([cols, inner + cols])
 
 
 def interleave_w1(w1, inner: int):
     """w1 (C, 2 inner) = [W1h | W1g] with its columns interleaved in 32s,
-    [h 0..31 | g 0..31 | h 32..63 | g 32..63 | ...], as the wgmma form
-    reads it: its 64-column block 2 k + wg is ``w1[:, gemm1_columns(k, wg,
-    inner)]``, one TMA box (a copy of w1, made per call)."""
+    [h 0..31 | g 0..31 | h 32..63 | g 32..63 | ...], as the wgmma and
+    mma_sync forms read it: its 64-column block 2 k + wg is
+    ``w1[:, gemm1_columns(k, wg, inner)]``, one TMA box in bf16. A copy made
+    per call (the selfcheck times it, ``copy_ms``); reading W1 as stored,
+    in 32-column boxes, measured slower on an H100 (PERF.md)."""
     c = w1.shape[0]
     return w1.reshape(c, 2, inner // 32, 32).transpose(1, 2).reshape(c, 2 * inner)
 
 
+
 def output_blocks(c: int, wg: int, half: int = 0):
-    """The 64-column output blocks warpgroup ``wg`` of the block writing
-    share ``half`` of them (``output_split``) stores: o0 + 2 i + wg, within
-    the share."""
+    """The 64-column output blocks warpgroup ``wg`` of the wgmma block
+    writing share ``half`` of them (of the plan's ``split``) stores:
+    o0 + 2 i + wg, within the share."""
     n = c // 64
-    share = -(-n // output_split(c))
+    share = -(-n // launch_plan(c, torch.bfloat16)["split"])
     o0 = half * share
     return [o0 + b for b in range(wg, min(share, n - o0), 2)]
 
@@ -214,22 +210,22 @@ def _kernel_weights(p, x, name):
     return w1, b1, w2, b2
 
 
-def _launch_forward(p, x, cluster: int = CLUSTER):
-    """Kernel C on a CUDA tensor (``cluster``: blocks of the wgmma form that
-    share each weight load, 1 or 2)."""
+def _launch_forward(p, x):
+    """Kernel C on a CUDA tensor, in the form and plan ``launch_plan``
+    gives."""
     _build.refuse_grad("geglu_mlp", x)
     c = x.shape[-1]
     code = _build.dtype_code(x, "geglu_mlp")
     rows = _build.kernel_input(x.reshape(-1, c), x.dtype, "geglu_mlp x")
     w1, b1, w2, b2 = _kernel_weights(p, rows, "geglu_mlp")
-    plan = launch_plan(c, x.dtype, cluster)
+    plan = launch_plan(c, x.dtype)
     if plan["form"] != "wmma":
         w1 = interleave_w1(w1, w2.shape[0])
     out = torch.empty_like(rows)
     err = _build.lib().lvd_geglu(
         rows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         out.data_ptr(), rows.shape[0], c, w2.shape[0], int(GELU_FORM != "tanh"), plan["code"],
-        plan["cluster"], code, _build.stream_of(rows))
+        plan["row_block"], plan["inner_chunk"], plan["split"], code, _build.stream_of(rows))
     _build.check(err, "geglu_mlp")
     geglu_mlp.launches += 1
     geglu_mlp.launches_by_form[plan["form"]] += 1

@@ -30,8 +30,9 @@ Kernels C, D, H and I record the form each call took (``launches_by_form``:
 C > 384, I's for widths % 64 != 0). C and D also time
 the same products alone through ``torch.matmul`` on pre-made operands
 (``products_ms``: x W1 and gated W2; the three shifted products): not a
-library call for the same function, and the port never calls it. C's bf16
-checks also time the kernel alone at each cluster size (``cluster_ms``).
+library call for the same function, and the port never calls it. C's
+Hopper forms also time the interleaved copy of W1 that each call makes
+(``copy_ms``, included in ``ms``).
 
 Each shape is also timed with CUDA events: the kernel, the plain version
 on the same inputs, and where one PyTorch call computes the same function
@@ -268,10 +269,8 @@ def check_geglu(gen, shape, dtype=torch.bfloat16):
     products_ms = time_ms(lambda: (torch.matmul(x, w1), torch.matmul(gated, w2)))
     del gated
     extra = {"form": form, "products_ms": products_ms}
-    if form == "wgmma":  # the launch alone at each cluster size (weights shared by multicast)
-        with torch.no_grad():
-            extra["cluster_ms"] = {cl: time_ms(lambda: geglu_fused._launch_forward(p, x, cl))
-                                   for cl in geglu_fused.CLUSTERS}
+    if form != "wmma":  # the per-call interleaved copy of w1, part of ms
+        extra["copy_ms"] = time_ms(lambda: geglu_fused.interleave_w1(w1, inner))
     flops = 6.0 * rows * c * inner
     nbytes = x.element_size() * (2 * rows * c + 3 * c * inner + 2 * inner + c)
     return _record("geglu_mlp", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops,

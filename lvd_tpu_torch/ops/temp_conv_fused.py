@@ -8,9 +8,11 @@ It is a ``torch.autograd.Function``: on a CUDA tensor the forward launches
 kernel D (csrc/temp_conv.cu, replacing ``_fused``), on a CPU tensor it runs
 ``_unfused``. Kernel D has two forms on one frame-window implicit GEMM
 (``launch_plan``): ``wgmma`` in bf16 and ``mma_sync`` (TF32) in fp32;
-``norm_silu_temporal_conv.launches_by_form`` counts each. ``window_rows``
-and ``tap_rows`` are the windows' index arithmetic, which the CPU tests
-hold to lvd_tpu's kernel. lvd_tpu has no Pallas backward here (its
+``norm_silu_temporal_conv.launches_by_form`` counts each. The plan (the
+form, pixels a window, its first frame, its m64 tiles and rows) is passed
+to the kernel, which refuses one it was not built for; ``tap_rows`` derives
+the windows' index arithmetic from it, which the CPU tests hold to
+lvd_tpu's kernel. lvd_tpu has no Pallas backward here (its
 ``_stage_bwd`` is XLA's VJP of the unfused recompute), so the backward
 recomputes ``_unfused``
 with stock torch ops and returns the gradients of every input that needs
@@ -45,27 +47,26 @@ START_FRAME = -1  # the window's first frame
 
 
 def launch_plan(f: int, dtype) -> dict:
-    """Kernel D's form for F frames of this type: ``wgmma`` in bf16,
-    ``mma_sync`` (TF32) in fp32, on the same windows: frames START_FRAME ..
-    F (8 (F + 2) rows loaded, zero outside [0, F)), padded to
-    ``window_rows`` so that every m64 tile's taps stay inside it."""
-    return {"form": "wgmma" if dtype == torch.bfloat16 else "mma_sync",
-            "m_tiles": -(-PIXEL_TILE * f // 64),
-            "window_rows": window_rows(f), "loaded_rows": PIXEL_TILE * (f + 2)}
-
-
-def window_rows(f: int) -> int:
-    """Rows of one pixel tile's window: the m64 tiles of the 8 F output rows
-    and the two frames the taps reach past them."""
-    return 64 * -(-PIXEL_TILE * f // 64) + 2 * PIXEL_TILE
+    """Kernel D's form and launch plan for F frames of this type, which the
+    kernel checks: ``wgmma`` in bf16, ``mma_sync`` (TF32) in fp32, on the
+    same windows of PIXEL_TILE pixels: frames START_FRAME .. F
+    (``loaded_rows`` = 8 (F + 2) rows loaded, zero outside [0, F)), the 8 F
+    output rows in ``m_tiles`` m64 tiles, and ``window_rows`` rows, so that
+    every m64 tile's taps, which reach two frames past it, stay inside."""
+    bf16 = dtype == torch.bfloat16
+    m_tiles = -(-PIXEL_TILE * f // 64)
+    return {"form": "wgmma" if bf16 else "mma_sync", "code": 1 if bf16 else 2,
+            "pixel_tile": PIXEL_TILE, "start_frame": START_FRAME, "m_tiles": m_tiles,
+            "window_rows": 64 * m_tiles + 2 * PIXEL_TILE, "loaded_rows": PIXEL_TILE * (f + 2)}
 
 
 def tap_rows(f: int):
     """(3, 64 * m_tiles) int tensor: the window row that output row r
     (frame r // 8, pixel r % 8 of the tile) reads for tap k: r + 8 k, so
     tap k of m64 tile t is the window from row 64 t + 8 k on."""
-    m = 64 * -(-PIXEL_TILE * f // 64)
-    return torch.arange(m)[None, :] + PIXEL_TILE * torch.arange(3)[:, None]
+    plan = launch_plan(f, torch.bfloat16)
+    m = 64 * plan["m_tiles"]
+    return torch.arange(m)[None, :] + plan["pixel_tile"] * torch.arange(3)[:, None]
 
 
 def supported(x) -> bool:
@@ -98,7 +99,8 @@ def _launch_forward(x, a, b, w, bias):
     out = torch.empty_like(x)
     err = _build.lib().lvd_temp_conv(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), bsz, f, p, c, code, _build.stream_of(x))
+        out.data_ptr(), bsz, f, p, c, plan["code"], plan["pixel_tile"], plan["start_frame"],
+        plan["m_tiles"], plan["window_rows"], code, _build.stream_of(x))
     _build.check(err, "norm_silu_temporal_conv")
     norm_silu_temporal_conv.launches += 1
     norm_silu_temporal_conv.launches_by_form[plan["form"]] += 1

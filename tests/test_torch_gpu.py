@@ -534,21 +534,44 @@ def test_geglu_forms_match_plain(cuda, c, gelu, dtype, monkeypatch):
         assert errs[dtype] <= FP32_TOL and errs[dtype] < errs[torch.bfloat16]
 
 
-@pytest.mark.parametrize("cluster", [1, 2])
-@pytest.mark.parametrize("c", [320, 640])
-def test_geglu_wgmma_cluster_sizes(cuda, c, cluster):
-    """Kernel C's wgmma form at each cluster size (1: no multicast; 2: each
-    weight box multicast to both blocks), 4099 rows so the last cluster has
-    a block past R."""
+@pytest.mark.parametrize("kernel", ["C", "D"])
+def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch):
+    """Kernels C and D check the wrapper's launch plan: C's split (1 at
+    C = 320, 2 at 640) and rows a block, D's m64 tiles, window rows and
+    first frame; each changed value is refused, and the plan as given
+    launches."""
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops import temp_conv_fused as tc
 
     g = torch.Generator(device=cuda).manual_seed(12)
-    p = _ff_params(c, 4 * c, g, cuda)
-    x = torch.randn(4099, c, generator=g, device=cuda)
+    if kernel == "C":
+        mod, changes = gf, [("split", 2), ("split", 1), ("row_block", 32), ("inner_chunk", 128)]
+        cases = []
+        for c in (320, 640):
+            p = cast_tree(_ff_params(c, 4 * c, g, cuda), torch.bfloat16)
+            x = torch.randn(300, c, generator=g, device=cuda).bfloat16()
+            cases.append((lambda p=p, x=x: gf._launch_forward(p, x), c))
+    else:
+        mod, changes = tc, [("m_tiles", 4), ("window_rows", 200), ("start_frame", 0),
+                            ("pixel_tile", 16)]
+        x = torch.randn(1, 24, 13, 64, generator=g, device=cuda).bfloat16()
+        a, b = torch.ones(1, 64, device=cuda), torch.zeros(1, 64, device=cuda)
+        w = torch.randn(3, 64, 64, generator=g, device=cuda).bfloat16()
+        bias = torch.zeros(64, device=cuda).bfloat16()
+        cases = [(lambda: tc._launch_forward(x, a, b, w, bias), 24)]
+    plan = mod.launch_plan
     with torch.no_grad():
-        out = gf._launch_forward(cast_tree(p, torch.bfloat16), x.bfloat16(), cluster)
-    assert _rel(out, gf.geglu_mlp_plain(p, x)) <= 2e-2
+        for run, n in cases:
+            run()  # the plan as given
+            for key, value in changes:
+                if plan(n, torch.bfloat16)[key] == value:
+                    continue
+                monkeypatch.setattr(mod, "launch_plan",
+                                    lambda *args, k=key, v=value: {**plan(*args), k: v})
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    run()
+                monkeypatch.setattr(mod, "launch_plan", plan)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -20,18 +20,20 @@ form of kernel I uses (``ops/conv3x3.py``: ``launch_plan``,
   route takes kernel C's / D's new form (``wgmma`` in bf16, ``mma_sync`` in
   fp32), and so does every width C's route gives it but fp32 C > 384 (C =
   512 with inner 256), which keeps the WMMA form;
-- kernel D's launch plan (``ops/temp_conv_fused.py``: one window per
-  8-pixel tile from frame -1, tap k of output row r at window row r + 8 k,
+- kernel D's launch plan (``ops/temp_conv_fused.py``, which the kernel
+  checks: one window per 8-pixel tile from frame -1, tap k of output row r
+  at window row r + 8 k,
   zero rows for frames outside [0, F) and pixels past P, padded m64 tiles
   whose rows are NaN here and must never reach the output) times the
   (3C, C) weight equals lvd_tpu's ``temp_conv_fused._fused`` in interpret
   mode and ``_unfused``, at F = 5 and 24 with a ragged P;
-- kernel C's chunk plan (``ops/geglu_fused.py``: 64-row blocks, per 64-wide
-  inner chunk each warpgroup's [h | g] columns as a 64-column block of the
-  interleaved w1, the gated chunk rounded to the stream's type, each
-  warpgroup's output blocks, split over two blocks at C >= 448) equals
-  lvd_tpu's
-  ``_fused_rows_resident`` in interpret mode and ``_unfused``.
+- kernel C's chunk plan (``ops/geglu_fused.py``, which the kernel checks:
+  64-row blocks, per 64-wide inner chunk each warpgroup's [h | g] columns
+  as a 64-column block of the interleaved w1, the gated chunk rounded to
+  the stream's type,
+  each warpgroup's output blocks, split over two blocks at C >= 448)
+  equals lvd_tpu's ``_fused_rows_resident`` in interpret mode and
+  ``_unfused``.
 """
 
 import numpy as np
@@ -191,12 +193,12 @@ def _window_temp_conv(x, a, b, w, bias):
     tap k of output row r reads window row r + 8 k; rows r < 8 F of pixels
     inside P are stored."""
     bsz, f, p, c = x.shape
-    pt = t_tc.PIXEL_TILE
     plan = t_tc.launch_plan(f, torch.bfloat16)
+    pt = plan["pixel_tile"]
     taps = t_tc.tap_rows(f)
     assert plan["form"] == "wgmma" and taps.max() < plan["window_rows"]
-    assert t_tc.START_FRAME == -1 and plan["loaded_rows"] == pt * (f + 2)
-    frames = torch.arange(f + 2) + t_tc.START_FRAME
+    assert plan["start_frame"] == -1 and plan["loaded_rows"] == pt * (f + 2)
+    frames = torch.arange(f + 2) + plan["start_frame"]
     out = torch.full_like(x, float("nan"))
     for bi in range(bsz):
         z = torch.nn.functional.silu(x[bi] * a[bi] + b[bi])  # (F, P, C)
@@ -239,8 +241,9 @@ def _chunk_plan_geglu(x, w1, b1, w2, b2):
     from the whole chunk; + b2 at the end."""
     r, c = x.shape
     inner = w2.shape[0]
-    rb, ch = t_gf.ROW_BLOCK, t_gf.INNER_CHUNK
-    halves = range(t_gf.output_split(c))
+    plan = t_gf.launch_plan(c, torch.bfloat16)
+    rb, ch = plan["row_block"], plan["inner_chunk"]
+    halves = range(plan["split"])
     blocks = [sum((t_gf.output_blocks(c, j, hf) for hf in halves), []) for j in (0, 1)]
     assert sorted(blocks[0] + blocks[1]) == list(range(c // 64))
     w1i = t_gf.interleave_w1(w1, inner)
@@ -284,3 +287,4 @@ def test_geglu_chunk_plan_gives_lvd_tpu(form, c, monkeypatch):
     args = tuple(map(jnp.asarray, (x, w1, b1, w2, b2)))
     _close(got, j_gf._fused_rows_resident(*args, block_m=64, nk=2, interpret=True))
     _close(got, j_gf._unfused(*args))
+
