@@ -8,8 +8,8 @@ Phases, each fatal on failure:
   2. build   - nvcc builds lvd_tpu_torch/csrc/*.cu, one process per source,
                all started together, then one link (seconds and the -Xptxas
                -v register / shared-memory / spill lines, one record of
-               registers and spills per kernel A, C, D, E, H and I
-               instantiation, and their dynamic shared memory per block);
+               registers and spills per kernel A-E and G-I instantiation,
+               and their dynamic shared memory per block);
   3. kernels - every kernel at every shape the Zeroscope path gives it, in
                bf16, against its plain PyTorch version on fp32 copies, and
                each kernel in fp32 at its largest shape against the plain
@@ -20,7 +20,8 @@ Phases, each fatal on failure:
                and text k/v shapes, the backwards E-G at the guided energy
                walk's, and the public entry points sdpa() (A and E with one
                head, row 1, D = 64 to 256), conv3x3() (I without prologue,
-               row 13) and geglu_mlp() where it streams (J, row 9);
+               row 13) and geglu_mlp() where it streams (J, row 9); B and G
+               also time their first versions beside their wgmma forms;
   4. reference - one full-width CFG UNet forward through the kernels (bf16)
                against the plain path (fp32) on the same inputs, with weights
                whose attention/FF/temporal-conv branches are not zero-init,
@@ -38,11 +39,12 @@ Phases, each fatal on failure:
                random bf16 weights, 4 DPM-Solver++ steps, through the entry
                points a user calls; launch counts are zeroed just before and
                read just after, and every forward kernel A-D must have run,
-               every C and D launch in its new form (wgmma);
+               every B, C and D launch in its new form (wgmma);
   7. guided generation - the flagship layout (one box moving left to right)
                and GuidanceConfig through the same entry point with
                ``backward_guidance``, 4 steps with guidance on the first 2;
-               every kernel A-G must have run, C and D in their new form;
+               every kernel A-G must have run, B, C, D and G in their new
+               form;
   8. certification - guidance_effect at full width, 16 guided updates at
                the first timestep: the in-box attention share must rise by
                more than lvd_tpu's flagship gate (gain > 1.004) and the
@@ -52,10 +54,11 @@ Phases, each fatal on failure:
                second is read at import): phases 4 and 5 again, now with the
                resnet convs on kernel I and the projections on kernel H, and
                the guided generation of phase 7, which is this slice's main
-               path: every kernel A-I must have run, and every launch of C,
-               D, H and I must have taken the new form (wgmma / mma_sync,
-               never a WMMA form); then one profiled CFG forward under the
-               switches. A non-zero exit of the child fails the smoke;
+               path: every kernel A-I must have run, and every launch of B,
+               C, D, G, H and I must have taken the new form (wgmma /
+               mma_sync, never a WMMA form); then one profiled CFG forward
+               under the switches. A non-zero exit of the child fails the
+               smoke;
  10. fp32    - one full-width CFG UNet forward in TextToVideoPipeline's
                default type (fp32) through the kernels against the plain
                path in fp32, TF32 off on both;
@@ -147,7 +150,7 @@ def build_phase(torch):
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"[build] {line.strip()}")
     for rec in ptxas_summary(_build.build_info["log"], PTXAS_SOURCES):
-        log(f"[build] ptxas A/C/D/E/H/I {json.dumps(rec)}")
+        log(f"[build] ptxas A-E/G-I {json.dumps(rec)}")
     lib = _build.lib()
     smem = {}
     for dtype, code in (("bf16", 0), ("fp32", 1)):
@@ -171,12 +174,15 @@ def build_phase(torch):
         smem[f"C {f32[0]} fp32 C={c}"] = lib.lvd_geglu_smem(f32[1], c, 1)
     smem["D wgmma bf16 F=24"] = lib.lvd_temp_conv_smem(24, 0)
     smem["D mma_sync fp32 F=24"] = lib.lvd_temp_conv_smem(24, 1)
-    log(f"[build] A/C/D/E/H/I dynamic shared memory per block (bytes): {json.dumps(smem)}")
+    for c in (320, 512, 640):  # kernels B and G at the path's widths
+        smem[f"B wgmma bf16 C={c}"] = lib.lvd_temporal_pair_smem(c // 64)
+        smem[f"G wgmma bf16 C={c}"] = lib.lvd_geglu_bwd_smem(c)
+    log(f"[build] A-E/G-I dynamic shared memory per block (bytes): {json.dumps(smem)}")
 
 
 # Sources whose kernels get one ptxas record each (registers, spills).
 PTXAS_SOURCES = ("packed_attention.cu", "packed_attention_bwd.cu", "linear.cu", "conv3x3.cu",
-                 "geglu.cu", "temp_conv.cu")
+                 "geglu.cu", "temp_conv.cu", "temporal_attention.cu", "geglu_bwd.cu")
 
 
 def ptxas_summary(build_log, sources):
@@ -195,7 +201,7 @@ def ptxas_summary(build_log, sources):
         if m:
             name = m.group(1)
             # the kernel's length-prefixed identifier and its template arguments
-            short = re.search(r"\d((?:attn|linear|conv3x3|geglu|temp_conv)_\w*?kernel"
+            short = re.search(r"\d((?:attn|linear|conv3x3|geglu|temp_conv|temporal_pair)_\w*?kernel"
                               r"(?:\w*?I\w*?EE)?)", name)
             rec = {"source": source, "kernel": name if short is None else short.group(1)}
             records.append(rec)
@@ -449,21 +455,26 @@ def read_launches():
 
 
 def read_forms():
-    """Launches per form of kernels C, D, H and I (geglu_mlp,
-    norm_silu_temporal_conv, linear_rows, norm_silu_conv2d, conv3x3)."""
+    """Launches per form of kernels B, C, D, G, H and I
+    (temporal_attention_pair, geglu_mlp, norm_silu_temporal_conv,
+    geglu_mlp_bwd, linear_rows, norm_silu_conv2d, conv3x3)."""
     return {name: dict(fn.launches_by_form) for name, fn in wrappers().items()
             if hasattr(fn, "launches_by_form")}
 
 
-def check_new_forms(phase, forms):
-    """Fails unless every launch of C, D, H and I took the new form (wgmma
-    in bf16, mma_sync in fp32): every UNet and conv3x3() shape has Cin and
-    Cout % 64 == 0, and only other widths take I's WMMA form; C's WMMA form
-    is kept for fp32 C > 384, which the paths this is called on never
-    reach."""
+def check_new_forms(phase, forms, redesigned=()):
+    """Fails unless every launch of B, C, D, G, H and I took the new form
+    (wgmma in bf16, mma_sync in fp32): every UNet and conv3x3() shape has
+    Cin and Cout % 64 == 0, and only other widths take I's WMMA form; C's
+    WMMA form is kept for fp32 C > 384, B's and G's first versions (WMMA)
+    for fp32, which the bf16 paths this is called on never reach. Each
+    wrapper of ``redesigned`` must have launched its wgmma form."""
     old = {name: f["wmma"] for name, f in forms.items() if f.get("wmma")}
     if old:
         raise SystemExit(f"[{phase}] launches of the WMMA form on the path: {old}")
+    idle = [name for name in redesigned if forms[name]["wgmma"] <= 0]
+    if idle:
+        raise SystemExit(f"[{phase}] the wgmma form never launched on the path: {idle}")
 
 
 FORWARD_KERNELS = ("attention_packed", "temporal_attention_pair", "geglu_mlp",
@@ -504,8 +515,8 @@ def generation_phase(torch, models):
     if missing:
         raise SystemExit(f"[generation] kernels never launched on the main path: {missing}")
     forms = read_forms()
-    log(f"[generation] launches of C, D, H and I by form: {json.dumps(forms)}")
-    check_new_forms("generation", forms)
+    log(f"[generation] launches of B, C, D, G, H and I by form: {json.dumps(forms)}")
+    check_new_forms("generation", forms, ("temporal_attention_pair",))
     return launches
 
 
@@ -542,8 +553,8 @@ def guided_generation_phase(torch, models, kernels=GUIDED_KERNELS):
     if missing:
         raise SystemExit(f"[guided] kernels never launched on the guided path: {missing}")
     forms = read_forms()
-    log(f"[guided] launches of C, D, H and I by form: {json.dumps(forms)}")
-    check_new_forms("guided", forms)
+    log(f"[guided] launches of B, C, D, G, H and I by form: {json.dumps(forms)}")
+    check_new_forms("guided", forms, ("temporal_attention_pair", "geglu_mlp_bwd"))
     return pipe, launches
 
 
@@ -565,18 +576,34 @@ def certification_phase(torch, pipe):
     return eff
 
 
-KERNEL_SYMBOLS = {  # substrings of the kernels' device symbols (C's, D's, H's, I's: every form)
+# Substrings of the kernels' device symbols (B's, C's, D's, G's, H's and I's:
+# every form).
+KERNEL_SYMBOLS = {
     "attention_packed": "attn_packed_kernel",
-    "temporal_attention_pair": "temporal_pair_kernel",
+    "temporal_attention_pair": ("::temporal_pair_kernel", "::temporal_pair_wgmma_kernel"),
     "geglu_mlp": "::geglu_w",
     "norm_silu_temporal_conv": "::temp_conv_w",
     "attention_packed_bwd": "attn_bwd_",
     "temporal_attention_pair_bwd": "temporal_pair_bwd_kernel",
-    "geglu_mlp_bwd": "geglu_bwd_kernel",
+    "geglu_mlp_bwd": "::geglu_bwd_",
     "linear": "::linear_",
     "conv3x3 (kernel I)": "::conv3x3_",
     "geglu_stream": "geglu_stream_kernel",
 }
+
+
+# Kinds of stock kernels by substrings of their device symbols, first match
+# wins (the census of PERF.md section 5).
+STOCK_KINDS = (
+    ("conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
+    ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "splitK")),
+    ("copy, cast, layout", ("copy", "transpose", "CatArray", "cat_", "index")),
+    ("reduction (norm statistics)", ("reduce_kernel", "Reduce")),
+    ("softmax", ("oftMax", "softmax")),
+    ("add", ("add", "Add")),
+    ("mul", ("Mul", "mul")),
+    ("silu, gelu, sigmoid", ("silu", "gelu", "Gelu", "sigmoid")),
+)
 
 
 def profile_phase(torch, models):
@@ -628,12 +655,14 @@ def _profile(torch, label, fn):
                for e in prof.key_averages() if e.self_device_time_total > 0}
     busy_ms = sum(ms for ms, _ in by_name.values())
     split = {}
-    for kname, symbol in KERNEL_SYMBOLS.items():
-        hits = [v for k, v in by_name.items() if symbol in k]
+    symbols = {kname: (sym,) if isinstance(sym, str) else sym
+               for kname, sym in KERNEL_SYMBOLS.items()}
+    for kname, syms in symbols.items():
+        hits = [v for k, v in by_name.items() if any(sym in k for sym in syms)]
         if hits:
             split[kname] = {"ms": round(sum(ms for ms, _ in hits), 3),
                             "calls": sum(n for _, n in hits)}
-    ours = {k for k in by_name if any(sym in k for sym in KERNEL_SYMBOLS.values())}
+    ours = {k for k in by_name if any(sym in k for syms in symbols.values() for sym in syms)}
     stock = sorted(((ms, n, k) for k, (ms, n) in by_name.items() if k not in ours),
                    reverse=True)
     split["stock"] = {"ms": round(sum(ms for ms, _, _ in stock), 3),
@@ -641,8 +670,17 @@ def _profile(torch, label, fn):
     log(f"[profile] {label}: wall {wall_ms:.3f} ms (CUDA events, profiler on), "
         f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}")
     log(f"[profile] {label}, device ms by kernel: {json.dumps(split)}")
-    for ms, n, k in stock[:8]:
-        log(f"[profile] {label}, stock {ms:.3f} ms in {n} calls: {k[:110]}")
+    kinds = {}
+    for ms, n, k in stock:
+        kind = next((kind for kind, subs in STOCK_KINDS if any(sub in k for sub in subs)),
+                    "other")
+        kinds.setdefault(kind, [0.0, 0])
+        kinds[kind][0] += ms
+        kinds[kind][1] += n
+    log(f"[profile] {label}, stock device ms and calls by kind: "
+        f"{json.dumps({k: [round(ms, 3), n] for k, (ms, n) in kinds.items()})}")
+    for ms, n, k in stock[:30]:
+        log(f"[profile] {label}, stock {ms:.3f} ms in {n} calls: {k[:300]}")
 
 
 def knob_child(torch) -> int:
@@ -665,7 +703,7 @@ def knob_child(torch) -> int:
     log(f"[reference] launches: {json.dumps(ref_launches)}")
     if ref_launches["linear"] <= 0 or ref_launches["norm_silu_conv2d"] <= 0:
         raise SystemExit("[reference] the switches did not route kernels H and I")
-    check_new_forms("reference", read_forms())
+    check_new_forms("reference", read_forms(), ("temporal_attention_pair",))
     gradient_phase(torch, models)
     _, launches = guided_generation_phase(torch, models, KNOB_KERNELS)
     forms = read_forms()
@@ -826,9 +864,11 @@ def kernels_line(records, knob_launches, entry_launches, forms):
     """One entry per kernel wrapper of selfcheck.SOURCES: its bf16 numbers at
     its largest path shape, its worst errors in bf16 and fp32, and its
     launches on this slice's main path (the entry points for sdpa() and
-    conv3x3()); C's, D's, H's and I's with their launches by form, C's and
-    D's with the same products' time through torch.matmul, C's with the
-    time of the interleaved copy of W1 its ms includes."""
+    conv3x3()); B's, C's, D's, G's, H's and I's with their launches by
+    form, C's and D's with the same products' time through torch.matmul,
+    C's and G's with the time of the interleaved copy of W1 their ms
+    includes, B's and G's with their first version's time and reading on
+    the same inputs."""
     from lvd_tpu_torch.ops.selfcheck import SOURCES
 
     kernels = []
@@ -850,7 +890,7 @@ def kernels_line(records, knob_launches, entry_launches, forms):
         })
         if kname in forms:
             kernels[-1]["forms"] = forms[kname]
-        for key in ("products_ms", "copy_ms"):
+        for key in ("form", "products_ms", "copy_ms", "first_ms", "first_rel_err"):
             if key in main:
                 kernels[-1][key] = main[key]
     return kernels

@@ -12,20 +12,61 @@
 // d_inner and the two halves of dx), 40*R*C^2 in all against ~6*C bytes of
 // row traffic, so the kernel is tensor-core bound; unfused, h, g, d_inner
 // and the two gated cotangents would each cross device memory (4C wide).
-// Design: one block per 32-row tile holds its x and dy rows in shared
+// Every 64-row block streams all 3*C*4C weights (L2-resident), as kernel C
+// does, ~65 operations a weight byte.
+//
+// bf16 (the `wgmma` form; C = 64..640 step 64, inner % 64 == 0): kernel C's
+// structure (csrc/geglu.cu). One block per 64 rows, warp-specialised: a
+// producer warp loads the block's x and dy tiles once (C/64 swizzled TMA
+// boxes each, rows past R read as zero) and streams the weights through a
+// ring of 16 KB stages (up to 8). Per 64-wide inner chunk k, in order:
+//  - GEMM1: C/64 stages of the interleaved W1 (the wrapper's
+//    `interleave_w1` copy, as kernel C reads it): warpgroup j computes
+//    [h | g] for its 32 inner columns 64 k + 32 j .. as one m64n64 product
+//    over C, so h and g of a column sit in the same thread's registers;
+//  - d_inner: ceil(C/128) stages of W2 rows 64 k .. (two 64-column K-tiles
+//    a stage, K-major): warpgroup j computes dy W2[64 k + 32 j .., :]^T as
+//    an m64n32 product, whose accumulator holds the same columns in the
+//    same threads as the [h | g] one;
+//  - the gate in registers: gelu(g) and gelu'(g) in fp32 (LVD_GELU_FORM's
+//    form, closed-form value and derivative as lvd_tpu's `_gelu_val_grad`),
+//    the two gated cotangents dh = d_inner gelu(g) and dg = d_inner h
+//    gelu'(g) rounded to bf16 (where lvd_tpu rounds them) into a 64 x 128
+//    cotangent tile in shared memory whose 64-column box j is warpgroup
+//    j's [dh32 | dg32], the interleaved W1's column order; a named barrier
+//    of both warpgroups first (the previous chunk's GEMM2 is done with the
+//    tile), a proxy fence and a second barrier after;
+//  - GEMM2: dx[:, the warpgroup's columns] += cot [W1h | W1g][:, chunk]^T,
+//    one stage per 32 dx columns (for each warpgroup two 32-row boxes of
+//    the interleaved W1: its dx columns as rows, the chunk's 128 columns as
+//    K, K-major), m64n32 products, one group in flight (each stage is
+//    released behind the next, so a ring shorter than the pieces never
+//    waits on itself), the last under the next chunk's GEMM1. GEMM1 takes
+//    two K-tiles a group where the ring has four stages, one at C = 640.
+// Each warpgroup writes NW = C / (2 split) dx columns, in fp32 accumulators
+// (NW / 2 a thread, beside 32 [h | g] and 16 d_inner ones). At C >= 384
+// `split` = 2 blocks share each 64-row tile, each writing half of dx's
+// columns and recomputing h, g and d_inner, so a thread's accumulators stay
+// at most 128 of the 168 registers 9 warps a block leave it; the 32-column
+// pieces divide every split evenly between the warpgroups (160 columns each
+// at C = 320 and 640, 128 at 512), so no product is computed twice. The
+// wrapper's launch plan (ops/geglu_fused.py `bwd_launch_plan`: form, rows a
+// block, inner columns a chunk, blocks on one row tile) is passed in, and
+// a plan the form was not built for is refused. Shared memory: x and dy
+// tiles, the 16 KB cotangent tile and the ring, 224 KB at every width
+// (8 stages at C = 320, 5 at 512, 3 at 640).
+//
+// The first version (the `wmma` form; fp32, and bf16 when asked for by
+// name): one block per 32-row tile holds its x and dy rows in shared
 // memory and walks the inner dimension in 64-wide chunks: h, g and d_inner
-// for the chunk come from WMMA products (fp32); gelu(g) and gelu'(g) are
-// formed in fp32 in the form LVD_GELU_FORM names (closed-form value and
-// derivative, as lvd_tpu's `_gelu_val_grad`) and the two gated cotangents
-// are rounded to bf16 in shared memory; dx accumulates in an fp32 (32, C)
-// tile in shared memory rather than in registers, since kernel C's
-// register-resident output already needs 252 registers at C = 640 and this
-// kernel carries two more operands. Weights are read from device memory
-// (L2-resident, at most 9.8 MB). Shared memory at C = 640: 200 KB in bf16.
-// fp32 tensors (TF32 products, no rounding of the gated cotangents) hold
-// their x and dy rows in fp32, and the (32, C) fp32 dx tile no longer fits
-// beside them (288 KB): dx accumulates in the fp32 output itself, whose
-// rows the wrapper pads to a multiple of 32 (207 KB of shared memory).
+// for the chunk come from WMMA products (fp32); the two gated cotangents
+// are rounded to the stream's type in shared memory; dx accumulates in an
+// fp32 (32, C) tile in shared memory. Weights are read from device memory
+// (L2-resident). Shared memory at C = 640: 200 KB in bf16. fp32 tensors
+// (TF32 products, no rounding of the gated cotangents) hold their x and dy
+// rows in fp32, and the (32, C) fp32 dx tile no longer fits beside them
+// (288 KB): dx accumulates in the fp32 output itself, whose rows the
+// wrapper pads to a multiple of 32 (207 KB of shared memory).
 //
 // Every other width lvd_tpu gives its resident dx kernel (C % 64 != 0, such
 // as C = 72, C > 640 such as 1280 with inner 1024 in bf16, or inner % 64 !=
@@ -37,6 +78,7 @@
 // work. Its blocks redo the gated chunks once per slice: it is for
 // correctness at widths no UNet shape has, not for speed.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace lvd {
 namespace {
@@ -331,26 +373,316 @@ geglu_bwd_sliced_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   });
 }
 
-// Whether the fast form (dx rows resident in one block) takes this width.
+// ---- bf16: TMA weight ring + wgmma ----
+
+template <int NF>
+struct WgBwd {
+  static constexpr int BM = 64;                  // rows a block
+  static constexpr int kThreads = 2 * 128 + 32;  // consumer warpgroups, then the producer warp
+  static constexpr int C = 64 * NF;
+  static constexpr int kSplit = NF >= 6 ? 2 : 1;  // blocks on one 64-row tile
+  static constexpr int NW = C / (2 * kSplit);     // dx columns of one warpgroup
+  static constexpr int NG = (NW + 31) / 32;       // its 32-column GEMM2 pieces (stages)
+  static constexpr int ND = (NF + 1) / 2;         // d_inner stages: two K-tiles of W2 each
+  static constexpr int U = NF + ND + NG;          // stages an inner chunk takes
+  static constexpr int kStage = 16384;            // two 64 x 64 (or four 32 x 64) bf16 boxes
+  static constexpr int kX = NF * 8192;            // the x tile, and the dy tile
+  static constexpr int kCot = 2 * 8192;           // the cotangent tile
+  static constexpr int kFixed = 2 * kX + kCot + 256 + 1024;  // + barriers, alignment slack
+  static constexpr int kFit = (kMaxSmem - kFixed) / kStage;
+  static constexpr int kStages = kFit > 8 ? 8 : kFit;
+  static constexpr int kSmem = kStages * kStage + kFixed;
+};
+
+template <int NF>
+__global__ void __launch_bounds__(WgBwd<NF>::kThreads, 1)
+geglu_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                       const __grid_constant__ CUtensorMap tm_dy,
+                       const __grid_constant__ CUtensorMap tm_w1,
+                       const __grid_constant__ CUtensorMap tm_w1n,
+                       const __grid_constant__ CUtensorMap tm_w2, const bf16* __restrict__ b1,
+                       bf16* __restrict__ dx, int R, int I, int exact) {
+  using G = WgBwd<NF>;
+  constexpr int NS = G::kStages, U = G::U, C = G::C, NW = G::NW;
+  // One group in flight holds its stages, so a group of two K-tiles needs a
+  // ring of four (three at C = 640 take one K-tile a group).
+  constexpr int kPair = NS >= 4 ? 2 : 1;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ring = smem;
+  bf16* xs = reinterpret_cast<bf16*>(smem + NS * G::kStage);
+  bf16* dys = xs + NF * 4096;
+  bf16* cot = dys + NF * 4096;
+  uint64_t* full = reinterpret_cast<uint64_t*>(cot + 2 * 4096);
+  uint64_t* empty = full + NS;
+  uint64_t* xfull = empty + NS;
+  const int r0 = blockIdx.x * G::BM;
+  const int n0 = blockIdx.y * 2 * NW;  // this block's first dx column
+  const int nk = I / 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8);  // every consumer warp
+    }
+    hop::mbar_init(xfull, 1);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer warp: one lane issues every TMA load
+    if (lane == 0) {
+      hop::mbar_expect_tx(xfull, 2 * G::kX);
+      for (int kt = 0; kt < NF; ++kt) {
+        hop::tma_load_2d(xs + kt * 4096, &tm_x, xfull, 64 * kt, r0);
+        hop::tma_load_2d(dys + kt * 4096, &tm_dy, xfull, 64 * kt, r0);
+      }
+      // Stage v (chunk k = v / U, j = v % U): for j < NF, interleaved W1
+      // rows 64 j .. x blocks 2 k and 2 k + 1 (warpgroup h's [h32 | g32]);
+      // then W2 rows 64 k .. x K-tiles 2 e and 2 e + 1 (e = j - NF); then
+      // for piece p, interleaved W1 rows n0 + NW wg + 32 p .. (32 of them)
+      // x blocks 2 k + h, at (2 wg + h) * 4 KB.
+      for (int v = 0; v < nk * U; ++v) {
+        const int s = v % NS, k = v / U, j = v % U;
+        if (v >= NS) hop::mbar_wait(&empty[s], (v / NS - 1) & 1);
+        bf16* st = reinterpret_cast<bf16*>(ring + s * G::kStage);
+        if (j < NF) {
+          hop::mbar_expect_tx(&full[s], G::kStage);
+          for (int h = 0; h < 2; ++h)
+            hop::tma_load_2d(st + h * 4096, &tm_w1, &full[s], 64 * (2 * k + h), 64 * j);
+        } else if (j < NF + G::ND) {
+          const int kt0 = 2 * (j - NF), n = NF - kt0 < 2 ? 1 : 2;
+          hop::mbar_expect_tx(&full[s], n * 8192);
+          for (int t = 0; t < n; ++t)
+            hop::tma_load_2d(st + t * 4096, &tm_w2, &full[s], 64 * (kt0 + t), 64 * k);
+        } else {
+          const int p = j - NF - G::ND;
+          hop::mbar_expect_tx(&full[s], G::kStage);
+          for (int wg = 0; wg < 2; ++wg)
+            for (int h = 0; h < 2; ++h)
+              hop::tma_load_2d(st + (2 * wg + h) * 2048, &tm_w1n, &full[s], 64 * (2 * k + h),
+                               n0 + NW * wg + 32 * p);
+        }
+      }
+    }
+    return;
+  }
+  auto wait_full = [&](int uu) { hop::mbar_wait(&full[uu % NS], (uu / NS) & 1); };
+  auto release = [&](int uu) {
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&empty[uu % NS]);
+  };
+
+  // Warpgroup wg: inner columns 64 k + 32 wg .. + 31 of each chunk, dx
+  // columns n0 + NW wg .. + NW - 1.
+  const int wg = warp / 4, wq = warp % 4;
+  const int r4 = lane / 4, cq = 2 * (lane % 4);
+  float acc[G::NG][16];
+#pragma unroll
+  for (int p = 0; p < G::NG; ++p)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[p][e] = 0.f;
+  float hg[32], dd[16];
+  // Stages are consumed in order; `done` is the first not yet released.
+  int u = 0, done = 0;
+  auto release_to = [&](int end) {
+    for (; done < end; ++done) release(done);
+  };
+  hop::mbar_wait(xfull, 0);
+  for (int k = 0; k < nk; ++k) {
+    // GEMM1: [h | g] = x [W1h | W1g] over C, kPair K-tiles a group; its
+    // first wait retires the previous chunk's last GEMM2 group.
+#pragma unroll
+    for (int kt = 0; kt < NF; kt += kPair) {
+      const int n = NF - kt < kPair ? NF - kt : kPair;
+      wait_full(u);
+      if (n == 2) wait_full(u + 1);
+      hop::fence_regs(hg);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < kPair; ++t) {
+        if (t < n) {
+          const bf16* Bs =
+              reinterpret_cast<const bf16*>(ring + ((u + t) % NS) * G::kStage) + wg * 4096;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hop::wgmma_ss_n64_tn(hg, hop::desc_sw128(xs + (kt + t) * 4096 + kk * 16),
+                                 hop::desc_sw128_mn(Bs + kk * 16 * 64, 8192),
+                                 kt + t > 0 || kk > 0);
+        }
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();
+      release_to(u);
+      u += n;
+    }
+    // d_inner = dy W2[64 k + 32 wg .. + 31, :]^T, two K-tiles a stage.
+#pragma unroll
+    for (int e = 0; e < G::ND; ++e) {
+      wait_full(u);
+      const bf16* Bs = reinterpret_cast<const bf16*>(ring + (u % NS) * G::kStage) + wg * 2048;
+      hop::fence_regs(dd);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        if (2 * e + t < NF) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hop::wgmma_ss_n32(dd, hop::desc_sw128(dys + (2 * e + t) * 4096 + kk * 16),
+                              hop::desc_sw128(Bs + t * 4096 + kk * 16), e + t > 0 || kk > 0);
+        }
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();
+      release_to(u);
+      ++u;
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_regs(hg);
+    hop::fence_regs(dd);
+    release_to(u);
+
+    // The gate: inner column i0 + 8 c + cq (+1) has h in hg[4 c (+1)], g in
+    // hg[4 (c + 4) (+1)] and d_inner in dd[4 c (+1)]; + 2 for row r4 + 8.
+    // Both warpgroups' GEMM2 of the previous chunk has retired (each one's
+    // wait above), so the cotangent tile is free once both are here.
+    hop::bar_sync(1, 256);
+    bf16* ct = cot + wg * 4096;
+    const int i0 = 64 * k + 32 * wg;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = 8 * c + cq;
+      const float2 bh =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + i0 + col));
+      const float2 bg =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1 + I + i0 + col));
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float h0 = hg[4 * c + 2 * hf] + bh.x, h1 = hg[4 * c + 2 * hf + 1] + bh.y;
+        const float g0 = hg[4 * (c + 4) + 2 * hf] + bg.x;
+        const float g1 = hg[4 * (c + 4) + 2 * hf + 1] + bg.y;
+        const float d0 = dd[4 * c + 2 * hf], d1 = dd[4 * c + 2 * hf + 1];
+        float u0, du0, u1, du1;
+        gelu_val_grad(g0, exact, u0, du0);
+        gelu_val_grad(g1, exact, u1, du1);
+        const int row = 16 * wq + r4 + 8 * hf;
+        *reinterpret_cast<uint32_t*>(ct + row * 64 + ((c ^ r4) * 8) + cq) =
+            pack_bf16(d0 * u0, d1 * u1);
+        *reinterpret_cast<uint32_t*>(ct + row * 64 + (((c + 4) ^ r4) * 8) + cq) =
+            pack_bf16(d0 * h0 * du0, d1 * h1 * du1);
+      }
+    }
+    hop::fence_proxy_async();
+    hop::bar_sync(2, 256);  // both halves of the cotangent tile are in place
+
+    // GEMM2: the warpgroup's dx piece p += cot (64 x 128) times its 32 rows
+    // of the interleaved W1 (K-major), one group a stage, each releasing
+    // the stage before it (a ring shorter than the pieces would otherwise
+    // wait on itself); the last stays in flight under the next GEMM1.
+#pragma unroll
+    for (int p = 0; p < G::NG; ++p, ++u) {
+      wait_full(u);
+      const bf16* Bs =
+          reinterpret_cast<const bf16*>(ring + (u % NS) * G::kStage) + wg * 2 * 2048;
+      hop::fence_regs(acc[p]);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_ss_n32(acc[p], hop::desc_sw128(cot + h * 4096 + kk * 16),
+                            hop::desc_sw128(Bs + h * 2048 + kk * 16), 1);
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();
+      release_to(u);
+    }
+  }
+  hop::wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < G::NG; ++p) hop::fence_regs(acc[p]);
+  release_to(u);
+
+  // dx column n0 + NW wg + 32 p + 8 c + cq (+1) is acc[p][4 c (+1)] (+ 2
+  // for row r4 + 8); a piece reaching past NW (NW % 32 != 0) stores only
+  // its own columns.
+  bf16* dxw = dx + n0 + NW * wg;
+#pragma unroll
+  for (int p = 0; p < G::NG; ++p)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = 32 * p + 8 * c + cq;
+      if (col >= NW) continue;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r0 + 16 * wq + r4 + 8 * hf;
+        if (row < R)
+          *reinterpret_cast<uint32_t*>(dxw + (size_t)row * C + col) =
+              pack_bf16(acc[p][4 * c + 2 * hf], acc[p][4 * c + 2 * hf + 1]);
+      }
+    }
+}
+
+template <int NF>
+cudaError_t launch_wgmma(const void* x, const void* dy, const void* w1, const void* b1,
+                         const void* w2, void* dx, int R, int I, int exact,
+                         cudaStream_t stream) {
+  using G = WgBwd<NF>;
+  constexpr int C = G::C;
+  CUtensorMap tx, tdy, tw1, tw1n, tw2;
+  cudaError_t err = make_map_2d(&tx, x, R, C, 64);
+  if (err == cudaSuccess) err = make_map_2d(&tdy, dy, R, C, 64);
+  if (err == cudaSuccess) err = make_map_2d(&tw1, w1, C, 2 * I, 64);
+  if (err == cudaSuccess) err = make_map_2d(&tw1n, w1, C, 2 * I, 32);
+  if (err == cudaSuccess) err = make_map_2d(&tw2, w2, I, C, 64);
+  if (err == cudaSuccess) err = set_smem(geglu_bwd_wgmma_kernel<NF>, G::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((R + G::BM - 1) / G::BM, G::kSplit);
+  geglu_bwd_wgmma_kernel<NF><<<grid, G::kThreads, G::kSmem, stream>>>(
+      tx, tdy, tw1, tw1n, tw2, static_cast<const bf16*>(b1), static_cast<bf16*>(dx), R, I, exact);
+  return cudaGetLastError();
+}
+
+// Whether the resident forms (wgmma, and the first version's) take this width.
 inline bool resident_width(int C, int I) {
   return C % 64 == 0 && C >= 64 && C <= 640 && I % kBI == 0;
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* dy, const void* w1, const void* b1,
-                   const void* w2, void* dx, int R, int C, int I, int exact,
-                   cudaStream_t stream) {
-  if (!resident_width(C, I)) {
-    constexpr int smem = SlicedCfg<T>::kSmem;
-    cudaError_t err = set_smem(geglu_bwd_sliced_kernel<T>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((R + kBM - 1) / kBM, (C + kBI - 1) / kBI);
-    geglu_bwd_sliced_kernel<T><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w1),
-        static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<T*>(dx), R, C, I,
-        exact);
-    return cudaGetLastError();
+enum BwdForm { kFormWmma = 0, kFormWgmma = 1, kFormGeneral = 2 };
+
+// The wgmma form at one width, or its shared memory (smem_only).
+template <int NF>
+long long wgmma_width(const void* x, const void* dy, const void* w1, const void* b1,
+                      const void* w2, void* dx, int R, int I, int exact, int split,
+                      cudaStream_t s, bool smem_only) {
+  if (smem_only) return WgBwd<NF>::kSmem;
+  if (split != WgBwd<NF>::kSplit) return cudaErrorInvalidValue;
+  return launch_wgmma<NF>(x, dy, w1, b1, w2, dx, R, I, exact, s);
+}
+
+long long wgmma_c(const void* x, const void* dy, const void* w1, const void* b1, const void* w2,
+                  void* dx, int R, int C, int I, int exact, int split, cudaStream_t s,
+                  bool smem_only) {
+#define LVD_WIDTH(nf) wgmma_width<nf>(x, dy, w1, b1, w2, dx, R, I, exact, split, s, smem_only)
+  switch (C / 64) {
+    case 1: return LVD_WIDTH(1);
+    case 2: return LVD_WIDTH(2);
+    case 3: return LVD_WIDTH(3);
+    case 4: return LVD_WIDTH(4);
+    case 5: return LVD_WIDTH(5);
+    case 6: return LVD_WIDTH(6);
+    case 7: return LVD_WIDTH(7);
+    case 8: return LVD_WIDTH(8);
+    case 9: return LVD_WIDTH(9);
+    default: return LVD_WIDTH(10);
   }
+#undef LVD_WIDTH
+}
+
+template <typename T>
+cudaError_t launch_wmma(const void* x, const void* dy, const void* w1, const void* b1,
+                        const void* w2, void* dx, int R, int C, int I, int exact,
+                        cudaStream_t stream) {
   const int smem = geglu_bwd_smem<T>(C);
   cudaError_t err = set_smem(geglu_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return err;
@@ -360,21 +692,64 @@ cudaError_t launch(const void* x, const void* dy, const void* w1, const void* b1
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_general(const void* x, const void* dy, const void* w1, const void* b1,
+                           const void* w2, void* dx, int R, int C, int I, int exact,
+                           cudaStream_t stream) {
+  constexpr int smem = SlicedCfg<T>::kSmem;
+  cudaError_t err = set_smem(geglu_bwd_sliced_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((R + kBM - 1) / kBM, (C + kBI - 1) / kBI);
+  geglu_bwd_sliced_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(w1),
+      static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<T*>(dx), R, C, I, exact);
+  return cudaGetLastError();
+}
+
+// Whether the launch plan (rows a block, inner columns a chunk, blocks on
+// one row tile) is the one the form was built for at this width.
+inline bool plan_fits(int form, int C, int I, int row_block, int inner_chunk, int split) {
+  if (inner_chunk != kBI) return false;  // every form walks the inner dim in 64s
+  if (form == kFormWgmma) return resident_width(C, I) && row_block == 64;  // split: per width
+  if (form == kFormWmma) return resident_width(C, I) && row_block == kBM && split == 1;
+  return form == kFormGeneral && row_block == kBM && split == (C + kBI - 1) / kBI;
+}
+
 }  // namespace
 }  // namespace lvd
 
 // x, dy: (R, C); dx: (R, C), with rows padded to a multiple of 32 for fp32
-// where the resident form runs (C % 64 == 0, C <= 640, I % 64 == 0); w1:
-// (C, 2I) = [W1h | W1g]; b1: (2I,); w2: (I, C); all of one type (dtype 0
-// bf16, 1 fp32). Any C > 0 and I > 0: other widths take the general form.
+// where the first version's resident form runs; w1: (C, 2I), [W1h | W1g],
+// or for the wgmma form (form 1, bf16, C = 64..640 step 64, I % 64 == 0)
+// with its columns interleaved in 32s as kernel C's; b1: (2I,) as stored;
+// w2: (I, C); all of one type (dtype 0 bf16, 1 fp32). form 0 is the first
+// version (C = 64..640 step 64, I % 64 == 0), form 2 the general form (any
+// C and I). row_block, inner_chunk and split are the wrapper's launch plan;
+// one the form was not built for is refused.
 LVD_EXPORT int lvd_geglu_bwd(const void* x, const void* dy, const void* w1, const void* b1,
-                             const void* w2, void* dx, int R, int C, int I, int exact, int dtype,
+                             const void* w2, void* dx, int R, int C, int I, int exact, int form,
+                             int row_block, int inner_chunk, int split, int dtype,
                              void* stream) {
   using namespace lvd;
   cudaGetLastError();
-  if (C <= 0 || I <= 0 || R <= 0) return cudaErrorInvalidValue;
+  if (C <= 0 || I <= 0 || R <= 0 || !plan_fits(form, C, I, row_block, inner_chunk, split) ||
+      (form == kFormWgmma && dtype != kBF16))
+    return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  if (form == kFormWgmma)
+    return (int)wgmma_c(x, dy, w1, b1, w2, dx, R, C, I, exact, split, s, false);
   return dispatch(dtype, [&](auto tag) {
-    return launch<decltype(tag)>(x, dy, w1, b1, w2, dx, R, C, I, exact, s);
+    using T = decltype(tag);
+    return form == kFormWmma ? launch_wmma<T>(x, dy, w1, b1, w2, dx, R, C, I, exact, s)
+                             : launch_general<T>(x, dy, w1, b1, w2, dx, R, C, I, exact, s);
   });
+}
+
+// Bytes of dynamic shared memory one block of kernel G's wgmma form takes
+// at width C (C = 64..640 step 64); 0 for any other width.
+LVD_EXPORT long long lvd_geglu_bwd_smem(int C) {
+  using namespace lvd;
+  if (C % 64 != 0 || C < 64 || C > 640) return 0;
+  return wgmma_c(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, C, 64, 0, 0, nullptr,
+                 true);
 }

@@ -4,13 +4,18 @@ lvd_tpu/models/unet3d.py:570-773, same topology and param tree).
 Frames fold into the batch for every 2D op ((B, F, H, W, C) ->
 (B*F, H, W, C)); temporal modules work on the frames-major (B, F, P, C)
 stream. Routing follows lvd_tpu's shape predicates:
-  * temporal attention pair -> kernel B where C <= 640 and heads are 64 wide
-    (temporal_attention.py:501-513), else the plain pixels-major pair;
+  * temporal attention pair -> kernel B where C <= 640, heads are 64 wide,
+    the type is bf16 or fp32 and lvd_tpu's pixel group exists, on the
+    frames-major stream where its frames-major group does, else after one
+    relayout (temporal_attention.py:483-513, unet3d.py:431-439); the plain
+    pair elsewhere;
   * feed-forward -> kernel C where its weights stay resident, C <= 640 in
     bf16 and C <= 320 in fp32 (geglu_fused.py:370-388);
-  * temporal conv -> kernel D at every level (temp_conv_fused.py:268-277),
+  * temporal conv -> kernel D where lvd_tpu's predicate holds
+    (temp_conv_fused.py:268-277) and D covers the shape (every UNet level),
     with the GroupNorm statistics a stock reduction;
-  * attention -> kernel A at every non-capturing site on the card;
+  * attention -> kernel A at every non-capturing site on the card where
+    lvd_tpu's ``pallas_ok`` holds, its chunked route elsewhere;
   * resnet GroupNorm -> SiLU -> 3x3 conv -> kernel I under
     ``LVD_ENABLE_FUSED_SC=1`` where spatial_conv_fused.supported holds;
   * q/k/v/out projections of the fused attention path -> kernel H under
@@ -89,15 +94,13 @@ def _temporal_transformer(p, x, num_frames, num_heads, cfg):
     y = x.reshape(b, num_frames, h * w, c)
     y = group_norm(p["norm"], y, cfg.norm_num_groups, cfg.transformer_norm_eps)
     y = linear(p["proj_in"], y)
-    fm = temporal_attention.supported(y, num_heads)
+    # As lvd_tpu (unet3d.py:431-439): the frames-major stream where kernel B
+    # takes it, else one relayout and the pixels-major pair.
+    fm = temporal_attention.supported_frames_major(y, num_heads)
     if not fm:
         y = y.transpose(1, 2)
     for block in p["blocks"]:
-        if fm:
-            y = temporal_attention.temporal_attention_pair(block, y, num_heads, frames_major=True)
-        else:
-            # Not routed to kernel B (C > 640): the plain pixels-major pair.
-            y = temporal_attention._pair_ref(block, y, num_heads, 1e-5)
+        y = temporal_attention.temporal_attention_pair(block, y, num_heads, frames_major=fm)
         y = y + feed_forward(block["ff"], layer_norm(block["norm3"], y))
     if not fm:
         y = y.transpose(1, 2)

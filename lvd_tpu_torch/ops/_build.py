@@ -40,24 +40,26 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # the int before the stream is the element type, DTYPE_CODES).
 SIGNATURES = {
     "lvd_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
-    "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
+    "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F] + [_I] * 3 + [_I, _P],
     "lvd_geglu": [_P] * 6 + [_I] * 8 + [_I, _P],
     "lvd_geglu_stream": [_P] * 6 + [_I] * 4 + [_I, _P],
     "lvd_temp_conv": [_P] * 6 + [_I] * 9 + [_I, _P],
     "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
     "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
-    "lvd_geglu_bwd": [_P] * 6 + [_I] * 4 + [_I, _P],
+    "lvd_geglu_bwd": [_P] * 6 + [_I] * 8 + [_I, _P],
     "lvd_linear": [_P] * 4 + [_I] * 4 + [_I, _P],
     "lvd_conv3x3": [_P] * 6 + [_I] * 10 + [_I, _P],
 }
 # Entry points that return a byte count instead of a CUDA error code (a
-# workspace size, or the dynamic shared memory of kernels A, C, D, E, H and I).
+# workspace size, or the dynamic shared memory of kernels A-E and G-I).
 SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 5,
                 "lvd_attention_packed_smem": [_I] * 2,
                 "lvd_attention_packed_bwd_smem": [_I] * 3,
                 "lvd_linear_smem": [_I],
                 "lvd_conv3x3_smem": [_I] * 5,
                 "lvd_geglu_smem": [_I] * 3,
+                "lvd_geglu_bwd_smem": [_I],
+                "lvd_temporal_pair_smem": [_I],
                 "lvd_temp_conv_smem": [_I] * 2}
 
 # The element types the kernels take, by the code their entry points read.

@@ -4,8 +4,11 @@ same two switches, read at import as lvd_tpu reads them).
 
 * ``attention(...)`` without maps: the head-packed path. Long keys always
   take it (materializing (S, S) probabilities is the reference's OOM); short
-  keys take it on the card, where it is kernel A, and the small einsum on
-  the CPU, as lvd_tpu takes it off the TPU.
+  keys take it on the card, and the small einsum on the CPU, as lvd_tpu
+  takes it off the TPU. On the card it is kernel A where lvd_tpu's
+  ``pallas_ok`` holds (``packed_attention.kernel_ok``) and lvd_tpu's chunked
+  route on stock ops (``heads_chunked``) elsewhere: head dims % 64 != 0,
+  fp16, or a K/V block above 8 MiB.
 * ``attention(..., return_probs=True)`` or a ``probs_transform``: the
   materializing path, returning fp32 (B, heads, S_q, S_k) maps.
 * ``sdpa()`` on (B, H, S, D) tensors: long keys without maps take
@@ -55,6 +58,18 @@ def _chunked_sdpa(q, k, v, scale: float, block_q: int = 512):
         probs = torch.softmax(logits * scale, dim=-1).to(v.dtype)
         out.append(torch.matmul(probs.float(), v.float()).to(v.dtype))
     return torch.cat(out, dim=1)
+
+
+def heads_chunked(q, k, v, scale: float, num_heads: int):
+    """lvd_tpu's ``_heads_chunked``: ``_chunked_sdpa`` on head-packed
+    (B, S, C) tensors, for the shapes its packed kernels' predicate
+    rejects."""
+    b, s_q, c = q.shape
+    d = c // num_heads
+    to_bh = lambda t: t.reshape(b, t.shape[1], num_heads, d).transpose(1, 2).reshape(
+        b * num_heads, t.shape[1], d)
+    out = _chunked_sdpa(to_bh(q), to_bh(k), to_bh(v), scale)
+    return out.reshape(b, num_heads, s_q, d).transpose(1, 2).reshape(b, s_q, c)
 
 
 def attention_bh(q, k, v, scale: float):
@@ -115,7 +130,10 @@ def attention(
     v = in_lin(p["to_v"], context)
     if fused_path:
         d = q.shape[-1] // num_heads
-        out = packed_attention.attention_packed(q, k, v, d ** -0.5, num_heads)
+        if on_card and not packed_attention.kernel_ok(q, k, num_heads):
+            out = heads_chunked(q, k, v, d ** -0.5, num_heads)
+        else:
+            out = packed_attention.attention_packed(q, k, v, d ** -0.5, num_heads)
         out_lin = linear
         if _FUSED_LINEAR and linear_fused.supported(p["to_out"]["w"], out):
             out_lin = linear_fused.linear

@@ -21,7 +21,12 @@ and the kept ``wmma`` form for fp32 C > 384;
 columns a chunk, blocks on one row tile) is passed to the kernel, which
 refuses one it was not built for; ``gemm1_columns`` and ``output_blocks``
 derive the wgmma form's chunk plan from it, which the CPU tests hold to
-lvd_tpu's resident kernel. Weight gradients are not part of this slice:
+lvd_tpu's resident kernel. Kernel G has three forms (``bwd_launch_plan``):
+``wgmma`` in bf16 at the resident widths (kernel C's structure: 64-row
+blocks, the interleaved W1, dx columns split between two blocks at
+C >= 384, ``dx_columns``), its first version ``wmma`` in fp32 there, and
+the ``general`` form at every other width; ``geglu_mlp_bwd.launches_by_form``
+counts each. Weight gradients are not part of this slice:
 on the card a parameter that requires grad raises, on the CPU the plain
 formulation's autograd gives them.
 """
@@ -39,8 +44,8 @@ from . import _build
 # "tanh" (default) or "exact" (erf, the torch reference's form).
 GELU_FORM = os.environ.get("LVD_GELU_FORM", "tanh")
 
-MAX_CHANNELS = 640  # the widest C of kernel C and of kernel G's resident form
-BWD_ROWS = 32  # rows per block of kernel G
+MAX_CHANNELS = 640  # the widest C of kernel C and of kernel G's resident forms
+BWD_ROWS = 32  # rows per block of kernel G's first version (fp32 pads dx to it)
 STREAM_INNER = 256  # kernel J's inner dim must be a multiple (lvd_tpu's block_k)
 
 
@@ -98,6 +103,44 @@ def output_blocks(c: int, wg: int, half: int = 0):
     share = -(-n // launch_plan(c, torch.bfloat16)["split"])
     o0 = half * share
     return [o0 + b for b in range(wg, min(share, n - o0), 2)]
+
+
+BWD_FORMS = ("wgmma", "wmma", "general")
+BWD_FORM_CODES = {"wmma": 0, "wgmma": 1, "general": 2}
+
+
+def bwd_launch_plan(c: int, inner: int, dtype, form: str = None) -> dict:
+    """Kernel G's form at width (c, inner) and its launch plan, which the
+    kernel checks: ``wgmma`` in bf16 at the resident widths (C = 64..640
+    step 64, inner % 64 == 0; W1 passed interleaved, ``interleave_w1``),
+    64 rows a block, ``split`` = 2 blocks on each 64-row tile at C >= 384,
+    each warpgroup writing ``wg_columns`` = C / (2 split) dx columns; the
+    first version ``wmma`` in fp32 at those widths (32 rows a block); the
+    ``general`` form everywhere else (32 rows a block, one block per
+    64-column dx slice). ``form`` names one of the resident forms instead
+    (the selfcheck times the first version beside the new one)."""
+    if form is None:
+        if not _covers(c, inner):
+            form = "general"
+        else:
+            form = "wgmma" if dtype == torch.bfloat16 else "wmma"
+    if form == "wgmma":
+        split = 2 if c // 64 >= 6 else 1
+        rows, wg_columns = 64, c // (2 * split)
+    elif form == "wmma":
+        rows, split, wg_columns = BWD_ROWS, 1, 0
+    else:
+        rows, split, wg_columns = BWD_ROWS, -(-c // 64), 0
+    return {"form": form, "code": BWD_FORM_CODES[form], "row_block": rows,
+            "inner_chunk": INNER_CHUNK, "split": split, "wg_columns": wg_columns}
+
+
+def dx_columns(c: int, half: int, wg: int):
+    """The dx columns warpgroup ``wg`` of the wgmma form's block ``half``
+    (of the plan's ``split``) writes: ``wg_columns`` from
+    (2 half + wg) * wg_columns on, in 32-column GEMM2 pieces."""
+    n = bwd_launch_plan(c, 4 * c, torch.bfloat16)["wg_columns"]
+    return range((2 * half + wg) * n, (2 * half + wg + 1) * n)
 
 
 def _gelu(g):
@@ -256,8 +299,10 @@ def geglu_stream(p, x):
     return out.reshape(x.shape)
 
 
-def geglu_mlp_bwd(p, x, dy):
-    """dx: kernel G on CUDA tensors, the plain version on CPU tensors."""
+def geglu_mlp_bwd(p, x, dy, form: str = None):
+    """dx: kernel G on CUDA tensors, in the form ``bwd_launch_plan`` gives
+    (or the resident one ``form`` names), the plain version on CPU
+    tensors."""
     if x.device.type == "cpu":
         return geglu_mlp_bwd_plain(p, x, dy)
     _build.refuse_grad("geglu_mlp_bwd", x, dy)
@@ -268,18 +313,22 @@ def geglu_mlp_bwd(p, x, dy):
     if drows.shape != rows.shape:
         raise ValueError(f"geglu_mlp_bwd: dy {tuple(dy.shape)} for x {tuple(x.shape)}")
     w1, b1, w2, _ = _kernel_weights(p, rows, "geglu_mlp_bwd")
+    plan = bwd_launch_plan(c, inner, x.dtype, form)
+    if plan["form"] == "wgmma":
+        w1 = interleave_w1(w1, inner)
     n = rows.shape[0]
-    # In fp32 kernel G's resident form accumulates dx in the output itself,
-    # 32 rows a block; every other width writes dx rows directly.
-    resident_fp32 = x.dtype == torch.float32 and _covers(c, inner)
+    # In fp32 the first version accumulates dx in the output itself, 32 rows
+    # a block; every other form writes dx rows directly.
+    resident_fp32 = x.dtype == torch.float32 and plan["form"] == "wmma"
     padded = -(-n // BWD_ROWS) * BWD_ROWS if resident_fp32 else n
     dx = torch.empty((padded, c), dtype=x.dtype, device=x.device)
     err = _build.lib().lvd_geglu_bwd(
         rows.data_ptr(), drows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        dx.data_ptr(), n, c, w2.shape[0], int(GELU_FORM != "tanh"), code,
-        _build.stream_of(rows))
+        dx.data_ptr(), n, c, inner, int(GELU_FORM != "tanh"), plan["code"], plan["row_block"],
+        plan["inner_chunk"], plan["split"], code, _build.stream_of(rows))
     _build.check(err, "geglu_mlp_bwd")
     geglu_mlp_bwd.launches += 1
+    geglu_mlp_bwd.launches_by_form[plan["form"]] += 1
     return dx[:n].reshape(x.shape)
 
 
@@ -327,3 +376,4 @@ geglu_mlp.launches = 0
 geglu_mlp.launches_by_form = dict.fromkeys(FORMS, 0)
 geglu_stream.launches = 0
 geglu_mlp_bwd.launches = 0
+geglu_mlp_bwd.launches_by_form = dict.fromkeys(BWD_FORMS, 0)

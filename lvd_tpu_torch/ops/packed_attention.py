@@ -29,6 +29,19 @@ import torch
 from . import _build
 
 LOG2E = 1.4426950408889634
+# lvd_tpu's bound on the resident K/V block of its packed kernels
+# (pallas_attention.py:605-611): 2 * S_k * C * itemsize <= 8 MiB.
+KV_BYTES_MAX = 8 * 1024 * 1024
+
+
+def kernel_ok(q, k, num_heads: int) -> bool:
+    """lvd_tpu's ``pallas_ok`` (pallas_attention.py:604-611) without its
+    backend test: the head-packed kernels take head dims % 64 == 0, bf16 or
+    fp32, and a K/V block of at most KV_BYTES_MAX. Where it fails,
+    ``attention()`` runs lvd_tpu's chunked route on stock ops."""
+    d = q.shape[-1] // num_heads
+    return (d % 64 == 0 and q.dtype in (torch.bfloat16, torch.float32)
+            and 2 * k.shape[1] * k.shape[2] * q.element_size() <= KV_BYTES_MAX)
 
 
 def _split(t, num_heads):

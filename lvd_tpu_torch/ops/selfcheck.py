@@ -25,14 +25,17 @@ bf16 reading, so a kernel that rounded fp32 to bf16 would fail. Every
 reference runs with ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` off.
 
-Kernels C, D, H and I record the form each call took (``launches_by_form``:
-``wgmma`` in bf16, ``mma_sync`` in fp32; C's kept ``wmma`` form for fp32
-C > 384, I's for widths % 64 != 0). C and D also time
+Kernels B, C, D, G, H and I record the form each call took
+(``launches_by_form``: ``wgmma`` in bf16, ``mma_sync`` in fp32; C's kept
+``wmma`` form for fp32 C > 384, I's for widths % 64 != 0, B's and G's first
+versions, ``wmma``, in fp32). B and G in their ``wgmma`` form also run and
+time their first version on the same inputs (``first_ms``,
+``first_rel_err``), held to no gate. C and D also time
 the same products alone through ``torch.matmul`` on pre-made operands
 (``products_ms``: x W1 and gated W2; the three shifted products): not a
 library call for the same function, and the port never calls it. C's
-Hopper forms also time the interleaved copy of W1 that each call makes
-(``copy_ms``, included in ``ms``).
+Hopper forms and G's wgmma form also time the interleaved copy of W1 that
+each call makes (``copy_ms``, included in ``ms``).
 
 Each shape is also timed with CUDA events: the kernel, the plain version
 on the same inputs, and where one PyTorch call computes the same function
@@ -238,15 +241,25 @@ def check_pair(gen, shape, dtype=torch.bfloat16):
     p = _cast(_pair_params(gen, c), dtype)
     y = _randn(gen, shape).to(dtype)
     fn = lambda: temporal_attention.temporal_attention_pair(p, y, heads, 1e-5, frames_major=True)
-    out = fn()
+    out, form = _launched_form(temporal_attention.temporal_attention_pair, fn)
     ref = _ref(temporal_attention._pair_ref_fm, p, y, heads, 1e-5)
     ms = time_ms(fn)
     plain_ms = time_ms(lambda: temporal_attention._pair_ref_fm(p, y, heads, 1e-5), 1, 2)
     rows = b * f * pdim
     flops = 2 * (2.0 * rows * c * 4 * c + 4.0 * rows * f * c)
     nbytes = y.element_size() * (2 * rows * c + 2 * 4 * c * c) + 4.0 * 2 * 3 * c
-    return _record("temporal_attention_pair", shape, dtype, out, ref, PAIR_TOL, ms, plain_ms,
-                   flops, nbytes)
+    rec = _record("temporal_attention_pair", shape, dtype, out, ref, PAIR_TOL, ms, plain_ms,
+                  flops, nbytes) | {"form": form}
+    if form != "wmma":  # the first version beside the new form, on the same inputs
+        first = lambda: temporal_attention._launch_forward(p, y, heads, 1e-5, True, "wmma")
+        rec |= _first_version(first(), ref, time_ms(first))
+    return rec
+
+
+def _first_version(out, ref, ms):
+    """The first version's reading and time beside a redesigned form's."""
+    err, rel = _rel_err(out, ref)
+    return {"first_ms": ms, "first_rel_err": rel, "first_max_abs_err": err}
 
 
 def _geglu_args(pp, xx):
@@ -386,14 +399,20 @@ def check_geglu_bwd(gen, shape, dtype=torch.bfloat16):
     p = _cast({"proj": _linear_p(gen, c, 2 * inner), "out": _linear_p(gen, inner, c)}, dtype)
     x = _randn(gen, (rows, c)).to(dtype)
     dy = _randn(gen, (rows, c)).to(dtype)
-    out = geglu_fused.geglu_mlp_bwd(p, x, dy)
+    fn = lambda: geglu_fused.geglu_mlp_bwd(p, x, dy)
+    out, form = _launched_form(geglu_fused.geglu_mlp_bwd, fn)
     ref = _ref(geglu_fused.geglu_mlp_bwd_plain, p, x, dy)
-    ms = time_ms(lambda: geglu_fused.geglu_mlp_bwd(p, x, dy))
+    ms = time_ms(fn)
     plain_ms = time_ms(lambda: geglu_fused.geglu_mlp_bwd_plain(p, x, dy), 1, 2)
     flops = 10.0 * rows * c * inner  # h, g, d_inner and the two halves of dx
     nbytes = x.element_size() * (3 * rows * c + 3 * c * inner + 2 * inner)
-    return _record("geglu_mlp_bwd", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops,
-                   nbytes)
+    rec = _record("geglu_mlp_bwd", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops,
+                  nbytes) | {"form": form}
+    if form == "wgmma":  # the first version beside the new form, on the same inputs
+        first = lambda: geglu_fused.geglu_mlp_bwd(p, x, dy, form="wmma")
+        rec |= _first_version(first(), ref, time_ms(first))
+        rec["copy_ms"] = time_ms(lambda: geglu_fused.interleave_w1(p["proj"]["w"], inner))
+    return rec
 
 
 def _launched(wrapper, fn):
@@ -406,8 +425,8 @@ def _launched(wrapper, fn):
 
 
 def _launched_form(wrapper, fn):
-    """``_launched`` for kernels C, D, H and I: (fn's result, the form it
-    took)."""
+    """``_launched`` for kernels B, C, D, G, H and I: (fn's result, the form
+    it took)."""
     before = dict(wrapper.launches_by_form)
     out = _launched(wrapper, fn)
     (form,) = [k for k, n in wrapper.launches_by_form.items() if n != before[k]]

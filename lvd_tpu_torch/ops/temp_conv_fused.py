@@ -69,11 +69,42 @@ def tap_rows(f: int):
     return torch.arange(m)[None, :] + plan["pixel_tile"] * torch.arange(3)[:, None]
 
 
-def supported(x) -> bool:
-    """Kernel D takes every UNet level (lvd_tpu routes all of them,
-    temp_conv_fused.py:268-277): C % 64 == 0, F <= 32."""
+def _block_p_for(c: int) -> int:
+    """lvd_tpu's pixel block (temp_conv_fused.py:135-139)."""
+    return 64 if c <= 384 else (32 if c <= 640 else 16)
+
+
+def _block_co_for(c: int) -> int:
+    """lvd_tpu's output-channel block (temp_conv_fused.py:142-150); 0 where
+    it has none."""
+    if c <= 640:
+        return c
+    return next((co for co in (256, 128, 64) if c % co == 0), 0)
+
+
+def lvd_tpu_routes(x) -> bool:
+    """lvd_tpu's predicate (temp_conv_fused.py:268-277) without its backend
+    test: bf16 or fp32, C % 8 == 0, an output-channel block, and a
+    (F, pixel block, C) tile of at most 4 MiB."""
+    _, f, p, c = x.shape
+    return (x.dtype in (torch.bfloat16, torch.float32) and c % 8 == 0
+            and _block_co_for(c) > 0
+            and f * min(p, _block_p_for(c)) * c * x.element_size() <= 4 * 1024 * 1024)
+
+
+def covers(x) -> bool:
+    """The shapes kernel D is built for: C % 64 == 0 and F <= 32 (at most
+    four m64 tiles of accumulators in registers)."""
     _, f, _, c = x.shape
     return c % 64 == 0 and f <= 32
+
+
+def supported(x) -> bool:
+    """Kernel D where lvd_tpu routes its kernel and D covers the shape;
+    every other shape runs ``_unfused`` on stock ops. Where lvd_tpu takes
+    its kernel and D cannot (F > 32, C % 64 != 0) the port has no kernel
+    yet (ROADMAP C4)."""
+    return lvd_tpu_routes(x) and covers(x)
 
 
 def norm_silu_temporal_conv_plain(x, a, b, conv_w, conv_b):

@@ -5,11 +5,18 @@ lvd_tpu/ops/temporal_attention.py).
 ``temporal_attention_pair(p, y, heads, eps, frames_major)`` runs
 LN1 -> attn1 -> +res -> LN2 -> attn2 -> +res over the frame axis of
 (B, P, F, C) input, or of the (B, F, P, C) stream with ``frames_major``. It
-is a ``torch.autograd.Function`` in y: on CUDA tensors the forward launches
-kernel B (csrc/temporal_attention.cu, replacing ``_pallas_pair``) and the
-backward kernel F (csrc/temporal_attention_bwd.cu, replacing
-``_pallas_pair_bwd``); on CPU tensors they run ``_pair_ref`` /
-``_pair_ref_fm`` and ``temporal_attention_pair_bwd_plain``. Weight gradients
+is a ``torch.autograd.Function`` in y where lvd_tpu's predicate for the
+layout holds (``supported`` / ``supported_frames_major``, its pixel-group
+clause included), the plain formulation on stock ops elsewhere: on CUDA
+tensors the forward launches kernel B (csrc/temporal_attention.cu,
+replacing ``_pallas_pair``) and the backward kernel F
+(csrc/temporal_attention_bwd.cu, replacing ``_pallas_pair_bwd``); on CPU
+tensors they run ``_pair_ref`` / ``_pair_ref_fm`` and
+``temporal_attention_pair_bwd_plain``. Kernel B has two forms
+(``launch_plan``, passed to the kernel, which refuses any other): ``wgmma``
+in bf16 (64-row blocks of whole pixels, ``block_rows``, keys masked to the
+row's pixel, ``key_mask``) and its first version ``wmma`` in fp32;
+``temporal_attention_pair.launches_by_form`` counts each. Weight gradients
 are not part of this slice: on the card a parameter that requires grad
 raises, on the CPU the plain formulation's autograd gives them. The FF
 stage stays outside (ops.geglu_fused).
@@ -23,6 +30,64 @@ from . import _build
 
 HEAD_DIM = 64
 MAX_CHANNELS = 640
+
+FORMS = ("wgmma", "wmma")
+FORM_CODES = {"wmma": 0, "wgmma": 1}
+ROW_BLOCK = 64  # rows a block of the wgmma form: one m64 tile
+MAX_SMEM = 232448  # bytes of shared memory a block may use
+
+
+def _wmma_tile(f: int, c: int, itemsize: int):
+    """The first version's tile (csrc/temporal_attention.cu `wmma_tile`):
+    the first of G = 4, 2, 1 pixels whose R = G F rows (rounded up to 16,
+    at most 128) fit its shared-memory layout, the residual rows in shared
+    memory if they fit, else in the output. (G, R), or (0, 0)."""
+    pad = 32 // itemsize
+    take = lambda nbytes: -(-nbytes // 128) * 128
+    for ys_smem in (True, False):
+        for g in (4, 2, 1):
+            r = -(-g * f // 16) * 16
+            rows = take(r * (c + pad) * itemsize)
+            heads = take(r * (HEAD_DIM + pad) * itemsize)
+            total = ((3 if ys_smem else 2) * rows + 3 * heads + take(r * r * 4)
+                     + take(r * r * itemsize) + take(8 * 256 * 4))
+            if r <= 128 and total <= MAX_SMEM:
+                return g, r
+    return 0, 0
+
+
+def launch_plan(f: int, c: int, dtype, form: str = None) -> dict:
+    """Kernel B's form for F frames and C channels of this type, and its
+    launch plan, which the kernel checks: ``wgmma`` in bf16 up to F = 64,
+    one block per ``row_block`` = 64 rows holding ``pixels`` = 64 // F
+    whole pixels (row r: pixel r // F, frame r % F, ``block_rows``); the first version
+    ``wmma`` in fp32 and past F = 64, G pixels in R rows as its tile search
+    picks them (``_wmma_tile``). ``form`` names one of them instead (the
+    selfcheck times the first version beside the new one)."""
+    if form is None:
+        form = "wgmma" if dtype == torch.bfloat16 and f <= ROW_BLOCK else "wmma"
+    if form == "wgmma":
+        rows, pixels = ROW_BLOCK, ROW_BLOCK // f
+    else:
+        pixels, rows = _wmma_tile(f, c, dtype.itemsize)
+    return {"form": form, "code": FORM_CODES[form], "row_block": rows, "pixels": pixels}
+
+
+def block_rows(f: int, p: int, block: int):
+    """(pixel, frame, valid) of the 64 rows of the wgmma form's pixel block
+    ``block``: row r holds frame r % F of pixel block * G + r // F; rows
+    past G F or past P are padding (zero, never stored)."""
+    plan = launch_plan(f, MAX_CHANNELS, torch.bfloat16)
+    r = torch.arange(plan["row_block"])
+    pixel = block * plan["pixels"] + r // f
+    return pixel, r % f, (r < plan["pixels"] * f) & (pixel < p)
+
+
+def key_mask(f: int):
+    """(64, 64) bool: the keys each row of a wgmma block attends to, those
+    of its own pixel (row // F == key // F)."""
+    r = torch.arange(ROW_BLOCK)
+    return (r[:, None] // f) == (r[None, :] // f)
 
 
 def _ln_stats(p, x, eps):
@@ -66,11 +131,33 @@ def _pair_ref_fm(p, y, num_heads, eps):
     return _pair_ref(p, y.transpose(1, 2), num_heads, eps).transpose(1, 2)
 
 
+def _pick_g(pdim: int, frames_major: bool = False) -> int:
+    """lvd_tpu's pixel group (temporal_attention.py:483-497): the first of
+    its measured tiles that divides P; frames-major tiles must be 16 or 8
+    pixels, or all of P up to 16. 0 where none fits."""
+    order = (16, 8) if frames_major else (16, 12, 10, 8, 6, 5, 4)
+    g = next((g for g in order if pdim % g == 0), 0)
+    return pdim if g == 0 and frames_major and pdim <= 16 else g
+
+
+def _supported(pdim: int, c: int, num_heads: int, dtype, frames_major: bool = False) -> bool:
+    """lvd_tpu's ``_supported`` (temporal_attention.py:501-513) without its
+    backend test: bf16 or fp32, 64-wide heads, C <= 640 and a pixel
+    group."""
+    return (dtype in (torch.bfloat16, torch.float32) and c // num_heads == HEAD_DIM
+            and c <= MAX_CHANNELS and _pick_g(pdim, frames_major) > 0)
+
+
 def supported(y, num_heads: int) -> bool:
-    """lvd_tpu's routing predicate (temporal_attention.py:501-513): 64-wide
-    heads and C <= 640."""
-    c = y.shape[-1]
-    return c // num_heads == HEAD_DIM and c <= MAX_CHANNELS
+    """lvd_tpu's predicate for the pixels-major (B, P, F, C) stream."""
+    _, pdim, _, c = y.shape
+    return _supported(pdim, c, num_heads, y.dtype)
+
+
+def supported_frames_major(y, num_heads: int) -> bool:
+    """lvd_tpu's predicate for the frames-major (B, F, P, C) stream."""
+    _, _, pdim, c = y.shape
+    return _supported(pdim, c, num_heads, y.dtype, frames_major=True)
 
 
 def _attn_weights(pa, ln, dtype):
@@ -165,21 +252,25 @@ def _layout(y, frames_major):
     return (b, f, pdim, c), (f * pdim * c, c, f * c)
 
 
-def _launch_forward(p, y, num_heads, eps, frames_major):
-    """Kernel B on a CUDA tensor."""
+def _launch_forward(p, y, num_heads, eps, frames_major, form=None):
+    """Kernel B on a CUDA tensor, in the form and plan ``launch_plan``
+    gives (or the form ``form`` names)."""
     _build.refuse_grad("temporal_attention_pair", y)
     code = _build.dtype_code(y, "temporal_attention_pair")
     y = _build.kernel_input(y, y.dtype, "temporal_attention_pair y")
     (b, f, pdim, c), strides = _layout(y, frames_major)
     if c != num_heads * HEAD_DIM:
         raise ValueError(f"temporal_attention_pair: C={c} is not {num_heads} heads of {HEAD_DIM}")
+    plan = launch_plan(f, c, y.dtype, form)
     weights = _pair_weights(p, y.dtype)
     out = torch.empty_like(y)
     err = _build.lib().lvd_temporal_pair(
         y.data_ptr(), out.data_ptr(), *[w.data_ptr() for w in weights],
-        b, f, pdim, c, num_heads, *strides, float(eps), code, _build.stream_of(y))
+        b, f, pdim, c, num_heads, *strides, float(eps), plan["code"], plan["row_block"],
+        plan["pixels"], code, _build.stream_of(y))
     _build.check(err, "temporal_attention_pair")
     temporal_attention_pair.launches += 1
+    temporal_attention_pair.launches_by_form[plan["form"]] += 1
     return out
 
 
@@ -235,6 +326,12 @@ class TemporalPair(torch.autograd.Function):
 
 def temporal_attention_pair(p, y, num_heads: int, eps: float = 1e-5,
                             frames_major: bool = False):
+    """The pair on either layout, routed as lvd_tpu routes it: kernel B (the
+    plain version on the CPU) where lvd_tpu's predicate for the layout
+    holds, the plain formulation on stock ops elsewhere."""
+    routed = supported_frames_major if frames_major else supported
+    if not routed(y, num_heads):
+        return temporal_attention_pair_plain(p, y, num_heads, eps, frames_major)
     if _build.params_need_grad(p):
         if y.device.type != "cpu":
             raise RuntimeError("temporal_attention_pair: weight gradients come with the "
@@ -244,4 +341,5 @@ def temporal_attention_pair(p, y, num_heads: int, eps: float = 1e-5,
 
 
 temporal_attention_pair.launches = 0
+temporal_attention_pair.launches_by_form = dict.fromkeys(FORMS, 0)
 temporal_attention_pair_bwd.launches = 0

@@ -376,7 +376,8 @@ def _pair_params(c, g, cuda):
 
 @pytest.mark.parametrize("frames_major", [True, False])
 def test_temporal_pair_kernel_ragged_pixels_both_layouts(cuda, frames_major):
-    """45 pixels leave a ragged last pixel group; both stream layouts."""
+    """45 pixels leave a ragged last pixel group; both stream layouts, the
+    kernel launched directly (lvd_tpu's frames-major route takes no P = 45)."""
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.ops import temporal_attention as ta
 
@@ -384,8 +385,11 @@ def test_temporal_pair_kernel_ragged_pixels_both_layouts(cuda, frames_major):
     p = _pair_params(320, g, cuda)
     shape = (2, 24, 45, 320) if frames_major else (2, 45, 24, 320)
     y = torch.randn(shape, generator=g, device=cuda)
-    out = ta.temporal_attention_pair(cast_tree(p, torch.bfloat16), y.bfloat16(), 5, 1e-5,
-                                     frames_major=frames_major)
+    before = ta.temporal_attention_pair.launches_by_form["wgmma"]
+    with torch.no_grad():
+        out = ta._launch_forward(cast_tree(p, torch.bfloat16), y.bfloat16(), 5, 1e-5,
+                                 frames_major)
+    assert ta.temporal_attention_pair.launches_by_form["wgmma"] == before + 1
     ref = (ta._pair_ref_fm if frames_major else ta._pair_ref)(p, y, 5, 1e-5)
     assert _rel(out, ref) <= 4.5e-2
 
@@ -428,7 +432,7 @@ def _wrapper_case(name, g, cuda):
         p = _pair_params(320, g, cuda)
         pb = cast_tree(p, torch.bfloat16)
         return (lambda y: ta.temporal_attention_pair(pb, y, 5, 1e-5, frames_major=True),
-                lambda y: ta._pair_ref_fm(p, y, 5, 1e-5), [r(1, 24, 45, 320)], 4.5e-2)
+                lambda y: ta._pair_ref_fm(p, y, 5, 1e-5), [r(1, 24, 48, 320)], 4.5e-2)
     if name == "geglu_mlp":
         c, inner = 128, 512
         p = {"proj": {"w": r(c, 2 * inner, scale=c ** -0.5), "b": r(2 * inner, scale=0.1)},
@@ -534,17 +538,49 @@ def test_geglu_forms_match_plain(cuda, c, gelu, dtype, monkeypatch):
         assert errs[dtype] <= FP32_TOL and errs[dtype] < errs[torch.bfloat16]
 
 
-@pytest.mark.parametrize("kernel", ["C", "D"])
+@pytest.mark.parametrize("kernel", ["C", "D", "B", "G"])
 def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch):
-    """Kernels C and D check the wrapper's launch plan: C's split (1 at
-    C = 320, 2 at 640) and rows a block, D's m64 tiles, window rows and
-    first frame; each changed value is refused, and the plan as given
-    launches."""
+    """Kernels B, C, D and G check the wrapper's launch plan: C's and G's
+    split (1 at C = 320, 2 at 640) and rows a block, D's m64 tiles, window
+    rows and first frame, B's rows and pixels a block; each changed value
+    is refused, and the plan as given launches."""
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.ops import geglu_fused as gf
     from lvd_tpu_torch.ops import temp_conv_fused as tc
+    from lvd_tpu_torch.ops import temporal_attention as ta
 
     g = torch.Generator(device=cuda).manual_seed(12)
+    if kernel in ("B", "G"):
+        cases = []
+        if kernel == "B":
+            mod, name = ta, "launch_plan"
+            changes = [("pixels", 1), ("pixels", 3), ("row_block", 48), ("code", 2)]
+            for c in (320, 640):
+                p = cast_tree(_pair_params(c, g, cuda), torch.bfloat16)
+                y = torch.randn(1, 24, 16, c, generator=g, device=cuda).bfloat16()
+                cases.append((lambda p=p, y=y, c=c: ta._launch_forward(p, y, c // 64, 1e-5, True),
+                              (24, c, torch.bfloat16)))
+        else:
+            mod, name = gf, "bwd_launch_plan"
+            changes = [("split", 2), ("split", 1), ("row_block", 32), ("inner_chunk", 128)]
+            for c in (320, 640):
+                p = cast_tree(_ff_params(c, 4 * c, g, cuda), torch.bfloat16)
+                x = torch.randn(300, c, generator=g, device=cuda).bfloat16()
+                cases.append((lambda p=p, x=x: gf.geglu_mlp_bwd(p, x, x),
+                              (c, 4 * c, torch.bfloat16)))
+        plan = getattr(mod, name)
+        with torch.no_grad():
+            for run, args in cases:
+                run()  # the plan as given
+                for key, value in changes:
+                    if plan(*args)[key] == value:
+                        continue
+                    monkeypatch.setattr(mod, name,
+                                        lambda *a, k=key, v=value: {**plan(*a), k: v})
+                    with pytest.raises(RuntimeError, match="launch failed"):
+                        run()
+                    monkeypatch.setattr(mod, name, plan)
+        return
     if kernel == "C":
         mod, changes = gf, [("split", 2), ("split", 1), ("row_block", 32), ("inner_chunk", 128)]
         cases = []
@@ -628,3 +664,126 @@ def test_geglu_fp32_forms_match_plain(cuda, c, inner):
     assert forms == {gf.launch_plan(c, torch.float32)["form"]: 1}
     with exact_fp32():
         assert _rel(out, gf.geglu_mlp_plain(p, x)) <= FP32_TOL
+
+
+@pytest.mark.parametrize("f,p,c,frames_major", [
+    (24, 2880, 320, True), (24, 2880, 512, True), (24, 720, 640, True), (24, 45, 640, False),
+    (5, 45, 128, False), (16, 33, 192, True), (64, 7, 320, False)])
+def test_pair_wgmma_form_matches_plain(cuda, f, p, c, frames_major):
+    """Kernel B's wgmma form at the selfcheck's shapes and at F = 5, 16 and
+    64 (12, 4 and 1 pixels a block), ragged pixel counts, both layouts and
+    an odd head count, launched directly, against the plain version on fp32
+    copies: lvd_tpu's pair gate, 4.5e-2. The first version runs on the same
+    inputs for comparison."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import temporal_attention as ta
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(21)
+    params = _pair_params(c, g, cuda)
+    shape = (1, f, p, c) if frames_major else (1, p, f, c)
+    y = torch.randn(shape, generator=g, device=cuda)
+    pb, yb = cast_tree(params, torch.bfloat16), y.bfloat16()
+    before = dict(ta.temporal_attention_pair.launches_by_form)
+    with torch.no_grad():
+        out = ta._launch_forward(pb, yb, c // 64, 1e-5, frames_major)
+        first = ta._launch_forward(pb, yb, c // 64, 1e-5, frames_major, "wmma")
+        with exact_fp32():
+            ref = (ta._pair_ref_fm if frames_major else ta._pair_ref)(params, y, c // 64, 1e-5)
+    after = ta.temporal_attention_pair.launches_by_form
+    assert {k: after[k] - before[k] for k in after} == {"wgmma": 1, "wmma": 1}
+    err, err_first = _rel(out, ref), _rel(first, ref)
+    print(f"kernel B F={f} P={p} C={c} fm={frames_major}: wgmma {err:.3g}, wmma {err_first:.3g}")
+    assert torch.isfinite(out).all() and err <= 4.5e-2
+
+
+@pytest.mark.parametrize("gelu", ["tanh", "exact"])
+@pytest.mark.parametrize("c", [64, 192, 320, 448, 512, 576, 640])
+def test_geglu_bwd_wgmma_form_matches_plain(cuda, c, gelu, monkeypatch):
+    """Kernel G's wgmma form at every resident width kind (one block or two
+    on a row tile, 32-column pieces that divide a warpgroup's columns or
+    reach past them), inner = 4C, 2085 ragged rows, against the plain dx on
+    fp32 copies: 2e-2. The first version runs on the same inputs."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+
+    monkeypatch.setattr(gf, "GELU_FORM", gelu)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    p = _ff_params(c, 4 * c, g, cuda)
+    x = torch.randn(2085, c, generator=g, device=cuda)
+    dy = torch.randn(2085, c, generator=g, device=cuda)
+    pb = cast_tree(p, torch.bfloat16)
+    before = dict(gf.geglu_mlp_bwd.launches_by_form)
+    with torch.no_grad():
+        dx = gf.geglu_mlp_bwd(pb, x.bfloat16(), dy.bfloat16())
+        first = gf.geglu_mlp_bwd(pb, x.bfloat16(), dy.bfloat16(), form="wmma")
+        with exact_fp32():
+            ref = gf.geglu_mlp_bwd_plain(p, x, dy)
+    after = gf.geglu_mlp_bwd.launches_by_form
+    assert {k: after[k] - before[k] for k in after} == {"wgmma": 1, "wmma": 1, "general": 0}
+    err, err_first = _rel(dx, ref), _rel(first, ref)
+    print(f"kernel G C={c} {gelu}: wgmma {err:.3g}, wmma {err_first:.3g}")
+    assert torch.isfinite(dx).all() and err <= 2e-2
+
+
+def test_tiny_unet_forward_on_card_matches_cpu(cuda, monkeypatch):
+    """The tiny UNet (16-wide heads, widths 32-64) in fp32 on the card
+    against its CPU run: 1e-4 of max|ref|, TF32 off. Its attentions take
+    lvd_tpu's chunked route and its temporal pairs the plain one (head dim
+    16), which raised before; kernel D, whose products are TF32, is switched
+    off here (LVD_DISABLE_FUSED_TC, read per call) and held to its own gate
+    in test_temp_conv_forms_match_plain."""
+    from lvd_tpu_torch import config as cfg_mod
+    from lvd_tpu_torch.models.loader import _Init, cast_tree, random_unet3d
+    from lvd_tpu_torch.models.unet3d import apply_unet3d
+    from lvd_tpu_torch.ops import packed_attention as pa
+    from lvd_tpu_torch.ops import temporal_attention as ta
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+
+    monkeypatch.setenv("LVD_DISABLE_FUSED_TC", "1")
+    cfg = cfg_mod.tiny_unet_config()
+    gen = torch.Generator().manual_seed(0)
+    params = random_unet3d(cfg, _Init(gen, torch.device("cpu"), torch.float32))
+    sample = torch.randn((1, 4, 16, 16, 4), generator=gen)
+    text = torch.randn((1, 77, cfg.cross_attention_dim), generator=gen)
+    with torch.no_grad():
+        ref = apply_unet3d(params, cfg, sample, 500, text)
+        before = pa.attention_packed.launches, ta.temporal_attention_pair.launches
+        with exact_fp32():
+            out = apply_unet3d(cast_tree(params, torch.float32, cuda), cfg, sample.to(cuda), 500,
+                               text.to(cuda))
+    assert (pa.attention_packed.launches, ta.temporal_attention_pair.launches) == before
+    err = _rel(out.cpu(), ref)
+    print(f"tiny UNet on the card vs its CPU run: {err:.3g}")
+    assert err <= 1e-4
+
+
+def test_fp16_takes_stock_routes_on_card(cuda):
+    """fp16 streams run lvd_tpu's XLA routes on stock ops (kernels A, B and D
+    take bf16 and fp32 only, as lvd_tpu's predicates): no launch, no
+    TypeError, and the fp16 results within 1e-2 of the plain fp32 ones."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import attention as attn
+    from lvd_tpu_torch.ops import packed_attention as pa
+    from lvd_tpu_torch.ops import temp_conv_fused as tc
+    from lvd_tpu_torch.ops import temporal_attention as ta
+
+    g = torch.Generator(device=cuda).manual_seed(23)
+    lin = lambda a, b: {"w": torch.randn(a, b, generator=g, device=cuda) * a ** -0.5,
+                        "b": torch.zeros(b, device=cuda)}
+    ap = {n: lin(320, 320) for n in ("to_q", "to_k", "to_v", "to_out")}
+    x = torch.randn(2, 720, 320, generator=g, device=cuda)
+    pair = _pair_params(320, g, cuda)
+    y = torch.randn(1, 24, 48, 320, generator=g, device=cuda)
+    launches = lambda: (pa.attention_packed.launches, ta.temporal_attention_pair.launches)
+    before = launches()
+    with torch.no_grad():
+        out_a = attn.attention(cast_tree(ap, torch.float16), x.half(), None, 5)[0]
+        out_b = ta.temporal_attention_pair(cast_tree(pair, torch.float16), y.half(), 5, 1e-5,
+                                           frames_major=True)
+        ref_a = attn.attention(ap, x, None, 5)[0]
+        ref_b = ta._pair_ref_fm(pair, y, 5, 1e-5)
+    assert launches() == (before[0] + 1, before[1])  # the fp32 attention reference only
+    assert not tc.supported(y.half())
+    assert _rel(out_a, ref_a) <= 1e-2 and _rel(out_b, ref_b) <= 1e-2

@@ -33,7 +33,26 @@ form of kernel I uses (``ops/conv3x3.py``: ``launch_plan``,
   the stream's type,
   each warpgroup's output blocks, split over two blocks at C >= 448)
   equals lvd_tpu's ``_fused_rows_resident`` in interpret mode and
-  ``_unfused``.
+  ``_unfused``;
+- kernel B's wgmma form (``ops/temporal_attention.py``: ``launch_plan``,
+  ``block_rows``, ``key_mask``): 64-row blocks of 64 // F whole pixels
+  gathered from either stream layout, zero padding rows, each row's keys
+  masked to its own pixel, heads in pairs with warpgroup 1's head past an
+  odd head count computed on the weights its boxes read and never stored,
+  equals lvd_tpu's ``_pallas_pair`` in interpret mode and ``_pair_ref``, at
+  F = 5 and 24, ragged P, H = 2 and 3;
+- kernel G's wgmma form (``ops/geglu_fused.py``: ``bwd_launch_plan``,
+  ``dx_columns``, ``interleave_w1``): per 64-row block and 64-wide inner
+  chunk, each warpgroup's [h | g] block of the interleaved w1, d_inner from
+  its 32 rows of W2, the [dh | dg] cotangent tile in the interleaved
+  column order, and its dx columns in 32-column pieces of the interleaved
+  w1's rows (split over two blocks at C >= 384, a last piece reaching past
+  the warpgroup's columns stored only within them), equals lvd_tpu's
+  ``_fused_rows_bwd_resident`` in interpret mode and the plain dx, at
+  C = 192 and 448, both GELU forms.
+
+Every selfcheck shape of B and G takes its ``wgmma`` form in bf16 and the
+first version (``wmma``) in fp32.
 """
 
 import numpy as np
@@ -47,11 +66,13 @@ from lvd_tpu.ops import geglu_fused as j_gf
 from lvd_tpu.ops import linear_fused as j_lf
 from lvd_tpu.ops import spatial_conv_fused as j_scf
 from lvd_tpu.ops import temp_conv_fused as j_tc
+from lvd_tpu.ops import temporal_attention as j_ta
 from lvd_tpu_torch.ops import conv3x3 as t_c3
 from lvd_tpu_torch.ops import geglu_fused as t_gf
 from lvd_tpu_torch.ops import linear_fused as t_lf
 from lvd_tpu_torch.ops import selfcheck
 from lvd_tpu_torch.ops import temp_conv_fused as t_tc
+from lvd_tpu_torch.ops import temporal_attention as t_ta
 
 TOL = 1e-5
 NEW_FORM = {"bfloat16": "wgmma", "float32": "mma_sync"}
@@ -288,3 +309,174 @@ def test_geglu_chunk_plan_gives_lvd_tpu(form, c, monkeypatch):
     _close(got, j_gf._fused_rows_resident(*args, block_m=64, nk=2, interpret=True))
     _close(got, j_gf._unfused(*args))
 
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_pair_and_geglu_bwd_shapes_take_their_forms(on_tpu, dtype):
+    tdt = getattr(torch, dtype)
+    want = "wgmma" if dtype == "bfloat16" else "wmma"
+    for b, f, p, c in selfcheck.PAIR_SHAPES + selfcheck.PAIR_BWD_SHAPES:
+        assert j_ta.supported_frames_major(
+            jax.ShapeDtypeStruct((b, f, p, c), jnp.dtype(dtype)), c // 64)
+        assert t_ta.supported_frames_major(torch.empty((b, f, p, c), dtype=tdt, device="meta"),
+                                           c // 64)
+        plan = t_ta.launch_plan(f, c, tdt)
+        assert plan["form"] == want and plan["pixels"] * f <= plan["row_block"]
+    routed = [c for _, c in selfcheck.GEGLU_BWD_SHAPES if t_gf.dx_route(c, 4 * c, tdt) == "G"]
+    # fp32 weights of C = 512 and 640 exceed lvd_tpu's resident budget: stock dx.
+    assert routed == {"bfloat16": [320, 512, 640], "float32": [320]}[dtype]
+    for c in routed:
+        plan = t_gf.bwd_launch_plan(c, 4 * c, tdt)
+        assert plan["form"] == want
+        if want == "wgmma":  # each warpgroup's columns, in 32-column pieces, cover C once
+            assert plan["wg_columns"] * 2 * plan["split"] == c
+    # Widths the resident forms do not cover take the general form.
+    assert t_gf.bwd_launch_plan(72, 256, tdt)["form"] == "general"
+
+
+def _pair_params_np(rng, c):
+    lin = lambda bias: {"w": (rng.standard_normal((c, c)) * c ** -0.5).astype(np.float32),
+                        **({"b": (0.1 * rng.standard_normal(c)).astype(np.float32)}
+                           if bias else {})}
+    attn = lambda: {"to_q": lin(False), "to_k": lin(False), "to_v": lin(False),
+                    "to_out": lin(True)}
+    norm = lambda: {"scale": (1 + 0.1 * rng.standard_normal(c)).astype(np.float32),
+                    "bias": (0.1 * rng.standard_normal(c)).astype(np.float32)}
+    return {"norm1": norm(), "attn1": attn(), "norm2": norm(), "attn2": attn()}
+
+
+def _block_plan_pair(p, y, heads, frames_major):
+    """Kernel B's wgmma form in torch: per (batch, pixel block) the 64 rows
+    of ``block_rows`` (zero past the block's pixels), then per attention:
+    LayerNorm (padding rows zero), heads in pairs (warpgroup j: head 2 i +
+    j, its k / v / q as the 64 columns its boxes read from [Wq | Wk | Wv],
+    zero past 3C), scores masked by ``key_mask``, the head's output stored
+    only for heads < H; the output projection, + bias, + the residual on
+    the block's valid rows, which then hold y1."""
+    if frames_major:
+        y = y.transpose(1, 2)
+    bsz, pdim, f, c = y.shape
+    plan = t_ta.launch_plan(f, c, torch.bfloat16)
+    assert plan["form"] == "wgmma" and plan["row_block"] == 64
+    mask = t_ta.key_mask(f)
+    out = torch.full_like(y, float("nan"))
+    for bi in range(bsz):
+        for blk in range(-(-pdim // plan["pixels"])):
+            pix, frame, ok = t_ta.block_rows(f, pdim, blk)
+            rows = torch.where(ok[:, None], y[bi, pix.clamp(max=pdim - 1), frame],
+                               torch.zeros(()))
+            for name in ("1", "2"):
+                pa, ln = p["attn" + name], p["norm" + name]
+                xc = rows.clone()
+                mean = xc.mean(-1, keepdim=True)
+                var = (xc * xc).mean(-1, keepdim=True) - mean * mean
+                z = (xc - mean) * torch.rsqrt(var.clamp(min=0) + 1e-5) * ln["scale"] + ln["bias"]
+                z = torch.where(ok[:, None], z, torch.zeros(()))
+                wqkv = torch.cat([pa["to_q"]["w"], pa["to_k"]["w"], pa["to_v"]["w"],
+                                  torch.zeros(c, 64)], dim=1)  # boxes past 3C read zeros
+                o = torch.zeros(64, c)
+                for pair in range(-(-heads // 2)):
+                    for wg in (0, 1):
+                        head = 2 * pair + wg
+                        q, k, v = (z @ wqkv[:, m * c + 64 * head:m * c + 64 * head + 64]
+                                   for m in range(3))
+                        s_ = (q @ k.T) * 64 ** -0.5
+                        probs = torch.softmax(s_.masked_fill(~mask, float("-inf")), dim=-1)
+                        if head < heads:
+                            o[:, 64 * head:64 * head + 64] = probs @ v
+                rows = torch.where(ok[:, None], rows + o @ pa["to_out"]["w"] + pa["to_out"]["b"],
+                                   rows)
+            for r in torch.nonzero(ok).flatten().tolist():
+                out[bi, pix[r], frame[r]] = rows[r]
+    return out.transpose(1, 2) if frames_major else out
+
+
+@pytest.mark.parametrize("frames_major", [True, False])
+@pytest.mark.parametrize("f,pdim,c", [(5, 15, 128), (24, 5, 192)])
+def test_pair_block_plan_gives_lvd_tpu(f, pdim, c, frames_major):
+    """F = 5: 12 pixels a block, 15 pixels (the second block three);
+    F = 24: 2 pixels a block, 5 pixels (the last block ragged), three heads
+    (warpgroup 1's second head past H)."""
+    rng = np.random.default_rng(23)
+    heads = c // 64
+    p = _pair_params_np(rng, c)
+    shape = (2, f, pdim, c) if frames_major else (2, pdim, f, c)
+    y = rng.standard_normal(shape).astype(np.float32)
+    tree = lambda fn: {k: {n: {m: fn(t) for m, t in w.items()} if isinstance(w, dict) else fn(w)
+                           for n, w in v.items()} for k, v in p.items()}
+    got = _block_plan_pair(tree(torch.from_numpy), torch.from_numpy(y), heads, frames_major)
+    jp, jy = tree(jnp.asarray), jnp.asarray(y)
+    g = j_ta._pick_g(pdim, frames_major)
+    assert g > 0
+    _close(got.numpy(), j_ta._pallas_pair(jp, jy, heads, g, 1e-5, frames_major=frames_major,
+                                          interpret=True))
+    ref = (j_ta._pair_ref_fm if frames_major else j_ta._pair_ref)(jp, jy, heads, 1e-5)
+    _close(got.numpy(), ref)
+
+
+def _chunk_plan_geglu_bwd(x, dy, w1, b1, w2):
+    """Kernel G's wgmma form in torch: 64-row blocks (rows past R zero),
+    ``split`` blocks on each; per 64-wide inner chunk k, warpgroup j's
+    [h | g] = x w1i[:, block 2 k + j] + b1 and d_inner = dy W2[64 k + 32 j
+    .., :]^T, the cotangents [dh | dg] rounded to the stream's type into
+    the chunk's 128-column tile (box j: warpgroup j's [dh32 | dg32]); then
+    each warpgroup's dx pieces += cot times 32 rows of w1i (zero past C),
+    stored only within its ``dx_columns``."""
+    r, c = x.shape
+    inner = w2.shape[0]
+    plan = t_gf.bwd_launch_plan(c, inner, torch.bfloat16)
+    rb, ch, nw = plan["row_block"], plan["inner_chunk"], plan["wg_columns"]
+    w1i = t_gf.interleave_w1(w1, inner)
+    w1i_rows = torch.cat([w1i, torch.zeros(64, 2 * inner)])  # boxes past C read zeros
+    cols = [sorted(sum((list(t_gf.dx_columns(c, hf, j)) for hf in range(plan["split"])), []))
+            for j in (0, 1)]
+    assert sorted(cols[0] + cols[1]) == list(range(c))
+    dx = torch.full_like(x, float("nan"))
+    for r0 in range(0, r, rb):
+        n = min(rb, r - r0)
+        xb, dyb = torch.zeros(rb, c), torch.zeros(rb, c)
+        xb[:n], dyb[:n] = x[r0:r0 + n], dy[r0:r0 + n]
+        for half in range(plan["split"]):
+            acc = {j: torch.zeros(rb, -(-nw // 32) * 32) for j in (0, 1)}
+            for k in range(inner // ch):
+                cot = torch.empty(rb, 2 * ch)
+                for j in (0, 1):
+                    gcols = t_gf.gemm1_columns(k, j, inner)
+                    hg = xb @ w1i[:, 64 * (2 * k + j):64 * (2 * k + j) + 64] + b1[gcols]
+                    d = dyb @ w2[ch * k + 32 * j:ch * k + 32 * j + 32].T
+                    u, du = t_gf.gelu_val_grad(hg[:, 32:], t_gf.GELU_FORM)
+                    cot[:, 64 * j:64 * j + 32] = (d * u).to(x.dtype)
+                    cot[:, 64 * j + 32:64 * j + 64] = (d * hg[:, :32] * du).to(x.dtype)
+                for j in (0, 1):
+                    first = (2 * half + j) * nw
+                    for piece in range(-(-nw // 32)):
+                        wrows = w1i_rows[first + 32 * piece:first + 32 * piece + 32,
+                                         2 * ch * k:2 * ch * (k + 1)]
+                        acc[j][:, 32 * piece:32 * piece + 32] += cot @ wrows.T
+            for j in (0, 1):
+                own = list(t_gf.dx_columns(c, half, j))
+                dx[r0:r0 + n, own] = acc[j][:n, :nw]
+    return dx
+
+
+@pytest.mark.parametrize("form", ["tanh", "exact"])
+@pytest.mark.parametrize("c", [192, 448])
+def test_geglu_bwd_chunk_plan_gives_lvd_tpu(form, c, monkeypatch):
+    """C = 192 (one block, 96 dx columns a warpgroup: three pieces) and 448
+    (two blocks of 224 columns, 112 a warpgroup: the fourth piece half its
+    own), inner 256 (four chunks), 150 rows (the last block ragged)."""
+    monkeypatch.setattr(j_gf, "GELU_FORM", form)
+    monkeypatch.setattr(t_gf, "GELU_FORM", form)
+    r, inner = 150, 256
+    rng = np.random.default_rng(29)
+    x = rng.standard_normal((r, c)).astype(np.float32)
+    dy = rng.standard_normal((r, c)).astype(np.float32)
+    w1 = (rng.standard_normal((c, 2 * inner)) * c ** -0.5).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(2 * inner)).astype(np.float32)
+    w2 = (rng.standard_normal((inner, c)) * inner ** -0.5).astype(np.float32)
+    got = _chunk_plan_geglu_bwd(*map(torch.from_numpy, (x, dy, w1, b1, w2))).numpy()
+    args = tuple(map(jnp.asarray, (x, dy, w1, b1, w2)))
+    _close(got, j_gf._fused_rows_bwd_resident(*args, block_m=64, nk=2, interpret=True))
+    p = {"proj": {"w": torch.from_numpy(w1), "b": torch.from_numpy(b1)},
+         "out": {"w": torch.from_numpy(w2), "b": torch.zeros(c)}}
+    _close(got, t_gf.geglu_mlp_bwd_plain(p, torch.from_numpy(x), torch.from_numpy(dy)).numpy())

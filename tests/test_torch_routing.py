@@ -1,0 +1,130 @@
+"""Kernels A, B and D: the port's routing predicates against lvd_tpu's, on
+the CPU.
+
+lvd_tpu launches a Pallas kernel only where its predicate holds on the TPU
+and runs XLA elsewhere; the port launches its CUDA kernel where the same
+clauses hold and stock torch elsewhere. Each grid below evaluates lvd_tpu's
+predicate under a test-local patch of ``jax.default_backend`` that answers
+"tpu" and requires the port's to give the same route, in bf16, fp32 and
+fp16:
+
+- kernel A (``packed_attention.kernel_ok``) against lvd_tpu's ``pallas_ok``
+  in ``attention_packed``, spied through the three routes it can take:
+  head dims 8, 16, 64 and 128, key counts on both sides of the 8 MiB K/V
+  clause;
+- kernel D (``temp_conv_fused.lvd_tpu_routes``) against lvd_tpu's
+  ``supported`` at C in {72, 320, 520, 640, 1280, 2560}, F in {16, 24, 32,
+  33, 64}, P in {45, 2880}; the port's ``supported`` is that route where
+  kernel D covers the shape (C % 64 == 0, F <= 32) and stock ops elsewhere;
+- kernel B (``temporal_attention.supported`` / ``supported_frames_major``)
+  against lvd_tpu's at P in {16, 180, 600, 720, 900, 2880}, for both stream
+  layouts, 64-wide heads at C = 320, 640 and 1280 and 80-wide ones at 320.
+
+The chunked route that replaces kernel A where ``pallas_ok`` fails
+(``attention.heads_chunked``) is held to lvd_tpu's ``_heads_chunked`` at a
+16-wide head dim, in fp32, at 1e-5 of max|ref|.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from lvd_tpu.ops import pallas_attention as j_pa
+from lvd_tpu.ops import temp_conv_fused as j_tc
+from lvd_tpu.ops import temporal_attention as j_ta
+from lvd_tpu_torch.ops import attention as t_attn
+from lvd_tpu_torch.ops import packed_attention as t_pa
+from lvd_tpu_torch.ops import temp_conv_fused as t_tc
+from lvd_tpu_torch.ops import temporal_attention as t_ta
+
+DTYPES = ["bfloat16", "float32", "float16"]
+
+
+@pytest.fixture
+def on_tpu(monkeypatch):
+    """lvd_tpu's predicates as its TPU routing evaluates them."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
+
+
+def _lvd_attention_route(q_shape, k_shape, heads, jdt, monkeypatch):
+    """Which route lvd_tpu's ``attention_packed`` takes: its short-key or
+    long-key kernel, or the chunked XLA attention."""
+    taken = []
+    for name, route in (("_flash_heads_short", "kernel"), ("_flash_heads", "kernel"),
+                        ("_heads_chunked", "chunked")):
+        monkeypatch.setattr(j_pa, name, lambda q, *a, r=route: taken.append(r) or q)
+    q = jax.ShapeDtypeStruct(q_shape, jdt)
+    k = jax.ShapeDtypeStruct(k_shape, jdt)
+    jax.eval_shape(lambda q, k: j_pa.attention_packed(q, k, k, 0.125, heads), q, k)
+    return taken[0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_route_matches_lvd_tpu(on_tpu, monkeypatch, dtype):
+    jdt = jnp.dtype(dtype)
+    heads = 5
+    routes = set()
+    for d in (8, 16, 64, 128):
+        c = heads * d
+        limit = t_pa.KV_BYTES_MAX // (2 * c * jdt.itemsize)  # the longest K/V the kernel takes
+        for s_k in (77, limit, limit + 1):
+            want = _lvd_attention_route((2, 96, c), (2, s_k, c), heads, jdt, monkeypatch)
+            got = t_pa.kernel_ok(_meta((2, 96, c), dtype), _meta((2, s_k, c), dtype), heads)
+            assert ("kernel" if got else "chunked") == want, (d, s_k, dtype)
+            routes.add(want)
+    assert routes == ({"chunked"} if dtype == "float16" else {"kernel", "chunked"})
+
+
+def test_heads_chunked_matches_lvd_tpu():
+    """The stock route at a 16-wide head dim (the tiny configs), ragged
+    against lvd_tpu's 512-row query blocks."""
+    rng = np.random.default_rng(5)
+    heads, d = 4, 16
+    q = rng.standard_normal((2, 600, heads * d)).astype(np.float32)
+    k = rng.standard_normal((2, 300, heads * d)).astype(np.float32)
+    v = rng.standard_normal((2, 300, heads * d)).astype(np.float32)
+    ref = np.asarray(j_pa._heads_chunked(*map(jnp.asarray, (q, k, v)), 0.25, heads))
+    got = t_attn.heads_chunked(*map(torch.from_numpy, (q, k, v)), 0.25, heads).numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [72, 320, 520, 640, 1280, 2560])
+def test_temp_conv_route_matches_lvd_tpu(on_tpu, dtype, c):
+    jdt = jnp.dtype(dtype)
+    for f in (16, 24, 32, 33, 64):
+        for p in (45, 2880):
+            shape = (2, f, p, c)
+            want = j_tc.supported(jax.ShapeDtypeStruct(shape, jdt))
+            x = _meta(shape, dtype)
+            assert t_tc.lvd_tpu_routes(x) == want, (shape, dtype)
+            # Kernel D where it covers lvd_tpu's route; stock ops elsewhere.
+            assert t_tc.supported(x) == (want and c % 64 == 0 and f <= 32), (shape, dtype)
+    if dtype == "float16":
+        assert not any(t_tc.supported(_meta((2, f, 45, c), dtype)) for f in (16, 24, 32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,heads", [(320, 5), (640, 10), (1280, 20), (320, 4)])
+def test_temporal_pair_route_matches_lvd_tpu(on_tpu, dtype, c, heads):
+    jdt = jnp.dtype(dtype)
+    for p in (16, 180, 600, 720, 900, 2880):
+        fm_shape, pm_shape = (2, 24, p, c), (2, p, 24, c)
+        want_fm = j_ta.supported_frames_major(jax.ShapeDtypeStruct(fm_shape, jdt), heads)
+        want_pm = j_ta.supported(jax.ShapeDtypeStruct(pm_shape, jdt), heads)
+        assert t_ta.supported_frames_major(_meta(fm_shape, dtype), heads) == want_fm, (p, c)
+        assert t_ta.supported(_meta(pm_shape, dtype), heads) == want_pm, (p, c)
+        for g_fm in (True, False):
+            assert t_ta._pick_g(p, g_fm) == j_ta._pick_g(p, g_fm), (p, g_fm)
+    if dtype != "float16" and c <= 640 and c // heads == 64:
+        # P = 180 and 900 have no frames-major group: lvd_tpu relayouts and
+        # runs its pixels-major kernel there.
+        for p in (180, 900):
+            assert not t_ta.supported_frames_major(_meta((2, 24, p, c), dtype), heads)
+            assert t_ta.supported(_meta((2, p, 24, c), dtype), heads)
