@@ -8,8 +8,8 @@ Phases, each fatal on failure:
   2. build   - nvcc builds lvd_tpu_torch/csrc/*.cu, one process per source,
                all started together, then one link (seconds and the -Xptxas
                -v register / shared-memory / spill lines, one record of
-               registers and spills per kernel A-E and G-I instantiation,
-               and their dynamic shared memory per block);
+               registers and spills per kernel A-J instantiation, and the
+               dynamic shared memory per block of A-I);
   3. kernels - every kernel at every shape the Zeroscope path gives it, in
                bf16, against its plain PyTorch version on fp32 copies, and
                each kernel in fp32 at its largest shape against the plain
@@ -20,8 +20,9 @@ Phases, each fatal on failure:
                and text k/v shapes, the backwards E-G at the guided energy
                walk's, and the public entry points sdpa() (A and E with one
                head, row 1, D = 64 to 256), conv3x3() (I without prologue,
-               row 13) and geglu_mlp() where it streams (J, row 9); B and G
-               also time their first versions beside their wgmma forms;
+               row 13) and geglu_mlp() where it streams (J, row 9); B, F, G
+               and J also time their first versions beside their wgmma
+               forms;
   4. reference - one full-width CFG UNet forward through the kernels (bf16)
                against the plain path (fp32) on the same inputs, with weights
                whose attention/FF/temporal-conv branches are not zero-init,
@@ -43,7 +44,7 @@ Phases, each fatal on failure:
   7. guided generation - the flagship layout (one box moving left to right)
                and GuidanceConfig through the same entry point with
                ``backward_guidance``, 4 steps with guidance on the first 2;
-               every kernel A-G must have run, B, C, D and G in their new
+               every kernel A-G must have run, B, C, D, F and G in their new
                form;
   8. certification - guidance_effect at full width, 16 guided updates at
                the first timestep: the in-box attention share must rise by
@@ -55,7 +56,7 @@ Phases, each fatal on failure:
                resnet convs on kernel I and the projections on kernel H, and
                the guided generation of phase 7, which is this slice's main
                path: every kernel A-I must have run, and every launch of B,
-               C, D, G, H and I must have taken the new form (wgmma /
+               C, D, F, G, H and I must have taken the new form (wgmma /
                mma_sync, never a WMMA form); then one profiled CFG forward
                under the switches. A non-zero exit of the child fails the
                smoke;
@@ -69,9 +70,9 @@ Phases, each fatal on failure:
                (8640, 1280) in bf16, C = 640 block at (34560, 640) in fp32),
                forward and dx through autograd, each against its plain
                version on fp32 copies; counts zeroed just before and read
-               just after: kernels A, E, I (in its wgmma form) and J (twice)
-               must have run, and G must not (lvd_tpu's dx there is the
-               stock VJP);
+               just after: kernels A, E, I (in its wgmma form) and J (twice:
+               its wgmma form in bf16, its first version in fp32) must have
+               run, and G must not (lvd_tpu's dx there is the stock VJP);
  12. profile - one CFG UNet forward and one guided update under
                torch.profiler: device time per kernel and for the stock ops,
                and the device's idle share.
@@ -150,7 +151,7 @@ def build_phase(torch):
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"[build] {line.strip()}")
     for rec in ptxas_summary(_build.build_info["log"], PTXAS_SOURCES):
-        log(f"[build] ptxas A-E/G-I {json.dumps(rec)}")
+        log(f"[build] ptxas A-J {json.dumps(rec)}")
     lib = _build.lib()
     smem = {}
     for dtype, code in (("bf16", 0), ("fp32", 1)):
@@ -174,15 +175,17 @@ def build_phase(torch):
         smem[f"C {f32[0]} fp32 C={c}"] = lib.lvd_geglu_smem(f32[1], c, 1)
     smem["D wgmma bf16 F=24"] = lib.lvd_temp_conv_smem(24, 0)
     smem["D mma_sync fp32 F=24"] = lib.lvd_temp_conv_smem(24, 1)
-    for c in (320, 512, 640):  # kernels B and G at the path's widths
+    for c in (320, 512, 640):  # kernels B, F and G at the path's widths
         smem[f"B wgmma bf16 C={c}"] = lib.lvd_temporal_pair_smem(c // 64)
+        smem[f"F wgmma bf16 C={c}"] = lib.lvd_temporal_pair_bwd_smem(c // 64)
         smem[f"G wgmma bf16 C={c}"] = lib.lvd_geglu_bwd_smem(c)
-    log(f"[build] A-E/G-I dynamic shared memory per block (bytes): {json.dumps(smem)}")
+    log(f"[build] A-I dynamic shared memory per block (bytes): {json.dumps(smem)}")
 
 
 # Sources whose kernels get one ptxas record each (registers, spills).
 PTXAS_SOURCES = ("packed_attention.cu", "packed_attention_bwd.cu", "linear.cu", "conv3x3.cu",
-                 "geglu.cu", "temp_conv.cu", "temporal_attention.cu", "geglu_bwd.cu")
+                 "geglu.cu", "temp_conv.cu", "temporal_attention.cu", "geglu_bwd.cu",
+                 "temporal_attention_bwd.cu", "geglu_stream.cu")
 
 
 def ptxas_summary(build_log, sources):
@@ -455,18 +458,18 @@ def read_launches():
 
 
 def read_forms():
-    """Launches per form of kernels B, C, D, G, H and I
-    (temporal_attention_pair, geglu_mlp, norm_silu_temporal_conv,
-    geglu_mlp_bwd, linear_rows, norm_silu_conv2d, conv3x3)."""
+    """Launches per form of kernels B-D and F-J (temporal_attention_pair,
+    geglu_mlp, norm_silu_temporal_conv, temporal_attention_pair_bwd,
+    geglu_mlp_bwd, linear_rows, norm_silu_conv2d, conv3x3, geglu_stream)."""
     return {name: dict(fn.launches_by_form) for name, fn in wrappers().items()
             if hasattr(fn, "launches_by_form")}
 
 
 def check_new_forms(phase, forms, redesigned=()):
-    """Fails unless every launch of B, C, D, G, H and I took the new form
-    (wgmma in bf16, mma_sync in fp32): every UNet and conv3x3() shape has
-    Cin and Cout % 64 == 0, and only other widths take I's WMMA form; C's
-    WMMA form is kept for fp32 C > 384, B's and G's first versions (WMMA)
+    """Fails unless every launch of B-D and F-J took the new form (wgmma in
+    bf16, mma_sync in fp32): every UNet and conv3x3() shape has Cin and
+    Cout % 64 == 0, and only other widths take I's WMMA form; C's WMMA form
+    is kept for fp32 C > 384, B's, F's, G's and J's first versions (WMMA)
     for fp32, which the bf16 paths this is called on never reach. Each
     wrapper of ``redesigned`` must have launched its wgmma form."""
     old = {name: f["wmma"] for name, f in forms.items() if f.get("wmma")}
@@ -515,7 +518,7 @@ def generation_phase(torch, models):
     if missing:
         raise SystemExit(f"[generation] kernels never launched on the main path: {missing}")
     forms = read_forms()
-    log(f"[generation] launches of B, C, D, G, H and I by form: {json.dumps(forms)}")
+    log(f"[generation] launches of B-D and F-J by form: {json.dumps(forms)}")
     check_new_forms("generation", forms, ("temporal_attention_pair",))
     return launches
 
@@ -553,8 +556,9 @@ def guided_generation_phase(torch, models, kernels=GUIDED_KERNELS):
     if missing:
         raise SystemExit(f"[guided] kernels never launched on the guided path: {missing}")
     forms = read_forms()
-    log(f"[guided] launches of B, C, D, G, H and I by form: {json.dumps(forms)}")
-    check_new_forms("guided", forms, ("temporal_attention_pair", "geglu_mlp_bwd"))
+    log(f"[guided] launches of B-D and F-J by form: {json.dumps(forms)}")
+    check_new_forms("guided", forms, ("temporal_attention_pair", "temporal_attention_pair_bwd",
+                                      "geglu_mlp_bwd"))
     return pipe, launches
 
 
@@ -576,19 +580,18 @@ def certification_phase(torch, pipe):
     return eff
 
 
-# Substrings of the kernels' device symbols (B's, C's, D's, G's, H's and I's:
-# every form).
+# Substrings of the kernels' device symbols (B-D's and F-J's: every form).
 KERNEL_SYMBOLS = {
     "attention_packed": "attn_packed_kernel",
     "temporal_attention_pair": ("::temporal_pair_kernel", "::temporal_pair_wgmma_kernel"),
     "geglu_mlp": "::geglu_w",
     "norm_silu_temporal_conv": "::temp_conv_w",
     "attention_packed_bwd": "attn_bwd_",
-    "temporal_attention_pair_bwd": "temporal_pair_bwd_kernel",
+    "temporal_attention_pair_bwd": "::temporal_pair_bwd_",
     "geglu_mlp_bwd": "::geglu_bwd_",
     "linear": "::linear_",
     "conv3x3 (kernel I)": "::conv3x3_",
-    "geglu_stream": "geglu_stream_kernel",
+    "geglu_stream": "::geglu_stream_",
 }
 
 
@@ -821,6 +824,7 @@ def entry_point_phase(torch, models):
     torch.cuda.synchronize()
     launches = read_launches()
     forms = read_forms()["conv3x3"]
+    j_forms = read_forms()["geglu_stream"]
     rel = lambda a, r: ((a.float() - r).abs().max() / r.abs().max()).item()
     errs, tols = {}, {}
     with exact_fp32():
@@ -847,28 +851,33 @@ def entry_point_phase(torch, models):
     log(f"[entry] sdpa() at {ENTRY_SDPA}, conv3x3() {tuple(x.shape)} -> {tuple(y.shape)} "
         f"(bf16) and geglu_mlp() at (8640, 1280) bf16 and (34560, 640) fp32, against the "
         f"plain versions (fp32): {json.dumps(errs)}; launches {json.dumps(entry)}, "
-        f"geglu_mlp_bwd {launches['geglu_mlp_bwd']}, conv3x3 by form {json.dumps(forms)}")
+        f"geglu_mlp_bwd {launches['geglu_mlp_bwd']}, conv3x3 by form {json.dumps(forms)}, "
+        f"geglu_stream by form {json.dumps(j_forms)}")
     want = {"sdpa": len(ENTRY_SDPA), "sdpa_bwd": len(ENTRY_SDPA), "conv3x3": 1,
             "geglu_stream": len(ff_in)}
-    if entry != want or launches["geglu_mlp_bwd"] != 0 or forms["wgmma"] != 1:
+    # J's wgmma form for the bf16 call; fp32 keeps the first version.
+    j_want = {"wgmma": 1, "wmma": 1}
+    if (entry != want or launches["geglu_mlp_bwd"] != 0 or forms["wgmma"] != 1
+            or j_forms != j_want):
         raise SystemExit(f"[entry] launches {entry}, geglu_mlp_bwd "
-                         f"{launches['geglu_mlp_bwd']} and conv3x3 by form {forms}, expected "
-                         f"{want}, 0 and one wgmma launch")
+                         f"{launches['geglu_mlp_bwd']}, conv3x3 by form {forms} and "
+                         f"geglu_stream by form {j_forms}, expected {want}, 0, one wgmma "
+                         f"launch and {j_want}")
     bad = {k: e for k, e in errs.items() if not e <= tols.get(k, 2e-2)}
     if bad:
         raise SystemExit(f"[entry] an entry point disagrees with its plain version: {bad}")
-    return entry, {"conv3x3": forms}
+    return entry, {"conv3x3": forms, "geglu_stream": j_forms}
 
 
 def kernels_line(records, knob_launches, entry_launches, forms):
     """One entry per kernel wrapper of selfcheck.SOURCES: its bf16 numbers at
     its largest path shape, its worst errors in bf16 and fp32, and its
     launches on this slice's main path (the entry points for sdpa() and
-    conv3x3()); B's, C's, D's, G's, H's and I's with their launches by
-    form, C's and D's with the same products' time through torch.matmul,
-    C's and G's with the time of the interleaved copy of W1 their ms
-    includes, B's and G's with their first version's time and reading on
-    the same inputs."""
+    conv3x3()); B-D's and F-J's with their launches by form, C's, D's, F's
+    and J's with the same products' time through torch.matmul, C's, G's and
+    J's with the time of the interleaved copy of W1 their ms includes, B's,
+    F's, G's and J's with their first version's time and reading on the
+    same inputs."""
     from lvd_tpu_torch.ops.selfcheck import SOURCES
 
     kernels = []

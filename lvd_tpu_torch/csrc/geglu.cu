@@ -227,14 +227,6 @@ struct WgGeglu {
   static constexpr int kSmem = kStages * kStage + kFixed;
 };
 
-// The gate's GELU in fp32: the tanh form on the special-function unit's
-// tanh, or the exact erf form.
-__device__ __forceinline__ float gelu_gate(float g, int exact) {
-  if (exact) return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
-  const float hg = 0.5f * g;
-  return fmaf(hg, hop::tanh_approx(g * fmaf(0.0356774081f, g * g, 0.7978845608f)), hg);
-}
-
 template <int NF>
 __global__ void __launch_bounds__(WgGeglu<NF>::kThreads, 1)
 geglu_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
@@ -369,7 +361,7 @@ geglu_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         const float g1 = hg[4 * (c + 4) + 2 * hf + 1] + bg.y;
         const int row = 16 * wq + r4 + 8 * hf;
         *reinterpret_cast<uint32_t*>(gt + row * 64 + (((4 * wg + c) ^ r4) * 8) + cq) =
-            pack_bf16(h0 * gelu_gate(g0, exact), h1 * gelu_gate(g1, exact));
+            pack_bf16(h0 * hop::gelu_gate(g0, exact), h1 * hop::gelu_gate(g1, exact));
       }
     }
     hop::fence_proxy_async();

@@ -12,7 +12,23 @@
 // weights (39 MB in bf16, 79 MB in fp32) are read once per 16-row block,
 // mostly from L2.
 //
-// Design: one block of eight warps per 16-row tile. At C = 1280 the block's
+// bf16 (the `wgmma` form): two passes of kernel H's tile loop (`WgTile`
+// in hopper.cuh, six 32 KB stages), each a plain large product that the
+// tensor cores bound:
+//  1. gated = gate(x W1 + b1): W1 passed with its columns interleaved in
+//     32s (kernel C's order), so each (128, 128) tile's warpgroup holds h
+//     and g of the same 64 inner columns; b1 and the gate in fp32 on the
+//     accumulators, the gated tile rounded once to bf16 into an (R, I)
+//     tensor (a transient the wrapper allocates: 88 MB at (8640, 1280,
+//     5120), written and read once);
+//  2. out = gated W2 + b2, b2 in fp32 before the one rounding.
+// The rounding points are the TPU kernel's (h and g in fp32, the gated
+// activation in the stream's type, W2 accumulated in fp32), and it takes
+// every width the first version takes: K and N tails read zeros through
+// TMA, and columns past C are not stored.
+//
+// fp32 (and bf16 when the first version is asked for), the `wmma` form:
+// one block of eight warps per 16-row tile. At C = 1280 the block's
 // (16, C) fp32 output accumulator takes 80 floats a thread, and kernel C's
 // register-resident form (up to C = 640) would need 160 at its 32 rows, so
 // here the accumulator lives in shared memory, as the TPU kernel keeps it in
@@ -43,6 +59,7 @@
 // block recomputes the gated chunks over the full C; lvd_tpu streams any
 // width, and this keeps the port's J from refusing one.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace lvd {
 namespace {
@@ -217,20 +234,115 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
   return cudaGetLastError();
 }
 
+// ---- bf16: two wgmma passes over a gated tensor ----
+
+using JGemm = WgTile<6, false>;  // 6 stages of 32 KB: 193 KB
+constexpr int kJRows = JGemm::BM, kJCols = JGemm::BN, kJInner = JGemm::BN / 2;
+
+// Pass 1: one (128-row, 128-column) tile of x W1i, W1 with its columns
+// interleaved in 32s (ops/geglu_fused.py `interleave_w1`): the tile's
+// columns are [h | g | h | g] of 32 inner columns each, 64 inner columns
+// i0.. in all, so warpgroup wg's accumulator chunk c (8 columns) holds h
+// for chunks 0-3 and 8-11 and the g of the same inner columns four chunks
+// on. The epilogue adds b1 in fp32, applies the gate in fp32 and rounds the
+// 64 gated columns once to bf16 into the gated (R, I) tensor.
+__global__ void __launch_bounds__(JGemm::kThreads, 1)
+geglu_stream_gate_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_w1, const bf16* __restrict__ b1,
+                         bf16* __restrict__ gated, int R, int I, int nk, int exact) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int n0 = blockIdx.x * kJCols, r0 = blockIdx.y * kJRows;
+  float acc[64];
+  if (!JGemm::run(smem, &tm_x, &tm_w1, r0, n0, nk, acc)) return;
+  const int wg = threadIdx.x / 128, cq = 2 * (threadIdx.x % 4);
+  const int i0 = n0 / 2;
+  float gacc[32];  // the gated 64 columns in the accumulator layout of an m64n64 product
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int ch = 8 * (q / 4) + q % 4, cg = ch + 4;  // h's and g's chunks of gated chunk q
+    const int col = i0 + 8 * q + cq;
+    const float bh0 = __bfloat162float(b1[col]), bh1 = __bfloat162float(b1[col + 1]);
+    const float bg0 = __bfloat162float(b1[I + col]), bg1 = __bfloat162float(b1[I + col + 1]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {  // rows l/4 and l/4 + 8
+      gacc[4 * q + 2 * e] =
+          (acc[4 * ch + 2 * e] + bh0) * hop::gelu_gate(acc[4 * cg + 2 * e] + bg0, exact);
+      gacc[4 * q + 2 * e + 1] =
+          (acc[4 * ch + 2 * e + 1] + bh1) * hop::gelu_gate(acc[4 * cg + 2 * e + 1] + bg1, exact);
+    }
+  }
+  bf16* stage = reinterpret_cast<bf16*>(smem) + wg * 64 * 64;
+  hop::store_acc_bf16<1>(gacc, stage, JGemm::kStageBytes / 2, nullptr,
+                         gated + (size_t)(r0 + wg * 64) * I + i0, I, R - r0 - wg * 64);
+}
+
+// Pass 2: one (128-row, 128-column) tile of gated W2, + b2 in fp32 before
+// the one rounding; columns past C (W2 reads zeros there) are not stored.
+__global__ void __launch_bounds__(JGemm::kThreads, 1)
+geglu_stream_out_kernel(const __grid_constant__ CUtensorMap tm_g,
+                        const __grid_constant__ CUtensorMap tm_w2, const bf16* __restrict__ b2,
+                        bf16* __restrict__ out, int R, int C, int nk) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int n0 = blockIdx.x * kJCols, r0 = blockIdx.y * kJRows;
+  float acc[64];
+  if (!JGemm::run(smem, &tm_g, &tm_w2, r0, n0, nk, acc)) return;
+  const int wg = threadIdx.x / 128;
+  bf16* stage = reinterpret_cast<bf16*>(smem) + wg * 64 * 64;
+  hop::store_acc_bf16<2>(acc, stage, JGemm::kStageBytes / 2, b2 + n0,
+                         out + (size_t)(r0 + wg * 64) * C + n0, C, R - r0 - wg * 64, C - n0);
+}
+
+cudaError_t launch_wgmma(const void* x, const void* w1, const void* b1, const void* w2,
+                         const void* b2, void* gated, void* out, int R, int C, int I, int exact,
+                         cudaStream_t stream) {
+  CUtensorMap tx, tw1, tg, tw2;
+  cudaError_t err = make_map_2d(&tx, x, R, C, kJRows);
+  if (err == cudaSuccess) err = make_map_2d(&tw1, w1, C, 2 * I, 64);
+  if (err == cudaSuccess) err = make_map_2d(&tg, gated, R, I, kJRows);
+  if (err == cudaSuccess) err = make_map_2d(&tw2, w2, I, C, 64);
+  if (err == cudaSuccess) err = set_smem(geglu_stream_gate_kernel, JGemm::kSmem);
+  if (err == cudaSuccess) err = set_smem(geglu_stream_out_kernel, JGemm::kSmem);
+  if (err != cudaSuccess) return err;
+  const int row_tiles = (R + kJRows - 1) / kJRows;
+  geglu_stream_gate_kernel<<<dim3(2 * I / kJCols, row_tiles), JGemm::kThreads, JGemm::kSmem,
+                             stream>>>(tx, tw1, static_cast<const bf16*>(b1),
+                                       static_cast<bf16*>(gated), R, I, (C + 63) / 64, exact);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  geglu_stream_out_kernel<<<dim3((C + kJCols - 1) / kJCols, row_tiles), JGemm::kThreads,
+                            JGemm::kSmem, stream>>>(tg, tw2, static_cast<const bf16*>(b2),
+                                                    static_cast<bf16*>(out), R, C, I / 64);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace lvd
 
 // x: (R, C), w1: (C, 2I) = [W1h | W1g], b1: (2I,), w2: (I, C), b2: (C,),
 // out: (R, C); all of one type (dtype 0 bf16, 1 fp32). C % 8 == 0,
-// I % 128 == 0, any R > 0, any C (column slices where C is too wide for
-// one block's accumulator).
+// I % 128 == 0, any R > 0, any C. form 1 is the two-pass wgmma form (bf16;
+// w1 interleaved in 32s, gated an (R, I) scratch tensor; row_block 128,
+// inner_chunk 64 gated columns a pass-1 tile, column_block 128), form 0
+// the first version (row_block 16, inner_chunk 128, column_block 128;
+// column slices where C is too wide for one block's accumulator; gated
+// unused); a plan the form was not built for is refused.
 LVD_EXPORT int lvd_geglu_stream(const void* x, const void* w1, const void* b1, const void* w2,
-                                const void* b2, void* out, int R, int C, int I, int exact,
-                                int dtype, void* stream) {
+                                const void* b2, void* gated, void* out, int R, int C, int I,
+                                int exact, int form, int row_block, int inner_chunk,
+                                int column_block, int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
   if (C <= 0 || C % 8 != 0 || I <= 0 || I % kBI != 0 || R <= 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  if (form == 1) {
+    if (dtype != kBF16 || gated == nullptr || row_block != kJRows || inner_chunk != kJInner ||
+        column_block != kJCols)
+      return cudaErrorInvalidValue;
+    return launch_wgmma(x, w1, b1, w2, b2, gated, out, R, C, I, exact, s);
+  }
+  if (form != 0 || row_block != kBM || inner_chunk != kBI || column_block != kBN)
+    return cudaErrorInvalidValue;
   return dispatch(dtype, [&](auto tag) {
     return launch<decltype(tag)>(x, w1, b1, w2, b2, out, R, C, I, exact, s);
   });

@@ -1,6 +1,7 @@
-// Hopper building blocks of the bf16 wgmma kernels (A, B, C, D, G, H, I):
-// mbarriers, TMA tile loads (cp.async.bulk.tensor), warpgroup products
-// (wgmma) with shared-memory descriptors, the accumulator epilogue, and the
+// Hopper building blocks of the bf16 wgmma kernels (A-J): mbarriers, TMA
+// tile loads (cp.async.bulk.tensor) and bulk copies, warpgroup products
+// (wgmma) with shared-memory descriptors, the accumulator epilogue, the
+// GEGLU gate, the (128, 128) tile loop of kernels H and J, and the
 // host-side tensor-map encoder.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a box of
@@ -73,6 +74,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+// The same for this thread's writes to any state space (global memory
+// read back by a TMA bulk copy of the same block).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
 // Barrier `id` (1-15; 0 is __syncthreads) over `count` threads.
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -89,6 +95,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+// A plain bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Copies one box of a 3-D tensor map at coordinates (c0, c1, c2) (innermost
 // first) into shared memory; completion is counted on `bar` in bytes.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -211,17 +227,18 @@ __device__ __forceinline__ void wgmma_rs_n64_tn(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d += A B, m64n128k16, bf16 in, fp32 accumulators; A from shared memory
+// d (+)= A B, m64n128k16, bf16 in, fp32 accumulators; A from shared memory
 // K-major, B from shared memory MN-major (transposed: N contiguous, two
-// 64-column blocks, desc_sw128_mn).
-__device__ __forceinline__ void wgmma_ss_n128_tn(float (&d)[64], uint64_t a, uint64_t b) {
+// 64-column blocks, desc_sw128_mn); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128_tn(float (&d)[64], uint64_t a, uint64_t b,
+                                                 int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d (+)= A B, m64n64k16, bf16 in, fp32 accumulators; A from shared memory
@@ -234,6 +251,21 @@ __device__ __forceinline__ void wgmma_ss_n64_tn(float (&d)[32], uint64_t a, uint
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B, m64n64k16, bf16 in, fp32 accumulators; A and B from shared
+// memory, both MN-major (A transposed: a tile whose rows are the
+// contraction index, M contiguous, read as a single 64-column block like
+// an MN-major B); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[32], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
 }
@@ -270,18 +302,21 @@ __device__ __forceinline__ void wgmma_rs_tn(float (&d)[NB * 32], const uint32_t 
 // bf16 (8 KB each, the warpgroup's own), `stride` elements apart, chunk c
 // of row r at c ^ (r % 8). Each warp stages and stores only its own 16
 // rows, so no barrier is needed. `bias` points at the tile's first column,
-// or is null.
+// or is null. Only the first `cols_valid` columns (a multiple of 8) are
+// read from `bias` and stored.
 template <int NB>
 __device__ __forceinline__ void store_acc_bf16(const float (&acc)[NB * 32], bf16* stage,
                                                int stride, const bf16* bias, bf16* out,
-                                               size_t ld, int rows_valid) {
+                                               size_t ld, int rows_valid,
+                                               int cols_valid = 64 * NB) {
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int r = lane / 4, cq = 2 * (lane % 4);
 #pragma unroll
   for (int c = 0; c < 8 * NB; ++c) {
     const int col = 8 * c + cq;
-    const float b0 = bias == nullptr ? 0.f : __bfloat162float(bias[col]);
-    const float b1 = bias == nullptr ? 0.f : __bfloat162float(bias[col + 1]);
+    const bool has_bias = bias != nullptr && col < cols_valid;
+    const float b0 = has_bias ? __bfloat162float(bias[col]) : 0.f;
+    const float b1 = has_bias ? __bfloat162float(bias[col + 1]) : 0.f;
     bf16* st = stage + (c / 8) * stride + (warp * 16) * 64 + (((c % 8) ^ r) * 8) + cq;
     *reinterpret_cast<uint32_t*>(st + r * 64) = pack_bf16(acc[4 * c] + b0, acc[4 * c + 1] + b1);
     *reinterpret_cast<uint32_t*>(st + (r + 8) * 64) =
@@ -294,7 +329,7 @@ __device__ __forceinline__ void store_acc_bf16(const float (&acc)[NB * 32], bf16
 #pragma unroll
     for (int i = lane; i < 16 * 8; i += 32) {
       const int rr = i / 8, cc = i % 8;
-      if (warp * 16 + rr < rows_valid)
+      if (warp * 16 + rr < rows_valid && h * 64 + cc * 8 < cols_valid)
         *reinterpret_cast<uint4*>(out + (size_t)(warp * 16 + rr) * ld + h * 64 + cc * 8) =
             *reinterpret_cast<const uint4*>(st + rr * 64 + ((cc ^ (rr % 8)) * 8));
     }
@@ -309,7 +344,111 @@ __device__ __forceinline__ float tanh_approx(float x) {
   return y;
 }
 
+// The GEGLU gate's GELU in fp32: the tanh form on the special-function
+// unit's tanh, or the exact erf form (kernels C and J).
+__device__ __forceinline__ float gelu_gate(float g, int exact) {
+  if (exact) return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
+  const float hg = 0.5f * g;
+  return fmaf(hg, tanh_approx(g * fmaf(0.0356774081f, g * g, 0.7978845608f)), hg);
+}
+
 }  // namespace hop
+
+// One (128-row, 128-column) output tile of A (R, K) times B on wgmma: kernel
+// H's tile loop, shared with kernel J's two passes. One producer warp keeps
+// a ring of kStages stages in flight with TMA: a (128 rows, 64-deep K) tile
+// of A and the matching (64-deep K, 128 columns) tile of B, 32 KB a stage,
+// 128-byte swizzled, on 2-D tensor maps (rows of A past R, and K past the
+// maps' extent, read as zero). Two consumer warpgroups each own 64 rows x
+// 128 columns (m64n128k16, accumulators in registers, one group of
+// products kept in flight while the next stage is waited for). B is read
+// as stored: (K, N) N-contiguous as an MN-major operand (two 64-column
+// boxes), or with kTransB (N, K) K-contiguous as a K-major operand (one box
+// of 128 rows).
+template <int kStages, bool kTransB>
+struct WgTile {
+  static constexpr int BM = 128, BN = 128, BK = 64;
+  static constexpr int kThreads = 2 * 128 + 32;  // consumer warpgroups, then the producer warp
+  static constexpr int kATile = BM * BK * 2;     // 16 KB
+  static constexpr int kBTile = BK * BN * 2;     // 16 KB
+  static constexpr int kStageBytes = kATile + kBTile;
+  static constexpr int kBarOff = kStages * kStageBytes;
+  // The ring, the barriers, and slack to align the start to 1024.
+  static constexpr int kSmem = kBarOff + 2 * kStages * 8 + 1024;
+
+  // Runs the tile at rows r0, columns n0 over nk K steps: false on the
+  // producer warp (every load issued), true on a consumer thread, whose
+  // warpgroup's 64 x 128 accumulators are then in acc. Afterwards the A
+  // tiles' rows [64 wg, 64 wg + 64) of every stage are the warpgroup's own
+  // to reuse (every load into them landed, every product that read them is
+  // done; the other warpgroup reads only its rows and the B tiles).
+  __device__ static bool run(unsigned char* smem, const CUtensorMap* tm_a,
+                             const CUtensorMap* tm_b, int r0, int n0, int nk, float (&acc)[64]) {
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOff);
+    uint64_t* empty = full + kStages;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        hop::mbar_init(&full[s], 1);
+        hop::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      }
+      hop::mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (warp == 8) {  // the producer: one lane issues every TMA load
+      if (lane == 0) {
+        for (int j = 0; j < nk; ++j) {
+          const int s = j % kStages;
+          if (j >= kStages) hop::mbar_wait(&empty[s], (j / kStages - 1) & 1);
+          hop::mbar_expect_tx(&full[s], kStageBytes);
+          bf16* As = reinterpret_cast<bf16*>(smem + s * kStageBytes);
+          bf16* Bs = As + BM * BK;
+          hop::tma_load_2d(As, tm_a, &full[s], j * BK, r0);
+          if constexpr (kTransB) {
+            hop::tma_load_2d(Bs, tm_b, &full[s], j * BK, n0);  // (128 n, 64 k)
+          } else {
+            hop::tma_load_2d(Bs, tm_b, &full[s], n0, j * BK);  // (64 k, 64 n) x 2
+            hop::tma_load_2d(Bs + 64 * 64, tm_b, &full[s], n0 + 64, j * BK);
+          }
+        }
+      }
+      return false;
+    }
+
+    const int wg = warp / 4;
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % kStages;
+      hop::mbar_wait(&full[s], (j / kStages) & 1);
+      const bf16* As = reinterpret_cast<const bf16*>(smem + s * kStageBytes) + wg * 64 * 64;
+      const bf16* Bs = reinterpret_cast<const bf16*>(smem + s * kStageBytes) + BM * BK;
+      hop::fence_regs(acc);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = hop::desc_sw128(As + kk * 16);
+        // The first product overwrites the accumulators (no zero fill, which
+        // would serialise the products: ptxas C7515).
+        if constexpr (kTransB) {
+          hop::wgmma_ss_n128(acc, da, hop::desc_sw128(Bs + kk * 16), j > 0 || kk > 0);
+        } else {
+          hop::wgmma_ss_n128_tn(acc, da, hop::desc_sw128_mn(Bs + kk * 16 * 64, 64 * 64 * 2),
+                                j > 0 || kk > 0);
+        }
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();  // the previous stage's products are done
+      hop::fence_regs(acc);
+      if (j > 0) {
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(&empty[(j - 1) % kStages]);
+      }
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc);
+    return true;
+  }
+};
 
 // ---- host: tensor maps ----
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -12,8 +12,9 @@
 // predicate gives K % 128 == 0 and N % 128 == 0; R is ragged.
 //
 // bf16: a warp-specialised wgmma GEMM, one block per (128-row, 128-column)
-// output tile (not persistent). One producer warp keeps a ring of four
-// stages in flight with TMA: a (128 rows, 64-deep K) tile of x and the
+// output tile (not persistent), the tile loop `WgTile` of hopper.cuh
+// (shared with kernel J) with a ring of four stages. One producer warp keeps
+// the ring in flight with TMA: a (128 rows, 64-deep K) tile of x and the
 // matching (64-deep K, 128 columns) tile of W, 32 KB a stage, 128-byte
 // swizzled, on 2-D tensor maps; rows past R read as zero. Two consumer
 // warpgroups each own 64 rows x 128 columns (m64n128k16, accumulators in
@@ -42,16 +43,7 @@ namespace {
 
 // ---- bf16: TMA ring + wgmma ----
 
-struct WgLin {
-  static constexpr int BM = 128, BN = 128, BK = 64, kStages = 4;
-  static constexpr int kThreads = 2 * 128 + 32;  // consumer warpgroups, then the producer warp
-  static constexpr int kATile = BM * BK * 2;     // 16 KB
-  static constexpr int kBTile = BK * BN * 2;     // 16 KB
-  static constexpr int kStageBytes = kATile + kBTile;
-  static constexpr int kBarOff = kStages * kStageBytes;
-  // The ring, the barriers, and slack to align the start to 1024.
-  static constexpr int kSmem = kBarOff + 2 * kStages * 8 + 1024;
-};
+using WgLin = WgTile<4, false>;  // both forms' layout (kTransW changes only W's boxes)
 
 template <bool kTransW>
 __global__ void __launch_bounds__(WgLin::kThreads, 1)
@@ -61,76 +53,12 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   using C = WgLin;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
-  uint64_t* empty = full + C::kStages;
   const int n0 = blockIdx.x * C::BN, r0 = blockIdx.y * C::BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nk = K / C::BK;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::kStages; ++s) {
-      hop::mbar_init(&full[s], 1);
-      hop::mbar_init(&empty[s], 8);  // one arrival per consumer warp
-    }
-    hop::mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warp == 8) {  // the producer: one lane issues every TMA load
-    if (lane == 0) {
-      for (int j = 0; j < nk; ++j) {
-        const int s = j % C::kStages;
-        if (j >= C::kStages) hop::mbar_wait(&empty[s], (j / C::kStages - 1) & 1);
-        hop::mbar_expect_tx(&full[s], C::kStageBytes);
-        bf16* As = reinterpret_cast<bf16*>(smem + s * C::kStageBytes);
-        bf16* Bs = As + C::BM * C::BK;
-        hop::tma_load_2d(As, &tm_x, &full[s], j * C::BK, r0);
-        if constexpr (kTransW) {
-          hop::tma_load_2d(Bs, &tm_w, &full[s], j * C::BK, n0);  // (128 n, 64 k)
-        } else {
-          hop::tma_load_2d(Bs, &tm_w, &full[s], n0, j * C::BK);  // (64 k, 64 n) x 2
-          hop::tma_load_2d(Bs + 64 * 64, &tm_w, &full[s], n0 + 64, j * C::BK);
-        }
-      }
-    }
-    return;
-  }
-
-  // Consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile.
-  const int wg = warp / 4;
   float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  for (int j = 0; j < nk; ++j) {
-    const int s = j % C::kStages;
-    hop::mbar_wait(&full[s], (j / C::kStages) & 1);
-    const bf16* As = reinterpret_cast<const bf16*>(smem + s * C::kStageBytes) + wg * 64 * 64;
-    const bf16* Bs = reinterpret_cast<const bf16*>(smem + s * C::kStageBytes) + C::BM * C::BK;
-    hop::fence_regs(acc);
-    hop::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t da = hop::desc_sw128(As + kk * 16);
-      if constexpr (kTransW) {
-        hop::wgmma_ss_n128(acc, da, hop::desc_sw128(Bs + kk * 16), 1);
-      } else {
-        hop::wgmma_ss_n128_tn(acc, da, hop::desc_sw128_mn(Bs + kk * 16 * 64, 64 * 64 * 2));
-      }
-    }
-    hop::wgmma_commit();
-    hop::wgmma_wait<1>();  // the previous stage's products are done
-    hop::fence_regs(acc);
-    if (j > 0) {
-      __syncwarp();
-      if (lane == 0) hop::mbar_arrive(&empty[(j - 1) % C::kStages]);
-    }
-  }
-  hop::wgmma_wait<0>();
-  hop::fence_regs(acc);
+  if (!WgTile<4, kTransW>::run(smem, &tm_x, &tm_w, r0, n0, K / C::BK, acc)) return;
 
-  // Stage through this warpgroup's rows of the A tiles of stages 0 and 1:
-  // every TMA load into them has landed and every product that read them
-  // is done (the other warpgroup reads only its own rows and the B tiles).
+  // Stage through this warpgroup's rows of the A tiles of stages 0 and 1.
+  const int wg = threadIdx.x / 128;
   bf16* stage = reinterpret_cast<bf16*>(smem) + wg * 64 * 64;
   hop::store_acc_bf16<2>(acc, stage, C::kStageBytes / 2, bias == nullptr ? nullptr : bias + n0,
                          y + (size_t)(r0 + wg * 64) * N + n0, N, R - r0 - wg * 64);

@@ -42,17 +42,18 @@ SIGNATURES = {
     "lvd_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
     "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F] + [_I] * 3 + [_I, _P],
     "lvd_geglu": [_P] * 6 + [_I] * 8 + [_I, _P],
-    "lvd_geglu_stream": [_P] * 6 + [_I] * 4 + [_I, _P],
+    "lvd_geglu_stream": [_P] * 7 + [_I] * 8 + [_I, _P],
     "lvd_temp_conv": [_P] * 6 + [_I] * 9 + [_I, _P],
     "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
-    "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F, _I, _P],
+    "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F] + [_I] * 3 + [_I, _P],
     "lvd_geglu_bwd": [_P] * 6 + [_I] * 8 + [_I, _P],
     "lvd_linear": [_P] * 4 + [_I] * 4 + [_I, _P],
     "lvd_conv3x3": [_P] * 6 + [_I] * 10 + [_I, _P],
 }
 # Entry points that return a byte count instead of a CUDA error code (a
-# workspace size, or the dynamic shared memory of kernels A-E and G-I).
-SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 5,
+# workspace size, or the dynamic shared memory of kernels A-I).
+SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 6,
+                "lvd_temporal_pair_bwd_smem": [_I],
                 "lvd_attention_packed_smem": [_I] * 2,
                 "lvd_attention_packed_bwd_smem": [_I] * 3,
                 "lvd_linear_smem": [_I],

@@ -26,7 +26,12 @@ lvd_tpu's resident kernel. Kernel G has three forms (``bwd_launch_plan``):
 blocks, the interleaved W1, dx columns split between two blocks at
 C >= 384, ``dx_columns``), its first version ``wmma`` in fp32 there, and
 the ``general`` form at every other width; ``geglu_mlp_bwd.launches_by_form``
-counts each. Weight gradients are not part of this slice:
+counts each. Kernel J has two forms (``stream_launch_plan``): ``wgmma`` in
+bf16, two passes of 128 x 128 tiles (x times the interleaved W1 with the
+gate in the epilogue into a transient gated tensor in the stream's type,
+``gated_chunks``; then gated W2 + b2), and its first version ``wmma`` in
+fp32; ``geglu_stream.launches_by_form`` counts each. Weight gradients are
+not part of this slice:
 on the card a parameter that requires grad raises, on the CPU the plain
 formulation's autograd gives them.
 """
@@ -141,6 +146,33 @@ def dx_columns(c: int, half: int, wg: int):
     (2 half + wg) * wg_columns on, in 32-column GEMM2 pieces."""
     n = bwd_launch_plan(c, 4 * c, torch.bfloat16)["wg_columns"]
     return range((2 * half + wg) * n, (2 * half + wg + 1) * n)
+
+
+STREAM_FORMS = ("wgmma", "wmma")
+STREAM_FORM_CODES = {"wmma": 0, "wgmma": 1}
+
+
+def stream_launch_plan(dtype, form: str = None) -> dict:
+    """Kernel J's form and launch plan, which the kernel checks: ``wgmma``
+    in bf16, tiles of ``row_block`` = 128 rows, each pass-1 tile 128
+    interleaved W1 columns giving ``inner_chunk`` = 64 gated columns, each
+    pass-2 tile ``column_block`` = 128 output columns; the first version
+    ``wmma`` in fp32 (16 rows a block, 128-wide inner chunks, 128-column W2
+    tiles). ``form`` names one of them instead (the selfcheck times the
+    first version beside the new one)."""
+    if form is None:
+        form = "wgmma" if dtype == torch.bfloat16 else "wmma"
+    rows, chunk = (128, 64) if form == "wgmma" else (16, 128)
+    return {"form": form, "code": STREAM_FORM_CODES[form], "row_block": rows,
+            "inner_chunk": chunk, "column_block": 128}
+
+
+def gated_chunks():
+    """The pass-1 epilogue of kernel J's wgmma form: for each 8-column chunk
+    q of a tile's 64 gated columns, the chunks of the 128-column
+    accumulator (x times 128 columns of ``interleave_w1``'s W1: [h | g | h |
+    g] of 32 inner columns each) that hold its h and its g."""
+    return [(8 * (q // 4) + q % 4, 8 * (q // 4) + q % 4 + 4) for q in range(8)]
 
 
 def _gelu(g):
@@ -275,10 +307,10 @@ def _launch_forward(p, x):
     return out.reshape(x.shape)
 
 
-def geglu_stream(p, x):
+def geglu_stream(p, x, form: str = None):
     """Kernel J on a CUDA tensor: the k-streaming forward, for any row
-    count, any C % 8 == 0 (wide C in output-column slices) and
-    inner % 256 == 0."""
+    count, any C % 8 == 0 and inner % 256 == 0, in the form and plan
+    ``stream_launch_plan`` gives (or the form ``form`` names)."""
     _build.refuse_grad("geglu_stream", x)
     c = x.shape[-1]
     code = _build.dtype_code(x, "geglu_stream")
@@ -289,13 +321,20 @@ def geglu_stream(p, x):
         raise ValueError(f"geglu_stream: C={c}, inner={inner}; kernel J takes C % 8 == 0 and "
                          f"inner % {STREAM_INNER} == 0 (lvd_tpu's streaming form raises on "
                          "such an inner too)")
+    plan = stream_launch_plan(x.dtype, form)
+    gated = None
+    if plan["form"] == "wgmma":
+        w1 = interleave_w1(w1, inner)
+        gated = torch.empty((rows.shape[0], inner), dtype=x.dtype, device=x.device)
     out = torch.empty_like(rows)
     err = _build.lib().lvd_geglu_stream(
         rows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), rows.shape[0], c, inner, int(GELU_FORM != "tanh"), code,
-        _build.stream_of(rows))
+        None if gated is None else gated.data_ptr(), out.data_ptr(), rows.shape[0], c, inner,
+        int(GELU_FORM != "tanh"), plan["code"], plan["row_block"], plan["inner_chunk"],
+        plan["column_block"], code, _build.stream_of(rows))
     _build.check(err, "geglu_stream")
     geglu_stream.launches += 1
+    geglu_stream.launches_by_form[plan["form"]] += 1
     return out.reshape(x.shape)
 
 
@@ -375,5 +414,6 @@ def geglu_mlp(p, x):
 geglu_mlp.launches = 0
 geglu_mlp.launches_by_form = dict.fromkeys(FORMS, 0)
 geglu_stream.launches = 0
+geglu_stream.launches_by_form = dict.fromkeys(STREAM_FORMS, 0)
 geglu_mlp_bwd.launches = 0
 geglu_mlp_bwd.launches_by_form = dict.fromkeys(BWD_FORMS, 0)

@@ -25,17 +25,18 @@ bf16 reading, so a kernel that rounded fp32 to bf16 would fail. Every
 reference runs with ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` off.
 
-Kernels B, C, D, G, H and I record the form each call took
-(``launches_by_form``: ``wgmma`` in bf16, ``mma_sync`` in fp32; C's kept
-``wmma`` form for fp32 C > 384, I's for widths % 64 != 0, B's and G's first
-versions, ``wmma``, in fp32). B and G in their ``wgmma`` form also run and
-time their first version on the same inputs (``first_ms``,
-``first_rel_err``), held to no gate. C and D also time
-the same products alone through ``torch.matmul`` on pre-made operands
-(``products_ms``: x W1 and gated W2; the three shifted products): not a
-library call for the same function, and the port never calls it. C's
-Hopper forms and G's wgmma form also time the interleaved copy of W1 that
-each call makes (``copy_ms``, included in ``ms``).
+Kernels B-D and F-J record the form each call took (``launches_by_form``:
+``wgmma`` in bf16, ``mma_sync`` in fp32; C's kept ``wmma`` form for fp32
+C > 384, I's for widths % 64 != 0, B's, F's, G's and J's first versions,
+``wmma``, in fp32). B, F, G and J in their ``wgmma`` form also run and time
+their first version on the same inputs (``first_ms``, ``first_rel_err``),
+held to no gate. C, D, F and J also time the same products alone through
+``torch.matmul`` on pre-made operands (``products_ms``: x W1 and gated W2;
+the three shifted products; F's seven projections, [q | k | v] and the
+output of both attentions and dO and dz of both VJPs): not a library call
+for the same function, and the port never calls it. C's Hopper forms and
+the wgmma forms of G and J also time the interleaved copy of W1 that each
+call makes (``copy_ms``, included in ``ms``).
 
 Each shape is also timed with CUDA events: the kernel, the plain version
 on the same inputs, and where one PyTorch call computes the same function
@@ -298,14 +299,23 @@ def check_geglu_stream(gen, shape, dtype=torch.bfloat16):
     p = _cast({"proj": _linear_p(gen, c, 2 * inner), "out": _linear_p(gen, inner, c)}, dtype)
     x = _randn(gen, (rows, c)).to(dtype)
     fn = lambda: geglu_fused.geglu_stream(p, x)
-    out = _launched(geglu_fused.geglu_stream, fn)
+    out, form = _launched_form(geglu_fused.geglu_stream, fn)
     ref = _ref(geglu_fused.geglu_stream_plain, p, x)
     ms = time_ms(fn)
     plain_ms = time_ms(lambda: geglu_fused.geglu_stream_plain(p, x), 1, 2)
+    gated = _randn(gen, (rows, inner)).to(dtype)
+    w1, w2 = p["proj"]["w"], p["out"]["w"]
+    products_ms = time_ms(lambda: (torch.matmul(x, w1), torch.matmul(gated, w2)))
+    del gated
     flops = 6.0 * rows * c * inner
     nbytes = x.element_size() * (2 * rows * c + 3 * c * inner + 2 * inner + c)
-    return _record("geglu_stream", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops,
-                   nbytes)
+    rec = _record("geglu_stream", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops,
+                  nbytes) | {"form": form, "products_ms": products_ms}
+    if form == "wgmma":  # the first version beside the new form, on the same inputs
+        first = lambda: geglu_fused.geglu_stream(p, x, form="wmma")
+        rec |= _first_version(first(), ref, time_ms(first))
+        rec["copy_ms"] = time_ms(lambda: geglu_fused.interleave_w1(w1, inner))
+    return rec
 
 
 def check_temp_conv(gen, shape, dtype=torch.bfloat16):
@@ -380,17 +390,34 @@ def check_pair_bwd(gen, shape, dtype=torch.bfloat16):
         pp, yy, dd, heads, 1e-5, frames_major=True)
     fn = lambda: temporal_attention.temporal_attention_pair_bwd(p, y, dy, heads, 1e-5,
                                                                 frames_major=True)
-    out = fn()
+    out, form = _launched_form(temporal_attention.temporal_attention_pair_bwd, fn)
     ref = _ref(plain, p, y, dy)
     ms = time_ms(fn)
     plain_ms = time_ms(lambda: plain(p, y, dy), 1, 2)
     rows = b * f * pdim
+    # The seven projections alone on pre-made operands: [q | k | v] and the
+    # output projection of attention 1, [q | k | v] of attention 2, and dO
+    # and dz of both VJPs.
+    a, a3 = _randn(gen, (rows, c)).to(dtype), _randn(gen, (rows, 3 * c)).to(dtype)
+    wq = [torch.cat([p[n][m]["w"] for m in ("to_q", "to_k", "to_v")], 1)
+          for n in ("attn1", "attn2")]
+    wo = [p[n]["to_out"]["w"] for n in ("attn1", "attn2")]
+    products_ms = time_ms(lambda: (
+        torch.matmul(a, wq[0]), torch.matmul(a, wo[0]), torch.matmul(a, wq[1]),
+        torch.matmul(a, wo[1].t()), torch.matmul(a3, wq[1].t()), torch.matmul(a, wo[0].t()),
+        torch.matmul(a3, wq[0].t())))
+    del a, a3
     # Forward recompute (qkv1, attn1, out1, qkv2) and two attention VJPs
     # (dO, scores, dV, dP, dQ, dK, dz): 30 C^2 + 24 F C operations a row.
     flops = rows * (30.0 * c * c + 24.0 * f * c)
     nbytes = y.element_size() * (3 * rows * c + 2 * 4 * c * c) + 4.0 * 2 * 3 * c
-    return _record("temporal_attention_pair_bwd", shape, dtype, out, ref, PAIR_TOL, ms, plain_ms,
-                   flops, nbytes)
+    rec = _record("temporal_attention_pair_bwd", shape, dtype, out, ref, PAIR_TOL, ms, plain_ms,
+                  flops, nbytes) | {"form": form, "products_ms": products_ms}
+    if form == "wgmma":  # the first version beside the new form, on the same inputs
+        first = lambda: temporal_attention.temporal_attention_pair_bwd(
+            p, y, dy, heads, 1e-5, frames_major=True, form="wmma")
+        rec |= _first_version(first(), ref, time_ms(first))
+    return rec
 
 
 def check_geglu_bwd(gen, shape, dtype=torch.bfloat16):
@@ -425,8 +452,8 @@ def _launched(wrapper, fn):
 
 
 def _launched_form(wrapper, fn):
-    """``_launched`` for kernels B, C, D, G, H and I: (fn's result, the form
-    it took)."""
+    """``_launched`` for kernels B-D and F-J: (fn's result, the form it
+    took)."""
     before = dict(wrapper.launches_by_form)
     out = _launched(wrapper, fn)
     (form,) = [k for k, n in wrapper.launches_by_form.items() if n != before[k]]

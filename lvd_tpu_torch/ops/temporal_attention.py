@@ -12,11 +12,18 @@ tensors the forward launches kernel B (csrc/temporal_attention.cu,
 replacing ``_pallas_pair``) and the backward kernel F
 (csrc/temporal_attention_bwd.cu, replacing ``_pallas_pair_bwd``); on CPU
 tensors they run ``_pair_ref`` / ``_pair_ref_fm`` and
-``temporal_attention_pair_bwd_plain``. Kernel B has two forms
-(``launch_plan``, passed to the kernel, which refuses any other): ``wgmma``
-in bf16 (64-row blocks of whole pixels, ``block_rows``, keys masked to the
-row's pixel, ``key_mask``) and its first version ``wmma`` in fp32;
-``temporal_attention_pair.launches_by_form`` counts each. Weight gradients
+``temporal_attention_pair_bwd_plain``. The backward is routed as lvd_tpu's
+``_fused_pair_bwd`` routes it (``bwd_route``, from its ``_pick_g_bwd``):
+kernel F where the layout's own backward tile exists, kernel F on the
+frames-major stream where only the pixels-major tile does (lvd_tpu
+transposes around its kernel there; F's strides read either layout), and
+elsewhere the autograd VJP of ``_pair_ref`` / ``_pair_ref_fm`` on stock ops,
+lvd_tpu's unfused route. Kernels B and F have two forms each
+(``launch_plan``, ``bwd_launch_plan``, passed to the kernel, which refuses
+any other): ``wgmma`` in bf16 (64-row blocks of whole pixels,
+``block_rows``, keys masked to the row's pixel, ``key_mask``; F's weight
+ring in the order ``bwd_stages`` lists) and the first version ``wmma`` in
+fp32; ``launches_by_form`` counts each. Weight gradients
 are not part of this slice: on the card a parameter that requires grad
 raises, on the CPU the plain formulation's autograd gives them. The FF
 stage stays outside (ops.geglu_fused).
@@ -88,6 +95,109 @@ def key_mask(f: int):
     of its own pixel (row // F == key // F)."""
     r = torch.arange(ROW_BLOCK)
     return (r[:, None] // f) == (r[None, :] // f)
+
+
+def _pick_g_bwd(pdim: int, c: int, frames_major: bool = False) -> int:
+    """lvd_tpu's backward pixel group (temporal_attention.py:325-345): the
+    first of its measured tiles that divides P, (10, 16, 12, 8, 6, 5, 4)
+    pixels-major at C <= 384 and (6, 5, 4) wider; frames-major (8, 16) at
+    C <= 384 and none wider. 0 where none fits."""
+    if frames_major:
+        order = (8, 16) if c <= 384 else ()
+    else:
+        order = (10, 16, 12, 8, 6, 5, 4) if c <= 384 else (6, 5, 4)
+    return next((g for g in order if pdim % g == 0), 0)
+
+
+def bwd_route(pdim: int, c: int, frames_major: bool = False) -> str:
+    """The backward's route, lvd_tpu's ``_fused_pair_bwd`` clause for clause
+    (temporal_attention.py:452-478): "kernel" where the layout's own tile
+    exists, "pixels_major" where a frames-major stream has only the
+    pixels-major tile (lvd_tpu runs that kernel between two transposes; the
+    port launches kernel F on the stream as it is), else "stock" (the VJP of
+    the plain pair)."""
+    if _pick_g_bwd(pdim, c, frames_major) > 0:
+        return "kernel"
+    if frames_major and _pick_g_bwd(pdim, c) > 0:
+        return "pixels_major"
+    return "stock"
+
+
+def _wmma_bwd_tile(f: int, c: int, itemsize: int):
+    """Kernel F's first version's tile (csrc/temporal_attention_bwd.cu
+    `pick_tile`): the first of G = 2, 1 pixels whose R = G F rows (rounded
+    up to 16, at most 64) fit its shared-memory layout, x in shared memory
+    if it fits, else in the workspace. (G, R), or (0, 0)."""
+    pad = 32 // itemsize
+    take = lambda nbytes: -(-nbytes // 128) * 128
+    for xs_smem in (True, False):
+        for g in (2, 1):
+            r = -(-g * f // 16) * 16
+            rows = take(r * (c + pad) * itemsize)
+            head = take(r * (HEAD_DIM + pad) * itemsize)
+            total = ((2 if xs_smem else 1) * rows + 7 * head + 2 * take(r * r * 4)
+                     + 2 * take(r * r * itemsize) + take(16 * r) + take(8 * 256 * 4))
+            if r <= 64 and total <= MAX_SMEM:
+                return g, r
+    return 0, 0
+
+
+def bwd_launch_plan(f: int, c: int, dtype, form: str = None) -> dict:
+    """Kernel F's form and launch plan, which the kernel checks: ``wgmma``
+    in bf16 up to F = 64, 64-row tiles of ``pixels`` = 64 // F whole pixels
+    (kernel B's ``block_rows``), one persistent block per SM walking them;
+    the first version ``wmma`` in fp32 and past F = 64, G pixels in R rows as
+    its tile search picks them (``_wmma_bwd_tile``). ``form`` names one of
+    them instead (the selfcheck times the first version beside the new
+    one)."""
+    if form is None:
+        form = "wgmma" if dtype == torch.bfloat16 and f <= ROW_BLOCK else "wmma"
+    if form == "wgmma":
+        rows, pixels = ROW_BLOCK, ROW_BLOCK // f
+    else:
+        pixels, rows = _wmma_bwd_tile(f, c, dtype.itemsize)
+    return {"form": form, "code": FORM_CODES[form], "row_block": rows, "pixels": pixels}
+
+
+def bwd_stages(c: int):
+    """The order in which the wgmma form's producer streams one 64-row
+    tile's operands through its ring, as its two consumer warpgroups take
+    them. A stage is two 64 x 64 weight boxes, (matrix, (column, row) of
+    warpgroup 0's box, (column, row) of warpgroup 1's) of the stacked
+    ``wqkv`` (C, 3C) or ``wo`` (C, C) of attention 1 or 2, or one tile of
+    the block's workspace, ("dqkv1" / "dqkv2", k): columns 64 k.. of
+    [dq | dk | dv]. In order: the forward (per head pair j, k, v and q of
+    heads 2 j and 2 j + 1 as C / 64 column boxes; attention 1's output
+    projection, output blocks 2 i and 2 i + 1; attention 2's k, v, q), then
+    per attention, 2 before 1: dO (per head pair, the heads' rows of wo as
+    C / 64 boxes read as wo^T), and dz (per pair of 64-column output blocks,
+    each of the 3C / 64 contraction steps a workspace tile, then the blocks'
+    rows of wqkv read as wqkv^T)."""
+    h = c // 64
+    pairs = -(-h // 2)
+    stages = []
+
+    def boxes(m, c0, r0, dc, dr):
+        stages.append((m, (c0, r0), (c0 + dc, r0 + dr)))
+
+    for at in "12":
+        for j in range(pairs):
+            for m in range(3):
+                for kt in range(h):
+                    boxes("wqkv" + at, (0 if m == 2 else m + 1) * c + 128 * j, 64 * kt, 64, 0)
+        if at == "1":
+            for i in range(pairs):
+                for kt in range(h):
+                    boxes("wo1", 128 * i, 64 * kt, 64, 0)
+    for at in "21":
+        for j in range(pairs):
+            for kt in range(h):
+                boxes("wo" + at, 64 * kt, 128 * j, 0, 64)
+        for i in range(pairs):
+            for kt in range(3 * h):
+                stages.append(("dqkv" + at, kt))
+                boxes("wqkv" + at, 64 * kt, 128 * i, 0, 64)
+    return stages
 
 
 def _ln_stats(p, x, eps):
@@ -275,8 +385,10 @@ def _launch_forward(p, y, num_heads, eps, frames_major, form=None):
 
 
 def temporal_attention_pair_bwd(p, y, dy, num_heads: int, eps: float = 1e-5,
-                                frames_major: bool = False):
-    """dy of the pair: kernel F on CUDA tensors, the plain version on CPU."""
+                                frames_major: bool = False, form: str = None):
+    """dy of the pair: kernel F on CUDA tensors, in the form and plan
+    ``bwd_launch_plan`` gives (or the form ``form`` names), the plain version
+    on CPU."""
     if y.device.type == "cpu":
         return temporal_attention_pair_bwd_plain(p, y, dy, num_heads, eps, frames_major)
     _build.refuse_grad("temporal_attention_pair_bwd", y, dy)
@@ -287,24 +399,37 @@ def temporal_attention_pair_bwd(p, y, dy, num_heads: int, eps: float = 1e-5,
     if c != num_heads * HEAD_DIM or dy.shape != y.shape:
         raise ValueError(f"temporal_attention_pair_bwd: y {tuple(y.shape)}, dy "
                          f"{tuple(dy.shape)} with {num_heads} heads of {HEAD_DIM}")
+    plan = bwd_launch_plan(f, c, y.dtype, form)
     weights = _pair_weights(p, y.dtype)
     lib = _build.lib()
-    ws_bytes = lib.lvd_temporal_pair_bwd_workspace(b, f, pdim, c, code)
+    ws_bytes = lib.lvd_temporal_pair_bwd_workspace(b, f, pdim, c, plan["code"], code)
     if ws_bytes < 0:
         raise ValueError(f"temporal_attention_pair_bwd: unsupported shape {tuple(y.shape)}")
     ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=y.device)
     out = torch.empty_like(y)
     err = lib.lvd_temporal_pair_bwd(
         y.data_ptr(), dy.data_ptr(), out.data_ptr(), *[w.data_ptr() for w in weights],
-        ws.data_ptr(), b, f, pdim, c, num_heads, *strides, float(eps), code,
-        _build.stream_of(y))
+        ws.data_ptr(), b, f, pdim, c, num_heads, *strides, float(eps), plan["code"],
+        plan["row_block"], plan["pixels"], code, _build.stream_of(y))
     _build.check(err, "temporal_attention_pair_bwd")
     temporal_attention_pair_bwd.launches += 1
+    temporal_attention_pair_bwd.launches_by_form[plan["form"]] += 1
     return out
 
 
+def _stock_dy(p, y, dy, num_heads, eps, frames_major):
+    """dy where lvd_tpu has no backward tile: the autograd VJP of the plain
+    pair, in y's type (lvd_tpu's unfused recompute VJP)."""
+    with torch.enable_grad():
+        leaf = y.detach().requires_grad_(True)
+        out = temporal_attention_pair_plain(p, leaf, num_heads, eps, frames_major)
+        (dx,) = torch.autograd.grad(out, leaf, dy)
+    return dx
+
+
 class TemporalPair(torch.autograd.Function):
-    """Forward kernel B, backward kernel F in y (plain versions on the CPU)."""
+    """Forward kernel B, backward kernel F or the stock VJP in y, as lvd_tpu
+    routes them (``bwd_route``; plain versions of the kernels on the CPU)."""
 
     @staticmethod
     def forward(ctx, y, p, num_heads, eps, frames_major):
@@ -320,8 +445,12 @@ class TemporalPair(torch.autograd.Function):
     def backward(ctx, dy):
         (y,) = ctx.saved_tensors
         p, num_heads, eps, frames_major = ctx.args
-        return (temporal_attention_pair_bwd(p, y, dy, num_heads, eps, frames_major),
-                None, None, None, None)
+        pdim = y.shape[2] if frames_major else y.shape[1]
+        if bwd_route(pdim, y.shape[-1], frames_major) == "stock":
+            dx = _stock_dy(p, y, dy, num_heads, eps, frames_major)
+        else:
+            dx = temporal_attention_pair_bwd(p, y, dy, num_heads, eps, frames_major)
+        return dx, None, None, None, None
 
 
 def temporal_attention_pair(p, y, num_heads: int, eps: float = 1e-5,
@@ -343,3 +472,4 @@ def temporal_attention_pair(p, y, num_heads: int, eps: float = 1e-5,
 temporal_attention_pair.launches = 0
 temporal_attention_pair.launches_by_form = dict.fromkeys(FORMS, 0)
 temporal_attention_pair_bwd.launches = 0
+temporal_attention_pair_bwd.launches_by_form = dict.fromkeys(FORMS, 0)

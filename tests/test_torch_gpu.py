@@ -538,21 +538,37 @@ def test_geglu_forms_match_plain(cuda, c, gelu, dtype, monkeypatch):
         assert errs[dtype] <= FP32_TOL and errs[dtype] < errs[torch.bfloat16]
 
 
-@pytest.mark.parametrize("kernel", ["C", "D", "B", "G"])
+@pytest.mark.parametrize("kernel", ["C", "D", "B", "G", "F", "J"])
 def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch):
-    """Kernels B, C, D and G check the wrapper's launch plan: C's and G's
-    split (1 at C = 320, 2 at 640) and rows a block, D's m64 tiles, window
-    rows and first frame, B's rows and pixels a block; each changed value
-    is refused, and the plan as given launches."""
+    """Kernels B, C, D, F, G and J check the wrapper's launch plan: C's and
+    G's split (1 at C = 320, 2 at 640) and rows a block, D's m64 tiles,
+    window rows and first frame, B's and F's rows and pixels a block (and
+    form), J's rows, inner chunk and column block (and form); each changed
+    value is refused, and the plan as given launches."""
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.ops import geglu_fused as gf
     from lvd_tpu_torch.ops import temp_conv_fused as tc
     from lvd_tpu_torch.ops import temporal_attention as ta
 
     g = torch.Generator(device=cuda).manual_seed(12)
-    if kernel in ("B", "G"):
+    if kernel in ("B", "G", "F", "J"):
         cases = []
-        if kernel == "B":
+        if kernel == "F":
+            mod, name = ta, "bwd_launch_plan"
+            changes = [("pixels", 1), ("pixels", 3), ("row_block", 48), ("code", 0)]
+            for c in (320, 640):
+                p = cast_tree(_pair_params(c, g, cuda), torch.bfloat16)
+                y = torch.randn(1, 24, 16, c, generator=g, device=cuda).bfloat16()
+                cases.append((lambda p=p, y=y, c=c: ta.temporal_attention_pair_bwd(
+                    p, y, y, c // 64, 1e-5, True), (24, c, torch.bfloat16)))
+        elif kernel == "J":
+            mod, name = gf, "stream_launch_plan"
+            changes = [("row_block", 64), ("row_block", 16), ("inner_chunk", 128),
+                       ("column_block", 64), ("code", 0)]
+            p = cast_tree(_ff_params(1280, 5120, g, cuda), torch.bfloat16)
+            x = torch.randn(300, 1280, generator=g, device=cuda).bfloat16()
+            cases.append((lambda: gf.geglu_stream(p, x), (torch.bfloat16,)))
+        elif kernel == "B":
             mod, name = ta, "launch_plan"
             changes = [("pixels", 1), ("pixels", 3), ("row_block", 48), ("code", 2)]
             for c in (320, 640):
@@ -695,6 +711,71 @@ def test_pair_wgmma_form_matches_plain(cuda, f, p, c, frames_major):
     err, err_first = _rel(out, ref), _rel(first, ref)
     print(f"kernel B F={f} P={p} C={c} fm={frames_major}: wgmma {err:.3g}, wmma {err_first:.3g}")
     assert torch.isfinite(out).all() and err <= 4.5e-2
+
+
+@pytest.mark.parametrize("f,p,c,frames_major", [
+    (24, 2880, 320, True), (24, 2880, 512, True), (24, 720, 640, True), (24, 45, 640, False),
+    (24, 45, 320, True), (5, 45, 128, False), (16, 33, 192, True), (64, 7, 320, False)])
+def test_pair_bwd_wgmma_form_matches_plain(cuda, f, p, c, frames_major):
+    """Kernel F's wgmma form at the selfcheck's shapes, at ragged pixel
+    counts in both layouts, at F = 5, 16 and 64 (12, 4 and 1 pixels a
+    64-row tile) and odd head counts (C = 320, 192), launched directly,
+    against the plain dy on fp32 copies: lvd_tpu's pair gate, 4.5e-2. The
+    first version runs on the same inputs for comparison."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import temporal_attention as ta
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(23)
+    params = _pair_params(c, g, cuda)
+    shape = (1, f, p, c) if frames_major else (1, p, f, c)
+    y = torch.randn(shape, generator=g, device=cuda)
+    dy = torch.randn(shape, generator=g, device=cuda)
+    pb, yb, dyb = cast_tree(params, torch.bfloat16), y.bfloat16(), dy.bfloat16()
+    before = dict(ta.temporal_attention_pair_bwd.launches_by_form)
+    with torch.no_grad():
+        out = ta.temporal_attention_pair_bwd(pb, yb, dyb, c // 64, 1e-5, frames_major)
+        first = ta.temporal_attention_pair_bwd(pb, yb, dyb, c // 64, 1e-5, frames_major, "wmma")
+        with exact_fp32():
+            ref = ta.temporal_attention_pair_bwd_plain(params, y, dy, c // 64, 1e-5,
+                                                        frames_major)
+    after = ta.temporal_attention_pair_bwd.launches_by_form
+    assert {k: after[k] - before[k] for k in after} == {"wgmma": 1, "wmma": 1}
+    err, err_first = _rel(out, ref), _rel(first, ref)
+    print(f"kernel F F={f} P={p} C={c} fm={frames_major}: wgmma {err:.3g}, wmma {err_first:.3g}")
+    assert torch.isfinite(out).all() and err <= 4.5e-2
+
+
+@pytest.mark.parametrize("gelu", ["tanh", "exact"])
+@pytest.mark.parametrize("rows,c", [(1000, 1280), (4320, 1280), (2085, 640), (70, 2816),
+                                    (300, 136)])
+def test_geglu_stream_wgmma_form_matches_plain(cuda, rows, c, gelu, monkeypatch):
+    """Kernel J's wgmma form at every GEGLU_STREAM_SHAPES width (C = 1280
+    and 640), at C2's widths past the first version's one block (2816) and
+    at a C that is not a multiple of the 128-column tile (136), ragged row
+    counts, inner = 4C, against the plain version on fp32 copies: 2e-2. The
+    first version runs on the same inputs for comparison."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+
+    monkeypatch.setattr(gf, "GELU_FORM", gelu)
+    g = torch.Generator(device=cuda).manual_seed(24)
+    inner = 4 * c if c % 64 == 0 else 512
+    p = _ff_params(c, inner, g, cuda)
+    x = torch.randn(rows, c, generator=g, device=cuda)
+    pb = cast_tree(p, torch.bfloat16)
+    before = dict(gf.geglu_stream.launches_by_form)
+    with torch.no_grad():
+        out = gf.geglu_stream(pb, x.bfloat16())
+        first = gf.geglu_stream(pb, x.bfloat16(), form="wmma")
+        with exact_fp32():
+            ref = gf.geglu_stream_plain(p, x)
+    after = gf.geglu_stream.launches_by_form
+    assert {k: after[k] - before[k] for k in after} == {"wgmma": 1, "wmma": 1}
+    err, err_first = _rel(out, ref), _rel(first, ref)
+    print(f"kernel J rows={rows} C={c} {gelu}: wgmma {err:.3g}, wmma {err_first:.3g}")
+    assert torch.isfinite(out).all() and err <= 2e-2
 
 
 @pytest.mark.parametrize("gelu", ["tanh", "exact"])

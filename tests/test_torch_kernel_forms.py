@@ -1,4 +1,4 @@
-"""Kernels C, D, H and I: which form each path shape takes, and the index
+"""Kernels B-D and F-J: which form each path shape takes, and the index
 arithmetic of their Hopper forms, on the CPU.
 
 The CUDA kernels run only on the card; what a CPU run can hold is the
@@ -51,8 +51,28 @@ form of kernel I uses (``ops/conv3x3.py``: ``launch_plan``,
   ``_fused_rows_bwd_resident`` in interpret mode and the plain dx, at
   C = 192 and 448, both GELU forms.
 
-Every selfcheck shape of B and G takes its ``wgmma`` form in bf16 and the
-first version (``wmma``) in fp32.
+- kernel F's wgmma form (``ops/temporal_attention.py``:
+  ``bwd_launch_plan``, ``block_rows``, ``key_mask``, ``bwd_stages``): 64-row
+  tiles of whole pixels from either layout, zero padding rows, keys masked
+  to each row's pixel, heads in pairs, every weight box and workspace tile
+  taken from the ring in the order ``bwd_stages`` lists (the stream used up
+  exactly); the forward recomputed with q/k/v kept, dO, P, dV, dP, dL, dQ,
+  dK per head, dz in 64-column blocks from the [dq | dk | dv] tiles, the
+  LayerNorm VJPs, equals lvd_tpu's ``_pallas_pair_bwd`` in interpret mode
+  and the plain dy, at F = 5 and 24, ragged P, H = 2 and 1 (warpgroup 1's
+  head past H);
+- kernel J's wgmma form (``ops/geglu_fused.py``: ``stream_launch_plan``,
+  ``gated_chunks``, ``interleave_w1``): 128-row tiles, each 128 columns of
+  the interleaved W1 holding h and g of 64 inner columns in the chunks
+  ``gated_chunks`` names, the gated tensor rounded to the stream's type,
+  then gated W2 + b2 in 128-column tiles, equals lvd_tpu's ``_fused_rows``
+  streaming branch in interpret mode and the plain version, at C = 72 and
+  128, both GELU forms.
+
+Every selfcheck shape of B, F and G takes its ``wgmma`` form in bf16 and
+the first version (``wmma``) in fp32, and so does J at every
+``GEGLU_STREAM_SHAPES`` width; every F shape is one lvd_tpu's backward
+route gives a kernel.
 """
 
 import numpy as np
@@ -322,6 +342,16 @@ def test_pair_and_geglu_bwd_shapes_take_their_forms(on_tpu, dtype):
                                            c // 64)
         plan = t_ta.launch_plan(f, c, tdt)
         assert plan["form"] == want and plan["pixels"] * f <= plan["row_block"]
+        # lvd_tpu's backward takes a kernel there, and the port kernel F.
+        if (b, f, p, c) in selfcheck.PAIR_BWD_SHAPES:
+            assert j_ta._pick_g_bwd(p, c, True) or j_ta._pick_g_bwd(p, c, False)
+            assert t_ta.bwd_route(p, c, True) != "stock"
+            plan = t_ta.bwd_launch_plan(f, c, tdt)
+            assert plan["form"] == want and plan["pixels"] * f <= plan["row_block"]
+    for rows, c in selfcheck.GEGLU_STREAM_SHAPES:
+        assert t_gf.stream_launch_plan(tdt)["form"] == want
+        if c == 1280:  # lvd_tpu streams the C = 1280 feed-forward in either type
+            assert t_gf.forward_kernel(c, 4 * c, tdt) == "J"
     routed = [c for _, c in selfcheck.GEGLU_BWD_SHAPES if t_gf.dx_route(c, 4 * c, tdt) == "G"]
     # fp32 weights of C = 512 and 640 exceed lvd_tpu's resident budget: stock dx.
     assert routed == {"bfloat16": [320, 512, 640], "float32": [320]}[dtype]
@@ -480,3 +510,214 @@ def test_geglu_bwd_chunk_plan_gives_lvd_tpu(form, c, monkeypatch):
     p = {"proj": {"w": torch.from_numpy(w1), "b": torch.from_numpy(b1)},
          "out": {"w": torch.from_numpy(w2), "b": torch.zeros(c)}}
     _close(got, t_gf.geglu_mlp_bwd_plain(p, torch.from_numpy(x), torch.from_numpy(dy)).numpy())
+
+
+def _block_plan_pair_bwd(p, y, dy, heads, frames_major):
+    """Kernel F's wgmma form in torch: per (batch, 64-row tile) the rows of
+    ``block_rows`` (zero past the tile's pixels); every weight box and
+    workspace tile is taken from ``bwd_stages`` in order (two 64 x 64 boxes
+    a stage, zero past the matrices, K-major boxes read transposed). The
+    forward: LN1, heads in pairs (warpgroup j: head 2 i + j, its k, v, q
+    from its boxes), scores masked by ``key_mask``, outputs stored for heads
+    < H, the output projection + bias + x0 = x1 on the valid rows, LN2, q/k/v
+    of attention 2; q/k/v of both kept. Then attention 2's VJP with u = dy
+    and attention 1's with u = dx1: per head dO, P, dV, dP, dL, dQ, dK; dz
+    from the [dq | dk | dv] tiles in 64-column blocks per warpgroup; the
+    LayerNorm VJP on the valid rows."""
+    if frames_major:
+        y, dy = y.transpose(1, 2), dy.transpose(1, 2)
+    bsz, pdim, f, c = y.shape
+    plan = t_ta.bwd_launch_plan(f, c, torch.bfloat16)
+    assert plan["form"] == "wgmma" and plan["row_block"] == 64
+    pairs = -(-heads // 2)
+    mask = t_ta.key_mask(f)
+    mats = {}
+    for at in "12":
+        pa = p["attn" + at]
+        mats["wqkv" + at] = torch.cat([pa[n]["w"] for n in ("to_q", "to_k", "to_v")], dim=1)
+        mats["wo" + at] = pa["to_out"]["w"]
+
+    def box(m, col, row):
+        out = torch.zeros(64, 64)
+        sub = mats[m][row:row + 64, col:col + 64]
+        out[:sub.shape[0], :sub.shape[1]] = sub
+        return out
+
+    def ln(x, norm, ok):
+        mean = x.mean(-1, keepdim=True)
+        rstd = torch.rsqrt(((x * x).mean(-1, keepdim=True) - mean * mean).clamp(min=0) + 1e-5)
+        z = (x - mean) * rstd * norm["scale"] + norm["bias"]
+        return torch.where(ok[:, None], z, torch.zeros(())), (x - mean) * rstd, rstd
+
+    def probs(q, k):
+        s_ = (q @ k.T) * 64 ** -0.5
+        return torch.softmax(s_.masked_fill(~mask, float("-inf")), dim=-1)
+
+    out = torch.full_like(y, float("nan"))
+    for bi in range(bsz):
+        for blk in range(-(-pdim // plan["pixels"])):
+            pix, frame, ok = t_ta.block_rows(f, pdim, blk)
+            rows = lambda t: torch.where(ok[:, None], t[bi, pix.clamp(max=pdim - 1), frame],
+                                         torch.zeros(()))
+            x0, u2 = rows(y), rows(dy)
+            stream = iter(t_ta.bwd_stages(c))
+
+            def gemm(a, k_major=False):  # the next C / 64 stages, each warpgroup's box
+                acc = [torch.zeros(64, 64), torch.zeros(64, 64)]
+                for kt in range(a.shape[1] // 64):
+                    m, *boxes = next(stream)
+                    for wg, (col, row) in enumerate(boxes):
+                        w = box(m, col, row)
+                        acc[wg] += a[:, 64 * kt:64 * kt + 64] @ (w.T if k_major else w)
+                return acc
+
+            def qkv_of(z):
+                kept = {}
+                for j in range(pairs):
+                    k_, v_, q_ = gemm(z), gemm(z), gemm(z)
+                    for wg in (0, 1):
+                        kept[2 * j + wg] = (q_[wg], k_[wg], v_[wg])
+                return kept
+
+            z1, xhat1, rstd1 = ln(x0, p["norm1"], ok)
+            qkv1 = qkv_of(z1)
+            o = torch.zeros(64, c)
+            for head in range(heads):
+                q_, k_, v_ = qkv1[head]
+                o[:, 64 * head:64 * head + 64] = probs(q_, k_) @ v_
+            x1 = x0.clone()
+            for i in range(pairs):
+                acc = gemm(o)
+                for wg in (0, 1):
+                    cols = slice(64 * (2 * i + wg), 64 * (2 * i + wg) + 64)
+                    if 2 * i + wg < heads:
+                        x1[:, cols] = x0[:, cols] + acc[wg] + p["attn1"]["to_out"]["b"][cols]
+            x1 = torch.where(ok[:, None], x1, torch.zeros(()))
+            z2, xhat2, rstd2 = ln(x1, p["norm2"], ok)
+            qkv2 = qkv_of(z2)
+
+            def vjp(at, qkv, u):
+                d = {}
+                for j in range(pairs):
+                    do_ = gemm(u, k_major=True)
+                    for wg in (0, 1):
+                        head = 2 * j + wg
+                        if head >= heads:
+                            continue
+                        q_, k_, v_ = qkv[head]
+                        pr = probs(q_, k_)
+                        dp = do_[wg] @ v_.T
+                        dl = (dp * pr - pr * (dp * pr).sum(-1, keepdim=True)) * 64 ** -0.5
+                        d[0, head], d[1, head], d[2, head] = dl @ k_, dl.T @ q_, pr.T @ do_[wg]
+                dqkv = torch.cat([d[m, head] for m in range(3) for head in range(heads)], dim=1)
+                dz = torch.zeros(64, c)
+                for i in range(pairs):
+                    acc = [torch.zeros(64, 64), torch.zeros(64, 64)]
+                    for kt in range(3 * heads):
+                        assert next(stream) == ("dqkv" + at, kt)
+                        m, *boxes = next(stream)
+                        for wg, (col, row) in enumerate(boxes):
+                            acc[wg] += dqkv[:, 64 * kt:64 * kt + 64] @ box(m, col, row).T
+                    for wg in (0, 1):
+                        if 2 * i + wg < heads:
+                            dz[:, 64 * (2 * i + wg):64 * (2 * i + wg) + 64] = acc[wg]
+                return dz
+
+            def ln_vjp(dz, xhat, rstd, norm):
+                g = dz * norm["scale"]
+                return rstd * (g - g.mean(-1, keepdim=True)
+                               - xhat * (g * xhat).mean(-1, keepdim=True))
+
+            dx1 = u2 + ln_vjp(vjp("2", qkv2, u2), xhat2, rstd2, p["norm2"])
+            dx1 = torch.where(ok[:, None], dx1, torch.zeros(()))
+            dx0 = dx1 + ln_vjp(vjp("1", qkv1, dx1), xhat1, rstd1, p["norm1"])
+            assert next(stream, None) is None  # the tile used up the stream exactly
+            for r in torch.nonzero(ok).flatten().tolist():
+                out[bi, pix[r], frame[r]] = dx0[r]
+    return out.transpose(1, 2) if frames_major else out
+
+
+@pytest.mark.parametrize("f,pdim,c,frames_major", [(5, 16, 128, True), (24, 5, 64, False)])
+def test_pair_bwd_block_plan_gives_lvd_tpu(f, pdim, c, frames_major):
+    """F = 5 frames-major: 12 pixels a tile, 16 pixels (the second tile
+    four), two heads; F = 24 pixels-major: 2 pixels a tile, 5 pixels (the
+    last tile one), one head (warpgroup 1's head past H)."""
+    rng = np.random.default_rng(37)
+    heads = c // 64
+    p = _pair_params_np(rng, c)
+    shape = (2, f, pdim, c) if frames_major else (2, pdim, f, c)
+    y = rng.standard_normal(shape).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+    tree = lambda fn: {k: {n: {m: fn(t) for m, t in w.items()} if isinstance(w, dict) else fn(w)
+                           for n, w in v.items()} for k, v in p.items()}
+    tp = tree(torch.from_numpy)
+    got = _block_plan_pair_bwd(tp, torch.from_numpy(y), torch.from_numpy(dy), heads,
+                               frames_major)
+    g = j_ta._pick_g_bwd(pdim, c, frames_major)
+    assert g > 0
+    _close(got.numpy(), j_ta._pallas_pair_bwd(tree(jnp.asarray), jnp.asarray(y), jnp.asarray(dy),
+                                              heads, g, 1e-5, frames_major=frames_major,
+                                              interpret=True))
+    _close(got.numpy(), t_ta.temporal_attention_pair_bwd_plain(
+        tp, torch.from_numpy(y), torch.from_numpy(dy), heads, 1e-5, frames_major).numpy())
+
+
+def _two_pass_geglu(x, w1, b1, w2, b2):
+    """Kernel J's wgmma form in torch: tiles of ``row_block`` rows (rows
+    past R zero); pass 1: x times each 128 columns of the interleaved W1
+    (zero past C), the h and g chunks ``gated_chunks`` names for each of
+    the tile's 64 gated columns, + b1, the gate, rounded to the stream's
+    type into the (R, inner) gated tensor; pass 2: gated times each
+    ``column_block`` columns of W2, + b2, columns past C not stored."""
+    r, c = x.shape
+    inner = w2.shape[0]
+    plan = t_gf.stream_launch_plan(torch.bfloat16)
+    rb, ch, cb = plan["row_block"], plan["inner_chunk"], plan["column_block"]
+    w1i = t_gf.interleave_w1(w1, inner)
+    gated = torch.empty(r, inner)
+    for r0 in range(0, r, rb):
+        n = min(rb, r - r0)
+        xb = torch.zeros(rb, c)
+        xb[:n] = x[r0:r0 + n]
+        for n0 in range(0, 2 * inner, 2 * ch):
+            acc = xb @ w1i[:, n0:n0 + 2 * ch]
+            i0 = n0 // 2
+            for q, (hc, gc) in enumerate(t_gf.gated_chunks()):
+                cols = slice(i0 + 8 * q, i0 + 8 * q + 8)
+                assert torch.equal(w1i[:, n0 + 8 * hc:n0 + 8 * hc + 8], w1[:, cols])
+                assert torch.equal(w1i[:, n0 + 8 * gc:n0 + 8 * gc + 8],
+                                   w1[:, inner + i0 + 8 * q:inner + i0 + 8 * q + 8])
+                h = acc[:, 8 * hc:8 * hc + 8] + b1[cols]
+                g = acc[:, 8 * gc:8 * gc + 8] + b1[inner + i0 + 8 * q:inner + i0 + 8 * q + 8]
+                gated[r0:r0 + n, cols] = (h * t_gf._gelu(g)).to(x.dtype)[:n]
+    out = torch.full_like(x, float("nan"))
+    for r0 in range(0, r, rb):
+        n = min(rb, r - r0)
+        gb = torch.zeros(rb, inner)
+        gb[:n] = gated[r0:r0 + n]
+        for n0 in range(0, c, cb):
+            out[r0:r0 + n, n0:n0 + cb] = (gb @ w2[:, n0:n0 + cb] + b2[n0:n0 + cb])[:n]
+    return out
+
+
+@pytest.mark.parametrize("form", ["tanh", "exact"])
+@pytest.mark.parametrize("c", [72, 128])
+def test_geglu_stream_two_pass_plan_gives_lvd_tpu(form, c, monkeypatch):
+    """C = 72 (one 128-column output tile, 72 columns stored) and 128,
+    inner 512 (eight gated tiles of 64), 300 rows (the last 128-row tile
+    ragged)."""
+    monkeypatch.setattr(j_gf, "GELU_FORM", form)
+    monkeypatch.setattr(t_gf, "GELU_FORM", form)
+    r, inner = 300, 512
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal((r, c)).astype(np.float32)
+    w1 = (rng.standard_normal((c, 2 * inner)) * c ** -0.5).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(2 * inner)).astype(np.float32)
+    w2 = (rng.standard_normal((inner, c)) * inner ** -0.5).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    got = _two_pass_geglu(*map(torch.from_numpy, (x, w1, b1, w2, b2))).numpy()
+    args = tuple(map(jnp.asarray, (x, w1, b1, w2, b2)))
+    _close(got, j_gf._fused_rows(*args, block_m=128, block_k=256, interpret=True))
+    p = {"proj": {"w": torch.from_numpy(w1), "b": torch.from_numpy(b1)},
+         "out": {"w": torch.from_numpy(w2), "b": torch.from_numpy(b2)}}
+    _close(got, t_gf.geglu_stream_plain(p, torch.from_numpy(x)).numpy())

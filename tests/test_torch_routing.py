@@ -1,5 +1,5 @@
-"""Kernels A, B and D: the port's routing predicates against lvd_tpu's, on
-the CPU.
+"""Kernels A, B, D and F: the port's routing predicates against lvd_tpu's,
+on the CPU.
 
 lvd_tpu launches a Pallas kernel only where its predicate holds on the TPU
 and runs XLA elsewhere; the port launches its CUDA kernel where the same
@@ -20,10 +20,20 @@ fp16:
   against lvd_tpu's at P in {16, 180, 600, 720, 900, 2880}, for both stream
   layouts, 64-wide heads at C = 320, 640 and 1280 and 80-wide ones at 320.
 
+- kernel F (``temporal_attention.bwd_route``, which ``TemporalPair``'s
+  backward follows) against lvd_tpu's ``_fused_pair_bwd``, spied through
+  its three routes (its backward kernel in the layout, the pixels-major
+  kernel between two transposes, the unfused VJP) at P in 1..64 and the
+  path's pixel counts, C in {128, 320, 512, 640}, both layouts; and dy of
+  the stock route on the CPU against lvd_tpu's ``jax.vjp`` in fp32 at
+  1e-5 of max|ref|.
+
 The chunked route that replaces kernel A where ``pallas_ok`` fails
 (``attention.heads_chunked``) is held to lvd_tpu's ``_heads_chunked`` at a
 16-wide head dim, in fp32, at 1e-5 of max|ref|.
 """
+
+import types
 
 import numpy as np
 import jax
@@ -128,3 +138,88 @@ def test_temporal_pair_route_matches_lvd_tpu(on_tpu, dtype, c, heads):
         for p in (180, 900):
             assert not t_ta.supported_frames_major(_meta((2, 24, p, c), dtype), heads)
             assert t_ta.supported(_meta((2, p, 24, c), dtype), heads)
+
+
+def _lvd_pair_bwd_route(pdim, c, frames_major, monkeypatch):
+    """Which route lvd_tpu's ``_fused_pair_bwd`` takes on the TPU: its
+    backward kernel in the stream's layout ("kernel"), its pixels-major
+    kernel on the transposed stream ("pixels_major") or the unfused VJP
+    alone ("stock"); the VJP and the kernel are stubbed, the stream is a
+    zero-stride view."""
+    taken = []
+    monkeypatch.setattr(jax, "vjp", lambda fn, *args: (None, lambda ct: (None, ct)))
+    monkeypatch.setattr(j_ta, "_pallas_pair_bwd",
+                        lambda p, y, ct, heads, g, eps, frames_major=False: taken.append(
+                            frames_major) or ct)
+    shape = (1, 24, pdim, c) if frames_major else (1, pdim, 24, c)
+    y = np.broadcast_to(np.zeros((), np.float32), shape)
+    j_ta._fused_pair_bwd(c // 64, 0, 1e-5, frames_major, (None, y), y)
+    if not taken:
+        return "stock"
+    return "kernel" if taken[0] == frames_major else "pixels_major"
+
+
+def _port_pair_bwd_route(pdim, c, frames_major, monkeypatch):
+    """Which route ``TemporalPair.backward`` takes: kernel F (its wrapper)
+    or the stock VJP (``_stock_dy``), spied, on meta tensors."""
+    taken = []
+    monkeypatch.setattr(t_ta, "temporal_attention_pair_bwd",
+                        lambda p, y, dy, *a: taken.append("F") or dy)
+    monkeypatch.setattr(t_ta, "_stock_dy", lambda p, y, dy, *a: taken.append("stock") or dy)
+    shape = (1, 24, pdim, c) if frames_major else (1, pdim, 24, c)
+    y = _meta(shape, "bfloat16")
+    ctx = types.SimpleNamespace(saved_tensors=(y,), args=(None, c // 64, 1e-5, frames_major))
+    t_ta.TemporalPair.backward(ctx, y)
+    return taken[0]
+
+
+@pytest.mark.parametrize("frames_major", [True, False])
+@pytest.mark.parametrize("c", [128, 320, 512, 640])
+def test_temporal_pair_bwd_route_matches_lvd_tpu(on_tpu, monkeypatch, c, frames_major):
+    """Kernel F where lvd_tpu launches its backward kernel, in the layout or
+    through the pixels-major tile (the port reads the frames-major stream
+    with strides instead of transposing it), the stock VJP where lvd_tpu
+    takes its unfused VJP."""
+    routes = set()
+    for pdim in list(range(1, 65)) + [45, 180, 720, 900, 2880]:
+        want = _lvd_pair_bwd_route(pdim, c, frames_major, monkeypatch)
+        assert t_ta.bwd_route(pdim, c, frames_major) == want, (pdim, c, frames_major)
+        assert t_ta._pick_g_bwd(pdim, c, frames_major) == j_ta._pick_g_bwd(pdim, c, frames_major)
+        got = _port_pair_bwd_route(pdim, c, frames_major, monkeypatch)
+        assert got == ("stock" if want == "stock" else "F"), (pdim, c, frames_major)
+        routes.add(want)
+    # Frames-major at C > 384 has no tile of its own: the pixels-major one or none.
+    assert routes == ({"kernel", "stock"} if not frames_major
+                      else {"kernel", "pixels_major", "stock"} if c <= 384
+                      else {"pixels_major", "stock"})
+
+
+def test_temporal_pair_stock_dy_matches_lvd_tpu():
+    """P = 7 frames-major: lvd_tpu's forward takes its kernel (the whole of
+    P as one pixel group) and its backward the unfused VJP; the port's
+    TemporalPair runs the plain forward and the stock VJP on the CPU, fp32,
+    against ``jax.vjp`` of lvd_tpu's ``_pair_ref_fm``."""
+    rng = np.random.default_rng(31)
+    c, heads, shape = 128, 2, (2, 5, 7, 128)
+    assert t_ta.supported_frames_major(_meta(shape, "float32"), heads)
+    assert t_ta.bwd_route(7, c, True) == "stock"
+    lin = lambda bias: {"w": (rng.standard_normal((c, c)) * c ** -0.5).astype(np.float32),
+                        **({"b": (0.1 * rng.standard_normal(c)).astype(np.float32)}
+                           if bias else {})}
+    attn = lambda: {"to_q": lin(False), "to_k": lin(False), "to_v": lin(False),
+                    "to_out": lin(True)}
+    norm = lambda: {"scale": (1 + 0.1 * rng.standard_normal(c)).astype(np.float32),
+                    "bias": (0.1 * rng.standard_normal(c)).astype(np.float32)}
+    p = {"norm1": norm(), "attn1": attn(), "norm2": norm(), "attn2": attn()}
+    y = rng.standard_normal(shape).astype(np.float32)
+    ct = rng.standard_normal(shape).astype(np.float32)
+    tree = lambda fn: jax.tree_util.tree_map(fn, p)
+    _, vjp = jax.vjp(lambda yy: j_ta._pair_ref_fm(tree(jnp.asarray), yy, heads, 1e-5),
+                     jnp.asarray(y))
+    (ref,) = vjp(jnp.asarray(ct))
+    leaf = torch.from_numpy(y).requires_grad_(True)
+    out = t_ta.temporal_attention_pair(tree(torch.from_numpy), leaf, heads, 1e-5,
+                                       frames_major=True)
+    (got,) = torch.autograd.grad(out, leaf, torch.from_numpy(ct))
+    ref = np.asarray(ref)
+    assert np.abs(got.numpy() - ref).max() / np.abs(ref).max() <= 1e-5
