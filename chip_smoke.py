@@ -10,7 +10,9 @@ Phases, each fatal on failure:
                -v register / shared-memory / spill lines, one record of
                registers and spills per kernel A-J instantiation, and the
                dynamic shared memory per block of A-I);
-  3. kernels - every kernel at every shape the Zeroscope path gives it, in
+  3. kernels - every kernel at every shape the Zeroscope path gives it (A
+               also at the GLIGEN fuser's ragged key counts, K and V at the
+               start of NaN-tailed buffers), in
                bf16, against its plain PyTorch version on fp32 copies, and
                each kernel in fp32 at its largest shape against the plain
                version in fp32 with TF32 off (gate 5e-3 and below the bf16
@@ -50,7 +52,25 @@ Phases, each fatal on failure:
                the first timestep: the in-box attention share must rise by
                more than lvd_tpu's flagship gate (gain > 1.004) and the
                attention's CoM must move toward the box;
-  9. knobs   - a child process of this script with lvd_tpu's two opt-in
+  9. gligen  - the lvd-gligen_zeroscope preset at full width (seeded random
+               bf16 weights, the fusers' gates open at 0.5, the PositionNet's
+               null features drawn) through runners.lvd_gligen.run: bench.py's
+               flagship track as a six-frame layout, the phrase "bear", 4
+               steps at beta 0.5, so the fuser runs in steps 0-1 and not in
+               2-3; its GIF and frames file (.joblib, or utils/vis's .npz
+               fallback where joblib is absent, as on the card's machine)
+               must hold (24, 320, 576, 3) frames,
+               every CFG forward with the fuser must launch exactly 16 more A
+               (the 16 gated blocks) and 10 more C (their FFs at L0 and L1)
+               than one without, and A must have run at the fuser's 2910 and
+               750 keys; seconds of each step, with and without the fuser;
+ 10. gligen reference - one full-width gated CFG forward with the fuser,
+               kernels (bf16) against the plain path (fp32), gate 5e-2; the
+               kernels' forward without the fuser must read further from it;
+ 11. lvd-plus - runners.lvd_plus.run on the same pipeline: guidance on steps
+               0-1 (one update each), the fuser to step 2 (beta 0.75); no
+               energy walk takes grounding inputs; update seconds, launches;
+ 12. knobs   - a child process of this script with lvd_tpu's two opt-in
                switches set (LVD_ENABLE_FUSED_SC=1 LVD_FUSED_LINEAR=1; the
                second is read at import): phases 4 and 5 again, now with the
                resnet convs on kernel I and the projections on kernel H, and
@@ -60,10 +80,10 @@ Phases, each fatal on failure:
                mma_sync, never a WMMA form); then one profiled CFG forward
                under the switches. A non-zero exit of the child fails the
                smoke;
- 10. fp32    - one full-width CFG UNet forward in TextToVideoPipeline's
+ 13. fp32    - one full-width CFG UNet forward in TextToVideoPipeline's
                default type (fp32) through the kernels against the plain
                path in fp32, TF32 off on both;
- 11. entry points - the public sdpa() (forward and backward) at D = 64
+ 14. entry points - the public sdpa() (forward and backward) at D = 64
                (L0 shape), 192 and 256 (the D-sliced A and E), conv3x3() at
                L0, and geglu_mlp() with the seeded UNet's feed-forward
                weights where lvd_tpu streams them (C = 1280 block at
@@ -73,7 +93,7 @@ Phases, each fatal on failure:
                just after: kernels A, E, I (in its wgmma form) and J (twice:
                its wgmma form in bf16, its first version in fp32) must have
                run, and G must not (lvd_tpu's dx there is the stock VJP);
- 12. profile - one CFG UNet forward and one guided update under
+ 15. profile - one CFG UNet forward and one guided update under
                torch.profiler: device time per kernel and for the stock ops,
                and the device's idle share.
 The line before the last is the kernels' JSON record; the last line is
@@ -260,14 +280,21 @@ def seeded_latents(torch, seed=0):
 def _undegenerate(tree, gen, torch):
     """Gives every zero-init or 1e-5-scaled projection (transformer proj_out,
     the last temporal conv) a normal * fan_in^-1/2 weight, so the kernels'
-    branches are not multiplied away before the output."""
+    branches are not multiplied away before the output; opens each GLIGEN
+    fuser's gates (alpha_attn and alpha_dense 0.5, as lvd_tpu's
+    tests/test_runners.py opens them) and draws the PositionNet's null
+    features, which lvd_tpu's init leaves at zero."""
     if isinstance(tree, list):
         return [_undegenerate(v, gen, torch) for v in tree]
     if not isinstance(tree, dict):
         return tree
     out = {}
     for k, v in tree.items():
-        if k in ("proj_out", "conv4") and isinstance(v, dict):
+        if k in ("alpha_attn", "alpha_dense"):
+            out[k] = torch.full_like(v, 0.5)
+        elif k in ("null_positive_feature", "null_position_feature"):
+            out[k] = torch.randn(v.shape, generator=gen, device=v.device).to(v.dtype)
+        elif k in ("proj_out", "conv4") and isinstance(v, dict):
             v = dict(v)
             leaf = v if k == "proj_out" else dict(v["conv"])
             w = leaf["w"]
@@ -578,6 +605,258 @@ def certification_phase(torch, pipe):
     if not (eff["gain"] > CERT_MIN_GAIN and eff["com_dist_after"] < eff["com_dist_before"]):
         raise SystemExit("[certify] guidance did not move attention into the box")
     return eff
+
+
+# GLIGEN: bench.py's flagship track (one box moving left to right) as the
+# six-frame layout an LLM would give, the phrase "bear"; the runners
+# interpolate it to the flagship box of each of the 24 frames.
+FLAG_LAYOUT = {
+    "Prompt": "A bear walks from the left to the right",
+    **{f"Frame {i + 1}": [{"id": 0, "name": "bear",
+                           "box": [(0.05 + 0.16 * i) * 512, 0.45 * 512, 0.25 * 512, 0.35 * 512]}]
+       for i in range(6)},
+    "Background keyword": "forest",
+}
+GLIGEN_BETA = 0.5       # of 4 steps: the fuser runs in steps 0-1, not in 2-3
+PLUS_BETA = 0.75        # lvd-plus: the fuser to step 2, guidance on steps 0-1
+FUSER_SITES = 16        # gated spatial transformer blocks of a Zeroscope UNet
+FUSER_FF_SITES = 10     # of them at L0 and L1, where the FF takes kernel C
+FUSER_LONG_KEYS = (2910, 750)  # S + 30 grounding tokens at L0 and L1
+
+
+def gligen_models(torch):
+    """The lvd-gligen_zeroscope preset at full width, seeded random bf16
+    weights, the fusers' gates open (``_undegenerate``)."""
+    from lvd_tpu_torch.models.loader import random_pipeline_models
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    models = random_pipeline_models("lvd-gligen_zeroscope", gen, "cuda", torch.bfloat16)
+    models.unet_params = _undegenerate(models.unet_params, gen, torch)
+    return models
+
+
+@contextlib.contextmanager
+def unet_census(torch, records):
+    """Appends one record per UNet call of the sampler (a CFG forward, or the
+    energy walk of a guided update): whether it took grounding inputs or
+    captured maps, its launches of every kernel, and the key counts of
+    kernel A's launches through attention() (the calls on which
+    packed_attention.kernel_ok held)."""
+    from lvd_tpu_torch.diffusion import sampler
+    from lvd_tpu_torch.ops import packed_attention
+
+    real_unet, real_ok = sampler.apply_unet3d, packed_attention.kernel_ok
+    keys = []
+
+    def kernel_ok(q, k, num_heads):
+        ok = real_ok(q, k, num_heads)
+        if ok:
+            keys.append(k.shape[1])
+        return ok
+
+    def apply_unet3d(*args, **kwargs):
+        before, n_keys = read_launches(), len(keys)
+        out = real_unet(*args, **kwargs)
+        after = read_launches()
+        records.append({"gligen": kwargs.get("gligen") is not None,
+                        "walk": bool(kwargs.get("capture_keys")),
+                        "launches": {n: after[n] - before[n] for n in after},
+                        "a_keys": sorted(set(keys[n_keys:]))})
+        return out
+
+    with _swapped([(sampler, "apply_unet3d", apply_unet3d),
+                   (packed_attention, "kernel_ok", kernel_ok)]):
+        yield
+
+
+def check_fuser_launches(phase, census):
+    """Every CFG forward with grounding inputs launches exactly FUSER_SITES
+    more A and FUSER_FF_SITES more C than one without, A at the long keys
+    FUSER_LONG_KEYS; no energy walk takes grounding inputs."""
+    fwd = [r for r in census if not r["walk"]]
+    on = [r for r in fwd if r["gligen"]]
+    off = [r for r in fwd if not r["gligen"]]
+    if not on or not off or any(r["gligen"] for r in census if r["walk"]):
+        raise SystemExit(f"[{phase}] grounding in {len(on)} of {len(fwd)} CFG forwards and "
+                         f"{sum(r['gligen'] for r in census if r['walk'])} energy walks")
+    extra = {(r["launches"]["attention_packed"] - off[0]["launches"]["attention_packed"],
+              r["launches"]["geglu_mlp"] - off[0]["launches"]["geglu_mlp"]) for r in on}
+    same = {(r["launches"]["attention_packed"], r["launches"]["geglu_mlp"]) for r in off}
+    log(f"[{phase}] per CFG forward with the fuser, launches of A and C beyond one without: "
+        f"{sorted(extra)}; without: {sorted(same)}; A's key counts with the fuser: "
+        f"{on[0]['a_keys']}")
+    if extra != {(FUSER_SITES, FUSER_FF_SITES)} or len(same) != 1:
+        raise SystemExit(f"[{phase}] the fuser's launches differ from +{FUSER_SITES} A and "
+                         f"+{FUSER_FF_SITES} C per CFG forward")
+    missing = [s for s in FUSER_LONG_KEYS if s not in on[0]["a_keys"]]
+    if missing:
+        raise SystemExit(f"[{phase}] kernel A never ran at the fuser's key counts {missing}")
+
+
+def _runner_state(pipe):
+    from lvd_tpu_torch.runners import base
+
+    state = base.RunnerState()
+    state.pipe, state.H, state.W = pipe, pipe.preset.height, pipe.preset.width
+    state.box_h, state.box_w = pipe.preset.box_h, pipe.preset.box_w
+    return state
+
+
+def _read_outputs(phase, out_dir):
+    """video_seed0.gif and the frames file of a runner: both must hold
+    (24, 320, 576, 3) frames. The frames file is .joblib, or .npz where joblib
+    is not installed (utils/vis.save_joblib's fallback, as lvd_tpu's)."""
+    from PIL import Image, ImageSequence
+
+    from lvd_tpu_torch.utils import vis
+
+    gif = Image.open(os.path.join(out_dir, "video_seed0.gif"))
+    gif_frames = [np.asarray(f.convert("RGB")) for f in ImageSequence.Iterator(gif)]
+    name = next(f"video_seed0.{ext}" for ext in ("joblib", "npz")
+                if os.path.exists(os.path.join(out_dir, f"video_seed0.{ext}")))
+    frames = vis.load_video(os.path.join(out_dir, name))
+    shapes = {"gif": (len(gif_frames), *gif_frames[0].shape), name: frames.shape}
+    log(f"[{phase}] {sorted(os.listdir(out_dir))}: {json.dumps(shapes)}, frames {frames.dtype} "
+        f"min {frames.min()} max {frames.max()} mean {frames.mean():.3f}")
+    if set(shapes.values()) != {(24, 320, 576, 3)}:
+        raise SystemExit(f"[{phase}] the runner's outputs hold {shapes}")
+
+
+def _drive_runner(torch, phase, runner, pipe, **run_kw):
+    """``runner.run`` on FLAG_LAYOUT, seed 0, NUM_STEPS steps, 24 frames,
+    with its state holding ``pipe`` and its outputs in a temporary directory
+    (read by _read_outputs); logs its peak memory and launches. Returns
+    run()'s seconds, the launches and the census of its UNet calls."""
+    import tempfile
+
+    from lvd_tpu_torch.runners import base
+
+    census = []
+    with tempfile.TemporaryDirectory() as out_dir, unet_census(torch, census):
+        runner._state = _runner_state(pipe)
+        base.img_dir = out_dir
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        runner.run(FLAG_LAYOUT, seed=0, num_inference_steps=NUM_STEPS, num_frames=24, **run_kw)
+        total = time.perf_counter() - t0
+        launches = read_launches()
+        _read_outputs(phase, out_dir)
+    log(f"[{phase}] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[{phase}] launches in {NUM_STEPS} steps: {json.dumps(launches)}")
+    return total, launches, census
+
+
+def gligen_phase(torch, models):
+    """lvd-gligen through its runner (runners.lvd_gligen.run) at full width:
+    4 steps, beta 0.5; per-step seconds and launches with and without the
+    fuser; the GIF and joblib it writes."""
+    from lvd_tpu_torch.pipeline import TextToVideoPipeline
+    from lvd_tpu_torch.runners import lvd_gligen
+
+    pipe = TextToVideoPipeline(models, dtype=torch.bfloat16, device="cuda")
+    total, _, census = _drive_runner(torch, "gligen", lvd_gligen, pipe,
+                                     gligen_scheduled_sampling_beta=GLIGEN_BETA)
+    t = pipe.timings
+    n_ground = int(GLIGEN_BETA * NUM_STEPS)
+    steps = t["steps"]
+    log(f"[gligen] lvd-gligen_zeroscope through runners.lvd_gligen.run, {NUM_STEPS} steps, beta "
+        f"{GLIGEN_BETA}: steps with the fuser {[round(x, 4) for x in steps[:n_ground]]} s, "
+        f"without {[round(x, 4) for x in steps[n_ground:]]} s; encode {t['encode_prompt']:.4f} s; "
+        f"decode {t['decode']:.4f} s; run() {total:.4f} s")
+    log(f"[gligen] launches per CFG forward: "
+        f"{json.dumps([{k: v for k, v in r['launches'].items() if v} for r in census])}")
+    check_fuser_launches("gligen", census)
+    check_new_forms("gligen", read_forms(), ("temporal_attention_pair",))
+    return pipe
+
+
+def gligen_reference_phase(torch, pipe):
+    """One full-width gated CFG forward with the fuser on: kernels (bf16)
+    against the plain path (fp32); the kernels' forward without the fuser
+    must differ from that reference by more than the kernels' reading. Both
+    kernel forwards are timed with CUDA events, and the one with the fuser
+    is profiled."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.models.unet3d import apply_unet3d
+
+    cfg = pipe.preset.unet
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    sample = torch.randn((2, 24, 40, 72, 4), generator=gen, device="cuda")
+    text = torch.randn((2, 77, cfg.cross_attention_dim), generator=gen, device="cuda")
+    boxes = flagship_guidance()["boxes"][0]
+    g = pipe.prepare_gligen_inputs([[b] for b in boxes], [["bear"]] * 24, 24)
+    g32 = {k: v.float() for k, v in g.items()}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain path in full fp32
+    fwd = lambda gl: apply_unet3d(pipe.unet_params, cfg, sample.bfloat16(), 500,
+                                  text.bfloat16(), gligen=gl)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    try:
+        with torch.no_grad():
+            events[0].record()
+            eps = fwd(g)
+            events[1].record()
+            off = fwd(None)
+            events[2].record()
+            torch.cuda.synchronize()
+            with plain_route():
+                ref = apply_unet3d(cast_tree(pipe.unet_params, torch.float32), cfg, sample, 500,
+                                   text, gligen=g32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    scale = ref.abs().max().item()
+    rel = (eps.float() - ref).abs().max().item() / scale
+    rel_off = (off.float() - ref).abs().max().item() / scale
+    log(f"[gligen reference] full-width gated CFG UNet forward with the fuser, against the plain "
+        f"path (fp32), max|d| / max|ref| (max|ref| {scale:.6g}): kernels (bf16) {rel:.6g} (gate "
+        f"{REFERENCE_TOL}); kernels without the fuser {rel_off:.6g}; kernel forward with the "
+        f"fuser {events[0].elapsed_time(events[1]):.3f} ms, without "
+        f"{events[1].elapsed_time(events[2]):.3f} ms (CUDA events)")
+    if not (torch.isfinite(eps).all() and rel <= REFERENCE_TOL):
+        raise SystemExit("[gligen reference] the kernel path disagrees with the plain path")
+    if not rel_off > rel:
+        raise SystemExit("[gligen reference] the fuser does not move the forward: gates shut?")
+    del eps, off, ref
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        _profile(torch, "one CFG UNet forward with the GLIGEN fuser", lambda: fwd(g))
+    return rel, rel_off
+
+
+def lvd_plus_phase(torch, pipe):
+    """lvd-plus through runners.lvd_plus.run on the same pipeline: 4 steps,
+    guidance (bench.py's flagship GuidanceConfig, its loss threshold at 0 so
+    that each guided step makes its one update) on steps 0-1, the fuser to
+    step 2 (beta 0.75); the energy walks take no grounding inputs."""
+    from lvd_tpu_torch.runners import lvd_plus
+
+    g = flagship_guidance()["config"]
+    total, launches, census = _drive_runner(
+        torch, "lvd-plus", lvd_plus, pipe, gligen_scheduled_sampling_beta=PLUS_BETA,
+        loss_scale=g.loss_scale, loss_threshold=0.0, max_iter=1,
+        max_index_step=GUIDED_INDEX_STEP, fg_top_p=g.fg_top_p, bg_top_p=g.bg_top_p,
+        fg_weight=g.fg_weight, bg_weight=g.bg_weight)
+    t = pipe.timings
+    log(f"[lvd-plus] runners.lvd_plus.run, {NUM_STEPS} steps, guidance on the first "
+        f"{len(t['guided'])}, beta {PLUS_BETA}: steps {[round(x, 4) for x in t['steps']]} s "
+        f"(guided updates {[round(x, 4) for x in t['guided']]} s); run() {total:.4f} s")
+    walks = [r for r in census if r["walk"]]
+    log(f"[lvd-plus] launches per energy walk: "
+        f"{json.dumps([{k: v for k, v in r['launches'].items() if v} for r in walks])}")
+    if len(t["guided"]) != GUIDED_INDEX_STEP or len(walks) != GUIDED_INDEX_STEP:
+        raise SystemExit(f"[lvd-plus] {len(walks)} guided updates, expected {GUIDED_INDEX_STEP}")
+    fwd = [r["gligen"] for r in census if not r["walk"]]
+    if fwd != [i < int(PLUS_BETA * NUM_STEPS) for i in range(NUM_STEPS)]:
+        raise SystemExit(f"[lvd-plus] the fuser ran in CFG forwards {fwd}")
+    check_fuser_launches("lvd-plus", census)
+    missing = [name for name in GUIDED_KERNELS if launches[name] <= 0]
+    if missing:
+        raise SystemExit(f"[lvd-plus] kernels never launched: {missing}")
+    check_new_forms("lvd-plus", read_forms(), ("temporal_attention_pair",
+                                               "temporal_attention_pair_bwd", "geglu_mlp_bwd"))
+    return launches
 
 
 # Substrings of the kernels' device symbols (B-D's and F-J's: every form).
@@ -928,6 +1207,13 @@ def main() -> int:
     pipe, _ = guided_generation_phase(torch, models)
     certification_phase(torch, pipe)
     del pipe
+    t_gligen = time.perf_counter()
+    pipe = gligen_phase(torch, gligen_models(torch))
+    gligen_reference_phase(torch, pipe)
+    lvd_plus_phase(torch, pipe)
+    del pipe
+    torch.cuda.empty_cache()
+    log(f"[gligen] the GLIGEN phases took {time.perf_counter() - t_gligen:.1f} s")
     knob_launches, knob_forms = knob_phase(torch)
     fp32_phase(torch, models)
     entry_launches, entry_forms = entry_point_phase(torch, models)

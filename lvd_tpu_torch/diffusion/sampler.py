@@ -1,5 +1,5 @@
-"""The denoising loop: CFG + DPM-Solver++ + cross-attention guidance
-(counterpart of lvd_tpu/diffusion/sampler.py:66-190, without GLIGEN and the
+"""The denoising loop: CFG + DPM-Solver++ + cross-attention guidance + GLIGEN
+(counterpart of lvd_tpu/diffusion/sampler.py:58-190, without the
 frame-sharded path).
 
 The latent carry is fp32 end to end (a guidance update is far below the bf16
@@ -10,7 +10,11 @@ fewer than ``max_iter`` updates were made, the loss-scaled energy and its
 gradient with respect to the latents are taken through a cond-only UNet walk
 that stops at the last captured site, and ``lat -= sqrt(1 - abar_t) * grad``.
 The loss starts at 1e10 and is carried across steps, so a step that enters
-with a loss already at or below the threshold makes no update.
+with a loss already at or below the threshold makes no update. The CFG
+forward of each of the first ``min(num_grounding_steps, T)`` steps takes the
+GLIGEN inputs; the energy walk never does. lvd_tpu compiles one scan per
+segment between the steps where guidance or GLIGEN stops
+(``segment_boundaries``); this loop decides step by step.
 """
 
 from __future__ import annotations
@@ -66,10 +70,11 @@ def energy_and_grad(unet_params, unet_cfg, lat32, timestep, cond_text, guidance,
 def sample_video(unet_params, unet_cfg, latents, text_pair, coeffs: dpm.SolverCoeffs,
                  guidance_scale: float = 9.0, guidance: Optional[GuidanceTensors] = None,
                  guidance_cfg: Optional[GuidanceConfig] = None,
-                 guidance_attn_keys: Sequence[Tuple] = (), step_times=None,
-                 guided_times=None):
+                 guidance_attn_keys: Sequence[Tuple] = (), gligen_pair=None,
+                 num_grounding_steps: int = 0, step_times=None, guided_times=None):
     """latents (B, F, h, w, C) initial noise in the model dtype; text_pair
-    (2B, L, D) = [uncond; cond]. Returns the final latents in the model
+    (2B, L, D) = [uncond; cond]; gligen_pair None or the (2B*F, M, ...)
+    grounding inputs of apply_unet3d. Returns the final latents in the model
     dtype. ``step_times`` and ``guided_times``, if lists, receive each
     step's seconds and each guided step's guidance-loop seconds (the card is
     synchronised first)."""
@@ -78,6 +83,7 @@ def sample_video(unet_params, unet_cfg, latents, text_pair, coeffs: dpm.SolverCo
     n_steps = len(coeffs.timestep)
     g_cfg = guidance_cfg or GuidanceConfig()
     g_end = min(g_cfg.max_index_step, n_steps) if guidance is not None else 0
+    gl_end = min(num_grounding_steps, n_steps) if gligen_pair is not None else 0
     keys = tuple(tuple(k) for k in guidance_attn_keys)
     cond_text = text_pair[b:]
     sync = (lambda: torch.cuda.synchronize(latents.device)) if latents.is_cuda else (lambda: None)
@@ -99,7 +105,8 @@ def sample_video(unet_params, unet_cfg, latents, text_pair, coeffs: dpm.SolverCo
                 sync()
                 guided_times.append(time.perf_counter() - t0)
         lat_in = torch.cat([lat, lat], dim=0).to(model_dt)
-        eps = apply_unet3d(unet_params, unet_cfg, lat_in, c.timestep, text_pair)
+        eps = apply_unet3d(unet_params, unet_cfg, lat_in, c.timestep, text_pair,
+                           gligen=gligen_pair if i < gl_end else None)
         eps_u, eps_c = eps[:b], eps[b:]
         eps_cfg = eps_u + guidance_scale * (eps_c - eps_u)
         prev_x0, lat = dpm.step(prev_x0, c, lat, eps_cfg)

@@ -1,5 +1,5 @@
 """Weights for the port: the bridge from lvd_tpu's param trees, an npz
-reader, and full-width random weights (counterpart of
+reader, the checkpoint loader, and full-width random weights (counterpart of
 lvd_tpu/models/loader.py).
 
 Param trees are nested dicts/lists of tensors with lvd_tpu's keys and
@@ -7,6 +7,8 @@ layouts (linears (din, dout), convs HWIO), so one tree feeds both packages.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -126,11 +128,29 @@ class _Init:
     def ff(self, dim, mult=4):
         return {"proj": self.linear(dim, dim * mult * 2), "out": self.linear(dim * mult, dim)}
 
-    def btb(self, dim, context_dim):
-        return {
+    def btb(self, dim, context_dim, fuser_context=None):
+        p = {
             "norm1": self.norm(dim), "attn1": self.attention(dim, dim, dim),
             "norm2": self.norm(dim), "attn2": self.attention(dim, context_dim, dim),
             "norm3": self.norm(dim), "ff": self.ff(dim),
+        }
+        if fuser_context is not None:  # GLIGEN's gated self-attention, gates shut
+            p["fuser"] = {
+                "linear": self.linear(fuser_context, dim),
+                "attn": self.attention(dim, dim, dim), "ff": self.ff(dim),
+                "norm1": self.norm(dim), "norm2": self.norm(dim),
+                "alpha_attn": self.zeros(()), "alpha_dense": self.zeros(()),
+            }
+        return p
+
+    def position_net(self, positive_len, out_dim, fourier_freqs):
+        position_dim = fourier_freqs * 2 * 4
+        return {
+            "linears_0": self.linear(positive_len + position_dim, 512),
+            "linears_1": self.linear(512, 512),
+            "linears_2": self.linear(512, out_dim),
+            "null_positive_feature": self.zeros((positive_len,)),
+            "null_position_feature": self.zeros((position_dim,)),
         }
 
     def resnet(self, cin, cout, temb_dim):
@@ -145,8 +165,12 @@ class _Init:
 
 
 def random_unet3d(cfg: config_mod.UNet3DConfig, init: _Init):
-    if cfg.attention_type != "default":
-        raise NotImplementedError("GLIGEN adapters are not ported yet")
+    """lvd_tpu's UNet tree (``init_unet3d``); ``attention_type="gated"``
+    adds a GLIGEN fuser to every spatial BasicTransformerBlock and the
+    PositionNet (lvd_tpu/models/unet3d.py:124-149, gligen.py:32-49)."""
+    if cfg.attention_type not in ("default", "gated"):
+        raise ValueError(f"attention_type {cfg.attention_type!r}")
+    gated = cfg.attention_type == "gated"
     boc = cfg.block_out_channels
     temb = cfg.time_embed_dim
 
@@ -166,7 +190,8 @@ def random_unet3d(cfg: config_mod.UNet3DConfig, init: _Init):
         if with_attn:
             p["attn"] = {
                 "norm": init.norm(cout), "proj_in": init.linear(cout, cout),
-                "blocks": [init.btb(cout, cfg.cross_attention_dim)],
+                "blocks": [init.btb(cout, cfg.cross_attention_dim,
+                                    cfg.cross_attention_dim if gated else None)],
                 "proj_out": init.linear(cout, cout, scale=1e-5),
             }
             p["temp_attn"] = temporal_transformer(cout, cout)
@@ -210,6 +235,9 @@ def random_unet3d(cfg: config_mod.UNet3DConfig, init: _Init):
     params["up_blocks"] = up
     params["conv_norm_out"] = init.norm(boc[0])
     params["conv_out"] = init.conv(3, 3, boc[0], cfg.out_channels)
+    if gated:
+        params["position_net"] = init.position_net(
+            cfg.gligen_positive_len, cfg.cross_attention_dim, cfg.gligen_fourier_freqs)
     return params
 
 
@@ -281,3 +309,43 @@ def random_pipeline_models(preset, generator: torch.Generator, device=None,
         vae_params=random_vae_decoder(preset.vae, init),
         tokenizer=load_tokenizer(None),
     )
+
+
+def _checkpoint_dir(preset: config_mod.ModelPreset):
+    root = os.environ.get("LVD_CHECKPOINT_ROOT", "")
+    if not root or not preset.checkpoint:
+        return None
+    d = os.path.join(root, preset.checkpoint.replace("/", "--"))
+    return d if os.path.isdir(d) else None
+
+
+def load_pipeline_models(preset_name: str, device=None, dtype=torch.float32):
+    """A preset's converted checkpoint, ``$LVD_CHECKPOINT_ROOT/<checkpoint>/
+    {unet,clip,vae}.npz`` and its tokenizer (lvd_tpu/models/loader.py:90-128),
+    as tensors of ``dtype`` on ``device`` (the card unless asked). Without
+    one, ``LVD_ALLOW_RANDOM_WEIGHTS=1`` gives this package's random weights
+    from seed 0 (``random_pipeline_models``; lvd_tpu draws other values from
+    its JAX keys, ROADMAP A3), else it raises."""
+    from ..pipeline import PipelineModels
+
+    preset = config_mod.PRESETS[preset_name]
+    ckpt = _checkpoint_dir(preset)
+    device = resolve_device(device)
+    if ckpt is not None:
+        return PipelineModels(
+            preset=preset,
+            unet_params=load_params_npz(os.path.join(ckpt, "unet.npz"), device, dtype),
+            clip_params=load_params_npz(os.path.join(ckpt, "clip.npz"), device, dtype),
+            vae_params=load_params_npz(os.path.join(ckpt, "vae.npz"), device, dtype),
+            tokenizer=load_tokenizer(ckpt),
+        )
+    if os.environ.get("LVD_ALLOW_RANDOM_WEIGHTS") != "1":
+        raise FileNotFoundError(
+            f"No converted checkpoint for preset {preset_name!r} under "
+            f"LVD_CHECKPOINT_ROOT; run `python -m lvd_tpu.models.convert` on the "
+            "HF checkpoint first, or set LVD_ALLOW_RANDOM_WEIGHTS=1 for a "
+            "weightless smoke run.")
+    print(f"[lvd_tpu] No checkpoint for {preset_name!r}; using RANDOM weights "
+          "(LVD_ALLOW_RANDOM_WEIGHTS=1). Outputs will be noise.")
+    gen = torch.Generator(device=device).manual_seed(0)
+    return random_pipeline_models(preset, gen, device, dtype)

@@ -31,8 +31,12 @@ stock ops for D), so the guided energy differentiates through the walk.
 Attention capture for guidance is a functional output, as in lvd_tpu:
 ``capture_keys`` names spatial cross-attention sites by hierarchical address
 ``(dir, block, layer, btb)``; their fp32 probabilities come back in ``aux``,
-and ``capture_only`` ends the walk once every key is captured. GLIGEN and the
-frame-sharded path are not part of this port yet.
+and ``capture_only`` ends the walk once every key is captured. GLIGEN, as in
+lvd_tpu: ``gligen`` inputs go through the PositionNet once, after
+``transformer_in``, and every spatial BasicTransformerBlock with a ``fuser``
+runs the gated self-attention between its self- and cross-attention; the
+temporal transformers take none. The frame-sharded path is not part of this
+port yet.
 """
 
 from __future__ import annotations
@@ -60,19 +64,24 @@ from ..ops.basic import (
     timestep_embedding,
     upsample_nearest_2x,
 )
+from .gligen import apply_gated_self_attention, apply_position_net
 
 
-def _btb_apply(p, x, context, num_heads, capture=False):
-    """Spatial BasicTransformerBlock: self-attention, cross-attention, FF.
+def _btb_apply(p, x, context, num_heads, capture=False, gligen_objs=None):
+    """Spatial BasicTransformerBlock: self-attention, the GLIGEN fuser (with
+    grounding tokens, where the block has one), cross-attention, FF.
     Returns (x, cross-attention probabilities if ``capture``)."""
     x = x + attention(p["attn1"], layer_norm(p["norm1"], x), None, num_heads)[0]
+    if gligen_objs is not None and "fuser" in p:
+        x = apply_gated_self_attention(p["fuser"], x, gligen_objs, num_heads)
     h, probs = attention(p["attn2"], layer_norm(p["norm2"], x), context, num_heads,
                          return_probs=capture)
     x = x + h
     return x + feed_forward(p["ff"], layer_norm(p["norm3"], x)), probs
 
 
-def _spatial_transformer(p, x, context, num_heads, cfg, key=None, capture_keys=(), aux=None):
+def _spatial_transformer(p, x, context, num_heads, cfg, key=None, capture_keys=(), aux=None,
+                         gligen_objs=None):
     n, h, w, c = x.shape
     residual = x
     y = group_norm(p["norm"], x, cfg.norm_num_groups, cfg.transformer_norm_eps)
@@ -80,7 +89,7 @@ def _spatial_transformer(p, x, context, num_heads, cfg, key=None, capture_keys=(
     for bi, block in enumerate(p["blocks"]):
         full_key = None if key is None else key + (bi,)
         capture = full_key in capture_keys
-        y, probs = _btb_apply(block, y, context, num_heads, capture)
+        y, probs = _btb_apply(block, y, context, num_heads, capture, gligen_objs)
         if capture:
             aux[full_key] = probs
     y = linear(p["proj_out"], y)
@@ -152,18 +161,22 @@ def _temp_conv(p, x, num_frames, cfg):
 
 
 def _cross_attn_layer(p, x, temb, context, num_frames, num_heads, cfg, key=None,
-                      capture_keys=(), aux=None):
+                      capture_keys=(), aux=None, gligen_objs=None):
     x = _resnet(p["resnet"], x, temb, cfg)
     x = _temp_conv(p["temp_conv"], x, num_frames, cfg)
-    x = _spatial_transformer(p["attn"], x, context, num_heads, cfg, key, capture_keys, aux)
+    x = _spatial_transformer(p["attn"], x, context, num_heads, cfg, key, capture_keys, aux,
+                             gligen_objs)
     return _temporal_transformer(p["temp_attn"], x, num_frames, num_heads, cfg)
 
 
 def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_states, *,
-                 capture_keys: Sequence[tuple] = (), capture_only: bool = False,
+                 gligen=None, capture_keys: Sequence[tuple] = (), capture_only: bool = False,
                  remat: bool = False):
     """sample (B, F, H, W, C_in) channels-last; timesteps scalar or (B,);
-    encoder_hidden_states (B, L, D). Returns noise_pred (B, F, H, W, C_out);
+    encoder_hidden_states (B, L, D); ``gligen`` None or {boxes (B*F, M, 4),
+    masks (B*F, M), positive_embeddings (B*F, M, positive_len)}, the
+    per-frame grounding inputs flattened into the B*F batch (a gated tree
+    only). Returns noise_pred (B, F, H, W, C_out);
     with ``capture_keys``, (noise_pred, aux {key: (B*F, heads, HW, L) fp32
     probabilities of each captured site}), noise_pred None when
     ``capture_only`` ends the walk at the last captured site. ``remat``
@@ -185,6 +198,12 @@ def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_st
     x = conv2d(params["conv_in"], sample.reshape(b * f, h, w, sample.shape[-1]))
     x = _temporal_transformer(params["transformer_in"], x, f, cfg.transformer_in_num_heads, cfg)
 
+    gligen_objs = None
+    if gligen is not None:
+        gligen_objs = apply_position_net(
+            params["position_net"], gligen["boxes"].to(x.dtype), gligen["masks"].to(x.dtype),
+            gligen["positive_embeddings"].to(x.dtype), cfg.gligen_fourier_freqs)
+
     aux: dict = {}
 
     def run_layer(lp, x, key, with_attn, num_heads):
@@ -194,7 +213,7 @@ def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_st
             local: dict = {}
             if with_attn:
                 y = _cross_attn_layer(lp, x, temb, context, f, num_heads, cfg, key,
-                                      capture_keys, local)
+                                      capture_keys, local, gligen_objs)
             else:
                 y = _temp_conv(lp["temp_conv"], _resnet(lp["resnet"], x, temb, cfg), f, cfg)
             return (y, *(local[k] for k in layer_keys))
@@ -227,7 +246,7 @@ def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_st
     x = _temp_conv(mid["temp_conv_in"], x, f, cfg)
     for j, lp in enumerate(mid["layers"]):
         x = _spatial_transformer(lp["attn"], x, context, num_heads, cfg, ("mid", 0, j),
-                                 capture_keys, aux)
+                                 capture_keys, aux, gligen_objs)
         if have_all_keys():
             return None, aux
         x = _temporal_transformer(lp["temp_attn"], x, f, num_heads, cfg)

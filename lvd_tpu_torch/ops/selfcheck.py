@@ -8,7 +8,9 @@ with lvd_tpu's selfcheck gate: max|kernel - plain| / max|plain| <= 2e-2, or
 441-445). The forwards A-D and the resnet convs (kernel I with its
 prologue, row 12) run at the shapes of the 576x320, 24-frame CFG forward
 (batch 2 x 24); the projections (kernel H, row 14) at the q/k/v/out and
-text k/v shapes, with the dx call of their backward; the backwards E-G at
+text k/v shapes, with the dx call of their backward; kernel A also at the
+GLIGEN fuser's shapes (S visual + 30 grounding tokens, ragged key counts),
+its K and V at the start of NaN-tailed buffers; the backwards E-G at
 the shapes of the guided energy walk (the cond-only UNet walk of batch 24
 down to the last captured site). The public entry points conv3x3() (kernel
 I without prologue, row 13) and sdpa() (kernel A with one head, row 1, and
@@ -74,6 +76,11 @@ ATTN_SHAPES = [  # (batch, S_q, S_k, C): self-attention at L0/L1, cross at every
     (48, 2880, 77, 320), (48, 720, 77, 640), (48, 180, 77, 1280), (48, 45, 77, 1280),
     (48, 180, 180, 1280), (48, 45, 45, 1280),
 ]
+# The GLIGEN fuser's self-attention over the S visual tokens and the 30
+# grounding tokens, at L0, L1, L2 and mid: ragged key counts (2910 % 64 = 30,
+# 750 % 64 = 46), the first two in the long-key form.
+FUSER_ATTN_SHAPES = [(48, 2910, 2910, 320), (48, 750, 750, 640), (48, 210, 210, 1280),
+                     (48, 75, 75, 1280)]
 PAIR_SHAPES = [(2, 24, 2880, 320), (2, 24, 2880, 512), (2, 24, 720, 640)]  # (B, F, P, C)
 GEGLU_SHAPES = [(138240, 320), (138240, 512), (34560, 640)]  # (rows, C), inner = 4C
 TCONV_SHAPES = [(2, 24, 2880, 320), (2, 24, 720, 640), (2, 24, 180, 1280), (2, 24, 45, 1280)]
@@ -211,10 +218,22 @@ def _record(name, shape, dtype, out, ref, tol, ms, plain_ms, flops, nbytes, libr
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
 
 
+def _nan_tailed(t):
+    """A copy of ``t`` at the start of a buffer whose next 64 rows hold NaN, so
+    a kernel that read past the last row of the last batch would show it."""
+    b, s, c = t.shape
+    buf = torch.full((b * s + 64, c), float("nan"), dtype=t.dtype, device=t.device)
+    buf[:b * s] = t.reshape(b * s, c)
+    return buf[:b * s].view(b, s, c)
+
+
 def check_attention(gen, shape, dtype=torch.bfloat16):
+    """Kernel A at one (batch, S_q, S_k, C) shape; K and V lie at the start of
+    NaN-tailed buffers."""
     b, s_q, s_k, c = shape
     heads = c // 64
     q, k, v = (_randn(gen, (b, s, c)).to(dtype) for s in (s_q, s_k, s_k))
+    k, v = _nan_tailed(k), _nan_tailed(v)
     scale = 64 ** -0.5
     out = packed_attention.attention_packed(q, k, v, scale, heads)
     ref = _ref(packed_attention.attention_packed_plain, q, k, v, scale, heads)
@@ -577,7 +596,7 @@ def check_sdpa(gen, shape, dtype=torch.bfloat16):
     return records
 
 
-BF16_PLAN = ([(check_attention, s) for s in ATTN_SHAPES]
+BF16_PLAN = ([(check_attention, s) for s in ATTN_SHAPES + FUSER_ATTN_SHAPES]
              + [(check_pair, s) for s in PAIR_SHAPES]
              + [(check_geglu, s) for s in GEGLU_SHAPES]
              + [(check_temp_conv, s) for s in TCONV_SHAPES]
@@ -589,14 +608,15 @@ BF16_PLAN = ([(check_attention, s) for s in ATTN_SHAPES]
              + [(check_conv3x3, s) for s in CONV3X3_SHAPES]
              + [(check_sdpa, s) for s in SDPA_SHAPES]
              + [(check_geglu_stream, s) for s in GEGLU_STREAM_SHAPES])
-# Each kernel in fp32 at its first (largest) path shape, sdpa() at every head
-# dim, and kernel J at its fp32 shapes.
+# Each kernel in fp32 at its first (largest) path shape, kernel A also at the
+# fuser's L0 shape, sdpa() at every head dim, and kernel J at its fp32 shapes.
 FP32_PLAN = [(fn, shapes[0]) for fn, shapes in (
     (check_attention, ATTN_SHAPES), (check_pair, PAIR_SHAPES), (check_geglu, GEGLU_SHAPES),
     (check_temp_conv, TCONV_SHAPES), (check_attention_bwd, ATTN_BWD_SHAPES),
     (check_pair_bwd, PAIR_BWD_SHAPES), (check_geglu_bwd, GEGLU_BWD_SHAPES),
     (check_linear, LINEAR_SHAPES), (check_spatial_conv, SCONV_SHAPES),
-    (check_conv3x3, CONV3X3_SHAPES))] + [(check_sdpa, s) for s in SDPA_SHAPES] + [
+    (check_conv3x3, CONV3X3_SHAPES), (check_attention, FUSER_ATTN_SHAPES))] + [
+    (check_sdpa, s) for s in SDPA_SHAPES] + [
     (check_geglu_stream, s) for s in GEGLU_STREAM_FP32_SHAPES]
 PLAN = ([(fn, s, torch.bfloat16) for fn, s in BF16_PLAN]
         + [(fn, s, torch.float32) for fn, s in FP32_PLAN])

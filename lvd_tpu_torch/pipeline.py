@@ -1,9 +1,11 @@
-"""TextToVideoPipeline (counterpart of lvd_tpu/pipeline.py:324-427 without
-GLIGEN and the frame-sharded path).
+"""TextToVideoPipeline (counterpart of lvd_tpu/pipeline.py:84-128 and
+324-427, without the frame-sharded path).
 
 CLIP encodes the [negative; prompt] pair, DPM-Solver++ (2M) denoises with
 classifier-free guidance from fp32-carried latents, optionally with
-cross-attention energy guidance on the first steps (``backward_guidance``),
+cross-attention energy guidance on the first steps (``backward_guidance``)
+and GLIGEN grounding on the first ``int(beta * T)`` steps (``gligen_boxes``,
+``gligen_phrases``: per-frame boxes and their phrases, a gated UNet tree),
 and the VAE decodes the frames to uint8 on the device. Without ``latents``
 the initial noise is ``jax.random.normal(PRNGKey(seed))``'s, drawn on the
 host by a numpy copy of JAX's PRNG (utils/prng.py), so a seed gives the same
@@ -29,6 +31,8 @@ from .models.loader import cast_tree
 from .models.vae import decode as vae_decode
 from .utils import prng
 from .utils.device import resolve_device
+
+MAX_GLIGEN_OBJS = 30  # grounding slots per frame (lvd_tpu/pipeline.py:28)
 
 
 @dataclasses.dataclass
@@ -67,6 +71,42 @@ class TextToVideoPipeline:
         return apply_clip_text(self.clip_params, self.preset.clip, ids)["last_hidden_state"]
 
     @torch.no_grad()
+    def encode_phrases_pooled(self, phrases):
+        """Pooled CLIP embeddings (N, D) of grounding phrases, the
+        PositionNet's input."""
+        tok = self.m.tokenizer
+        ids = np.stack([np.asarray(tok.encode_padded(p), np.int64) for p in phrases])
+        ids = torch.from_numpy(ids).to(self.device)
+        return apply_clip_text(self.clip_params, self.preset.clip, ids)["pooler_output"]
+
+    def prepare_gligen_inputs(self, gligen_boxes, gligen_phrases, num_frames: int):
+        """Per-frame box and phrase lists -> the CFG pair {boxes (2F, M, 4),
+        masks (2F, M), positive_embeddings (2F, M, positive_len)} in the
+        pipeline's type on its device, [uncond; cond] with the uncond masks
+        zeroed; M = MAX_GLIGEN_OBJS slots, each phrase encoded once a call."""
+        d = self.preset.unet.gligen_positive_len
+        boxes = np.zeros((num_frames, MAX_GLIGEN_OBJS, 4), np.float32)
+        masks = np.zeros((num_frames, MAX_GLIGEN_OBJS), np.float32)
+        embs = np.zeros((num_frames, MAX_GLIGEN_OBJS, d), np.float32)
+        phrase_cache: dict = {}
+        for f, (phrases_f, boxes_f) in enumerate(zip(gligen_phrases, gligen_boxes)):
+            phrases_f = list(phrases_f)[:MAX_GLIGEN_OBJS]
+            boxes_f = list(boxes_f)[:MAX_GLIGEN_OBJS]
+            new = [p for p in phrases_f if p not in phrase_cache]
+            if new:
+                pooled = self.encode_phrases_pooled(new).float().cpu().numpy()
+                phrase_cache.update(zip(new, pooled))
+            n = len(boxes_f)
+            if n:
+                boxes[f, :n] = np.asarray(boxes_f, np.float32)
+                masks[f, :n] = 1.0
+                embs[f, :n] = np.stack([phrase_cache[p] for p in phrases_f])
+        on = lambda a: torch.from_numpy(a).to(self.device, self.dtype)
+        return {"boxes": on(np.concatenate([boxes, boxes])),
+                "masks": on(np.concatenate([np.zeros_like(masks), masks])),
+                "positive_embeddings": on(np.concatenate([embs, embs]))}
+
+    @torch.no_grad()
     def decode_latents(self, latents, chunk: int = 24):
         """(B, F, h, w, C) latents -> (B, F, H, W, 3) float in [0, 1], via
         uint8 on the device (as lvd_tpu rounds it); frames in chunks."""
@@ -86,13 +126,17 @@ class TextToVideoPipeline:
                  width: Optional[int] = None, num_frames: int = 16,
                  num_inference_steps: int = 50, guidance_scale: float = 9.0, seed: int = 0,
                  latents=None, backward_guidance: Optional[dict] = None,
-                 output_type: str = "np"):
+                 gligen_boxes=None, gligen_phrases=None,
+                 gligen_scheduled_sampling_beta: float = 0.3, output_type: str = "np"):
         """Returns (B, F, H, W, 3) float32 in [0, 1] (``output_type="np"``)
         or the final latents (``"latent"``). ``latents`` may be passed in
         (B, F, h, w, 4); otherwise they are drawn from ``seed`` as lvd_tpu
         draws them. ``backward_guidance``: {boxes, object_positions, config,
         attn_keys[, pack]} as lvd_tpu takes it; the guided updates enable
-        autograd locally."""
+        autograd locally. ``gligen_boxes`` / ``gligen_phrases``: per frame, a
+        list of normalized xyxy boxes and their phrases; the fuser runs in
+        the first ``int(gligen_scheduled_sampling_beta * num_inference_steps)``
+        steps and never in the guided updates' energy walk."""
         preset = self.preset
         height = height or preset.height
         width = width or preset.width
@@ -125,9 +169,14 @@ class TextToVideoPipeline:
                     (h_lat, w_lat), fg_top_p=g_cfg.fg_top_p, bg_top_p=g_cfg.bg_top_p,
                     upsample_scale=g_cfg.upsample_scale)
             guidance = sampler_mod.pack_to_tensors(pack, self.device)
+        gligen_pair, n_ground = None, 0
+        if gligen_boxes:
+            gligen_pair = self.prepare_gligen_inputs(gligen_boxes, gligen_phrases, num_frames)
+            n_ground = int(gligen_scheduled_sampling_beta * num_inference_steps)
         self.timings["guided"] = []
         final = sampler_mod.sample_video(self.unet_params, preset.unet, latents, text_pair,
                                          coeffs, float(guidance_scale), guidance, g_cfg, keys,
+                                         gligen_pair=gligen_pair, num_grounding_steps=n_ground,
                                          step_times=self.timings["steps"],
                                          guided_times=self.timings["guided"])
         if output_type == "latent":

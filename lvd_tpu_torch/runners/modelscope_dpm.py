@@ -1,0 +1,52 @@
+"""Ungrounded ModelScope baseline (plain T2V with DPM-Solver++).
+
+Counterpart of lvd_tpu/runners/modelscope_dpm.py; parity target of both: the
+reference's generation/modelscope_dpm.py.
+"""
+
+from __future__ import annotations
+
+import os
+
+from ..text.templates import NEGATIVE_PROMPT
+from . import base
+
+version = "modelscope"
+
+_state = base.RunnerState()
+
+
+def init(option: str = ""):
+    global _state
+    preset = "modelscope256" if option == "256" else "modelscope512"
+    _state = base.init_pipeline(preset)
+    return _state.H, _state.W
+
+
+def run(
+    parsed_layout,
+    seed,
+    num_inference_steps=40,
+    num_frames=16,
+    repeat_ind=None,
+    save_formats=("gif", "joblib"),
+):
+    out = base.output_path(seed, repeat_ind)
+    if os.path.exists(out + ".gif"):
+        print(f"Skipping {out}.gif")
+        return
+
+    prompt = parsed_layout["Prompt"]
+    if parsed_layout.get("Background keyword"):
+        prompt = f"{prompt}, {parsed_layout['Background keyword']} background"
+
+    video = _state.pipe(
+        prompt,
+        negative_prompt=NEGATIVE_PROMPT,
+        num_inference_steps=num_inference_steps,
+        height=_state.H,
+        width=_state.W,
+        num_frames=num_frames,
+        seed=seed,
+    )[0]
+    base.save_video(out, video, save_formats)

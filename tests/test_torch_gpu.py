@@ -39,6 +39,30 @@ def test_attention_kernel_matches_plain(cuda, s_q, s_k, c):
     assert _rel(out, ref) <= 2e-2
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,c", [(2910, 320), (750, 640), (210, 1280), (75, 1280)])
+def test_attention_ragged_keys_read_nothing_past_them(cuda, s, c, dtype):
+    """Kernel A at the GLIGEN fuser's key counts (S visual + 30 grounding
+    tokens: 2910 % 64 = 30, 750 % 64 = 46), K and V at the start of buffers
+    whose next rows hold NaN: the last key tile of the last batch must not
+    bring them into O."""
+    from lvd_tpu_torch.ops import packed_attention as pa
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, _nan_tailed, exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v = (torch.randn(3, s, c, generator=g, device=cuda).to(dtype) for _ in range(3))
+    k, v = _nan_tailed(k), _nan_tailed(v)
+    tail = torch.as_strided(v, (64 * c,), (1,), v.storage_offset() + v.numel())
+    assert torch.isnan(tail).all()
+    before = pa.attention_packed.launches
+    out = pa.attention_packed(q, k, v, 0.125, c // 64)
+    with exact_fp32():
+        ref = pa.attention_packed_plain(q.float(), k.float(), v.float(), 0.125, c // 64)
+    assert pa.attention_packed.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert _rel(out, ref) <= (2e-2 if dtype == torch.bfloat16 else FP32_TOL)
+
+
 def test_kernels_take_fp32(cuda):
     """fp32 goes through the kernels (no plain path on the card), within
     the fp32 gate and closer to the fp32 plain version than bf16 gets."""
@@ -838,6 +862,50 @@ def test_tiny_unet_forward_on_card_matches_cpu(cuda, monkeypatch):
     err = _rel(out.cpu(), ref)
     print(f"tiny UNet on the card vs its CPU run: {err:.3g}")
     assert err <= 1e-4
+
+
+def test_tiny_gated_unet_forward_on_card_matches_cpu(cuda, monkeypatch):
+    """The tiny gated UNet with its fusers' gates open, its spatial
+    proj_out weights not scaled down, and grounding inputs (the GLIGEN path)
+    in fp32 on the card against its CPU run: 1e-4 of max|ref|, TF32 off,
+    kernel D off, as in test_tiny_unet_forward_on_card_matches_cpu; the
+    fuser must move the output."""
+    from lvd_tpu_torch import config as cfg_mod
+    from lvd_tpu_torch.models.loader import _Init, cast_tree, random_unet3d
+    from lvd_tpu_torch.models.unet3d import apply_unet3d
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+
+    monkeypatch.setenv("LVD_DISABLE_FUSED_TC", "1")
+    cfg = cfg_mod.tiny_unet_config("gated")
+    gen = torch.Generator().manual_seed(1)
+    params = random_unet3d(cfg, _Init(gen, torch.device("cpu"), torch.float32))
+
+    def open_gates(node):
+        if isinstance(node, list):
+            return [open_gates(v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        if "fuser" in node.get("blocks", [{}])[0]:
+            w = torch.randn(node["proj_out"]["w"].shape, generator=gen)
+            node = {**node, "proj_out": {**node["proj_out"], "w": w / w.shape[0] ** 0.5}}
+        return {k: torch.full_like(v, 0.5) if k in ("alpha_attn", "alpha_dense")
+                else open_gates(v) for k, v in node.items()}
+
+    params = open_gates(params)
+    sample = torch.randn((1, 4, 16, 16, 4), generator=gen)
+    text = torch.randn((1, 77, cfg.cross_attention_dim), generator=gen)
+    boxes = torch.rand((4, 30, 4), generator=gen)
+    g = {"boxes": boxes, "masks": (torch.rand((4, 30), generator=gen) > 0.5).float(),
+         "positive_embeddings": torch.randn((4, 30, cfg.gligen_positive_len), generator=gen)}
+    with torch.no_grad():
+        ref = apply_unet3d(params, cfg, sample, 500, text, gligen=g)
+        plain = apply_unet3d(params, cfg, sample, 500, text)
+        with exact_fp32():
+            out = apply_unet3d(cast_tree(params, torch.float32, cuda), cfg, sample.to(cuda), 500,
+                               text.to(cuda), gligen={k: v.to(cuda) for k, v in g.items()})
+    err = _rel(out.cpu(), ref)
+    print(f"tiny gated UNet on the card vs its CPU run: {err:.3g}")
+    assert err <= 1e-4 and _rel(plain, ref) > 1e-3
 
 
 def test_fp16_takes_stock_routes_on_card(cuda):
