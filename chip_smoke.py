@@ -70,7 +70,22 @@ Phases, each fatal on failure:
  11. lvd-plus - runners.lvd_plus.run on the same pipeline: guidance on steps
                0-1 (one update each), the fuser to step 2 (beta 0.75); no
                energy walk takes grounding inputs; update seconds, launches;
- 12. knobs   - a child process of this script with lvd_tpu's two opt-in
+ 12. cli     - the system's own entry point, lvd_tpu_torch.cli.generate.main,
+               in-process in a temporary directory: --run-model lvd_zeroscope,
+               the demo prompt with bench.py's moving bear as a cached
+               six-frame layout, 24 frames, 4 steps, guidance on 2, with
+               LVD_ALLOW_RANDOM_WEIGHTS=1 and no checkpoint root, so the CLI
+               draws Zeroscope's UNet, CLIP and VAE (encoder included) in
+               lvd_tpu's JAX key order on the card (models/init.py); the
+               draw's seconds, main()'s seconds, peak memory and launches;
+               its run dir must hold video_0.gif and the frames file at
+               (24, 320, 576, 3) uint8, kernels A-G must launch, B, C, D, F
+               and G only in their wgmma forms, and four sampled leaves
+               (conv_in, a to_q, the CLIP token embedding's first and last
+               1024 rows, a VAE decoder conv) drawn again on the card must
+               have the CPU draw's random bits and its normals within 1e-6,
+               and the pipeline's bf16 leaves the CPU draw within 2^-8;
+ 13. knobs   - a child process of this script with lvd_tpu's two opt-in
                switches set (LVD_ENABLE_FUSED_SC=1 LVD_FUSED_LINEAR=1; the
                second is read at import): phases 4 and 5 again, now with the
                resnet convs on kernel I and the projections on kernel H, and
@@ -80,10 +95,10 @@ Phases, each fatal on failure:
                mma_sync, never a WMMA form); then one profiled CFG forward
                under the switches. A non-zero exit of the child fails the
                smoke;
- 13. fp32    - one full-width CFG UNet forward in TextToVideoPipeline's
+ 14. fp32    - one full-width CFG UNet forward in TextToVideoPipeline's
                default type (fp32) through the kernels against the plain
                path in fp32, TF32 off on both;
- 14. entry points - the public sdpa() (forward and backward) at D = 64
+ 15. entry points - the public sdpa() (forward and backward) at D = 64
                (L0 shape), 192 and 256 (the D-sliced A and E), conv3x3() at
                L0, and geglu_mlp() with the seeded UNet's feed-forward
                weights where lvd_tpu streams them (C = 1280 block at
@@ -93,7 +108,7 @@ Phases, each fatal on failure:
                just after: kernels A, E, I (in its wgmma form) and J (twice:
                its wgmma form in bf16, its first version in fp32) must have
                run, and G must not (lvd_tpu's dx there is the stock VJP);
- 15. profile - one CFG UNet forward and one guided update under
+ 16. profile - one CFG UNet forward and one guided update under
                torch.profiler: device time per kernel and for the stock ops,
                and the device's idle share.
 The line before the last is the kernels' JSON record; the last line is
@@ -702,31 +717,33 @@ def _runner_state(pipe):
     return state
 
 
-def _read_outputs(phase, out_dir):
-    """video_seed0.gif and the frames file of a runner: both must hold
-    (24, 320, 576, 3) frames. The frames file is .joblib, or .npz where joblib
-    is not installed (utils/vis.save_joblib's fallback, as lvd_tpu's)."""
+def _read_outputs(phase, out_dir, stem="video_seed0"):
+    """{stem}.gif and the frames file of a runner: both must hold
+    (24, 320, 576, 3) frames, the frames file in uint8. The frames file is
+    .joblib, or .npz where joblib is not installed (utils/vis.save_joblib's
+    fallback, as lvd_tpu's)."""
     from PIL import Image, ImageSequence
 
     from lvd_tpu_torch.utils import vis
 
-    gif = Image.open(os.path.join(out_dir, "video_seed0.gif"))
+    gif = Image.open(os.path.join(out_dir, f"{stem}.gif"))
     gif_frames = [np.asarray(f.convert("RGB")) for f in ImageSequence.Iterator(gif)]
-    name = next(f"video_seed0.{ext}" for ext in ("joblib", "npz")
-                if os.path.exists(os.path.join(out_dir, f"video_seed0.{ext}")))
+    name = next(f"{stem}.{ext}" for ext in ("joblib", "npz")
+                if os.path.exists(os.path.join(out_dir, f"{stem}.{ext}")))
     frames = vis.load_video(os.path.join(out_dir, name))
     shapes = {"gif": (len(gif_frames), *gif_frames[0].shape), name: frames.shape}
     log(f"[{phase}] {sorted(os.listdir(out_dir))}: {json.dumps(shapes)}, frames {frames.dtype} "
         f"min {frames.min()} max {frames.max()} mean {frames.mean():.3f}")
-    if set(shapes.values()) != {(24, 320, 576, 3)}:
-        raise SystemExit(f"[{phase}] the runner's outputs hold {shapes}")
+    if set(shapes.values()) != {(24, 320, 576, 3)} or frames.dtype != np.uint8:
+        raise SystemExit(f"[{phase}] the runner's outputs hold {shapes} {frames.dtype}")
 
 
 def _drive_runner(torch, phase, runner, pipe, **run_kw):
     """``runner.run`` on FLAG_LAYOUT, seed 0, NUM_STEPS steps, 24 frames,
-    with its state holding ``pipe`` and its outputs in a temporary directory
-    (read by _read_outputs); logs its peak memory and launches. Returns
-    run()'s seconds, the launches and the census of its UNet calls."""
+    with its state holding ``pipe`` for the call only and its outputs in a
+    temporary directory (read by _read_outputs); logs its peak memory and
+    launches. Returns run()'s seconds, the launches and the census of its
+    UNet calls."""
     import tempfile
 
     from lvd_tpu_torch.runners import base
@@ -742,6 +759,7 @@ def _drive_runner(torch, phase, runner, pipe, **run_kw):
         runner.run(FLAG_LAYOUT, seed=0, num_inference_steps=NUM_STEPS, num_frames=24, **run_kw)
         total = time.perf_counter() - t0
         launches = read_launches()
+        runner._state = base.RunnerState()  # the module holds no weights past the phase
         _read_outputs(phase, out_dir)
     log(f"[{phase}] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"[{phase}] launches in {NUM_STEPS} steps: {json.dumps(launches)}")
@@ -857,6 +875,149 @@ def lvd_plus_phase(torch, pipe):
     check_new_forms("lvd-plus", read_forms(), ("temporal_attention_pair",
                                                "temporal_attention_pair_bwd", "geglu_mlp_bwd"))
     return launches
+
+
+CLI_WGMMA = ("temporal_attention_pair", "geglu_mlp", "norm_silu_temporal_conv",
+             "temporal_attention_pair_bwd", "geglu_mlp_bwd")  # B, C, D, F, G
+# Rows of the CLIP token embedding held against the CPU draw (first and last).
+CLI_EMBED_ROWS = 1024
+
+
+def _cli_cache(path):
+    """A layout cache holding the first demo prompt with FLAG_LAYOUT (bench.py's
+    moving bear) as the six frame lines of an LLM response."""
+    from lvd_tpu_torch.text.templates import PROMPTS_DEMO, canonical_prompt
+
+    frames = "\n".join(f"Frame {i + 1}: {FLAG_LAYOUT[f'Frame {i + 1}']}" for i in range(6))
+    response = f"Reasoning: the bear walks right.\n{frames}\nBackground keyword: forest"
+    with open(path, "w") as f:
+        json.dump({canonical_prompt(PROMPTS_DEMO[0]): [response]}, f)
+
+
+def _check_cli_draw(torch, pipe):
+    """Sampled leaves of the CLI's weights: lvd_tpu's key order drawn again
+    on the card and on the CPU (the key walk of models/init.py) must give
+    equal random bits and normals within 1e-6 of max|cpu|; the pipeline's
+    bf16 leaf must be the CPU draw within bf16 rounding (2^-8)."""
+    from lvd_tpu_torch.models import clip, init, unet3d, vae
+    from lvd_tpu_torch.utils import prng
+
+    preset = pipe.preset
+    k = prng.split(prng.prng_key(0), 3)
+    unet = unet3d.unet3d_leaves(k[0], preset.unet)
+    text = clip.clip_text_leaves(k[1], preset.clip)
+    auto = vae.vae_leaves(k[2], preset.vae)
+    to_q = lambda t: t["down_blocks"][0]["layers"][0]["attn"]["blocks"][0]["attn1"]["to_q"]["w"]
+    conv1 = lambda t: t["decoder"]["up_blocks"][0]["resnets"][0]["conv1"]["w"]
+    leaves = {"unet conv_in": (unet["conv_in"]["w"], pipe.unet_params["conv_in"]["w"]),
+              "unet down 0 attn1 to_q": (to_q(unet), to_q(pipe.unet_params)),
+              "clip token_embedding": (text["token_embedding"], pipe.clip_params["token_embedding"]),
+              "vae decoder up 0 conv1": (conv1(auto), conv1(pipe.vae_params))}
+    readings = {}
+    for name, (leaf, param) in leaves.items():
+        n = param.numel()
+        idx = torch.arange(n)
+        if name.startswith("clip"):
+            rows = CLI_EMBED_ROWS * leaf.shape[1]
+            idx = torch.cat([idx[:rows], idx[-rows:]])
+        t0 = time.perf_counter()
+        bits_cpu = prng.random_bits_at(leaf.key, idx)
+        cpu = prng.normal_from_bits(bits_cpu) * leaf.scale
+        cpu_s = time.perf_counter() - t0
+        bits_card = prng.random_bits_at(leaf.key, idx.cuda()).cpu()
+        card = init.draw(leaf, "cuda").reshape(-1)[idx.cuda()].cpu()
+        scale = cpu.abs().max().item()
+        rel = (card - cpu).abs().max().item() / scale
+        rel_bf16 = (param.float().reshape(-1)[idx.cuda()].cpu() - cpu).abs().max().item() / scale
+        readings[name] = {"shape": list(leaf.shape), "compared": len(idx),
+                          "bits_equal": bool(torch.equal(bits_card, bits_cpu)),
+                          "rel": rel, "rel_bf16": rel_bf16, "cpu_s": round(cpu_s, 3)}
+    log(f"[cli] card draw against the CPU draw: {json.dumps(readings)}")
+    bad = [n for n, r in readings.items()
+           if not (r["bits_equal"] and r["rel"] <= 1e-6 and r["rel_bf16"] <= 2 ** -8)]
+    if bad:
+        raise SystemExit(f"[cli] the card's draw differs from the CPU's at {bad}")
+
+
+def cli_phase(torch):
+    """The system's entry point: lvd_tpu_torch.cli.generate.main in-process,
+    lvd_zeroscope, LVD_ALLOW_RANDOM_WEIGHTS=1 without a checkpoint root, so
+    the CLI draws Zeroscope's UNet, CLIP and VAE in lvd_tpu's key order on
+    the card; the demo prompt's cached flagship layout, 24 frames, 4 steps,
+    guidance on 2. Its run dir must hold video_0.gif and the frames file at
+    (24, 320, 576, 3); kernels A-G must launch, B, C, D, F and G only in
+    their wgmma forms; the sampled leaves must match the CPU draw."""
+    import tempfile
+
+    from lvd_tpu_torch.cli import generate
+    from lvd_tpu_torch.runners import base, lvd
+
+    seconds = {"draw": [], "save": []}
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    env = {"LVD_ALLOW_RANDOM_WEIGHTS": "1"}
+    saved_env = {k: os.environ.get(k) for k in
+                 ("LVD_ALLOW_RANDOM_WEIGHTS", "LVD_CHECKPOINT_ROOT", "LVD_TINY", "LVD_PLATFORM")}
+    home = os.getcwd()
+    t_phase = time.perf_counter()
+    swaps = [(base, "load_pipeline_models", timed("draw", base.load_pipeline_models)),
+             (base, "save_video", timed("save", base.save_video))]
+    with tempfile.TemporaryDirectory() as cwd, _swapped(swaps):
+        for k in saved_env:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        try:
+            os.chdir(cwd)
+            _cli_cache("cache_demo.json")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            t0 = time.perf_counter()
+            generate.main(["--run-model", "lvd_zeroscope", "--prompt-type", "demo",
+                           "--model", "gpt-4", "--template_version", "v0.1",
+                           "--cache-path", "cache_demo.json", "--num_frames", "24",
+                           "--num_inference_steps", str(NUM_STEPS),
+                           "--max_index_step", str(GUIDED_INDEX_STEP), "--max_iter", "1",
+                           "--num_prompts", "1", "--no-continue-on-error"])
+            total = time.perf_counter() - t0
+            launches, forms = read_launches(), read_forms()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            out_dir = os.path.join(cwd, "img_generations/imgs_demo_templatev0.1_lvd_zeroscope/run0/0")
+            _read_outputs("cli", out_dir, "video_0")
+        finally:
+            os.chdir(home)
+            for k, v in saved_env.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+    pipe = lvd._state.pipe
+    log(f"[cli] generate.main: draw of Zeroscope's UNet, CLIP and VAE on the card "
+        f"{seconds['draw'][0]:.3f} s; main() {total:.3f} s (pipeline timer: "
+        f"{json.dumps({k: round(v, 4) for k, v in pipe.timer.summary().items()})}; steps "
+        f"{[round(x, 4) for x in pipe.timings['steps']]} s, guided updates "
+        f"{[round(x, 4) for x in pipe.timings['guided']]} s; GIF and frames file written in "
+        f"{seconds['save'][0]:.3f} s); max_memory_allocated {peak:.3f} GiB")
+    log(f"[cli] launches in {NUM_STEPS} steps: {json.dumps(launches)}; by form: {json.dumps(forms)}")
+    missing = [name for name in GUIDED_KERNELS if launches[name] <= 0]
+    other = {name: {f: n for f, n in forms[name].items() if f != "wgmma" and n}
+             for name in CLI_WGMMA}
+    if missing or any(other.values()) or any(forms[n]["wgmma"] <= 0 for n in CLI_WGMMA):
+        raise SystemExit(f"[cli] kernels never launched {missing}; B-D, F, G outside their "
+                         f"wgmma forms {other}")
+    _check_cli_draw(torch, pipe)
+    lvd._state = base.RunnerState()
+    del pipe
+    torch.cuda.empty_cache()
+    log(f"[cli] the cli phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 # Substrings of the kernels' device symbols (B-D's and F-J's: every form).
@@ -1214,6 +1375,7 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
     log(f"[gligen] the GLIGEN phases took {time.perf_counter() - t_gligen:.1f} s")
+    cli_phase(torch)
     knob_launches, knob_forms = knob_phase(torch)
     fp32_phase(torch, models)
     entry_launches, entry_forms = entry_point_phase(torch, models)

@@ -8,6 +8,43 @@ import torch.nn.functional as F
 
 from ..config import CLIPTextConfig
 from ..ops.basic import layer_norm, linear
+from ..utils import prng
+from . import init
+
+
+def clip_text_leaves(key, cfg: CLIPTextConfig, with_projection: bool = False):
+    """lvd_tpu's CLIP text tree (``init_clip_text``, models/clip.py:29-66) with
+    its keys, undrawn: the keys of ``split(key, 16 + 8 * layers)`` in turn."""
+    keys = iter(prng.split(key, 16 + 8 * cfg.num_hidden_layers))
+    d = cfg.hidden_size
+    params = {
+        "token_embedding": init.Normal(next(keys), (cfg.vocab_size, d), 0.02),
+        "position_embedding": init.Normal(next(keys), (cfg.max_position_embeddings, d), 0.02),
+        "final_layer_norm": init.norm(d),
+        "layers": [],
+    }
+    if with_projection:  # CLIPTextModelWithProjection (the SDXL text encoders)
+        params["text_projection"] = {
+            "w": init.Normal(next(keys), (d, cfg.projection_dim), d ** -0.5)}
+    for _ in range(cfg.num_hidden_layers):
+        params["layers"].append({
+            "layer_norm1": init.norm(d),
+            "q_proj": init.linear(next(keys), d, d),
+            "k_proj": init.linear(next(keys), d, d),
+            "v_proj": init.linear(next(keys), d, d),
+            "out_proj": init.linear(next(keys), d, d),
+            "layer_norm2": init.norm(d),
+            "fc1": init.linear(next(keys), d, cfg.intermediate_size),
+            "fc2": init.linear(next(keys), cfg.intermediate_size, d),
+        })
+    return params
+
+
+def init_clip_text(key, cfg: CLIPTextConfig, with_projection: bool = False, device=None,
+                   dtype=torch.float32):
+    """lvd_tpu's ``init_clip_text(key, cfg, with_projection)`` drawn on
+    ``device`` (the card unless asked)."""
+    return init.draw(clip_text_leaves(key, cfg, with_projection), device, dtype)
 
 
 def _attn(p, x, num_heads, causal_bias):

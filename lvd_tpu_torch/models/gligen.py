@@ -14,6 +14,8 @@ import torch
 
 from ..ops.attention import attention
 from ..ops.basic import feed_forward, layer_norm, linear, silu
+from ..utils import prng
+from . import init
 
 
 def fourier_embed(x, num_freqs: int = 8, temperature: float = 100.0):
@@ -26,6 +28,28 @@ def fourier_embed(x, num_freqs: int = 8, temperature: float = 100.0):
     emb = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)  # (..., 4, F, 2)
     emb = torch.movedim(emb, -3, -1)  # (..., F, 2, 4)
     return emb.reshape(*x.shape[:-1], num_freqs * 2 * 4).to(x.dtype)
+
+
+def position_net_leaves(key, positive_len: int, out_dim: int, fourier_freqs: int = 8):
+    """The PositionNet's tree in lvd_tpu's key order (models/gligen.py:33-50),
+    undrawn (models/init.py)."""
+    position_dim = fourier_freqs * 2 * 4
+    k = prng.split(key, 3)
+    return {
+        "linears_0": init.linear(k[0], positive_len + position_dim, 512),
+        "linears_1": init.linear(k[1], 512, 512),
+        "linears_2": init.linear(k[2], 512, out_dim),
+        "null_positive_feature": init.zeros(positive_len),
+        "null_position_feature": init.zeros(position_dim),
+    }
+
+
+def init_position_net(key, positive_len: int, out_dim: int, fourier_freqs: int = 8,
+                      device=None, dtype=torch.float32):
+    """lvd_tpu's ``init_position_net(key, ...)`` drawn on ``device`` (the card
+    unless asked)."""
+    return init.draw(position_net_leaves(key, positive_len, out_dim, fourier_freqs),
+                     device, dtype)
 
 
 def apply_position_net(p, boxes, masks, positive_embeddings, fourier_freqs: int = 8):

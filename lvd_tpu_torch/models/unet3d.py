@@ -64,7 +64,171 @@ from ..ops.basic import (
     timestep_embedding,
     upsample_nearest_2x,
 )
-from .gligen import apply_gated_self_attention, apply_position_net
+from ..utils import prng
+from . import init
+from .gligen import apply_gated_self_attention, apply_position_net, position_net_leaves
+
+# ---------------------------------------------------------------------------
+# lvd_tpu's random weights in its key order (lvd_tpu/models/unet3d.py:70-304)
+# ---------------------------------------------------------------------------
+
+
+def _attention_leaves(key, query_dim, context_dim, inner_dim):
+    k = prng.split(key, 4)
+    return {
+        "to_q": init.linear(k[0], query_dim, inner_dim, bias=False),
+        "to_k": init.linear(k[1], context_dim, inner_dim, bias=False),
+        "to_v": init.linear(k[2], context_dim, inner_dim, bias=False),
+        "to_out": init.linear(k[3], inner_dim, query_dim),
+    }
+
+
+def _ff_leaves(key, dim, mult=4):
+    k = prng.split(key, 2)
+    return {"proj": init.linear(k[0], dim, dim * mult * 2),
+            "out": init.linear(k[1], dim * mult, dim)}
+
+
+def _btb_leaves(key, dim, context_dim, fuser_context=None):
+    """A BasicTransformerBlock; ``context_dim=None`` makes attn2 a second
+    self-attention (the temporal blocks)."""
+    k = prng.split(key, 4)
+    p = {
+        "norm1": init.norm(dim),
+        "attn1": _attention_leaves(k[0], dim, dim, dim),
+        "norm2": init.norm(dim),
+        "attn2": _attention_leaves(k[1], dim, context_dim or dim, dim),
+        "norm3": init.norm(dim),
+        "ff": _ff_leaves(k[2], dim),
+    }
+    if fuser_context is not None:
+        fk = prng.split(k[3], 3)
+        p["fuser"] = {
+            "linear": init.linear(fk[0], fuser_context, dim),
+            "attn": _attention_leaves(fk[1], dim, dim, dim),
+            "ff": _ff_leaves(fk[2], dim),
+            "norm1": init.norm(dim),
+            "norm2": init.norm(dim),
+            "alpha_attn": init.zeros(),
+            "alpha_dense": init.zeros(),
+        }
+    return p
+
+
+def _spatial_transformer_leaves(key, channels, context_dim, gated):
+    k = prng.split(key, 3)
+    return {
+        "norm": init.norm(channels),
+        "proj_in": init.linear(k[0], channels, channels),
+        "blocks": [_btb_leaves(k[2], channels, context_dim,
+                               fuser_context=context_dim if gated else None)],
+        "proj_out": init.linear(k[1], channels, channels, scale=1e-5),
+    }
+
+
+def _temporal_transformer_leaves(key, channels, inner_dim):
+    k = prng.split(key, 3)
+    return {
+        "norm": init.norm(channels),
+        "proj_in": init.linear(k[0], channels, inner_dim),
+        "blocks": [_btb_leaves(k[1], inner_dim, None)],
+        "proj_out": init.linear(k[2], inner_dim, channels, scale=1e-5),
+    }
+
+
+def _resnet_leaves(key, cin, cout, temb_dim):
+    k = prng.split(key, 4)
+    p = {
+        "norm1": init.norm(cin),
+        "conv1": init.conv(k[0], 3, 3, cin, cout),
+        "time_emb_proj": init.linear(k[1], temb_dim, cout),
+        "norm2": init.norm(cout),
+        "conv2": init.conv(k[2], 3, 3, cout, cout),
+    }
+    if cin != cout:
+        p["conv_shortcut"] = init.conv(k[3], 1, 1, cin, cout)
+    return p
+
+
+def _temp_conv_leaves(key, channels):
+    k = prng.split(key, 4)
+    return {f"conv{i + 1}": {"norm": init.norm(channels),
+                             "conv": init.conv3d(k[i], 3, channels, channels, zero=i == 3)}
+            for i in range(4)}
+
+
+def unet3d_leaves(key, cfg: UNet3DConfig):
+    """lvd_tpu's UNet tree (``init_unet3d``) with its keys, undrawn: every
+    module takes the next key of the stream ``fold_in(key, 1), fold_in(key,
+    2), ...`` in lvd_tpu's order of construction."""
+    boc = cfg.block_out_channels
+    temb = cfg.time_embed_dim
+    gated = cfg.attention_type == "gated"
+    counter = [0]
+
+    def next_key():
+        counter[0] += 1
+        return prng.fold_in(key, counter[0])
+
+    params = {
+        "conv_in": init.conv(next_key(), 3, 3, cfg.in_channels, boc[0]),
+        "time_embedding": {"linear_1": init.linear(next_key(), boc[0], temb),
+                           "linear_2": init.linear(next_key(), temb, temb)},
+        "transformer_in": _temporal_transformer_leaves(
+            next_key(), boc[0], cfg.transformer_in_num_heads * cfg.attention_head_dim),
+    }
+
+    def layer(cin, cout, with_attn):
+        p = {"resnet": _resnet_leaves(next_key(), cin, cout, temb),
+             "temp_conv": _temp_conv_leaves(next_key(), cout)}
+        if with_attn:
+            p["attn"] = _spatial_transformer_leaves(next_key(), cout, cfg.cross_attention_dim,
+                                                    gated)
+            p["temp_attn"] = _temporal_transformer_leaves(next_key(), cout, cout)
+        return p
+
+    down, ch = [], boc[0]
+    for i, cout in enumerate(boc):
+        is_final = i == len(boc) - 1
+        block = {"layers": [layer(ch if j == 0 else cout, cout, not is_final)
+                            for j in range(cfg.layers_per_block)]}
+        if not is_final:
+            block["downsample"] = init.conv(next_key(), 3, 3, cout, cout)
+        down.append(block)
+        ch = cout
+    params["down_blocks"] = down
+    params["mid_block"] = {
+        "resnet_in": _resnet_leaves(next_key(), boc[-1], boc[-1], temb),
+        "temp_conv_in": _temp_conv_leaves(next_key(), boc[-1]),
+        "layers": [layer(boc[-1], boc[-1], True)],
+    }
+    up, rev = [], list(reversed(boc))
+    prev = rev[0]
+    for i, cout in enumerate(rev):
+        skip_source = rev[min(i + 1, len(boc) - 1)]
+        layers = []
+        for j in range(cfg.layers_per_block + 1):
+            skip_ch = skip_source if j == cfg.layers_per_block else cout
+            layers.append(layer((prev if j == 0 else cout) + skip_ch, cout, i > 0))
+        block = {"layers": layers}
+        if i < len(boc) - 1:
+            block["upsample"] = init.conv(next_key(), 3, 3, cout, cout)
+        up.append(block)
+        prev = cout
+    params["up_blocks"] = up
+    params["conv_norm_out"] = init.norm(boc[0])
+    params["conv_out"] = init.conv(next_key(), 3, 3, boc[0], cfg.out_channels)
+    if gated:
+        params["position_net"] = position_net_leaves(
+            next_key(), cfg.gligen_positive_len, cfg.cross_attention_dim,
+            cfg.gligen_fourier_freqs)
+    return params
+
+
+def init_unet3d(key, cfg: UNet3DConfig, device=None, dtype=torch.float32):
+    """lvd_tpu's ``init_unet3d(key, cfg)`` drawn on ``device`` (the card
+    unless asked)."""
+    return init.draw(unet3d_leaves(key, cfg), device, dtype)
 
 
 def _btb_apply(p, x, context, num_heads, capture=False, gligen_objs=None):

@@ -9,6 +9,75 @@ import torch
 
 from ..config import VAEConfig
 from ..ops.basic import conv2d, group_norm, linear, silu, upsample_nearest_2x
+from ..utils import prng
+from . import init
+
+
+def _resnet_leaves(key, cin, cout):
+    k = prng.split(key, 3)
+    p = {"norm1": init.norm(cin), "conv1": init.conv(k[0], 3, 3, cin, cout),
+         "norm2": init.norm(cout), "conv2": init.conv(k[1], 3, 3, cout, cout)}
+    if cin != cout:
+        p["conv_shortcut"] = init.conv(k[2], 1, 1, cin, cout)
+    return p
+
+
+def _attn_leaves(key, c):
+    k = prng.split(key, 4)
+    return {"norm": init.norm(c), **{name: init.linear(k[i], c, c) for i, name in
+                                     enumerate(("to_q", "to_k", "to_v", "to_out"))}}
+
+
+def _mid_leaves(keys, c):
+    return {"resnet_1": _resnet_leaves(next(keys), c, c), "attn": _attn_leaves(next(keys), c),
+            "resnet_2": _resnet_leaves(next(keys), c, c)}
+
+
+def vae_leaves(key, cfg: VAEConfig):
+    """lvd_tpu's VAE tree (``init_vae``, models/vae.py:80-142), encoder and
+    decoder, with its keys, undrawn: the keys of ``split(key, 128)`` in
+    turn, the encoder's first. The port runs only the decoder."""
+    boc = cfg.block_out_channels
+    keys = iter(prng.split(key, 128))
+    enc = {"conv_in": init.conv(next(keys), 3, 3, cfg.in_channels, boc[0])}
+    blocks, ch = [], boc[0]
+    for i, cout in enumerate(boc):
+        block = {"resnets": [_resnet_leaves(next(keys), ch if j == 0 else cout, cout)
+                             for j in range(cfg.layers_per_block)]}
+        if i < len(boc) - 1:
+            block["downsample"] = init.conv(next(keys), 3, 3, cout, cout)
+        blocks.append(block)
+        ch = cout
+    enc["down_blocks"] = blocks
+    enc["mid"] = _mid_leaves(keys, boc[-1])
+    enc["conv_norm_out"] = init.norm(boc[-1])
+    enc["conv_out"] = init.conv(next(keys), 3, 3, boc[-1], 2 * cfg.latent_channels)
+
+    dec = {"conv_in": init.conv(next(keys), 3, 3, cfg.latent_channels, boc[-1])}
+    dec["mid"] = _mid_leaves(keys, boc[-1])
+    blocks, rev = [], list(reversed(boc))
+    ch = rev[0]
+    for i, cout in enumerate(rev):
+        block = {"resnets": [_resnet_leaves(next(keys), ch if j == 0 else cout, cout)
+                             for j in range(cfg.layers_per_block + 1)]}
+        if i < len(boc) - 1:
+            block["upsample"] = init.conv(next(keys), 3, 3, cout, cout)
+        blocks.append(block)
+        ch = cout
+    dec["up_blocks"] = blocks
+    dec["conv_norm_out"] = init.norm(boc[0])
+    dec["conv_out"] = init.conv(next(keys), 3, 3, boc[0], cfg.out_channels)
+    lat2 = 2 * cfg.latent_channels
+    return {"encoder": enc, "decoder": dec,
+            "quant_conv": init.conv(next(keys), 1, 1, lat2, lat2),
+            "post_quant_conv": init.conv(next(keys), 1, 1, cfg.latent_channels,
+                                         cfg.latent_channels)}
+
+
+def init_vae(key, cfg: VAEConfig, device=None, dtype=torch.float32):
+    """lvd_tpu's ``init_vae(key, cfg)`` drawn on ``device`` (the card unless
+    asked)."""
+    return init.draw(vae_leaves(key, cfg), device, dtype)
 
 
 def _resnet(p, x, groups, eps=1e-6):

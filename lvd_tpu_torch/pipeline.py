@@ -8,14 +8,14 @@ and GLIGEN grounding on the first ``int(beta * T)`` steps (``gligen_boxes``,
 ``gligen_phrases``: per-frame boxes and their phrases, a gated UNet tree),
 and the VAE decodes the frames to uint8 on the device. Without ``latents``
 the initial noise is ``jax.random.normal(PRNGKey(seed))``'s, drawn on the
-host by a numpy copy of JAX's PRNG (utils/prng.py), so a seed gives the same
-video as lvd_tpu.
+host by a copy of JAX's PRNG (utils/prng.py), so a seed gives the same video
+as lvd_tpu. Phases are timed by a PhaseTimer, and the sampling is traced
+under ``LVD_PROFILE`` (utils/profiling.py), where lvd_tpu's are.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -31,6 +31,7 @@ from .models.loader import cast_tree
 from .models.vae import decode as vae_decode
 from .utils import prng
 from .utils.device import resolve_device
+from .utils.profiling import PhaseTimer, maybe_trace
 
 MAX_GLIGEN_OBJS = 30  # grounding slots per frame (lvd_tpu/pipeline.py:28)
 
@@ -58,8 +59,10 @@ class TextToVideoPipeline:
         self.vae_params = cast_tree(models.vae_params, dtype, self.device)
         # Phase seconds of the last call: encode_prompt, steps (one entry per
         # denoising step), guided (one entry per guided step: its guidance
-        # updates), decode.
+        # updates), decode. ``timer`` sums the phases encode_prompt, sample
+        # and decode over calls, as lvd_tpu's does (LVD_TIMINGS=1 prints each).
         self.timings: dict = {}
+        self.timer = PhaseTimer()
 
     @torch.no_grad()
     def encode_prompt(self, prompt: str, negative_prompt: str = ""):
@@ -146,10 +149,11 @@ class TextToVideoPipeline:
         sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
             else (lambda: None)
 
-        t0 = time.perf_counter()
-        text_pair = self.encode_prompt(prompt, negative_prompt).to(self.dtype)
-        sync()
-        self.timings = {"encode_prompt": time.perf_counter() - t0, "steps": []}
+        with self.timer.phase("encode_prompt"):
+            text_pair = self.encode_prompt(prompt, negative_prompt).to(self.dtype)
+            sync()
+        self.timings = {"encode_prompt": self.timer.last["encode_prompt"], "steps": [],
+                        "guided": []}
 
         h_lat, w_lat = height // sf, width // sf
         if latents is None:
@@ -173,15 +177,15 @@ class TextToVideoPipeline:
         if gligen_boxes:
             gligen_pair = self.prepare_gligen_inputs(gligen_boxes, gligen_phrases, num_frames)
             n_ground = int(gligen_scheduled_sampling_beta * num_inference_steps)
-        self.timings["guided"] = []
-        final = sampler_mod.sample_video(self.unet_params, preset.unet, latents, text_pair,
-                                         coeffs, float(guidance_scale), guidance, g_cfg, keys,
-                                         gligen_pair=gligen_pair, num_grounding_steps=n_ground,
-                                         step_times=self.timings["steps"],
-                                         guided_times=self.timings["guided"])
+        with self.timer.phase("sample"), maybe_trace("sample"):
+            final = sampler_mod.sample_video(
+                self.unet_params, preset.unet, latents, text_pair, coeffs,
+                float(guidance_scale), guidance, g_cfg, keys, gligen_pair=gligen_pair,
+                num_grounding_steps=n_ground, step_times=self.timings["steps"],
+                guided_times=self.timings["guided"])
         if output_type == "latent":
             return final
-        t0 = time.perf_counter()
-        video = self.decode_latents(final)
-        self.timings["decode"] = time.perf_counter() - t0
+        with self.timer.phase("decode"):
+            video = self.decode_latents(final)
+        self.timings["decode"] = self.timer.last["decode"]
         return video

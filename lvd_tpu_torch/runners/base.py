@@ -19,9 +19,9 @@ from PIL import Image
 from ..diffusion.guidance import GuidanceConfig
 from ..diffusion.guidance import OVERALL_GUIDANCE_ATTN_KEYS  # noqa: F401 (lvd_tpu's name)
 from ..layout.condition import parsed_layout_to_condition
-from ..models.loader import load_pipeline_models
+from ..models.loader import load_pipeline_models, tiny_pipeline_models
 from ..pipeline import TextToVideoPipeline
-from ..utils import vis
+from ..utils import platform, vis
 
 # Output directory, settable by the caller (as lvd_tpu's).
 img_dir = "imgs"
@@ -36,14 +36,20 @@ class RunnerState:
 
 
 def init_pipeline(preset_name: str) -> RunnerState:
-    """The preset's pipeline on the card, in bf16."""
+    """The preset's pipeline in bf16 on the device of ``utils/platform``
+    (the card unless ``LVD_PLATFORM=cpu``). Under ``LVD_TINY=1``, lvd_tpu's
+    debug mode, it is lvd_tpu's tiny models in fp32 (gated for the
+    lvd-gligen presets), which run the whole stack in seconds on the CPU."""
+    device = platform.device()
     if os.environ.get("LVD_TINY") == "1":
-        raise NotImplementedError(
-            "LVD_TINY=1: lvd_tpu's tiny weights come from jax.random in its key "
-            "order, which this package cannot draw yet (ROADMAP A3)")
-    models = load_pipeline_models(preset_name, dtype=torch.bfloat16)
+        attention_type = "gated" if preset_name.startswith("lvd-gligen") else "default"
+        models = tiny_pipeline_models(attention_type=attention_type, device=device)
+        dtype = torch.float32
+    else:
+        models = load_pipeline_models(preset_name, device=device, dtype=torch.bfloat16)
+        dtype = torch.bfloat16
     state = RunnerState()
-    state.pipe = TextToVideoPipeline(models, dtype=torch.bfloat16)
+    state.pipe = TextToVideoPipeline(models, dtype=dtype, device=device)
     state.H, state.W = models.preset.height, models.preset.width
     state.box_h, state.box_w = models.preset.box_h, models.preset.box_w
     return state

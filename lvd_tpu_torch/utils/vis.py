@@ -1,5 +1,5 @@
-"""Video/visualization IO: gif, mp4, npz, joblib writers and box overlays (a
-copy of lvd_tpu/utils/vis.py). GIFs are written by PIL, lvd_tpu's own path
+"""Video/visualization IO: gif, mp4, npz, joblib writers, box overlays and
+the layout GIF (a copy of lvd_tpu/utils/vis.py). GIFs are written by PIL, lvd_tpu's own path
 where its native encoder is absent; mp4 uses cv2 when present, else is
 skipped with a warning.
 """
@@ -7,7 +7,7 @@ skipped with a warning.
 from __future__ import annotations
 
 import os
-from typing import Iterable, Sequence
+from typing import Iterable, List, Sequence
 
 import numpy as np
 from PIL import Image, ImageDraw
@@ -117,3 +117,47 @@ def draw_box(pil_img: Image.Image, boxes, phrases, ignore_all_zeros: bool = True
         )
         draw.text((int(x0 * w) + 4, int(y0 * h) + 4), str(phrase), fill=(255, 0, 0))
     return pil_img
+
+
+_PALETTE = [
+    (230, 60, 60), (60, 130, 230), (60, 200, 120), (230, 180, 50),
+    (180, 90, 220), (90, 210, 220), (240, 130, 180), (150, 150, 80),
+]
+
+
+def render_layout_frames(
+    condition, size: int = 256, num_frames: int = None
+) -> List[np.ndarray]:
+    """Rasterize a Condition's boxes into simple annotated frames (the
+    layout-visualization gif of prompt_batch --visualize)."""
+    boxes, phrases = condition.boxes, condition.phrases
+    if not boxes:
+        return []
+    n = num_frames or len(boxes[0])
+    frames = []
+    for f in range(n):
+        img = Image.new("RGB", (size, size), (255, 255, 255))
+        draw = ImageDraw.Draw(img)
+        for i, (obj_boxes, phrase) in enumerate(zip(boxes, phrases)):
+            box = obj_boxes[f] if f < len(obj_boxes) else None
+            if box is None or (box[2] <= box[0] or box[3] <= box[1]):
+                continue
+            color = _PALETTE[i % len(_PALETTE)]
+            draw.rectangle(
+                [int(box[0] * size), int(box[1] * size),
+                 int(box[2] * size), int(box[3] * size)],
+                outline=color, width=2,
+            )
+            draw.text(
+                (int(box[0] * size) + 3, int(box[1] * size) + 3),
+                str(phrase), fill=color,
+            )
+        frames.append(np.asarray(img))
+    return frames
+
+
+def show_video_boxes(condition, save_path: str, fps: int = 8, size: int = 256):
+    frames = render_layout_frames(condition, size=size)
+    if frames:
+        save_gif(save_path, frames, fps=fps)
+    return save_path

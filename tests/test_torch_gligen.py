@@ -85,10 +85,10 @@ def tiny_gated_tree(seed=0):
     test_random_gated_tree_has_lvd_tpus_keys_and_shapes holds key for key
     against lvd_tpu's. (lvd_tpu's own draw of it compiles for ~150 s on the
     CPU.)"""
-    from lvd_tpu_torch.models.loader import _Init, random_unet3d
+    from lvd_tpu_torch.models.loader import random_unet3d
 
-    tree = random_unet3d(tcfg.tiny_unet_config("gated"),
-                         _Init(torch.Generator().manual_seed(seed), "cpu", torch.float32))
+    tree = random_unet3d(tcfg.tiny_unet_config("gated"), torch.Generator().manual_seed(seed),
+                         "cpu")
     return jax.tree_util.tree_map(lambda t: t.numpy(), tree)
 
 
@@ -167,11 +167,11 @@ def test_gated_unet_forward_matches(gated_params):
 
 
 def test_closed_gates_give_the_ungated_unet_bit_for_bit():
-    from lvd_tpu_torch.models.loader import _Init, random_unet3d
+    from lvd_tpu_torch.models.loader import random_unet3d
     from lvd_tpu_torch.models.unet3d import apply_unet3d
 
     cfg = tcfg.tiny_unet_config("gated")
-    gated = random_unet3d(cfg, _Init(torch.Generator().manual_seed(0), "cpu", torch.float32))
+    gated = random_unet3d(cfg, torch.Generator().manual_seed(0), "cpu")
 
     rng = np.random.default_rng(4)
     sample = torch.from_numpy(rng.standard_normal((1, 4, 16, 24, 4)).astype(np.float32))
@@ -198,12 +198,12 @@ def _shapes(tree, prefix=""):
 
 def test_random_gated_tree_has_lvd_tpus_keys_and_shapes(gated_params):
     from lvd_tpu.models.unet3d import init_unet3d
-    from lvd_tpu_torch.models.loader import _Init, random_unet3d
+    from lvd_tpu_torch.models.loader import random_unet3d
 
     ref = _shapes(jax.eval_shape(lambda k: init_unet3d(k, jcfg.tiny_unet_config("gated")),
                                  jax.random.PRNGKey(0)))
-    got = random_unet3d(tcfg.tiny_unet_config("gated"),
-                        _Init(torch.Generator().manual_seed(0), "cpu", torch.float32))
+    got = random_unet3d(tcfg.tiny_unet_config("gated"), torch.Generator().manual_seed(0),
+                        "cpu")
     assert _shapes(got) == _shapes(gated_params) == ref
     n_fusers = sum(k.endswith("fuser/alpha_attn") for k in ref)
     assert n_fusers == 16 and ref["position_net/linears_0/w"] == (64 + 64, 512)

@@ -840,7 +840,7 @@ def test_tiny_unet_forward_on_card_matches_cpu(cuda, monkeypatch):
     off here (LVD_DISABLE_FUSED_TC, read per call) and held to its own gate
     in test_temp_conv_forms_match_plain."""
     from lvd_tpu_torch import config as cfg_mod
-    from lvd_tpu_torch.models.loader import _Init, cast_tree, random_unet3d
+    from lvd_tpu_torch.models.loader import cast_tree, random_unet3d
     from lvd_tpu_torch.models.unet3d import apply_unet3d
     from lvd_tpu_torch.ops import packed_attention as pa
     from lvd_tpu_torch.ops import temporal_attention as ta
@@ -849,7 +849,7 @@ def test_tiny_unet_forward_on_card_matches_cpu(cuda, monkeypatch):
     monkeypatch.setenv("LVD_DISABLE_FUSED_TC", "1")
     cfg = cfg_mod.tiny_unet_config()
     gen = torch.Generator().manual_seed(0)
-    params = random_unet3d(cfg, _Init(gen, torch.device("cpu"), torch.float32))
+    params = random_unet3d(cfg, gen, "cpu")
     sample = torch.randn((1, 4, 16, 16, 4), generator=gen)
     text = torch.randn((1, 77, cfg.cross_attention_dim), generator=gen)
     with torch.no_grad():
@@ -871,14 +871,14 @@ def test_tiny_gated_unet_forward_on_card_matches_cpu(cuda, monkeypatch):
     kernel D off, as in test_tiny_unet_forward_on_card_matches_cpu; the
     fuser must move the output."""
     from lvd_tpu_torch import config as cfg_mod
-    from lvd_tpu_torch.models.loader import _Init, cast_tree, random_unet3d
+    from lvd_tpu_torch.models.loader import cast_tree, random_unet3d
     from lvd_tpu_torch.models.unet3d import apply_unet3d
     from lvd_tpu_torch.ops.selfcheck import exact_fp32
 
     monkeypatch.setenv("LVD_DISABLE_FUSED_TC", "1")
     cfg = cfg_mod.tiny_unet_config("gated")
     gen = torch.Generator().manual_seed(1)
-    params = random_unet3d(cfg, _Init(gen, torch.device("cpu"), torch.float32))
+    params = random_unet3d(cfg, gen, "cpu")
 
     def open_gates(node):
         if isinstance(node, list):
@@ -936,3 +936,57 @@ def test_fp16_takes_stock_routes_on_card(cuda):
     assert launches() == (before[0] + 1, before[1])  # the fp32 attention reference only
     assert not tc.supported(y.half())
     assert _rel(out_a, ref_a) <= 1e-2 and _rel(out_b, ref_b) <= 1e-2
+
+
+def test_key_order_draw_on_the_card_matches_the_cpu(cuda):
+    """lvd_tpu's key-order draw (utils/prng.py, models/init.py) on the card:
+    the random bits equal the CPU's, the normals within 1e-6 of max|cpu|,
+    for odd and even element counts and for a whole tiny CLIP tree."""
+    from lvd_tpu_torch import config
+    from lvd_tpu_torch.models import clip, init
+    from lvd_tpu_torch.utils import prng
+
+    key = prng.fold_in(prng.prng_key(0), 7)
+    for shape in [(3, 3, 4, 320), (1024, 1024), (4099,), (3, 70001)]:
+        assert torch.equal(prng.random_bits(key, shape, cuda).cpu(), prng.random_bits(key, shape))
+        card, cpu = prng.normal_key(key, shape, cuda).cpu(), prng.normal_key(key, shape)
+        assert ((card - cpu).abs().max() / cpu.abs().max()).item() <= 1e-6
+    leaves = clip.clip_text_leaves(key, config.tiny_clip_config(), with_projection=True)
+    card, cpu = init.draw(leaves, cuda), init.draw(leaves, "cpu")
+    for got, want in zip(torch.utils._pytree.tree_leaves(card),
+                         torch.utils._pytree.tree_leaves(cpu)):
+        assert got.is_cuda and got.shape == want.shape
+        assert (got.cpu() - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def test_tiny_cli_runs_on_the_card(cuda, tmp_path, monkeypatch):
+    """``LVD_TINY=1`` without ``LVD_PLATFORM``: generate's runner pipeline is
+    lvd_tpu's tiny models in fp32 on the card, and the run dir holds the GIF
+    and frames file of tests/test_cli_integration.py's run."""
+    import json
+
+    import numpy as np
+
+    from lvd_tpu_torch.cli import generate
+    from lvd_tpu_torch.runners import base, lvd
+    from lvd_tpu_torch.utils import vis
+
+    bear = "\n".join(f"Frame {i + 1}: [{{'id': 0, 'name': 'bear', 'box': "
+                     f"[{20 + 70 * i}, 250, 140, 160]}}]" for i in range(6))
+    (tmp_path / "cache.json").write_text(json.dumps(
+        {"A bear walks from the left to the right": [f"{bear}\nBackground keyword: forest"]}))
+    monkeypatch.setenv("LVD_TINY", "1")
+    monkeypatch.delenv("LVD_PLATFORM", raising=False)
+    monkeypatch.setattr(base, "img_dir", base.img_dir)
+    monkeypatch.chdir(tmp_path)
+    generate.main(["--run-model", "lvd_modelscope256", "--prompt-type", "demo", "--model",
+                   "gpt-4", "--template_version", "v0.1", "--cache-path", "cache.json",
+                   "--num_frames", "4", "--num_inference_steps", "4", "--max_index_step", "2",
+                   "--max_iter", "1", "--no-continue-on-error"])
+    assert lvd._state.pipe.device.type == "cuda" and lvd._state.pipe.dtype == torch.float32
+    out = tmp_path / "img_generations/imgs_demo_templatev0.1_lvd_modelscope256/run0/0"
+    name = next(f for f in ("video_0.joblib", "video_0.npz") if (out / f).exists())
+    frames = vis.load_video(str(out / name))
+    assert (out / "video_0.gif").exists() and frames.shape == (4, 64, 96, 3)
+    assert frames.dtype == np.uint8
+    lvd._state = base.RunnerState()

@@ -16,6 +16,9 @@ are held within 1e-4 of max|ref|, the GLIGEN inputs' embeddings within
 files written.
 """
 
+import dataclasses
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -155,9 +158,24 @@ def test_load_pipeline_models_reads_a_converted_checkpoint(pipes, tmp_path, monk
         load_pipeline_models("zeroscope", device="cpu")
 
 
-def test_tiny_mode_raises(monkeypatch):
+@pytest.mark.parametrize("preset", ["lvd-gligen_zeroscope", "modelscope256"])
+def test_tiny_mode_builds_lvd_tpus_tiny_models(preset, monkeypatch):
+    """``LVD_TINY=1``: lvd_tpu's tiny models in fp32 (gated for the
+    lvd-gligen presets), lvd_tpu's preset and trees (traced, not compiled);
+    ``LVD_PLATFORM=cpu`` puts them on the CPU."""
+    from test_torch_prng_init import _lvd_tpu_tiny, _shapes
+
     from lvd_tpu_torch.runners import base
 
     monkeypatch.setenv("LVD_TINY", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        base.init_pipeline("lvd-gligen_zeroscope")
+    monkeypatch.setenv("LVD_PLATFORM", "cpu")
+    state = base.init_pipeline(preset)
+    ref = _lvd_tpu_tiny("gated" if preset.startswith("lvd-gligen") else "default", monkeypatch)
+    pipe = state.pipe
+    assert pipe.dtype == torch.float32 and pipe.device.type == "cpu"
+    assert (state.H, state.W) == (ref.preset.height, ref.preset.width) == (64, 96)
+    assert dataclasses.asdict(pipe.preset) == dataclasses.asdict(ref.preset)
+    for got, want in ((pipe.unet_params, ref.unet_params), (pipe.clip_params, ref.clip_params),
+                      (pipe.vae_params, ref.vae_params)):
+        assert _shapes(got) == _shapes(want)
+        assert all(t.dtype == torch.float32 for t in jax.tree_util.tree_leaves(got))
