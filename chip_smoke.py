@@ -24,7 +24,12 @@ Phases, each fatal on failure:
                head, row 1, D = 64 to 256), conv3x3() (I without prologue,
                row 13) and geglu_mlp() where it streams (J, row 9); B, F, G
                and J also time their first versions beside their wgmma
-               forms;
+               forms; then the upsample path's shapes: A, B, C and D at the
+               Zeroscope-XL refine's 576x1024 CFG forward (A's
+               self-attention at 9216 keys), A at the SDXL refiner's 12-
+               and 24-head shapes, and D where lvd_tpu routes its kernel
+               past 32 frames (frame groups) and at C = 72 and 520, in bf16
+               and three of those in fp32;
   4. reference - one full-width CFG UNet forward through the kernels (bf16)
                against the plain path (fp32) on the same inputs, with weights
                whose attention/FF/temporal-conv branches are not zero-init,
@@ -84,7 +89,24 @@ Phases, each fatal on failure:
                (conv_in, a to_q, the CLIP token embedding's first and last
                1024 rows, a VAE decoder conv) drawn again on the card must
                have the CPU draw's random bits and its normals within 1e-6,
-               and the pipeline's bf16 leaves the CPU draw within 2^-8;
+               and the pipeline's bf16 leaves the CPU draw within 2^-8; the
+               run dir stays for the upsample phase;
+ 12b. sdxl   - the SDXL refiner at full width (UNet2D, OpenCLIP-bigG with its
+               projection, VAE) drawn on the card in bf16 in lvd_tpu's key
+               order; one refiner CFG UNet2D forward at 576x1024 (latents
+               (2, 72, 128, 4)), kernels (bf16) against the plain path
+               (fp32), gate 5e-2, the plain path in bf16 beside it; kernel
+               A must launch at the 12- and 24-head shapes;
+ 12c. upsample - lvd_tpu_torch.cli.upsample.main in-process over the cli
+               phase's run dir, --method zsxl+sdxl, 6 steps (strength 0.35:
+               2 tail steps): Zeroscope-XL drawn on the card by the CLI's
+               own _get_xl_pipe (LVD_ALLOW_RANDOM_WEIGHTS=1), the sdxl
+               phase's refiner in the module's pipe slot; the XL refine's
+               encode, step and decode seconds, the SDXL seconds per frame,
+               peak memory and launches; video_0_zsxl_sdxl's GIF and frames
+               file must hold (24, 576, 1024, 3) uint8, A-D must launch,
+               B-D only in their wgmma forms; then one XL CFG UNet forward
+               and one refiner CFG UNet2D forward under the profiler;
  13. knobs   - a child process of this script with lvd_tpu's two opt-in
                switches set (LVD_ENABLE_FUSED_SC=1 LVD_FUSED_LINEAR=1; the
                second is read at import): phases 4 and 5 again, now with the
@@ -93,7 +115,12 @@ Phases, each fatal on failure:
                path: every kernel A-I must have run, and every launch of B,
                C, D, F, G, H and I must have taken the new form (wgmma /
                mma_sync, never a WMMA form); then one profiled CFG forward
-               under the switches. A non-zero exit of the child fails the
+               under the switches; then the sdxl phase's forward again
+               under the switches, printing which of the refiner's
+               resnet-conv and projection shapes lvd_tpu's predicates route
+               to I and H (each routed conv one launch of I, the
+               projections launching H, every launch in its new form).
+               A non-zero exit of the child fails the
                smoke;
  14. fp32    - one full-width CFG UNet forward in TextToVideoPipeline's
                default type (fp32) through the kernels against the plain
@@ -119,6 +146,7 @@ prints no result.
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -717,11 +745,11 @@ def _runner_state(pipe):
     return state
 
 
-def _read_outputs(phase, out_dir, stem="video_seed0"):
-    """{stem}.gif and the frames file of a runner: both must hold
-    (24, 320, 576, 3) frames, the frames file in uint8. The frames file is
-    .joblib, or .npz where joblib is not installed (utils/vis.save_joblib's
-    fallback, as lvd_tpu's)."""
+def _read_outputs(phase, out_dir, stem="video_seed0", want=(24, 320, 576, 3)):
+    """{stem}.gif and the frames file of a runner: both must hold ``want``
+    frames, the frames file in uint8. The frames file is .joblib, or .npz
+    where joblib is not installed (utils/vis.save_joblib's fallback, as
+    lvd_tpu's)."""
     from PIL import Image, ImageSequence
 
     from lvd_tpu_torch.utils import vis
@@ -734,7 +762,7 @@ def _read_outputs(phase, out_dir, stem="video_seed0"):
     shapes = {"gif": (len(gif_frames), *gif_frames[0].shape), name: frames.shape}
     log(f"[{phase}] {sorted(os.listdir(out_dir))}: {json.dumps(shapes)}, frames {frames.dtype} "
         f"min {frames.min()} max {frames.max()} mean {frames.mean():.3f}")
-    if set(shapes.values()) != {(24, 320, 576, 3)} or frames.dtype != np.uint8:
+    if set(shapes.values()) != {tuple(want)} or frames.dtype != np.uint8:
         raise SystemExit(f"[{phase}] the runner's outputs hold {shapes} {frames.dtype}")
 
 
@@ -939,16 +967,16 @@ def _check_cli_draw(torch, pipe):
         raise SystemExit(f"[cli] the card's draw differs from the CPU's at {bad}")
 
 
-def cli_phase(torch):
-    """The system's entry point: lvd_tpu_torch.cli.generate.main in-process,
+def cli_phase(torch, cwd):
+    """The system's entry point: lvd_tpu_torch.cli.generate.main in-process
+    in the directory ``cwd``,
     lvd_zeroscope, LVD_ALLOW_RANDOM_WEIGHTS=1 without a checkpoint root, so
     the CLI draws Zeroscope's UNet, CLIP and VAE in lvd_tpu's key order on
     the card; the demo prompt's cached flagship layout, 24 frames, 4 steps,
     guidance on 2. Its run dir must hold video_0.gif and the frames file at
     (24, 320, 576, 3); kernels A-G must launch, B, C, D, F and G only in
-    their wgmma forms; the sampled leaves must match the CPU draw."""
-    import tempfile
-
+    their wgmma forms; the sampled leaves must match the CPU draw. Returns
+    the run dir, which the upsample phase reads."""
     from lvd_tpu_torch.cli import generate
     from lvd_tpu_torch.runners import base, lvd
 
@@ -971,7 +999,7 @@ def cli_phase(torch):
     t_phase = time.perf_counter()
     swaps = [(base, "load_pipeline_models", timed("draw", base.load_pipeline_models)),
              (base, "save_video", timed("save", base.save_video))]
-    with tempfile.TemporaryDirectory() as cwd, _swapped(swaps):
+    with _swapped(swaps):
         for k in saved_env:
             os.environ.pop(k, None)
         os.environ.update(env)
@@ -1018,6 +1046,244 @@ def cli_phase(torch):
     del pipe
     torch.cuda.empty_cache()
     log(f"[cli] the cli phase took {time.perf_counter() - t_phase:.1f} s")
+    return out_dir
+
+
+# The SDXL refiner's CFG forward at 576x1024: latents (2, 72, 128, 4).
+SDXL_LATENTS = (2, 72, 128, 4)
+SDXL_HEADS = (12, 24)  # kernel A's head counts there (C = 768, 1536)
+UPSAMPLE_STEPS = 6  # strength 0.35: int(6 * 0.35) = 2 tail steps, XL and SDXL
+XL_FRAMES = (24, 576, 1024, 3)
+
+
+def sdxl_models(torch):
+    """The SDXL refiner at full width (UNet2D, OpenCLIP-bigG with its
+    projection, the VAE at scale 0.13025), drawn on the card in bf16 in
+    lvd_tpu's key order (split(PRNGKey(0), 3))."""
+    from lvd_tpu_torch import pipeline_sdxl as ps
+    from lvd_tpu_torch.models.unet2d import sdxl_refiner_config
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    models = ps.drawn_refiner_models(sdxl_refiner_config(), ps.refiner_clip_config(),
+                                     ps.refiner_vae_config(), seed=0, device="cuda",
+                                     dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    count = lambda t: sum(count(v) for v in (t.values() if isinstance(t, dict) else t)) \
+        if isinstance(t, (dict, list)) else t.numel()
+    log(f"[sdxl] drew the refiner on the card in {time.perf_counter() - t0:.3f} s: UNet2D "
+        f"{count(models.unet_params) / 1e6:.1f} M, CLIP {count(models.clip_params) / 1e6:.1f} M, "
+        f"VAE {count(models.vae_params) / 1e6:.1f} M parameters")
+    return models
+
+
+@contextlib.contextmanager
+def attention_census(torch, records):
+    """Appends (heads, S_q, S_k) of every attention() call on which
+    packed_attention.kernel_ok held (kernel A's launches)."""
+    from lvd_tpu_torch.ops import packed_attention
+
+    real_ok = packed_attention.kernel_ok
+
+    def kernel_ok(q, k, num_heads):
+        ok = real_ok(q, k, num_heads)
+        if ok:
+            records.append((num_heads, q.shape[1], k.shape[1]))
+        return ok
+
+    with _swapped([(packed_attention, "kernel_ok", kernel_ok)]):
+        yield
+
+
+@contextlib.contextmanager
+def route_census(torch, records):
+    """Appends ("I" or "H", shapes, routed) for every call of lvd_tpu's
+    predicates for kernels I (spatial_conv_fused.supported) and H
+    (linear_fused.supported) on the path."""
+    from lvd_tpu_torch.ops import linear_fused, spatial_conv_fused
+
+    real_i, real_h = spatial_conv_fused.supported, linear_fused.supported
+
+    def sup_i(x, w):
+        ok = real_i(x, w)
+        records.append(("I", (tuple(x.shape), tuple(w.shape)), ok))
+        return ok
+
+    def sup_h(w, x):
+        ok = real_h(w, x)
+        records.append(("H", (tuple(x.shape), tuple(w.shape)), ok))
+        return ok
+
+    with _swapped([(spatial_conv_fused, "supported", sup_i), (linear_fused, "supported", sup_h)]):
+        yield
+
+
+def sdxl_reference_phase(torch, models, phase="sdxl"):
+    """One full-width refiner CFG UNet2D forward at 576x1024 through the
+    kernels (bf16) against the plain path (fp32), the plain path in bf16
+    beside it, gate REFERENCE_TOL, with every spatial transformer's
+    proj_out drawn (``_undegenerate``) so the kernels' branches reach the
+    output. Kernel A must launch at the refiner's 12- and 24-head shapes.
+    Returns the launches of the kernel forward and the route census."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.models.unet2d import apply_unet2d
+
+    cfg = models.unet_cfg
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = _undegenerate(models.unet_params, gen, torch)
+    sample = torch.randn(SDXL_LATENTS, generator=gen, device="cuda")
+    hidden = torch.randn((2, 77, cfg.cross_attention_dim), generator=gen, device="cuda")
+    added = {"text_embeds": torch.randn((2, 1280), generator=gen, device="cuda"),
+             "time_ids": torch.tensor([[576, 1024, 0, 0, 2.5], [576, 1024, 0, 0, 6.0]],
+                                      device="cuda")}
+    bf = {"text_embeds": added["text_embeds"].bfloat16(), "time_ids": added["time_ids"]}
+    run = lambda p, x, c, a: apply_unet2d(p, cfg, x, 500, c, added_cond=a)[0]
+    heads, routes = [], []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain path in full fp32
+    try:
+        with torch.no_grad():
+            run(params, sample.bfloat16(), hidden.bfloat16(), bf)  # first call: warm
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            with attention_census(torch, heads), route_census(torch, routes):
+                eps = run(params, sample.bfloat16(), hidden.bfloat16(), bf)
+            torch.cuda.synchronize()
+            kernel_s = time.perf_counter() - t0
+            launches, forms = read_launches(), read_forms()
+            with plain_route():
+                plain = run(params, sample.bfloat16(), hidden.bfloat16(), bf)
+                ref = run(cast_tree(params, torch.float32), sample, hidden, added)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    scale = ref.abs().max().item()
+    rel = (eps.float() - ref).abs().max().item() / scale
+    rel_plain = (plain.float() - ref).abs().max().item() / scale
+    a_shapes = sorted(set(heads))
+    log(f"[{phase}] refiner CFG UNet2D forward at {SDXL_LATENTS} against the plain path (fp32), "
+        f"max|d| / max|ref| (max|ref| {scale:.6g}): kernels (bf16) {rel:.6g} (gate "
+        f"{REFERENCE_TOL}); plain path (bf16) {rel_plain:.6g}; kernel forward {kernel_s:.4f} s")
+    log(f"[{phase}] launches {json.dumps(launches)}; kernel A at (heads, S_q, S_k) "
+        f"{json.dumps(a_shapes)}")
+    if not (torch.isfinite(eps).all() and rel <= REFERENCE_TOL):
+        raise SystemExit(f"[{phase}] the kernel path disagrees with the plain path")
+    missing = [h for h in SDXL_HEADS if h not in {s[0] for s in a_shapes}]
+    if missing:
+        raise SystemExit(f"[{phase}] kernel A never ran at {missing} heads")
+    del eps, plain, ref, params
+    torch.cuda.empty_cache()
+    return launches, forms, routes
+
+
+class _TimedPipe:
+    """Calls the refiner's pipeline, keeping each call's seconds and phase
+    timings."""
+
+    def __init__(self, pipe):
+        self.pipe, self.calls = pipe, []
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.pipe(*args, **kwargs)
+        self.calls.append({"s": time.perf_counter() - t0, **self.pipe.timings})
+        return out
+
+
+def profile_upsample(torch, xl, sdxl):
+    """One Zeroscope-XL CFG UNet forward (2 x 24 frames at 576x1024) and one
+    SDXL refiner CFG UNet2D forward (batch 2 at 576x1024) under the
+    profiler, on the upsample phase's pipelines."""
+    from lvd_tpu_torch.models.unet2d import apply_unet2d
+    from lvd_tpu_torch.models.unet3d import apply_unet3d
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    sample, text = randn(2, 24, 72, 128, 4), randn(2, 77, xl.preset.unet.cross_attention_dim)
+    lat, hidden = randn(*SDXL_LATENTS), randn(2, 77, sdxl.m.unet_cfg.cross_attention_dim)
+    added = {"text_embeds": randn(2, 1280),
+             "time_ids": torch.tensor([[576, 1024, 0, 0, 2.5], [576, 1024, 0, 0, 6.0]],
+                                      device="cuda")}
+    with torch.no_grad():
+        _profile(torch, "one Zeroscope-XL CFG UNet forward",
+                 lambda: apply_unet3d(xl.unet_params, xl.preset.unet, sample, 500, text))
+        _profile(torch, "one SDXL refiner CFG UNet2D forward",
+                 lambda: apply_unet2d(sdxl.unet_params, sdxl.m.unet_cfg, lat, 500, hidden,
+                                      added_cond=added))
+
+
+def upsample_phase(torch, run_dir, refiner):
+    """lvd_tpu_torch.cli.upsample.main in-process over the cli phase's run
+    dir, --method zsxl+sdxl, UPSAMPLE_STEPS steps (2 tail steps of each):
+    the XL pipe by the CLI's own _get_xl_pipe under LVD_ALLOW_RANDOM_WEIGHTS=1
+    (Zeroscope-XL drawn on the card), the SDXL pipe the sdxl phase's drawn
+    refiner in the module's pipe slot. video_0_zsxl_sdxl's GIF and frames
+    file must hold XL_FRAMES uint8; A-D must launch, B-D only in their
+    wgmma forms."""
+    from lvd_tpu_torch.cli import upsample
+    from lvd_tpu_torch.pipeline_sdxl import SDXLRefinerPipeline
+
+    t_phase = time.perf_counter()
+    draw_s = []
+    real_get = upsample._get_xl_pipe
+
+    def get_xl():
+        if upsample._xl_pipe is None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_get()
+            torch.cuda.synchronize()
+            draw_s.append(time.perf_counter() - t0)
+        return real_get()
+
+    sdxl = _TimedPipe(SDXLRefinerPipeline(refiner, dtype=torch.bfloat16, device="cuda"))
+    saved_env = {k: os.environ.get(k) for k in
+                 ("LVD_ALLOW_RANDOM_WEIGHTS", "LVD_CHECKPOINT_ROOT", "LVD_TINY", "LVD_PLATFORM")}
+    for k in saved_env:
+        os.environ.pop(k, None)
+    os.environ["LVD_ALLOW_RANDOM_WEIGHTS"] = "1"
+    upsample._xl_pipe, upsample._sdxl_pipe = None, sdxl
+    try:
+        with _swapped([(upsample, "_get_xl_pipe", get_xl)]):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            t0 = time.perf_counter()
+            upsample.main(["--run-dir", os.path.dirname(run_dir), "--method", "zsxl+sdxl",
+                           "--num_inference_steps", str(UPSAMPLE_STEPS), "--prompt-type", "demo"])
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        launches, forms = read_launches(), read_forms()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        xl = upsample._xl_pipe.timings
+        profile_upsample(torch, upsample._xl_pipe, sdxl.pipe)
+    finally:
+        upsample._xl_pipe = upsample._sdxl_pipe = None
+        for k, v in saved_env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    frame_s = [c["s"] for c in sdxl.calls]
+    sdxl_steps = [s for c in sdxl.calls for s in c["steps"]]
+    log(f"[upsample] main() {total:.3f} s: Zeroscope-XL drawn on the card in {draw_s[0]:.3f} s; "
+        f"XL refine encode {xl['encode']:.4f} s, encode_prompt {xl['encode_prompt']:.4f} s, steps "
+        f"{[round(x, 4) for x in xl['steps']]} s, decode {xl['decode']:.4f} s; SDXL "
+        f"{len(frame_s)} frames, seconds per frame {[round(x, 3) for x in frame_s]} (mean "
+        f"{sum(frame_s) / len(frame_s):.4f}: encode {sdxl.calls[-1]['encode']:.4f}, steps "
+        f"{[round(x, 4) for x in sdxl.calls[-1]['steps']]}, decode "
+        f"{sdxl.calls[-1]['decode']:.4f} s in the last); SDXL step mean "
+        f"{sum(sdxl_steps) / len(sdxl_steps):.4f} s; max_memory_allocated {peak:.3f} GiB")
+    log(f"[upsample] launches: {json.dumps(launches)}; by form: {json.dumps(forms)}")
+    _read_outputs("upsample", run_dir, "video_0_zsxl_sdxl", XL_FRAMES)
+    missing = [name for name in FORWARD_KERNELS if launches[name] <= 0]
+    wg = ("temporal_attention_pair", "geglu_mlp", "norm_silu_temporal_conv")
+    other = {name: {f: n for f, n in forms[name].items() if f != "wgmma" and n} for name in wg}
+    if missing or any(other.values()) or any(forms[n]["wgmma"] <= 0 for n in wg):
+        raise SystemExit(f"[upsample] kernels never launched {missing}; B-D outside their "
+                         f"wgmma forms {other}")
+    torch.cuda.empty_cache()
+    log(f"[upsample] the upsample phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # Substrings of the kernels' device symbols (B-D's and F-J's: every form).
@@ -1151,8 +1417,45 @@ def knob_child(torch) -> int:
     _, launches = guided_generation_phase(torch, models, KNOB_KERNELS)
     forms = read_forms()
     profile_cfg_forward(torch, models, "one CFG UNet forward under the switches")
+    del models
+    torch.cuda.empty_cache()
+    sdxl_knob(torch)
     print("KNOB_LAUNCHES " + json.dumps({"launches": launches, "forms": forms}), flush=True)
     return 0
+
+
+def sdxl_knob(torch):
+    """The sdxl reference forward again under KNOBS: which of the refiner's
+    resnet-conv and projection shapes lvd_tpu's predicates route to kernels
+    I and H; each routed conv launches I once and the projections launch H,
+    every launch in its new form (wgmma in bf16); every other shape runs
+    stock ops. Every routed shape must be one the kernels phase checked
+    (selfcheck.SDXL_SCONV_SHAPES, SDXL_LINEAR_SHAPES)."""
+    from lvd_tpu_torch.ops import selfcheck
+
+    refiner = sdxl_models(torch)
+    launches, forms, routes = sdxl_reference_phase(torch, refiner, "sdxl knobs")
+    del refiner
+    torch.cuda.empty_cache()
+    as_checked = {  # (x, w) shapes -> the selfcheck's shape tuples
+        "I": (lambda x, w: (*x, w[-1]), selfcheck.SDXL_SCONV_SHAPES),
+        "H": (lambda x, w: (math.prod(x[:-1]), *w), selfcheck.SDXL_LINEAR_SHAPES)}
+    for kind, name in (("I", "norm_silu_conv2d"), ("H", "linear")):
+        routed = sorted({shape for k, shape, ok in routes if k == kind and ok})
+        to_check, checked = as_checked[kind]
+        unchecked = [r for r in routed if to_check(*r) not in checked]
+        if unchecked:
+            raise SystemExit(f"[sdxl knobs] kernel {kind} routed at shapes the kernels phase "
+                             f"did not check: {unchecked}")
+        stock = sorted({shape for k, shape, ok in routes if k == kind and not ok})
+        calls = sum(1 for k, _, ok in routes if k == kind and ok)
+        log(f"[sdxl knobs] kernel {kind}: routed (x, w) shapes {json.dumps(routed)}; stock "
+            f"{json.dumps(stock)}; {calls} routed calls, {launches[name]} launches, by form "
+            f"{json.dumps(forms[name])}")
+        old = {f: n for f, n in forms[name].items() if f != "wgmma" and n}
+        if old or (routed and launches[name] <= 0) or (kind == "I" and launches[name] != calls):
+            raise SystemExit(f"[sdxl knobs] kernel {kind} launched {launches[name]} times for "
+                             f"{calls} routed calls, outside its new form {old}")
 
 
 def knob_phase(torch):
@@ -1309,7 +1612,7 @@ def entry_point_phase(torch, models):
     return entry, {"conv3x3": forms, "geglu_stream": j_forms}
 
 
-def kernels_line(records, knob_launches, entry_launches, forms):
+def kernels_line(records, knob_launches, entry_launches, forms, upsample_launches):
     """One entry per kernel wrapper of selfcheck.SOURCES: its bf16 numbers at
     its largest path shape, its worst errors in bf16 and fp32, and its
     launches on this slice's main path (the entry points for sdpa() and
@@ -1328,7 +1631,10 @@ def kernels_line(records, knob_launches, entry_launches, forms):
         launches = entry_launches.get(kname, knob_launches.get(kname))
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "shapes": [json.loads(x) for x in sorted({json.dumps(r["shape"]) for r in recs + f32})],
             "launches": launches,
+            # the upsample path's run (cli.upsample.main, zsxl+sdxl)
+            "launches_upsample": upsample_launches.get(kname, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "rel_err": max(r["rel_err"] for r in recs),
             "max_abs_err_fp32": max(r["max_abs_err"] for r in f32),
@@ -1375,14 +1681,25 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
     log(f"[gligen] the GLIGEN phases took {time.perf_counter() - t_gligen:.1f} s")
-    cli_phase(torch)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as workdir:
+        run_dir = cli_phase(torch, workdir)
+        t_sdxl = time.perf_counter()
+        refiner = sdxl_models(torch)
+        sdxl_reference_phase(torch, refiner)
+        log(f"[sdxl] the sdxl phase took {time.perf_counter() - t_sdxl:.1f} s")
+        upsample_launches = upsample_phase(torch, run_dir, refiner)
+        del refiner
+        torch.cuda.empty_cache()
     knob_launches, knob_forms = knob_phase(torch)
     fp32_phase(torch, models)
     entry_launches, entry_forms = entry_point_phase(torch, models)
     torch.cuda.empty_cache()
     profile_phase(torch, models)
 
-    kernels = kernels_line(records, knob_launches, entry_launches, {**knob_forms, **entry_forms})
+    kernels = kernels_line(records, knob_launches, entry_launches, {**knob_forms, **entry_forms},
+                           upsample_launches)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

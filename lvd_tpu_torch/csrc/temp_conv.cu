@@ -16,21 +16,32 @@
 // observation behind lvd_tpu's `_kernel_rowshift`). The conv is rounded to
 // the stream's type, then the bias is added, as the plain version does.
 //
+// Frame groups: the F output frames are split into ceil(F / 32) groups of
+// G = ceil(F / groups) frames (G <= 32: at most four m64 tiles of
+// accumulators in registers). A block computes one group; its window holds
+// frames f0 - 1 .. f0 + G of the group starting at f0, so a group's prologue
+// repeats only on the two halo frames its neighbours also hold. Frames
+// outside [0, F) are zero in the window and never receive the prologue.
+// Channels: any C % 8 == 0. The last input chunk reads zeros past C (TMA's
+// fill, cp.async's zero-fill), the weight slices are zero past C on both
+// axes, and the last 64-column output tile stores only its columns < C.
+//
 // bf16 (the `wgmma` form): warp-specialised, one block per (64 output
-// channels, two 8-pixel tiles, batch); C % 64 == 0, F <= 32, any P. One
-// producer warp loads, per 64-channel chunk of the input, each pixel tile's
-// window with one TMA box of a 4-D map over x (C, P, F, B): 64 channels x 8
-// pixels x F + 2 frames from frame -1, laid down as rows (frame, pixel) of
-// 128 bytes under the 128-byte swizzle, frames -1 and F (and pixels past P)
-// read as zero; and the chunk's three (64 in, 64 out) tap slices of w,
-// MN-major, into the same stage of a two-stage ring. With 8 pixels a frame
+// channels, frame group, two 8-pixel tiles, batch); any P. One producer
+// warp loads, per 64-channel chunk of the input, each pixel tile's window
+// with one TMA box of a 4-D map over x (C, P, F, B): 64 channels x 8 pixels
+// x G + 2 frames from frame f0 - 1, laid down as rows (frame, pixel) of 128
+// bytes under the 128-byte swizzle, frames outside [0, F), pixels past P and
+// channels past C read as zero; and the chunk's three (64 in, 64 out) tap
+// slices of w through a 3-D map (C out, C in, 3 taps), MN-major, zero past
+// C, into the same stage of a two-stage ring. With 8 pixels a frame
 // is exactly one 8-row, 1024-byte swizzle atom, so tap k's A operand for
 // m64 tile t is the canonical descriptor at window row 64 t + 8 k: wgmma
 // reads the taps straight from the one window, no shifted copies. Each of
 // the two consumer warpgroups owns one pixel tile (F * 8 rows, padded to
 // m64 tiles whose extra rows are never stored) and keeps its m64 x 64
-// accumulators in registers (F <= 32: at most four tiles). The prologue
-// z = silu(x*a + b) runs in place on the rows of frames 0..F-1 (fp32, one
+// accumulators in registers (G <= 32: at most four tiles). The prologue
+// z = silu(x*a + b) runs in place on the rows of frames inside [0, F) (fp32, one
 // tanh.approx a value, rounded to bf16), each thread on one 16-byte chunk
 // column, so its channels and (a, b) are fixed for the chunk; it is
 // ordered before the products by a proxy fence and the warpgroup's named
@@ -39,17 +50,18 @@
 // warpgroup's own window and stores 16 bytes a lane; pixels past P and
 // frames past F are not stored. Output-channel tiles are the fastest grid
 // index, so the C/64 blocks that read one window run together and x comes
-// from device memory once. At L3 (P = 45, C = 1280, B = 2) the grid is
-// 20 x 3 x 2 = 120 blocks, under one wave of 132 SMs (one block a SM: 156 KB
-// of shared memory at F = 24).
+// from device memory once. At L3 (P = 45, C = 1280, B = 2, F = 24) the grid
+// is 20 x 3 x 2 = 120 blocks, under one wave of 132 SMs (one block a SM:
+// 156 KB of shared memory at G = 24).
 //
 // fp32 (the `mma_sync` form): the same blocks and windows, 16 input
 // channels a chunk (rows padded to 80 bytes), loaded with the chunk's three
 // (16, 64) weight slices through a two-stage cp.async ring (zero-filled for
-// frames -1 and F and pixels past P); the prologue runs in place in fp32
+// frames outside [0, F), pixels past P and channels past C); the prologue
+// runs in place in fp32
 // (not rounded), then eight warps (four a pixel tile, each 16 m_tiles rows
 // x 64 channels) run mma.sync m16n8k8 in TF32, tap k's A fragments read
-// from window rows r + 8 k. 94 KB of shared memory at F = 24.
+// from window rows r + 8 k. 94 KB of shared memory at G = 24.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -88,17 +100,19 @@ __global__ void __launch_bounds__(WgTc::kThreads, 1)
 temp_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                        const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ a,
                        const float* __restrict__ bsh, const bf16* __restrict__ bias,
-                       bf16* __restrict__ out, int F, int P, int C) {
+                       bf16* __restrict__ out, int F, int P, int C, int G) {
   using W = WgTc;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  const int Mt = W::m_tiles(F);
-  const int win_bytes = W::win_bytes(F);
-  const int stage_bytes = W::stage_bytes(F);
+  const int Mt = W::m_tiles(G);
+  const int win_bytes = W::win_bytes(G);
+  const int stage_bytes = W::stage_bytes(G);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * stage_bytes);
   uint64_t* empty = full + 2;
-  const int n0 = blockIdx.x * 64, tile0 = blockIdx.y * W::kTiles, b = blockIdx.z;
-  const int nc = C / 64;
+  const int ct = (C + 63) / 64;  // output-channel tiles, the fastest grid index
+  const int n0 = (blockIdx.x % ct) * 64, f0 = (blockIdx.x / ct) * G;
+  const int tile0 = blockIdx.y * W::kTiles, b = blockIdx.z;
+  const int nc = (C + 63) / 64;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -112,7 +126,7 @@ temp_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 
   if (warp == 4 * W::kTiles) {  // the producer: one lane issues every TMA load
     if (lane == 0) {
-      const uint32_t bytes = W::kTiles * (F + 2) * 8 * 128 + W::kWBytes;
+      const uint32_t bytes = W::kTiles * (G + 2) * 8 * 128 + W::kWBytes;
       for (int cc = 0; cc < nc; ++cc) {
         const int s = cc & 1;
         if (cc >= 2) hop::mbar_wait(&empty[s], ((cc >> 1) - 1) & 1);
@@ -120,10 +134,10 @@ temp_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         unsigned char* st = smem + s * stage_bytes;
         for (int t = 0; t < W::kTiles; ++t)
           hop::tma_load_4d(st + t * win_bytes, &tm_x, &full[s], cc * 64, (tile0 + t) * W::kPixels,
-                           W::kStartFrame, b);
+                           f0 + W::kStartFrame, b);
         for (int k = 0; k < 3; ++k)
-          hop::tma_load_2d(st + W::kTiles * win_bytes + k * 8192, &tm_w, &full[s], n0,
-                           k * C + cc * 64);
+          hop::tma_load_3d(st + W::kTiles * win_bytes + k * 8192, &tm_w, &full[s], n0, cc * 64,
+                           k);
       }
     }
     return;
@@ -137,13 +151,16 @@ temp_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int p0 = (tile0 + wg) * 8;
   const int pc = tid & 7, rr = tid >> 3, pix = rr & 7;
   const bool pix_ok = p0 + pix < P;
+  // Window rows of frames inside [0, F): window frame j (row 8 j + pixel)
+  // is frame f0 - 1 + j.
+  const int row_lo = 8 * max(0, 1 - f0), row_hi = 8 * min(G + 2, F + 1 - f0);
   const float* ab = a + (size_t)b * C;
   const float* bb = bsh + (size_t)b * C;
 
   auto window = [&](int cc) { return smem + (cc & 1) * stage_bytes + wg * win_bytes; };
   auto prologue = [&](int cc) {
-    if (pix_ok) {
-      const int ch = cc * 64 + ((pc ^ pix) * 8);
+    const int ch = cc * 64 + ((pc ^ pix) * 8);
+    if (pix_ok && ch < C) {  // channels past C stay zero
       float ah[8], bh[8];  // halved: silu(v) = h + h tanh(h), h = v / 2
 #pragma unroll
       for (int j = 0; j < 8; j += 4) {
@@ -157,7 +174,7 @@ temp_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         }
       }
       unsigned char* win = window(cc);
-      for (int r = 8 + rr; r < 8 * F + 8; r += 16) {
+      for (int r = row_lo + rr; r < row_hi; r += 16) {
         uint4* slot = reinterpret_cast<uint4*>(win + r * 128 + pc * 16);
         uint4 v = *slot;
         uint32_t* pr = reinterpret_cast<uint32_t*>(&v);
@@ -215,8 +232,8 @@ temp_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   // Epilogue: the accumulators rounded to bf16, staged through this
   // warpgroup's window of the last stage (m64 tile t at 8 KB t, chunk c of
   // row r at c ^ (r % 8)); each warp stages and stores only its own 16 rows
-  // of each tile. Output row r (over the tiles) is frame r / 8 of pixel
-  // p0 + r % 8.
+  // of each tile. Output row r (over the tiles) is frame f0 + r / 8 of
+  // pixel p0 + r % 8; columns past C are not stored.
   bf16* stage = reinterpret_cast<bf16*>(window(nc - 1));
   const int r4 = lane / 4, cq = 2 * (lane % 4);
 #pragma unroll
@@ -236,8 +253,8 @@ temp_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     for (int i = lane; i < 16 * 8; i += 32) {
       const int ro = i / 8, c = i % 8;
       const int row = 64 * t + 16 * wq + ro;
-      const int f = row >> 3, p = row & 7;
-      if (f >= F || p0 + p >= P) continue;
+      const int f = f0 + (row >> 3), p = row & 7;
+      if ((row >> 3) >= G || f >= F || p0 + p >= P || n0 + c * 8 >= C) continue;
       uint4 v = *reinterpret_cast<const uint4*>(stage + t * 4096 + (16 * wq + ro) * 64 +
                                                 ((c ^ (ro & 7)) * 8));
       const uint4 bv = *reinterpret_cast<const uint4*>(bias + n0 + c * 8);
@@ -255,26 +272,29 @@ temp_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 }
 
 cudaError_t launch_wgmma(const void* x, const void* a, const void* b, const void* w,
-                         const void* bias, void* out, int B, int F, int P, int C,
-                         cudaStream_t stream) {
+                         const void* bias, void* out, int B, int F, int P, int C, int G,
+                         const dim3& grid, cudaStream_t stream) {
   using W = WgTc;
   // x (B, F, P, C) as dims (C, P, F, B); one box: 64 channels x 8 pixels x
-  // F + 2 frames x 1 batch. w (3, C, C) as (3C rows, C columns), 64 x 64
-  // boxes.
+  // G + 2 frames x 1 batch. w (3, C, C) as dims (C out, C in, 3 taps), one
+  // box a tap slice of 64 x 64. C % 8 == 0 makes every row stride a
+  // multiple of 16 bytes, as TMA asks.
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)P, (cuuint64_t)F, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)P * C * 2,
                                  (cuuint64_t)F * P * C * 2};
-  const cuuint32_t box[4] = {64, W::kPixels, (cuuint32_t)F + 2, 1};
+  const cuuint32_t box[4] = {64, W::kPixels, (cuuint32_t)G + 2, 1};
+  const cuuint64_t wdims[3] = {(cuuint64_t)C, (cuuint64_t)C, 3};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)C * 2, (cuuint64_t)C * C * 2};
+  const cuuint32_t wbox[3] = {64, 64, 1};
   CUtensorMap tx, tw;
   cudaError_t err = make_map(&tx, x, 4, dims, strides, box);
-  if (err == cudaSuccess) err = make_map_2d(&tw, w, 3LL * C, C, 64);
-  const int smem = W::smem(F);
+  if (err == cudaSuccess) err = make_map(&tw, w, 3, wdims, wstrides, wbox);
+  const int smem = W::smem(G);
   if (err == cudaSuccess) err = set_smem(temp_conv_wgmma_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(C / 64, ((P + 7) / 8 + W::kTiles - 1) / W::kTiles, B);
   temp_conv_wgmma_kernel<<<grid, W::kThreads, smem, stream>>>(
       tx, tw, static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(out), F, P, C);
+      static_cast<const bf16*>(bias), static_cast<bf16*>(out), F, P, C, G);
   return cudaGetLastError();
 }
 
@@ -297,38 +317,44 @@ __global__ void __launch_bounds__(F32Tc::kThreads, 1)
 temp_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
                      const float* __restrict__ bsh, const float* __restrict__ w,
                      const float* __restrict__ bias, float* __restrict__ out, int F, int P,
-                     int C) {
+                     int C, int G) {
   using T = F32Tc;
   using M = wm::WarpMma<float>;
   constexpr int BK = T::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);
-  const int Mt = WgTc::m_tiles(F), wrows = WgTc::win_rows(F), stage_f = T::stage(F);
-  const int loaded = 8 * (F + 2);  // window rows of frames -1 .. F
-  const int n0 = blockIdx.x * 64, tile0 = blockIdx.y * T::kTiles, b = blockIdx.z;
-  const int nc = C / BK;
+  const int Mt = WgTc::m_tiles(G), wrows = WgTc::win_rows(G), stage_f = T::stage(G);
+  const int loaded = 8 * (G + 2);  // window rows of frames f0 - 1 .. f0 + G
+  const int ct = (C + 63) / 64;
+  const int n0 = (blockIdx.x % ct) * 64, f0 = (blockIdx.x / ct) * G;
+  const int tile0 = blockIdx.y * T::kTiles, b = blockIdx.z;
+  const int nc = (C + BK - 1) / BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int tl = warp / 4, wq = warp % 4;  // pixel tile; rows 16 Mt wq .. of its 64 Mt
   const int g = lane / 4, t = lane % 4;
   const float* ab = a + (size_t)b * C;
   const float* bb = bsh + (size_t)b * C;
 
-  // Window row r of tile q is frame r / 8 - 1, pixel (tile0 + q) * 8 + r % 8.
+  // Window row r of tile q is frame f0 + r / 8 - 1, pixel (tile0 + q) * 8 +
+  // r % 8. Four channels a copy: with C % 8 == 0 a copy lies wholly inside
+  // or wholly past C.
   auto load = [&](int st, int cc) {
     float* win = ring + st * stage_f;
     float* Bs = win + T::kTiles * wrows * T::kLdWin;
     for (int e = threadIdx.x; e < T::kTiles * loaded * (BK / 4); e += T::kThreads) {
       const int rr = e / (BK / 4), cv = e % (BK / 4);
       const int q = rr / loaded, r = rr % loaded;
-      const int f = r / 8 - 1, p = (tile0 + q) * 8 + r % 8;
-      const bool ok = f >= 0 && f < F && p < P;
+      const int f = f0 + r / 8 - 1, p = (tile0 + q) * 8 + r % 8, ch = cc * BK + cv * 4;
+      const bool ok = f >= 0 && f < F && p < P && ch < C;
       wm::cp_async16(win + (q * wrows + r) * T::kLdWin + cv * 4,
-                     x + (ok ? (((size_t)b * F + f) * P + p) * C + cc * BK + cv * 4 : 0), ok);
+                     x + (ok ? (((size_t)b * F + f) * P + p) * C + ch : 0), ok);
     }
     for (int e = threadIdx.x; e < 3 * BK * 16; e += T::kThreads) {
       const int row = e / 16, cv = e % 16;  // row = tap * BK + input channel
+      const int ci = cc * BK + row % BK, co = n0 + cv * 4;
+      const bool ok = ci < C && co < C;
       wm::cp_async16(Bs + row * T::kLdB + cv * 4,
-                     w + ((size_t)(row / BK) * C + cc * BK + row % BK) * C + n0 + cv * 4, true);
+                     w + (ok ? ((size_t)(row / BK) * C + ci) * C + co : 0), ok);
     }
   };
 
@@ -343,15 +369,16 @@ temp_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
     float* win = ring + (cc & 1) * stage_f;
     const float* Bs = win + T::kTiles * wrows * T::kLdWin;
     {
-      // z = silu(x * a + b) in place on the rows of frames 0..F-1 and
-      // pixels inside P: thread e takes channels 4 (e % 4) .. + 3 of rows
-      // e / 4, e / 4 + 64, ...
+      // z = silu(x * a + b) in place on the rows of frames inside [0, F),
+      // pixels inside P and channels inside C: thread e takes channels
+      // 4 (e % 4) .. + 3 of rows e / 4, e / 4 + 64, ...
       const int ch = cc * BK + 4 * (threadIdx.x % 4);
-      const float4 av = *reinterpret_cast<const float4*>(ab + ch);
-      const float4 bv = *reinterpret_cast<const float4*>(bb + ch);
-      for (int rr = threadIdx.x / 4; rr < T::kTiles * loaded; rr += T::kThreads / 4) {
+      const bool ch_ok = ch < C;
+      const float4 av = ch_ok ? *reinterpret_cast<const float4*>(ab + ch) : float4{};
+      const float4 bv = ch_ok ? *reinterpret_cast<const float4*>(bb + ch) : float4{};
+      for (int rr = threadIdx.x / 4; ch_ok && rr < T::kTiles * loaded; rr += T::kThreads / 4) {
         const int q = rr / loaded, r = rr % loaded;
-        const int f = r / 8 - 1, p = (tile0 + q) * 8 + r % 8;
+        const int f = f0 + r / 8 - 1, p = (tile0 + q) * 8 + r % 8;
         if (f < 0 || f >= F || p >= P) continue;
         float4* slot = reinterpret_cast<float4*>(win + (q * wrows + r) * T::kLdWin +
                                                  4 * (threadIdx.x % 4));
@@ -401,8 +428,8 @@ temp_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
     __syncthreads();  // every warp is done with this stage before it is reloaded
   }
 
-  // Output row r of the tile (rows 16 (Mt wq + mt) + g, + 8) is frame r / 8
-  // of pixel p0 + r % 8.
+  // Output row r of the tile (rows 16 (Mt wq + mt) + g, + 8) is frame
+  // f0 + r / 8 of pixel p0 + r % 8; columns past C are not stored.
   const int p0 = (tile0 + tl) * 8;
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
@@ -410,12 +437,13 @@ temp_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int row = 16 * (Mt * wq + mt) + g + 8 * hf;
-      const int f = row / 8, p = p0 + row % 8;
-      if (f >= F || p >= P) continue;
+      const int f = f0 + row / 8, p = p0 + row % 8;
+      if (row / 8 >= G || f >= F || p >= P) continue;
       float* orow = out + (((size_t)b * F + f) * P + p) * C + n0;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int col = 8 * nt + 2 * t;
+        if (n0 + col >= C) continue;
         M::store2(orow + col, acc[mt][nt][2 * hf] + bias[n0 + col],
                   acc[mt][nt][2 * hf + 1] + bias[n0 + col + 1]);
       }
@@ -424,52 +452,64 @@ temp_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
 }
 
 cudaError_t launch_f32(const void* x, const void* a, const void* b, const void* w,
-                       const void* bias, void* out, int B, int F, int P, int C,
-                       cudaStream_t stream) {
+                       const void* bias, void* out, int B, int F, int P, int C, int G,
+                       const dim3& grid, cudaStream_t stream) {
   using T = F32Tc;
-  const int smem = T::smem(F);
+  const int smem = T::smem(G);
   cudaError_t err = set_smem(temp_conv_f32_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(C / 64, ((P + 7) / 8 + T::kTiles - 1) / T::kTiles, B);
   temp_conv_f32_kernel<<<grid, T::kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(w), static_cast<const float*>(bias), static_cast<float*>(out), F,
-      P, C);
+      P, C, G);
   return cudaGetLastError();
 }
+
+// The plan's frame groups: ceil(F / 32) groups of G = ceil(F / groups)
+// frames.
+int plan_groups(int F) { return (F + 31) / 32; }
+int plan_group(int F) { return (F + plan_groups(F) - 1) / plan_groups(F); }
 
 }  // namespace
 }  // namespace lvd
 
 // x/out: (B, F, P, C) and w: (3, C, C) [tap][in][out], bias: (C,), all of one
 // type (dtype 0 bf16: form 1, the wgmma form; 1 fp32: form 2, the mma_sync
-// form); a, b: (B, C) fp32. C % 64 == 0, F <= 32. pixel_tile, start_frame,
-// m_tiles and window_rows are the wrapper's launch plan (pixels a window,
-// its first frame, the m64 tiles of its output rows, its rows); one the
-// kernel was not built for is refused.
+// form); a, b: (B, C) fp32. C % 8 == 0, any F and P. pixel_tile,
+// start_frame, frame_group, frame_groups, m_tiles and window_rows are the
+// wrapper's launch plan (pixels a window, its first frame relative to its
+// group's, the frames of a group and the groups, the m64 tiles of a
+// group's output rows, a window's rows); one the kernel was not built for
+// is refused.
 LVD_EXPORT int lvd_temp_conv(const void* x, const void* a, const void* b, const void* w,
                              const void* bias, void* out, int B, int F, int P, int C, int form,
-                             int pixel_tile, int start_frame, int m_tiles, int window_rows,
-                             int dtype, void* stream) {
+                             int pixel_tile, int start_frame, int frame_group, int groups,
+                             int m_tiles, int window_rows, int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
-  if (C % 64 != 0 || C <= 0 || F <= 0 || F > 32 || P <= 0 || B <= 0 ||
+  if (C % 8 != 0 || C <= 0 || F <= 0 || P <= 0 || B <= 0 ||
       form != (dtype == kBF16 ? 1 : 2) || pixel_tile != WgTc::kPixels ||
-      start_frame != WgTc::kStartFrame ||
-      m_tiles != WgTc::m_tiles(F) || window_rows != WgTc::win_rows(F))
+      start_frame != WgTc::kStartFrame || frame_group != plan_group(F) ||
+      groups != plan_groups(F) || m_tiles != WgTc::m_tiles(frame_group) ||
+      window_rows != WgTc::win_rows(frame_group))
     return cudaErrorInvalidValue;
+  const long long gx = (long long)((C + 63) / 64) * groups;
+  const long long gy = ((P + 7) / 8 + WgTc::kTiles - 1) / WgTc::kTiles;
+  if (gx >= (1LL << 31) || gy > 65535 || B > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)gx, (unsigned)gy, B);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch_wgmma(x, a, b, w, bias, out, B, F, P, C, s);
-  if (dtype == kF32) return launch_f32(x, a, b, w, bias, out, B, F, P, C, s);
+  const int G = frame_group;
+  if (dtype == kBF16) return launch_wgmma(x, a, b, w, bias, out, B, F, P, C, G, grid, s);
+  if (dtype == kF32) return launch_f32(x, a, b, w, bias, out, B, F, P, C, G, grid, s);
   return cudaErrorInvalidValue;
 }
 
-// Bytes of dynamic shared memory one block of kernel D takes at F frames
-// (dtype 0 bf16: the wgmma form; 1 fp32: the mma_sync form); 0 for
+// Bytes of dynamic shared memory one block of kernel D takes at G frames a
+// group (dtype 0 bf16: the wgmma form; 1 fp32: the mma_sync form); 0 for
 // arguments the kernel does not take.
-LVD_EXPORT long long lvd_temp_conv_smem(int F, int dtype) {
+LVD_EXPORT long long lvd_temp_conv_smem(int G, int dtype) {
   using namespace lvd;
-  if (F <= 0 || F > 32) return 0;
-  if (dtype == kBF16) return WgTc::smem(F);
-  return dtype == kF32 ? F32Tc::smem(F) : 0;
+  if (G <= 0 || G > 32) return 0;
+  if (dtype == kBF16) return WgTc::smem(G);
+  return dtype == kF32 ? F32Tc::smem(G) : 0;
 }

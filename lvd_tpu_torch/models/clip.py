@@ -1,5 +1,7 @@
 """CLIP text encoder, HF ``CLIPTextModel`` architecture (counterpart of
-lvd_tpu/models/clip.py): causal pre-LN transformer on a param dict."""
+lvd_tpu/models/clip.py): causal pre-LN transformer on a param dict, with
+``CLIPTextModelWithProjection``'s projected pooled output and the
+penultimate hidden state for the SDXL refiner."""
 
 from __future__ import annotations
 
@@ -71,14 +73,22 @@ def _act(x, kind: str):
     raise ValueError(kind)
 
 
-def apply_clip_text(params, cfg: CLIPTextConfig, input_ids, eos_token_id: int = 49407):
+def apply_clip_text(params, cfg: CLIPTextConfig, input_ids, eos_token_id: int = 49407,
+                    return_penultimate: bool = False):
     """input_ids (B, L) int -> {"last_hidden_state": (B, L, D),
-    "pooler_output": (B, D)} (the hidden state at the first eos)."""
+    "pooler_output": (B, D)} (the hidden state at the first eos); with
+    ``return_penultimate`` also "penultimate_hidden_state" (the input of the
+    last layer, which the SDXL refiner conditions on), and "text_embeds"
+    (the pooled output through the bias-free projection) where the params
+    carry a ``text_projection``."""
     b, s = input_ids.shape
     x = params["token_embedding"][input_ids] + params["position_embedding"][None, :s]
     causal = torch.triu(
         torch.full((s, s), -1e9, dtype=torch.float32, device=x.device), diagonal=1)[None, None]
-    for layer in params["layers"]:
+    penultimate = None
+    for i, layer in enumerate(params["layers"]):
+        if return_penultimate and i == len(params["layers"]) - 1:
+            penultimate = x
         h = layer_norm(layer["layer_norm1"], x, cfg.layer_norm_eps)
         x = x + _attn(layer, h, cfg.num_attention_heads, causal)
         h = layer_norm(layer["layer_norm2"], x, cfg.layer_norm_eps)
@@ -86,4 +96,9 @@ def apply_clip_text(params, cfg: CLIPTextConfig, input_ids, eos_token_id: int = 
     x = layer_norm(params["final_layer_norm"], x, cfg.layer_norm_eps)
     eos_pos = (input_ids == eos_token_id).int().argmax(dim=-1)
     pooled = x[torch.arange(b, device=x.device), eos_pos]
-    return {"last_hidden_state": x, "pooler_output": pooled}
+    out = {"last_hidden_state": x, "pooler_output": pooled}
+    if penultimate is not None:
+        out["penultimate_hidden_state"] = penultimate
+    if "text_projection" in params:
+        out["text_embeds"] = linear(params["text_projection"], pooled)
+    return out

@@ -12,8 +12,8 @@ stream. Routing follows lvd_tpu's shape predicates:
   * feed-forward -> kernel C where its weights stay resident, C <= 640 in
     bf16 and C <= 320 in fp32 (geglu_fused.py:370-388);
   * temporal conv -> kernel D where lvd_tpu's predicate holds
-    (temp_conv_fused.py:268-277) and D covers the shape (every UNet level),
-    with the GroupNorm statistics a stock reduction;
+    (temp_conv_fused.py:268-277), with the GroupNorm statistics a stock
+    reduction;
   * attention -> kernel A at every non-capturing site on the card where
     lvd_tpu's ``pallas_ok`` holds, its chunked route elsewhere;
   * resnet GroupNorm -> SiLU -> 3x3 conv -> kernel I under
@@ -115,13 +115,16 @@ def _btb_leaves(key, dim, context_dim, fuser_context=None):
     return p
 
 
-def _spatial_transformer_leaves(key, channels, context_dim, gated):
-    k = prng.split(key, 3)
+def _spatial_transformer_leaves(key, channels, context_dim, gated, depth=1):
+    """``depth`` transformer blocks from keys 2 .. 1 + depth of
+    ``split(key, 2 + depth)`` (lvd_tpu's ``_init_spatial_transformer``)."""
+    k = prng.split(key, 2 + depth)
     return {
         "norm": init.norm(channels),
         "proj_in": init.linear(k[0], channels, channels),
-        "blocks": [_btb_leaves(k[2], channels, context_dim,
-                               fuser_context=context_dim if gated else None)],
+        "blocks": [_btb_leaves(k[2 + i], channels, context_dim,
+                               fuser_context=context_dim if gated else None)
+                   for i in range(depth)],
         "proj_out": init.linear(k[1], channels, channels, scale=1e-5),
     }
 

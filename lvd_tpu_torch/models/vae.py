@@ -1,11 +1,13 @@
-"""SD AutoencoderKL decoder, channels-last (counterpart of the decode half of
-lvd_tpu/models/vae.py). GroupNorm/SiLU resnets without time embedding and
-one single-head self-attention in the mid stage, which stays plain torch as
-lvd_tpu leaves it to XLA."""
+"""SD AutoencoderKL, channels-last (counterpart of lvd_tpu/models/vae.py):
+the encoder (the vid2vid and img2img paths' ``encode``) and the decoder.
+GroupNorm/SiLU resnets without time embedding and one single-head
+self-attention in each mid stage, which stays plain torch as lvd_tpu leaves
+it to XLA."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..config import VAEConfig
 from ..ops.basic import conv2d, group_norm, linear, silu, upsample_nearest_2x
@@ -36,7 +38,7 @@ def _mid_leaves(keys, c):
 def vae_leaves(key, cfg: VAEConfig):
     """lvd_tpu's VAE tree (``init_vae``, models/vae.py:80-142), encoder and
     decoder, with its keys, undrawn: the keys of ``split(key, 128)`` in
-    turn, the encoder's first. The port runs only the decoder."""
+    turn, the encoder's first."""
     boc = cfg.block_out_channels
     keys = iter(prng.split(key, 128))
     enc = {"conv_in": init.conv(next(keys), 3, 3, cfg.in_channels, boc[0])}
@@ -96,6 +98,30 @@ def _attn(p, x, groups, eps=1e-6):
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     y = linear(p["to_out"], torch.matmul(probs, v)).reshape(n, h, w, c)
     return x + y
+
+
+def encode(params, cfg: VAEConfig, images):
+    """images (N, H, W, 3) in [-1, 1] -> (mean, logvar), each (N, H/8, W/8,
+    latent_channels), logvar clipped to [-30, 20]. A sample times
+    ``cfg.scaling_factor`` is the pipeline's latents."""
+    g = cfg.norm_num_groups
+    enc = params["encoder"]
+    x = conv2d(enc["conv_in"], images)
+    for block in enc["down_blocks"]:
+        for rp in block["resnets"]:
+            x = _resnet(rp, x, g)
+        if "downsample" in block:
+            # diffusers' encoder downsample: pad (0, 1, 0, 1), then a
+            # stride-2 VALID conv.
+            x = F.pad(x, (0, 0, 0, 1, 0, 1))
+            x = conv2d(block["downsample"], x, stride=2, padding=0)
+    x = _resnet(enc["mid"]["resnet_1"], x, g)
+    x = _attn(enc["mid"]["attn"], x, g)
+    x = _resnet(enc["mid"]["resnet_2"], x, g)
+    x = conv2d(enc["conv_out"], silu(group_norm(enc["conv_norm_out"], x, g, 1e-6)))
+    x = conv2d(params["quant_conv"], x, padding=0)
+    mean, logvar = x.chunk(2, dim=-1)
+    return mean, logvar.clamp(-30.0, 20.0)
 
 
 def decode(params, cfg: VAEConfig, latents):

@@ -43,7 +43,7 @@ SIGNATURES = {
     "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F] + [_I] * 3 + [_I, _P],
     "lvd_geglu": [_P] * 6 + [_I] * 8 + [_I, _P],
     "lvd_geglu_stream": [_P] * 7 + [_I] * 8 + [_I, _P],
-    "lvd_temp_conv": [_P] * 6 + [_I] * 9 + [_I, _P],
+    "lvd_temp_conv": [_P] * 6 + [_I] * 11 + [_I, _P],
     "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
     "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F] + [_I] * 3 + [_I, _P],
     "lvd_geglu_bwd": [_P] * 6 + [_I] * 8 + [_I, _P],

@@ -21,6 +21,17 @@ branch (C = 1280 in bf16; C = 640 and 1280 in fp32). A backward is checked on
 each of its outputs (dq, dk and dv for E; dq alone where the walk asks for no
 dk/dv, at the text cross-attention).
 
+The upsample path gives the forwards new shapes, checked after the
+Zeroscope ones: kernel A, B, C and D at the Zeroscope-XL refine's
+576x1024, 24-frame CFG forward (batch 2 x 24; A's self-attention up to
+9216 keys, whose plain version still fits because it takes 512 queries at
+a time), kernel A at the SDXL refiner's CFG forward (batch 2: 12 heads at
+C = 768, 24 at C = 1536), kernels I and H at the refiner's resnet convs and
+projections that lvd_tpu's predicates route under the opt-in switches (the
+forward projection alone: the refiner runs no backward), and kernel D where
+lvd_tpu routes its kernel past 32 frames (frame groups) and at
+C % 64 != 0 (C = 72, 520), in bf16 and, at three of those shapes, in fp32.
+
 Each kernel also runs in fp32 at its largest path shape, against the plain
 version in fp32 with TF32 off, gated at 5e-3 and below the same shape's
 bf16 reading, so a kernel that rounded fp32 to bf16 would fail. Every
@@ -102,6 +113,37 @@ SDPA_SHAPES = [(48, 5, 2880, 64), (8, 4, 1024, 128), (8, 4, 1024, 192), (8, 4, 1
 # (34560, 640) runs in bf16 too, as the reading its fp32 check must beat.
 GEGLU_STREAM_SHAPES = [(8640, 1280), (2160, 1280), (4320, 1280), (34560, 640)]
 GEGLU_STREAM_FP32_SHAPES = [(34560, 640), (8640, 1280)]
+# The upsample path: the Zeroscope-XL refine's CFG forward (576x1024, 24
+# frames: 9216, 2304, 576 and 144 pixels a frame) and the SDXL refiner's
+# (576x1024, batch 2: 2304 tokens at C = 768, 576 and 144 at C = 1536). The
+# first, XL's L0 self-attention, is checked beyond the route: lvd_tpu's
+# pallas_ok counts K and V (2 x 9216 x 320 x 2 B > 8 MiB), so the path runs
+# the chunked stock route there.
+XL_ATTN_SHAPES = [
+    (48, 9216, 9216, 320), (48, 2304, 2304, 640), (48, 576, 576, 1280), (48, 144, 144, 1280),
+    (48, 9216, 77, 320), (48, 2304, 77, 640), (48, 576, 77, 1280), (48, 144, 77, 1280),
+]
+SDXL_ATTN_SHAPES = [(2, 2304, 2304, 768), (2, 576, 576, 1536), (2, 144, 144, 1536),
+                    (2, 2304, 77, 768), (2, 576, 77, 1536), (2, 144, 77, 1536)]
+# The refiner's CFG forward under the opt-in switches: the resnet convs
+# spatial_conv_fused.supported routes (N, H, W, Cin, Cout) and the
+# projections linear_fused.supported routes (rows, C, N): q/k/v/out at 2304
+# tokens (C = 768), 576 and 144 (C = 1536), the text k/v (2 x 77 rows, 1280
+# -> 768 or 1536). chip_smoke.py's knob child fails if the path routes any
+# other shape.
+SDXL_SCONV_SHAPES = [(2, 36, 64, 384, 768), (2, 18, 32, 768, 1536), (2, 18, 32, 1536, 1536),
+                     (2, 9, 16, 1536, 1536), (2, 9, 16, 3072, 1536)]
+SDXL_LINEAR_SHAPES = [(4608, 768, 768), (1152, 1536, 1536), (288, 1536, 1536),
+                      (154, 1280, 768), (154, 1280, 1536)]
+XL_PAIR_SHAPES = [(2, 24, 9216, 320), (2, 24, 2304, 640)]
+XL_GEGLU_SHAPES = [(442368, 320), (110592, 640)]
+XL_TCONV_SHAPES = [(2, 24, 9216, 320), (2, 24, 2304, 640), (2, 24, 576, 1280),
+                   (2, 24, 144, 1280)]
+# Kernel D where lvd_tpu routes its kernel past 32 frames (two to seven
+# frame groups) and at C % 64 != 0; the last three also in fp32.
+C4_TCONV_SHAPES = [(2, 48, 2880, 320), (2, 64, 720, 640), (2, 100, 45, 1280),
+                   (2, 200, 64, 72), (2, 40, 2880, 320), (2, 24, 2880, 72), (2, 24, 180, 520)]
+C4_TCONV_FP32_SHAPES = C4_TCONV_SHAPES[-3:]
 # The shapes the guided energy walk's backward gives each backward kernel.
 ATTN_BWD_SHAPES = [  # (batch, S_q, S_k, C): self-attention at every level, uncaptured cross
     (24, 2880, 2880, 320), (24, 720, 720, 640), (24, 180, 180, 1280), (24, 45, 45, 1280),
@@ -245,8 +287,11 @@ def check_attention(gen, shape, dtype=torch.bfloat16):
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
     flops = 4.0 * b * heads * s_q * s_k * 64
     nbytes = q.element_size() * (2 * b * s_q * c + 2 * b * s_k * c)
-    return _record("attention_packed", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops,
-                   nbytes, lib_ms)
+    rec = _record("attention_packed", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops,
+                  nbytes, lib_ms)
+    if not packed_attention.kernel_ok(q, k, heads):  # the path takes lvd_tpu's chunked route
+        rec["chunked_ms"] = time_ms(lambda: attention.heads_chunked(q, k, v, scale, heads), 1, 2)
+    return rec
 
 
 def _pair_params(gen, c):
@@ -344,6 +389,8 @@ def check_temp_conv(gen, shape, dtype=torch.bfloat16):
     sh = _randn(gen, (b, c), 0.1)
     w = _randn(gen, (3, 1, 1, c, c), (3 * c) ** -0.5).to(dtype)
     bias = _randn(gen, (c,), 0.1).to(dtype)
+    if not temp_conv_fused.supported(x):
+        raise RuntimeError(f"norm_silu_temporal_conv: {shape} {dtype} is not a routed shape")
     fn = lambda: temp_conv_fused.norm_silu_temporal_conv(x, a, sh, w, bias)
     out, form = _launched_form(temp_conv_fused.norm_silu_temporal_conv, fn)
     ref = _ref(temp_conv_fused.norm_silu_temporal_conv_plain, x, a, sh, w, bias)
@@ -359,8 +406,12 @@ def check_temp_conv(gen, shape, dtype=torch.bfloat16):
     n = b * f * pdim
     flops = 6.0 * n * c * c
     nbytes = x.element_size() * (2 * n * c + 3 * c * c + c) + 4.0 * 2 * b * c
-    return _record("norm_silu_temporal_conv", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms,
-                   flops, nbytes) | {"form": form, "products_ms": products_ms}
+    rec = _record("norm_silu_temporal_conv", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms,
+                  flops, nbytes) | {"form": form, "products_ms": products_ms}
+    plan = temp_conv_fused.launch_plan(f, dtype)
+    rec["frame_groups"] = plan["frame_groups"]
+    rec["ok"] = rec["ok"] and form == plan["form"]  # wgmma in bf16, mma_sync in fp32
+    return rec
 
 
 def check_attention_bwd(gen, shape, dtype=torch.bfloat16):
@@ -526,9 +577,9 @@ def check_conv3x3(gen, shape, dtype=torch.bfloat16):
                    lib_ms) | {"form": form}
 
 
-def check_linear(gen, shape, dtype=torch.bfloat16):
-    """The forward projection and the dx call of its backward (W read
-    transposed), each a record of kernel H."""
+def check_linear(gen, shape, dtype=torch.bfloat16, dx=True):
+    """The forward projection and, with ``dx``, the dx call of its backward
+    (W read transposed), each a record of kernel H."""
     rows, c, n = shape
     x = _randn(gen, (rows, c)).to(dtype)
     w = _randn(gen, (c, n), c ** -0.5).to(dtype)
@@ -543,6 +594,8 @@ def check_linear(gen, shape, dtype=torch.bfloat16):
         time_ms(lambda: linear_fused.linear_plain(x, w, b), 1, 2), 2.0 * rows * c * n,
         item * (rows * c + c * n + n + rows * n), time_ms(lambda: torch.addmm(b, x, w)))
         | {"form": form}]
+    if not dx:
+        return records
     bwd = lambda: linear_fused.linear_rows(dy, w, None, trans_w=True)
     out, form = _launched_form(linear_fused.linear_rows, bwd)
     ref = _ref(lambda dd, ww: linear_fused.linear_plain(dd, ww.transpose(0, 1)), dy, w)
@@ -552,6 +605,11 @@ def check_linear(gen, shape, dtype=torch.bfloat16):
         2.0 * rows * c * n, item * (rows * n + c * n + rows * c),
         time_ms(lambda: torch.matmul(dy, w.transpose(0, 1)))) | {"form": form})
     return records
+
+
+def check_linear_forward(gen, shape, dtype=torch.bfloat16):
+    """Kernel H's forward projection alone (a path with no backward)."""
+    return check_linear(gen, shape, dtype, dx=False)
 
 
 def check_sdpa(gen, shape, dtype=torch.bfloat16):
@@ -607,7 +665,13 @@ BF16_PLAN = ([(check_attention, s) for s in ATTN_SHAPES + FUSER_ATTN_SHAPES]
              + [(check_spatial_conv, s) for s in SCONV_SHAPES]
              + [(check_conv3x3, s) for s in CONV3X3_SHAPES]
              + [(check_sdpa, s) for s in SDPA_SHAPES]
-             + [(check_geglu_stream, s) for s in GEGLU_STREAM_SHAPES])
+             + [(check_geglu_stream, s) for s in GEGLU_STREAM_SHAPES]
+             + [(check_attention, s) for s in XL_ATTN_SHAPES + SDXL_ATTN_SHAPES]
+             + [(check_spatial_conv, s) for s in SDXL_SCONV_SHAPES]
+             + [(check_linear_forward, s) for s in SDXL_LINEAR_SHAPES]
+             + [(check_pair, s) for s in XL_PAIR_SHAPES]
+             + [(check_geglu, s) for s in XL_GEGLU_SHAPES]
+             + [(check_temp_conv, s) for s in XL_TCONV_SHAPES + C4_TCONV_SHAPES])
 # Each kernel in fp32 at its first (largest) path shape, kernel A also at the
 # fuser's L0 shape, sdpa() at every head dim, and kernel J at its fp32 shapes.
 FP32_PLAN = [(fn, shapes[0]) for fn, shapes in (
@@ -617,9 +681,24 @@ FP32_PLAN = [(fn, shapes[0]) for fn, shapes in (
     (check_linear, LINEAR_SHAPES), (check_spatial_conv, SCONV_SHAPES),
     (check_conv3x3, CONV3X3_SHAPES), (check_attention, FUSER_ATTN_SHAPES))] + [
     (check_sdpa, s) for s in SDPA_SHAPES] + [
-    (check_geglu_stream, s) for s in GEGLU_STREAM_FP32_SHAPES]
+    (check_geglu_stream, s) for s in GEGLU_STREAM_FP32_SHAPES] + [
+    (check_temp_conv, s) for s in C4_TCONV_FP32_SHAPES]
 PLAN = ([(fn, s, torch.bfloat16) for fn, s in BF16_PLAN]
         + [(fn, s, torch.float32) for fn, s in FP32_PLAN])
+
+
+def main(argv=None) -> int:
+    """``python -m lvd_tpu_torch.ops.selfcheck [--only check_temp_conv ...]``:
+    the checks of PLAN whose function is named in --only (every check
+    without it), one JSON line each. Exit 0 iff every check passed."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description=main.__doc__)
+    parser.add_argument("--only", nargs="*", default=None)
+    args = parser.parse_args(argv)
+    plan = [c for c in PLAN if args.only is None or c[0].__name__ in args.only]
+    records = run(plan=plan)
+    return 0 if all(r["ok"] for r in records) else 1
 
 
 def run(seed: int = 0, emit=print, plan=None):
@@ -644,3 +723,7 @@ def run(seed: int = 0, emit=print, plan=None):
             emit(json.dumps(rec))
         torch.cuda.empty_cache()
     return records
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

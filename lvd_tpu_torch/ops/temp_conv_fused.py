@@ -9,10 +9,13 @@ kernel D (csrc/temp_conv.cu, replacing ``_fused``), on a CPU tensor it runs
 ``_unfused``. Kernel D has two forms on one frame-window implicit GEMM
 (``launch_plan``): ``wgmma`` in bf16 and ``mma_sync`` (TF32) in fp32;
 ``norm_silu_temporal_conv.launches_by_form`` counts each. The plan (the
-form, pixels a window, its first frame, its m64 tiles and rows) is passed
-to the kernel, which refuses one it was not built for; ``tap_rows`` derives
-the windows' index arithmetic from it, which the CPU tests hold to
-lvd_tpu's kernel. lvd_tpu has no Pallas backward here (its
+form, pixels a window, its first frame, the frame groups, a group's m64
+tiles and window rows) is passed to the kernel, which refuses one it was
+not built for; ``tap_rows`` derives the windows' index arithmetic from it,
+which the CPU tests hold to lvd_tpu's kernel. Kernel D takes every shape
+lvd_tpu's predicate routes to its kernel (``supported`` is
+``lvd_tpu_routes``): any F, in frame groups of at most 32 frames, and any
+C % 8 == 0. lvd_tpu has no Pallas backward here (its
 ``_stage_bwd`` is XLA's VJP of the unfused recompute), so the backward
 recomputes ``_unfused``
 with stock torch ops and returns the gradients of every input that needs
@@ -43,30 +46,49 @@ def _unfused(x, a, b, w, bias):
 
 FORMS = ("wgmma", "mma_sync")
 PIXEL_TILE = 8  # pixels of one window: a frame is one 8-row, 1024-byte swizzle atom
-START_FRAME = -1  # the window's first frame
+START_FRAME = -1  # a window's first frame, relative to its group's first
+MAX_GROUP = 32  # frames a group: four m64 tiles of accumulators in registers
 
 
 def launch_plan(f: int, dtype) -> dict:
     """Kernel D's form and launch plan for F frames of this type, which the
     kernel checks: ``wgmma`` in bf16, ``mma_sync`` (TF32) in fp32, on the
-    same windows of PIXEL_TILE pixels: frames START_FRAME .. F
-    (``loaded_rows`` = 8 (F + 2) rows loaded, zero outside [0, F)), the 8 F
-    output rows in ``m_tiles`` m64 tiles, and ``window_rows`` rows, so that
-    every m64 tile's taps, which reach two frames past it, stay inside."""
+    same windows of PIXEL_TILE pixels. The F output frames fall into
+    ``frame_groups`` = ceil(F / 32) groups of ``frame_group`` = G =
+    ceil(F / groups) frames (the last may hold fewer); the window of the
+    group from frame f0 holds frames f0 + START_FRAME .. f0 + G
+    (``loaded_rows`` = 8 (G + 2) rows loaded, zero outside [0, F)), its
+    8 G output rows fill ``m_tiles`` m64 tiles, and it has ``window_rows``
+    rows, so that every m64 tile's taps, which reach two frames past it,
+    stay inside."""
     bf16 = dtype == torch.bfloat16
-    m_tiles = -(-PIXEL_TILE * f // 64)
+    groups = -(-f // MAX_GROUP)
+    g = -(-f // groups)
+    m_tiles = -(-PIXEL_TILE * g // 64)
     return {"form": "wgmma" if bf16 else "mma_sync", "code": 1 if bf16 else 2,
-            "pixel_tile": PIXEL_TILE, "start_frame": START_FRAME, "m_tiles": m_tiles,
-            "window_rows": 64 * m_tiles + 2 * PIXEL_TILE, "loaded_rows": PIXEL_TILE * (f + 2)}
+            "pixel_tile": PIXEL_TILE, "start_frame": START_FRAME, "frame_group": g,
+            "frame_groups": groups, "m_tiles": m_tiles,
+            "window_rows": 64 * m_tiles + 2 * PIXEL_TILE, "loaded_rows": PIXEL_TILE * (g + 2)}
 
 
 def tap_rows(f: int):
-    """(3, 64 * m_tiles) int tensor: the window row that output row r
-    (frame r // 8, pixel r % 8 of the tile) reads for tap k: r + 8 k, so
-    tap k of m64 tile t is the window from row 64 t + 8 k on."""
+    """(3, 64 * m_tiles) int tensor: the window row that output row r of a
+    group (frame r // 8 of the group, pixel r % 8 of the tile) reads for tap
+    k: r + 8 k, so tap k of m64 tile t is the window from row 64 t + 8 k
+    on."""
     plan = launch_plan(f, torch.bfloat16)
     m = 64 * plan["m_tiles"]
     return torch.arange(m)[None, :] + plan["pixel_tile"] * torch.arange(3)[:, None]
+
+
+def window_frames(f: int):
+    """Per frame group, the frames its window holds (first to last,
+    START_FRAME before the group to one past it): frames outside [0, F) are
+    zero there."""
+    plan = launch_plan(f, torch.bfloat16)
+    g = plan["frame_group"]
+    return [list(range(i * g + START_FRAME, i * g + g + 1))
+            for i in range(plan["frame_groups"])]
 
 
 def _block_p_for(c: int) -> int:
@@ -92,19 +114,10 @@ def lvd_tpu_routes(x) -> bool:
             and f * min(p, _block_p_for(c)) * c * x.element_size() <= 4 * 1024 * 1024)
 
 
-def covers(x) -> bool:
-    """The shapes kernel D is built for: C % 64 == 0 and F <= 32 (at most
-    four m64 tiles of accumulators in registers)."""
-    _, f, _, c = x.shape
-    return c % 64 == 0 and f <= 32
-
-
 def supported(x) -> bool:
-    """Kernel D where lvd_tpu routes its kernel and D covers the shape;
-    every other shape runs ``_unfused`` on stock ops. Where lvd_tpu takes
-    its kernel and D cannot (F > 32, C % 64 != 0) the port has no kernel
-    yet (ROADMAP C4)."""
-    return lvd_tpu_routes(x) and covers(x)
+    """Kernel D wherever lvd_tpu routes its kernel; every other shape runs
+    ``_unfused`` on stock ops, as lvd_tpu's runs its ``_unfused``."""
+    return lvd_tpu_routes(x)
 
 
 def norm_silu_temporal_conv_plain(x, a, b, conv_w, conv_b):
@@ -131,7 +144,8 @@ def _launch_forward(x, a, b, w, bias):
     err = _build.lib().lvd_temp_conv(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(),
         out.data_ptr(), bsz, f, p, c, plan["code"], plan["pixel_tile"], plan["start_frame"],
-        plan["m_tiles"], plan["window_rows"], code, _build.stream_of(x))
+        plan["frame_group"], plan["frame_groups"], plan["m_tiles"], plan["window_rows"], code,
+        _build.stream_of(x))
     _build.check(err, "norm_silu_temporal_conv")
     norm_silu_temporal_conv.launches += 1
     norm_silu_temporal_conv.launches_by_form[plan["form"]] += 1

@@ -1,5 +1,5 @@
 """TextToVideoPipeline (counterpart of lvd_tpu/pipeline.py:84-128 and
-324-427, without the frame-sharded path).
+225-427, without the frame-sharded path).
 
 CLIP encodes the [negative; prompt] pair, DPM-Solver++ (2M) denoises with
 classifier-free guidance from fp32-carried latents, optionally with
@@ -11,6 +11,13 @@ the initial noise is ``jax.random.normal(PRNGKey(seed))``'s, drawn on the
 host by a copy of JAX's PRNG (utils/prng.py), so a seed gives the same video
 as lvd_tpu. Phases are timed by a PhaseTimer, and the sampling is traced
 under ``LVD_PROFILE`` (utils/profiling.py), where lvd_tpu's are.
+
+``video_to_video`` is the Zeroscope-XL refinement (SDEdit): the VAE encoder
+takes the frames to latents (``encode_video``: chunks of 8 frames, each
+sampled with the next key of lvd_tpu's ``split`` chain from
+``PRNGKey(seed)``), they are renoised to ``strength`` of the schedule with
+``PRNGKey(seed + 99991)``'s noise, and the tail steps denoise them with
+unguided CFG.
 """
 
 from __future__ import annotations
@@ -24,13 +31,15 @@ import torch
 from .config import ModelPreset
 from .diffusion import dpm_solver as dpm
 from .diffusion import sampler as sampler_mod
+from .diffusion import schedule as schedule_mod
 from .diffusion.guidance import GuidanceConfig
 from .layout.rasterize import make_guidance_pack
 from .models.clip import apply_clip_text
 from .models.loader import cast_tree
 from .models.vae import decode as vae_decode
+from .models.vae import encode as vae_encode
 from .utils import prng
-from .utils.device import resolve_device
+from .utils.device import resolve_device, sync
 from .utils.profiling import PhaseTimer, maybe_trace
 
 MAX_GLIGEN_OBJS = 30  # grounding slots per frame (lvd_tpu/pipeline.py:28)
@@ -110,6 +119,67 @@ class TextToVideoPipeline:
                 "positive_embeddings": on(np.concatenate([embs, embs]))}
 
     @torch.no_grad()
+    def encode_video(self, video, seed: int = 0, chunk: int = 8):
+        """(F, H, W, 3) float in [0, 1] -> (1, F, h, w, C) latents in the
+        pipeline's type: per chunk of frames the next ``key, sub =
+        split(key)`` of lvd_tpu's chain from ``PRNGKey(seed)``, and
+        ``(mean + exp(logvar / 2) * normal(sub)) * scaling_factor``, the
+        normal drawn in the pipeline's type, as lvd_tpu draws it."""
+        vae = self.preset.vae
+        video = torch.as_tensor(np.asarray(video, np.float32) * 2.0 - 1.0)
+        key = prng.prng_key(seed)
+        outs = []
+        for i in range(0, video.shape[0], chunk):
+            key, sub = prng.split(key)
+            mean, logvar = vae_encode(self.vae_params, vae,
+                                      video[i:i + chunk].to(self.device, self.dtype))
+            noise = prng.normal_key(sub, tuple(mean.shape), self.device, mean.dtype)
+            outs.append((mean + torch.exp(0.5 * logvar) * noise) * vae.scaling_factor)
+        return torch.cat(outs)[None]
+
+    @torch.no_grad()
+    def video_to_video(self, prompt: str, video, strength: float = 0.6,
+                       negative_prompt: str = "", num_inference_steps: int = 50,
+                       guidance_scale: float = 9.0, seed: int = 0, output_type: str = "np"):
+        """SDEdit vid2vid, the Zeroscope-XL refinement: encode the frames
+        ((F, H, W, 3) float in [0, 1]), renoise them to the first of the last
+        ``int(num_inference_steps * strength)`` timesteps with
+        ``normal(PRNGKey(seed + 99991))``, and denoise those tail steps with
+        unguided CFG. Returns (1, F, H, W, 3) float in [0, 1], or the final
+        latents (``output_type="latent"``). Phase seconds land in
+        ``timings``: encode, encode_prompt, steps, decode."""
+        preset = self.preset
+        with self.timer.phase("encode"):
+            latents0 = self.encode_video(video, seed=seed)
+            sync(self.device)
+        full_ts = schedule_mod.inference_timesteps(preset.scheduler, num_inference_steps)
+        start = max(num_inference_steps - int(num_inference_steps * strength), 0)
+        tail_ts = full_ts[start:]
+        coeffs = dpm.make_coeffs(preset.scheduler, timesteps=tail_ts)
+        abar = schedule_mod.make_alphas_cumprod(preset.scheduler)
+        t0 = int(tail_ts[0])
+        noise = prng.normal_key(prng.prng_key(seed + 99991), tuple(latents0.shape), self.device)
+        a0, s0 = float(np.float32(np.sqrt(abar[t0]))), float(np.float32(np.sqrt(1 - abar[t0])))
+        latents = (a0 * latents0.float() + s0 * noise).to(self.dtype)
+
+        with self.timer.phase("encode_prompt"):
+            text_pair = self.encode_prompt(prompt, negative_prompt).to(self.dtype)
+            sync(self.device)
+        self.timings = {"encode": self.timer.last["encode"],
+                        "encode_prompt": self.timer.last["encode_prompt"], "steps": [],
+                        "guided": []}
+        with self.timer.phase("sample"), maybe_trace("sample"):
+            final = sampler_mod.sample_video(
+                self.unet_params, preset.unet, latents, text_pair, coeffs,
+                float(guidance_scale), step_times=self.timings["steps"])
+        if output_type == "latent":
+            return final
+        with self.timer.phase("decode"):
+            video = self.decode_latents(final)
+        self.timings["decode"] = self.timer.last["decode"]
+        return video
+
+    @torch.no_grad()
     def decode_latents(self, latents, chunk: int = 24):
         """(B, F, h, w, C) latents -> (B, F, H, W, 3) float in [0, 1], via
         uint8 on the device (as lvd_tpu rounds it); frames in chunks."""
@@ -146,12 +216,10 @@ class TextToVideoPipeline:
         if height % 8 or width % 8:
             raise ValueError(f"height/width must be multiples of 8: {height}x{width}")
         sf = preset.vae.scale_factor
-        sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
-            else (lambda: None)
 
         with self.timer.phase("encode_prompt"):
             text_pair = self.encode_prompt(prompt, negative_prompt).to(self.dtype)
-            sync()
+            sync(self.device)
         self.timings = {"encode_prompt": self.timer.last["encode_prompt"], "steps": [],
                         "guided": []}
 

@@ -1,9 +1,9 @@
-"""Ungrounded Zeroscope baseline (plain T2V with DPM-Solver++).
+"""Ungrounded Zeroscope baseline (plain T2V with DPM-Solver++), with an
+optional Zeroscope-XL vid2vid refinement pass (``init("xl")``).
 
 Counterpart of lvd_tpu/runners/zeroscope_dpm.py; parity target of both: the
-reference's generation/zeroscope_dpm.py. lvd_tpu's optional Zeroscope-XL
-vid2vid refine (``init("xl")``) needs the VAE encoder and vid2vid, which
-this package does not have yet (ROADMAP A4): that option raises.
+reference's generation/zeroscope_dpm.py (including the XL refine at
+strength 0.6, :90-109).
 """
 
 from __future__ import annotations
@@ -16,12 +16,12 @@ from . import base
 version = "zeroscope"
 
 _state = base.RunnerState()
+_xl = False
 
 
 def init(option: str = ""):
-    global _state
-    if option == "xl":
-        raise NotImplementedError("the Zeroscope-XL refine is not ported yet (ROADMAP A4)")
+    global _state, _xl
+    _xl = option == "xl"
     _state = base.init_pipeline("zeroscope")
     return _state.H, _state.W
 
@@ -52,5 +52,10 @@ def run(
         num_frames=num_frames,
         seed=seed,
     )[0]
+
+    if _xl:
+        from ..cli.upsample import upsample_video_zsxl
+
+        video = upsample_video_zsxl(video, prompt, seed=seed, strength=0.6)
 
     base.save_video(out, video, save_formats)

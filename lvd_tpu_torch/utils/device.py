@@ -22,3 +22,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "the plain PyTorch path on the CPU"
         )
     return dev
+
+
+def sync(device: torch.device) -> None:
+    """Waits for the card, so a timed phase's seconds hold its device work;
+    nothing on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -14,10 +14,17 @@ threefry2x32 generator with ``jax_threefry_partitionable=True``:
 * ``uniform(lo, hi)`` puts the top 23 bits into the mantissa of a float in
   [1, 2), subtracts 1, scales to [lo, hi) and clamps at lo;
 * ``normal`` is ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``, with
-  XLA's float32 erfinv (Giles' polynomial).
+  XLA's float32 erfinv (Giles' polynomial);
+* in bfloat16 and float16, ``uniform`` keeps only the mantissa's bits of the
+  low 8 (bfloat16) or 16 (float16) random bits, every operation rounds to
+  the type, and erfinv runs in float32. A half-precision normal therefore
+  takes one of 128 (bfloat16) or 1024 (float16) values, one for each
+  mantissa.
 
-Keys and random bits are bit-exact; a normal is within an ulp or two of
-JAX's, since the erfinv's log1p is the device's, not XLA's. One threefry
+Keys and random bits are bit-exact; a float32 normal is within an ulp or two
+of JAX's, since the erfinv's log1p is the device's, not XLA's. A
+half-precision normal is read from its table of values, made once on the
+CPU, so it is JAX's bit for bit on every device. One threefry
 serves both: on Python ints for keys (a key is a pair of ints), and on int64
 tensors masked to 32 bits for the bits of a draw, which run on the device
 they are asked for.
@@ -25,6 +32,7 @@ they are asked for.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -141,9 +149,30 @@ def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return _SQRT2 * erfinv_f32(uniform_from_bits(bits, _NORMAL_LO, 1.0))
 
 
-def normal_key(key: Key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)`` on ``device``."""
-    return _draw(key, shape, device, normal_from_bits, torch.float32)
+# Half types: (mantissa bits, the bits of 1.0, the random bits uniform takes).
+_HALF = {torch.bfloat16: (7, 0x3F80, 8), torch.float16: (10, 0x3C00, 16)}
+
+
+@functools.lru_cache(maxsize=None)
+def _half_normals(dtype) -> torch.Tensor:
+    """``jax.random.normal`` in ``dtype`` of each mantissa its uniform can
+    draw, on the CPU."""
+    nmant, one, _ = _HALF[dtype]
+    floats = (torch.arange(2 ** nmant, dtype=torch.int32) | one).to(torch.int16).view(dtype) - 1
+    lo = torch.tensor(-1.0 + 2.0 ** -(nmant + 1), dtype=dtype)  # nextafter(-1, 0)
+    u = torch.clamp_min(floats * (torch.tensor(1.0, dtype=dtype) - lo) + lo, lo)
+    return torch.tensor(math.sqrt(2), dtype=dtype) * erfinv_f32(u.float()).to(dtype)
+
+
+def normal_key(key: Key, shape, device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` on ``device``; ``dtype`` is
+    float32, bfloat16 or float16."""
+    if dtype == torch.float32:
+        return _draw(key, shape, device, normal_from_bits, dtype)
+    nmant, _, rng_bits = _HALF[dtype]
+    table = _half_normals(dtype).to(device)
+    return _draw(key, shape, device,
+                 lambda bits: table[(bits & (2 ** rng_bits - 1)) >> (rng_bits - nmant)], dtype)
 
 
 def normal(seed: int, shape) -> np.ndarray:

@@ -630,7 +630,7 @@ def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch
             cases.append((lambda p=p, x=x: gf._launch_forward(p, x), c))
     else:
         mod, changes = tc, [("m_tiles", 4), ("window_rows", 200), ("start_frame", 0),
-                            ("pixel_tile", 16)]
+                            ("pixel_tile", 16), ("frame_group", 12), ("frame_groups", 2)]
         x = torch.randn(1, 24, 13, 64, generator=g, device=cuda).bfloat16()
         a, b = torch.ones(1, 64, device=cuda), torch.zeros(1, 64, device=cuda)
         w = torch.randn(3, 64, 64, generator=g, device=cuda).bfloat16()
@@ -683,6 +683,41 @@ def test_temp_conv_forms_match_plain(cuda, f, p, c, dtype):
     err = max(_rel(out, ref), _rel(dx, ref_dx))
     print(f"kernel D F={f} P={p} C={c} {dtype}: {err:.3g}")
     assert err <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("f,p,c", [(33, 45, 320), (48, 45, 640), (64, 45, 320), (100, 13, 320), (24, 45, 72),
+                                   (200, 16, 72), (24, 13, 520), (40, 2880, 320)])
+def test_temp_conv_frame_groups_and_narrow_channels_match_plain(cuda, f, p, c, dtype):
+    """Kernel D where lvd_tpu routes its kernel past F = 32 (two to seven
+    frame groups) and at C % 64 != 0 (C = 72, 520: a last channel chunk
+    zero past C, columns past C not stored), both forms, forward and dx
+    through autograd, against the plain version on fp32 copies: 2e-2 in
+    bf16, 5e-3 in fp32."""
+    from lvd_tpu_torch.ops import temp_conv_fused as tc
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
+    g = torch.Generator(device=cuda).manual_seed(31)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=cuda) * scale
+    x, a, b = r(2, f, p, c), 1 + r(2, c, scale=0.1), r(2, c, scale=0.1)
+    w, bias = r(3, 1, 1, c, c, scale=(3 * c) ** -0.5), r(c, scale=0.1)
+    dy = r(2, f, p, c)
+    assert tc.supported(x.to(dtype))
+    before = dict(tc.norm_silu_temporal_conv.launches_by_form)
+    xl = x.to(dtype).requires_grad_(True)
+    out = tc.norm_silu_temporal_conv(xl, a, b, w.to(dtype), bias.to(dtype))
+    (dx,) = torch.autograd.grad(out, xl, dy.to(dtype))
+    forms = {k: n - before[k] for k, n in tc.norm_silu_temporal_conv.launches_by_form.items()
+             if n != before[k]}
+    assert forms == {tc.launch_plan(f, dtype)["form"]: 1}
+    with exact_fp32():
+        leaf = x.clone().requires_grad_(True)
+        ref = tc.norm_silu_temporal_conv_plain(leaf, a, b, w, bias)
+        (ref_dx,) = torch.autograd.grad(ref, leaf, dy)
+    err = max(_rel(out, ref), _rel(dx, ref_dx))
+    print(f"kernel D F={f} P={p} C={c} {dtype}: {err:.3g}")
+    assert torch.isfinite(out).all() and err <= tol
 
 
 @pytest.mark.parametrize("c,inner", [(384, 1536), (448, 256), (640, 256)])
@@ -940,8 +975,9 @@ def test_fp16_takes_stock_routes_on_card(cuda):
 
 def test_key_order_draw_on_the_card_matches_the_cpu(cuda):
     """lvd_tpu's key-order draw (utils/prng.py, models/init.py) on the card:
-    the random bits equal the CPU's, the normals within 1e-6 of max|cpu|,
-    for odd and even element counts and for a whole tiny CLIP tree."""
+    the random bits equal the CPU's, the normals within 1e-6 of max|cpu|
+    (bfloat16 and float16 normals equal), for odd and even element counts
+    and for a whole tiny CLIP tree."""
     from lvd_tpu_torch import config
     from lvd_tpu_torch.models import clip, init
     from lvd_tpu_torch.utils import prng
@@ -951,6 +987,9 @@ def test_key_order_draw_on_the_card_matches_the_cpu(cuda):
         assert torch.equal(prng.random_bits(key, shape, cuda).cpu(), prng.random_bits(key, shape))
         card, cpu = prng.normal_key(key, shape, cuda).cpu(), prng.normal_key(key, shape)
         assert ((card - cpu).abs().max() / cpu.abs().max()).item() <= 1e-6
+        for dtype in (torch.bfloat16, torch.float16):
+            assert torch.equal(prng.normal_key(key, shape, cuda, dtype).cpu(),
+                               prng.normal_key(key, shape, dtype=dtype))
     leaves = clip.clip_text_leaves(key, config.tiny_clip_config(), with_projection=True)
     card, cpu = init.draw(leaves, cuda), init.draw(leaves, "cpu")
     for got, want in zip(torch.utils._pytree.tree_leaves(card),
@@ -990,3 +1029,52 @@ def test_tiny_cli_runs_on_the_card(cuda, tmp_path, monkeypatch):
     assert (out / "video_0.gif").exists() and frames.shape == (4, 64, 96, 3)
     assert frames.dtype == np.uint8
     lvd._state = base.RunnerState()
+
+
+def test_tiny_unet2d_and_sdxl_refiner_on_card_match_cpu(cuda, monkeypatch):
+    """The upsample CLI's tiny SDXL refiner (UNet2D at depth 2 with
+    text_time, CLIP with its projection, VAE), drawn once on the CPU, on
+    the card against its CPU run in fp32, TF32 off: the UNet2D forward with
+    the stock feed-forward (LVD_DISABLE_FUSED_FF, read per call; its
+    16-wide heads take lvd_tpu's chunked route) within 1e-4 of max|ref|,
+    and the img2img pipeline with every kernel lvd_tpu routes (kernel C's
+    TF32 products) within the fp32 gate."""
+    import numpy as np
+
+    from lvd_tpu_torch import pipeline_sdxl as ps
+    from lvd_tpu_torch.cli.upsample import tiny_sdxl_configs
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.models.unet2d import apply_unet2d
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    unet_cfg, clip_cfg, vae_cfg = tiny_sdxl_configs()
+    models = ps.drawn_refiner_models(unet_cfg, clip_cfg, vae_cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 10, 14, 4), generator=gen)
+    text = torch.randn((2, 77, unet_cfg.cross_attention_dim), generator=gen)
+    added = {"text_embeds": torch.randn((2, 32), generator=gen),
+             "time_ids": torch.tensor([[64.0, 96, 0, 0, 2.5], [64, 96, 0, 0, 6.0]])}
+    monkeypatch.setenv("LVD_DISABLE_FUSED_FF", "1")
+    with torch.no_grad():
+        ref, _ = apply_unet2d(models.unet_params, unet_cfg, x, 400, text, added_cond=added)
+        with exact_fp32():
+            out, _ = apply_unet2d(cast_tree(models.unet_params, torch.float32, cuda), unet_cfg,
+                                  x.to(cuda), 400, text.to(cuda),
+                                  added_cond={k: v.to(cuda) for k, v in added.items()})
+    err = _rel(out.cpu(), ref)
+    print(f"tiny UNet2D on the card vs its CPU run: {err:.3g}")
+    assert err <= 1e-4
+    monkeypatch.delenv("LVD_DISABLE_FUSED_FF")
+
+    image = np.random.default_rng(4).random((64, 96, 3)).astype(np.float32)
+    kw = dict(strength=0.5, num_inference_steps=4, seed=2)
+    on_card = ps.SDXLRefinerModels(**{**models.__dict__, **{
+        k: cast_tree(getattr(models, k), torch.float32, cuda)
+        for k in ("unet_params", "clip_params", "vae_params")}})
+    ref = ps.SDXLRefinerPipeline(models, dtype=torch.float32, device="cpu")("a bear", image, **kw)
+    with exact_fp32():
+        got = ps.SDXLRefinerPipeline(on_card, dtype=torch.float32, device=cuda)(
+            "a bear", image, **kw)
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    print(f"tiny SDXL refiner on the card vs its CPU run: {err:.3g}")
+    assert got.shape == (64, 96, 3) and err <= FP32_TOL

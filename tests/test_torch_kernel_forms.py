@@ -26,7 +26,10 @@ form of kernel I uses (``ops/conv3x3.py``: ``launch_plan``,
   zero rows for frames outside [0, F) and pixels past P, padded m64 tiles
   whose rows are NaN here and must never reach the output) times the
   (3C, C) weight equals lvd_tpu's ``temp_conv_fused._fused`` in interpret
-  mode and ``_unfused``, at F = 5 and 24 with a ragged P;
+  mode and ``_unfused``, at F = 5 and 24 with a ragged P, at F = 40 and 64
+  (two frame groups, each window from its group's first frame - 1) and at
+  C = 72 (a last 64-wide channel chunk zero past C, its output columns past
+  C not stored);
 - kernel C's chunk plan (``ops/geglu_fused.py``, which the kernel checks:
   64-row blocks, per 64-wide inner chunk each warpgroup's [h | g] columns
   as a 64-column block of the interleaved w1, the gated chunk rounded to
@@ -211,6 +214,11 @@ def test_routed_geglu_and_temp_conv_shapes_take_their_forms(on_tpu, dtype):
             assert t_gf.launch_plan(c, tdt)["form"] == NEW_FORM[dtype]
     # fp32 weights of C = 512 and 640 exceed lvd_tpu's 10 MiB resident budget.
     assert routed == {"bfloat16": [320, 512, 640], "float32": [320]}[dtype]
+    if dtype == "bfloat16":  # the Zeroscope-XL refine's feed-forwards take kernel C
+        for rows, c in selfcheck.XL_GEGLU_SHAPES:
+            w1, w2 = jnp.zeros((c, 8 * c)), jnp.zeros((4 * c, c))
+            assert j_gf.supported(w1, w2, jax.ShapeDtypeStruct((rows, c), jnp.bfloat16))
+            assert t_gf.forward_kernel(c, 4 * c, tdt) == "C"
     # Every width kernel C's route gives it takes the new form, but fp32
     # C > 384, which the route gives C only with a small inner dimension
     # (C = 512, inner 256), keeps the WMMA form.
@@ -225,43 +233,63 @@ def test_routed_geglu_and_temp_conv_shapes_take_their_forms(on_tpu, dtype):
         assert j_tc.supported(jax.ShapeDtypeStruct(shape, jnp.dtype(dtype)))
         assert t_tc.supported(torch.empty(shape, dtype=tdt, device="meta"))
         assert t_tc.launch_plan(shape[1], tdt)["form"] == NEW_FORM[dtype]
+    # The upsample path's and C4's shapes, each in the types the selfcheck
+    # runs it: routed by lvd_tpu, so kernel D in its new form.
+    checked = selfcheck.XL_TCONV_SHAPES + selfcheck.C4_TCONV_SHAPES
+    if dtype == "float32":
+        checked = selfcheck.C4_TCONV_FP32_SHAPES
+    for shape in checked:
+        assert j_tc.supported(jax.ShapeDtypeStruct(shape, jnp.dtype(dtype))), shape
+        assert t_tc.supported(torch.empty(shape, dtype=tdt, device="meta")), shape
+        assert t_tc.launch_plan(shape[1], tdt)["form"] == NEW_FORM[dtype]
 
 
 def _window_temp_conv(x, a, b, w, bias):
-    """Kernel D's wgmma form in torch: per (batch, 8-pixel tile) one window
-    of rows (frame, pixel) for frames -1 .. F (zero outside [0, F) and past
-    P, the prologue applied to the rest), padded to window_rows with NaN;
-    tap k of output row r reads window row r + 8 k; rows r < 8 F of pixels
-    inside P are stored."""
+    """Kernel D's wgmma form in torch: per (batch, frame group, 8-pixel
+    tile) one window of rows (frame, pixel) for frames f0 - 1 .. f0 + G of
+    the group from f0 (zero outside [0, F) and past P, the prologue applied
+    to the rest), padded to window_rows with NaN; channels in 64-wide
+    chunks, zero past C in the window and in the weight's tap slices on both
+    axes; tap k of output row r reads window row r + 8 k; rows r < 8 G of
+    frames inside F and pixels inside P are stored, columns past C not."""
     bsz, f, p, c = x.shape
     plan = t_tc.launch_plan(f, torch.bfloat16)
-    pt = plan["pixel_tile"]
+    pt, g = plan["pixel_tile"], plan["frame_group"]
     taps = t_tc.tap_rows(f)
     assert plan["form"] == "wgmma" and taps.max() < plan["window_rows"]
-    assert plan["start_frame"] == -1 and plan["loaded_rows"] == pt * (f + 2)
-    frames = torch.arange(f + 2) + plan["start_frame"]
+    assert plan["start_frame"] == -1 and plan["loaded_rows"] == pt * (g + 2)
+    assert g <= t_tc.MAX_GROUP and plan["frame_groups"] * g >= f > (plan["frame_groups"] - 1) * g
+    cp = -(-c // 64) * 64
+    wp = torch.zeros(3, cp, cp)
+    wp[:, :c, :c] = w
     out = torch.full_like(x, float("nan"))
-    for bi in range(bsz):
-        z = torch.nn.functional.silu(x[bi] * a[bi] + b[bi])  # (F, P, C)
-        for p0 in range(0, p, pt):
-            pix = p0 + torch.arange(pt)
-            ok = ((frames >= 0) & (frames < f))[:, None] & (pix < p)[None, :]
-            loaded = z[frames.clamp(0, f - 1)][:, pix.clamp(max=p - 1)]  # (F + 2, 8, C)
-            loaded = torch.where(ok[..., None], loaded, torch.zeros(()))
-            win = torch.full((plan["window_rows"], c), float("nan"))
-            win[:plan["loaded_rows"]] = loaded.reshape(-1, c)
-            y = sum(win[taps[k]] @ w[k] for k in range(3))  # (64 m_tiles, C)
-            for r in range(pt * f):
-                if p0 + r % pt < p:
-                    out[bi, r // pt, p0 + r % pt] = y[r] + bias
+    for gi, frames in enumerate(t_tc.window_frames(f)):
+        frames = torch.tensor(frames)
+        assert len(frames) == g + 2 and frames[0] == gi * g + plan["start_frame"]
+        for bi in range(bsz):
+            z = torch.nn.functional.silu(x[bi] * a[bi] + b[bi])  # (F, P, C)
+            for p0 in range(0, p, pt):
+                pix = p0 + torch.arange(pt)
+                ok = ((frames >= 0) & (frames < f))[:, None] & (pix < p)[None, :]
+                loaded = z[frames.clamp(0, f - 1)][:, pix.clamp(max=p - 1)]  # (G + 2, 8, C)
+                loaded = torch.where(ok[..., None], loaded, torch.zeros(()))
+                win = torch.full((plan["window_rows"], cp), float("nan"))
+                win[:plan["loaded_rows"]] = 0.0
+                win[:plan["loaded_rows"], :c] = loaded.reshape(-1, c)
+                y = sum(win[taps[k]] @ wp[k] for k in range(3))  # (64 m_tiles, C padded)
+                for r in range(pt * g):
+                    fr = gi * g + r // pt
+                    if fr < f and p0 + r % pt < p:
+                        out[bi, fr, p0 + r % pt] = y[r, :c] + bias
     return out
 
 
-@pytest.mark.parametrize("f", [5, 24])
-def test_temp_conv_window_plan_gives_lvd_tpu(f):
+@pytest.mark.parametrize("f,c", [(5, 64), (24, 64), (40, 64), (64, 64), (24, 72)])
+def test_temp_conv_window_plan_gives_lvd_tpu(f, c):
     """P = 13: two pixel tiles, the second ragged (and lvd_tpu's Pallas
-    grid cut into 8-pixel blocks, ragged too)."""
-    bsz, p, c = 2, 13, 64
+    grid cut into 8-pixel blocks, ragged too). F = 40 and 64 take two frame
+    groups (of 20 and of 32 frames); C = 72 a last channel chunk of 8."""
+    bsz, p = 2, 13
     rng = np.random.default_rng(17)
     x = rng.standard_normal((bsz, f, p, c)).astype(np.float32)
     a = (1 + 0.2 * rng.standard_normal((bsz, c))).astype(np.float32)
@@ -272,6 +300,21 @@ def test_temp_conv_window_plan_gives_lvd_tpu(f):
     args = tuple(map(jnp.asarray, (x, a, b, w, bias)))
     _close(got, j_tc._fused(*args, block_p=8, interpret=True))
     _close(got, j_tc._unfused(*args))
+
+
+def test_temp_conv_frame_groups():
+    """ceil(F / 32) groups of ceil(F / groups) frames, at most 32 each; every
+    frame is one group's output, and each window holds its group's frames
+    and the one frame either side."""
+    for f in (1, 5, 24, 32, 33, 40, 48, 64, 100, 200, 450):
+        plan = t_tc.launch_plan(f, torch.float32)
+        g, n = plan["frame_group"], plan["frame_groups"]
+        assert n == -(-f // 32) and g == -(-f // n) and g <= 32
+        assert plan["m_tiles"] == -(-8 * g // 64) and plan["form"] == "mma_sync"
+        wins = t_tc.window_frames(f)
+        outputs = [fr for wf in wins for fr in wf[1:-1] if fr < f]
+        assert outputs == list(range(f))
+        assert all(wf[-1] - wf[0] == g + 1 for wf in wins)
 
 
 def _chunk_plan_geglu(x, w1, b1, w2, b2):

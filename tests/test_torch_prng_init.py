@@ -67,6 +67,23 @@ def test_random_bits_are_bit_exact_and_normals_close(shape):
         assert torch.equal(prng.random_bits_at(k, idx), bits.reshape(-1)[idx])
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [(3, 5), (40001,)])
+def test_half_precision_normals_are_bit_exact(dtype, shape):
+    """``jax.random.normal`` in bfloat16 and float16 (the posterior sample
+    of a bf16 pipeline's encoder): every element's bits equal JAX's; the
+    long draw reaches all 128 (bfloat16) or 1024 (float16) values."""
+    for seed in SEEDS:
+        jk = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+        k = prng.fold_in(prng.prng_key(seed), 3)
+        got = prng.normal_key(k, shape, dtype=getattr(torch, dtype))
+        want = np.asarray(jax.random.normal(jk, shape, getattr(jnp, dtype)))
+        assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == shape
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(), want.view(np.int16))
+    if shape[0] > 40000:
+        assert len(np.unique(want)) == (128 if dtype == "bfloat16" else 1024)
+
+
 def _flat(tree, prefix=""):
     if isinstance(tree, dict):
         return {k2: v2 for k, v in tree.items() for k2, v2 in _flat(v, f"{prefix}{k}/").items()}

@@ -14,10 +14,11 @@ fp16:
   clause;
 - kernel D (``temp_conv_fused.lvd_tpu_routes``) against lvd_tpu's
   ``supported`` at C in {72, 320, 520, 640, 1280, 2560}, F in {16, 24, 32,
-  33, 64}, P in {45, 2880}; the port's ``supported`` is that route where
-  kernel D covers the shape (C % 64 == 0, F <= 32) and stock ops elsewhere;
+  33, 64, 100}, P in {45, 2880}; the port's ``supported`` (kernel D) is
+  exactly that route, stock ops elsewhere;
 - kernel B (``temporal_attention.supported`` / ``supported_frames_major``)
-  against lvd_tpu's at P in {16, 180, 600, 720, 900, 2880}, for both stream
+  against lvd_tpu's at P in {16, 144, 180, 576, 600, 720, 900, 2304, 2880,
+  9216} (the last four and 144 the Zeroscope-XL levels), for both stream
   layouts, 64-wide heads at C = 320, 640 and 1280 and 80-wide ones at 320.
 
 - kernel F (``temporal_attention.bwd_route``, which ``TemporalPair``'s
@@ -108,14 +109,14 @@ def test_heads_chunked_matches_lvd_tpu():
 @pytest.mark.parametrize("c", [72, 320, 520, 640, 1280, 2560])
 def test_temp_conv_route_matches_lvd_tpu(on_tpu, dtype, c):
     jdt = jnp.dtype(dtype)
-    for f in (16, 24, 32, 33, 64):
+    for f in (16, 24, 32, 33, 64, 100):
         for p in (45, 2880):
             shape = (2, f, p, c)
             want = j_tc.supported(jax.ShapeDtypeStruct(shape, jdt))
             x = _meta(shape, dtype)
             assert t_tc.lvd_tpu_routes(x) == want, (shape, dtype)
-            # Kernel D where it covers lvd_tpu's route; stock ops elsewhere.
-            assert t_tc.supported(x) == (want and c % 64 == 0 and f <= 32), (shape, dtype)
+            # Kernel D exactly where lvd_tpu runs its kernel; stock ops elsewhere.
+            assert t_tc.supported(x) == want, (shape, dtype)
     if dtype == "float16":
         assert not any(t_tc.supported(_meta((2, f, 45, c), dtype)) for f in (16, 24, 32))
 
@@ -124,7 +125,7 @@ def test_temp_conv_route_matches_lvd_tpu(on_tpu, dtype, c):
 @pytest.mark.parametrize("c,heads", [(320, 5), (640, 10), (1280, 20), (320, 4)])
 def test_temporal_pair_route_matches_lvd_tpu(on_tpu, dtype, c, heads):
     jdt = jnp.dtype(dtype)
-    for p in (16, 180, 600, 720, 900, 2880):
+    for p in (16, 144, 180, 576, 600, 720, 900, 2304, 2880, 9216):
         fm_shape, pm_shape = (2, 24, p, c), (2, p, 24, c)
         want_fm = j_ta.supported_frames_major(jax.ShapeDtypeStruct(fm_shape, jdt), heads)
         want_pm = j_ta.supported(jax.ShapeDtypeStruct(pm_shape, jdt), heads)
