@@ -47,7 +47,10 @@ Phases, each fatal on failure:
                random bf16 weights, 4 DPM-Solver++ steps, through the entry
                points a user calls; launch counts are zeroed just before and
                read just after, and every forward kernel A-D must have run,
-               every B, C and D launch in its new form (wgmma);
+               every B, C and D launch in its new form (wgmma); then the
+               same call under output_type="uint8_device" must return uint8
+               (24, 320, 576, 3) frames on the card within one uint8 level
+               of the float video x 255;
   7. guided generation - the flagship layout (one box moving left to right)
                and GuidanceConfig through the same entry point with
                ``backward_guidance``, 4 steps with guidance on the first 2;
@@ -85,7 +88,8 @@ Phases, each fatal on failure:
                draw's seconds, main()'s seconds, peak memory and launches;
                its run dir must hold video_0.gif and the frames file at
                (24, 320, 576, 3) uint8, kernels A-G must launch, B, C, D, F
-               and G only in their wgmma forms, and four sampled leaves
+               and G only in their wgmma forms, the GIF written by the
+               native encoder (its seconds), and four sampled leaves
                (conv_in, a to_q, the CLIP token embedding's first and last
                1024 rows, a VAE decoder conv) drawn again on the card must
                have the CPU draw's random bits and its normals within 1e-6,
@@ -107,6 +111,30 @@ Phases, each fatal on failure:
                file must hold (24, 576, 1024, 3) uint8, A-D must launch,
                B-D only in their wgmma forms; then one XL CFG UNet forward
                and one refiner CFG UNet2D forward under the profiler;
+ 12d. train  - lvd_tpu_torch.training's Trainer at the lvd-gligen_zeroscope
+               widths (UNet3D (320, 640, 1280, 1280), gated), fp32, batch 1,
+               24 frames at 40x72 latents, 77 text states of width 1024 and
+               a grounding pack of 2 boxes in 30 slots, the weights drawn on
+               the card in lvd_tpu's key order: 3 adapter-only steps on one
+               fixed batch (losses finite, every frozen leaf bit-unchanged,
+               every fuser and position_net leaf moved, A-G launched), then
+               one full-finetune gradient through the kernels against the
+               plain route (plain_route(), TF32 off; loss within 1e-3, the
+               flattened gradient within 1e-2 L2), and one full Trainer
+               step; seconds per step and peak memory (at the most frames
+               that fit, if 24 do not);
+ 12e. image  - the 2D image path at SD 1.x widths (UNet2DConfig()), 512x512
+               (64x64 latents), bf16, weights drawn on the card in lvd_tpu's
+               key order: encode_prompts on a ViT-L/14-wide CLIP, two
+               per-object generate_semantic_guidance runs (4 steps, one
+               guided update on each of the first 2, save_all_latents) from
+               get_input_latents_list's blended noise, the histories and the
+               background through compose_latents_with_alignment, and
+               decode_images to (3, 512, 512, 3); each run must launch C and
+               G exactly as often as the UNet2D's routing gives; one CFG
+               UNet2D forward against the plain path (fp32, 5e-2) and one
+               guided update's gradient against the plain route (0.3
+               max-element, 0.2 L2); seconds and peak memory;
  13. knobs   - a child process of this script with lvd_tpu's two opt-in
                switches set (LVD_ENABLE_FUSED_SC=1 LVD_FUSED_LINEAR=1; the
                second is read at import): phases 4 and 5 again, now with the
@@ -400,13 +428,11 @@ def detached_route():
     from lvd_tpu_torch.ops import geglu_fused, linear_fused, packed_attention
     from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
 
-    nothing = lambda n: staticmethod(lambda ctx, *grads: (None,) * n)
-    with _swapped([(packed_attention.PackedAttention, "backward", nothing(6)),
-                   (temporal_attention.TemporalPair, "backward", nothing(5)),
-                   (geglu_fused.Geglu, "backward", nothing(2)),
-                   (temp_conv_fused.NormSiluTemporalConv, "backward", nothing(5)),
-                   (spatial_conv_fused.NormSiluConv2d, "backward", nothing(5)),
-                   (linear_fused.LinearCore, "backward", nothing(3))]):
+    nothing = staticmethod(lambda ctx, *grads: (None,) * len(ctx.needs_input_grad))
+    with _swapped([(fn, "backward", nothing) for fn in (
+            packed_attention.PackedAttention, temporal_attention.TemporalPair, geglu_fused.Geglu,
+            temp_conv_fused.NormSiluTemporalConv, spatial_conv_fused.NormSiluConv2d,
+            linear_fused.LinearCore)]):
         yield
 
 
@@ -590,7 +616,32 @@ def generation_phase(torch, models):
     forms = read_forms()
     log(f"[generation] launches of B-D and F-J by form: {json.dumps(forms)}")
     check_new_forms("generation", forms, ("temporal_attention_pair",))
+    uint8_device_check(torch, pipe, video)
     return launches
+
+
+def uint8_device_check(torch, pipe, video):
+    """The same call under output_type="uint8_device": uint8 (24, 320, 576,
+    3) frames on the card, within one uint8 level of the float video x 255
+    of the same seed; the call returns before the card is done (its
+    seconds beside the seconds until the frames are ready)."""
+    from lvd_tpu_torch.text.templates import NEGATIVE_PROMPT
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = pipe("a brown bear walking in a forest", NEGATIVE_PROMPT, height=320, width=576,
+                  num_frames=24, num_inference_steps=NUM_STEPS, guidance_scale=9.0, seed=0,
+                  output_type="uint8_device")
+    returned = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ready = time.perf_counter() - t0
+    diff = (frames.cpu().float() - torch.from_numpy(video[0]) * 255.0).abs().max().item()
+    log(f"[uint8_device] {tuple(frames.shape)} {frames.dtype} on {frames.device}: returned after "
+        f"{returned:.4f} s, ready after {ready:.4f} s; max|frames - video * 255| {diff:.4f} "
+        f"(gate 1 level)")
+    if (frames.dtype != torch.uint8 or not frames.is_cuda
+            or tuple(frames.shape) != (24, 320, 576, 3) or diff > 1.0):
+        raise SystemExit("[uint8_device] the uint8 frames on the card are not the video's")
 
 
 def guided_generation_phase(torch, models, kernels=GUIDED_KERNELS):
@@ -980,7 +1031,9 @@ def cli_phase(torch, cwd):
     from lvd_tpu_torch.cli import generate
     from lvd_tpu_torch.runners import base, lvd
 
-    seconds = {"draw": [], "save": []}
+    from lvd_tpu_torch.utils import native, vis
+
+    seconds = {"draw": [], "save": [], "gif": []}
 
     def timed(key, fn):
         def call(*args, **kwargs):
@@ -998,7 +1051,8 @@ def cli_phase(torch, cwd):
     home = os.getcwd()
     t_phase = time.perf_counter()
     swaps = [(base, "load_pipeline_models", timed("draw", base.load_pipeline_models)),
-             (base, "save_video", timed("save", base.save_video))]
+             (base, "save_video", timed("save", base.save_video)),
+             (vis, "save_gif", timed("gif", vis.save_gif))]
     with _swapped(swaps):
         for k in saved_env:
             os.environ.pop(k, None)
@@ -1033,7 +1087,10 @@ def cli_phase(torch, cwd):
         f"{json.dumps({k: round(v, 4) for k, v in pipe.timer.summary().items()})}; steps "
         f"{[round(x, 4) for x in pipe.timings['steps']]} s, guided updates "
         f"{[round(x, 4) for x in pipe.timings['guided']]} s; GIF and frames file written in "
-        f"{seconds['save'][0]:.3f} s); max_memory_allocated {peak:.3f} GiB")
+        f"{seconds['save'][0]:.3f} s, the GIF by the native encoder in "
+        f"{seconds['gif'][0]:.3f} s); max_memory_allocated {peak:.3f} GiB")
+    if native._STATE.get("lib") is None:
+        raise SystemExit("[cli] the GIF was not written by the native encoder")
     log(f"[cli] launches in {NUM_STEPS} steps: {json.dumps(launches)}; by form: {json.dumps(forms)}")
     missing = [name for name in GUIDED_KERNELS if launches[name] <= 0]
     other = {name: {f: n for f, n in forms[name].items() if f != "wgmma" and n}
@@ -1313,6 +1370,366 @@ STOCK_KINDS = (
     ("mul", ("Mul", "mul")),
     ("silu, gelu, sigmoid", ("silu", "gelu", "Gelu", "sigmoid")),
 )
+
+
+# The train phase: lvd_tpu's training step at the lvd-gligen_zeroscope widths.
+TRAIN_FRAMES = 24
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-4
+# |grad(kernels) - grad(plain)| / |grad(plain)| (L2, the flattened gradient of
+# every leaf) of one fp32 full-finetune step, and the relative difference of
+# its loss. Both routes run fp32; the kernels' products are TF32 inside the
+# kernels, the plain route's full fp32 (TF32 off).
+TRAIN_GRAD_L2_TOL = 1e-2
+TRAIN_LOSS_TOL = 1e-3
+
+
+def train_batch(torch, cfg, frames, seed=11):
+    """A fixed batch on the card: clean latents (1, F, 40, 72, 4), 77 text
+    states, and a grounding pack of 2 boxes (bench.py's moving bear and a
+    fixed box) in lvd_tpu's 30 slots per frame, the other slots masked."""
+    from lvd_tpu_torch.pipeline import MAX_GLIGEN_OBJS
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    boxes = torch.zeros((frames, MAX_GLIGEN_OBJS, 4), device="cuda")
+    masks = torch.zeros((frames, MAX_GLIGEN_OBJS), device="cuda")
+    embs = torch.zeros((frames, MAX_GLIGEN_OBJS, cfg.gligen_positive_len), device="cuda")
+    for f in range(frames):
+        move = 0.8 * f / max(frames - 1, 1)
+        boxes[f, 0] = torch.tensor([0.05 + move, 0.45, 0.30 + move, 0.80])
+        boxes[f, 1] = torch.tensor([0.60, 0.05, 0.90, 0.35])
+        masks[f, :2] = 1.0
+    embs[:, :2] = torch.randn((2, cfg.gligen_positive_len), generator=gen, device="cuda")
+    return {"latents": torch.randn((1, frames, 40, 72, 4), generator=gen, device="cuda"),
+            "text": torch.randn((1, 77, cfg.cross_attention_dim), generator=gen, device="cuda"),
+            "gligen": {"boxes": boxes, "masks": masks, "positive_embeddings": embs}}
+
+
+def _loss_and_grads(torch, cfg, params, batch, key):
+    """diffusion_loss at the params and its gradient for every leaf, fp32."""
+    from lvd_tpu_torch.config import SchedulerConfig
+    from lvd_tpu_torch.diffusion import schedule
+    from lvd_tpu_torch.training import train as tr
+    from lvd_tpu_torch.utils.tree import flatten, unflatten_like
+
+    abar = schedule.make_alphas_cumprod(SchedulerConfig())
+    tables = [torch.tensor(np.asarray(v, np.float32), device="cuda")
+              for v in (abar ** 0.5, (1.0 - abar) ** 0.5)]
+    leaves = {p: t.detach().requires_grad_(True) for p, t in flatten(params).items()}
+    loss = tr.diffusion_loss(unflatten_like(params, leaves), cfg, *tables, batch, key)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def _timed_steps(torch, step, state, batch, keys):
+    losses, seconds = [], []
+    for key in keys:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, key)
+        losses.append(loss.item())
+        seconds.append(time.perf_counter() - t0)
+    return state, losses, seconds
+
+
+def train_phase(torch):
+    """lvd_tpu's Trainer on the port at the lvd-gligen_zeroscope widths, fp32,
+    batch 1, weights drawn on the card in lvd_tpu's key order: 3
+    adapter-only steps on one fixed batch (loss finite, every frozen leaf
+    bit-unchanged, every fuser and position_net leaf moved, A-G launched),
+    then one full-finetune step's gradient through the kernels against the
+    plain route, and one full Trainer step timed. Returns the adapter-only
+    steps' launches."""
+    from lvd_tpu_torch.config import PRESETS
+    from lvd_tpu_torch.models.unet3d import init_unet3d
+    from lvd_tpu_torch.training import train as tr
+    from lvd_tpu_torch.utils import prng
+    from lvd_tpu_torch.utils.tree import flatten
+
+    cfg = PRESETS["lvd-gligen_zeroscope"].unet
+    t_phase = time.perf_counter()
+    params = init_unet3d(prng.prng_key(0), cfg, device="cuda", dtype=torch.float32)
+    torch.cuda.synchronize()
+    flat = flatten(params)
+    n_params = sum(t.numel() for t in flat.values())
+    log(f"[train] drew the gated Zeroscope UNet (fp32, {n_params / 1e6:.1f} M parameters) on the "
+        f"card in {time.perf_counter() - t_phase:.3f} s")
+
+    batch = train_batch(torch, cfg, TRAIN_FRAMES)
+    trainer = tr.Trainer(cfg, learning_rate=TRAIN_LR, adapter_only=True)
+    state = trainer.init(params)
+    frozen = {p: t.cpu() for p, t in flat.items() if not trainer.tx.trains(p)}
+    trained = {p: t.clone() for p, t in flat.items() if trainer.tx.trains(p)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    state, losses, seconds = _timed_steps(torch, trainer.make_step(), state, batch,
+                                          [prng.prng_key(i) for i in range(TRAIN_STEPS)])
+    launches, forms = read_launches(), read_forms()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = flatten(state.params)
+    changed = [p for p, t in frozen.items() if not torch.equal(after[p].cpu(), t)]
+    still = [p for p, t in trained.items() if torch.equal(after[p], t)]
+    log(f"[train] adapter-only, {len(trained)} trained leaves "
+        f"({sum(t.numel() for t in trained.values()) / 1e6:.1f} M) of {len(flat)}, "
+        f"{TRAIN_FRAMES} frames: losses {losses}; seconds per step {seconds}; "
+        f"max_memory_allocated {peak:.3f} GiB")
+    log(f"[train] adapter-only launches in {TRAIN_STEPS} steps: {json.dumps(launches)}; by form: "
+        f"{json.dumps(forms)}")
+    missing = [name for name in GUIDED_KERNELS if launches[name] <= 0]
+    if not all(math.isfinite(x) for x in losses) or changed or still or missing:
+        raise SystemExit(f"[train] adapter-only: losses {losses}, frozen leaves changed "
+                         f"{changed[:5]}, trained leaves that never moved {still[:5]}, kernels "
+                         f"never launched {missing}")
+    del state, trainer, frozen, trained, after
+    torch.cuda.empty_cache()
+
+    full_step_check(torch, cfg, params)
+    del params, flat
+    torch.cuda.empty_cache()
+    log(f"[train] the train phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def full_step_check(torch, cfg, params):
+    """One full-finetune step's gradient (every leaf) through the kernels
+    against the plain route on the same params, batch and key, then one
+    Trainer step (AdamW over every leaf), timed."""
+    from lvd_tpu_torch.training import train as tr
+    from lvd_tpu_torch.utils import prng
+    from lvd_tpu_torch.utils.tree import flatten, unflatten_like
+
+    batch = train_batch(torch, cfg, TRAIN_FRAMES)
+    key = prng.prng_key(7)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain route in full fp32
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss_k, grads_k = _loss_and_grads(torch, cfg, params, batch, key)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        peak_grad = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        with plain_route():
+            loss_p, grads_p = _loss_and_grads(torch, cfg, params, batch, key)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    num = sum(((grads_k[p] - g).double() ** 2).sum() for p, g in grads_p.items()).item()
+    den = sum((g.double() ** 2).sum() for g in grads_p.values()).item()
+    rel = math.sqrt(num / den)
+    worst = sorted(((((grads_k[p] - g).norm() / g.norm()).item() if g.norm() > 0 else 0.0, p)
+                    for p, g in grads_p.items()), reverse=True)[:3]
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"[train] full-finetune gradient at {TRAIN_FRAMES} frames, kernels against the plain "
+        f"route (fp32): loss {loss_k.item():.6g} / {loss_p.item():.6g} (rel {rel_loss:.3g}, gate "
+        f"{TRAIN_LOSS_TOL}); |d| / |ref| (L2, all {len(grads_p)} leaves) {rel:.6g} (gate "
+        f"{TRAIN_GRAD_L2_TOL}); worst leaves {worst}; loss and gradient {kernel_s:.3f} s "
+        f"(plain route {plain_s:.3f} s), max_memory_allocated {peak_grad:.3f} GiB")
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+    if not (rel <= TRAIN_GRAD_L2_TOL and rel_loss <= TRAIN_LOSS_TOL):
+        raise SystemExit("[train] the kernels' full-finetune gradient disagrees with the plain "
+                         "route")
+    trainer = tr.Trainer(cfg, learning_rate=TRAIN_LR)
+    own = unflatten_like(params, {p: t.clone() for p, t in flatten(params).items()})
+    state = trainer.init(own)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    state, losses, seconds = _timed_steps(torch, trainer.make_step(), state, batch, [key])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train] full-finetune Trainer step at {TRAIN_FRAMES} frames: loss {losses[0]:.6g}; "
+        f"{seconds[0]:.3f} s; max_memory_allocated {peak:.3f} GiB (params, grads and AdamW "
+        f"moments included); launches {json.dumps(read_launches())}")
+    if not math.isfinite(losses[0]):
+        raise SystemExit("[train] the full-finetune step's loss is not finite")
+    del state, own, trainer
+
+
+# The image phase: the 2D path at SD 1.x widths, 512x512.
+IMAGE_HW = (64, 64)  # latents of a 512x512 image
+IMAGE_STEPS, IMAGE_GUIDED = 4, 2  # guidance (one update) on the first 2 of 4 steps
+IMAGE_OBJECTS = (("bear", [0.05, 0.40, 0.50, 0.95]), ("bird", [0.55, 0.05, 0.90, 0.40]))
+# Kernel C (forward) and G (dx) launches at 64x64 latents, by lvd_tpu's
+# feed-forward predicate: resident weights and at least 2048 rows
+# (lvd_tpu/ops/geglu_fused.py). A CFG forward (batch 2) fuses the 10 sites at
+# C = 320 and 640 (L0's 2 x 4096 rows, L1's 2 x 1024). The guided update runs
+# on the cond batch alone, where L1's 1024 rows take the stock route: its
+# walk takes C at L0's 5 sites and again at the 2 down-block ones it
+# recomputes (remat), and G takes dx at those 2, which lie before the last
+# captured block.
+IMAGE_C_PER_FORWARD = 10
+IMAGE_C_PER_UPDATE, IMAGE_G_PER_UPDATE = 7, 2
+
+
+def image_models(torch):
+    """UNet2DConfig() (SD 1.x: (320, 640, 1280, 1280), 8 heads,
+    cross-attention 768), a CLIP text tower at ViT-L/14's widths (768 wide,
+    12 layers, 12 heads, 3072 inner, lvd_tpu's "gelu") and the Zeroscope
+    preset's VAE (SD's), drawn on the card in bf16 in lvd_tpu's key order
+    from split(PRNGKey(1), 3)."""
+    from lvd_tpu_torch.config import PRESETS, CLIPTextConfig
+    from lvd_tpu_torch.models.clip import init_clip_text
+    from lvd_tpu_torch.models.unet2d import UNet2DConfig, init_unet2d
+    from lvd_tpu_torch.models.vae import init_vae
+    from lvd_tpu_torch.utils import prng
+
+    keys = prng.split(prng.prng_key(1), 3)
+    clip_cfg = CLIPTextConfig(hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+                              num_attention_heads=12, projection_dim=768)
+    vae_cfg = PRESETS["zeroscope"].vae
+    cfg = UNet2DConfig()
+    t0 = time.perf_counter()
+    models = {"unet": init_unet2d(keys[0], cfg, device="cuda", dtype=torch.bfloat16),
+              "clip": init_clip_text(keys[1], clip_cfg, device="cuda", dtype=torch.bfloat16),
+              "vae": init_vae(keys[2], vae_cfg, device="cuda", dtype=torch.bfloat16),
+              "unet_cfg": cfg, "clip_cfg": clip_cfg, "vae_cfg": vae_cfg}
+    torch.cuda.synchronize()
+    log(f"[image] drew SD 1.x's UNet2D, a ViT-L/14-wide CLIP and the VAE on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return models
+
+
+def image_reference_phase(torch, models, text_pair, guidance, g_cfg, latents):
+    """One CFG UNet2D forward at 512x512 through the kernels (bf16) against
+    the plain path (fp32), gate REFERENCE_TOL, with every proj_out drawn
+    (``_undegenerate``); then one guided update's latent gradient against
+    the plain route (fp32) at the video gates (GRADIENT_TOL max-element,
+    GRADIENT_L2_TOL L2)."""
+    from lvd_tpu_torch import pipeline2d
+    from lvd_tpu_torch.diffusion.guidance import OVERALL_GUIDANCE_ATTN_KEYS
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.models.unet2d import apply_unet2d
+
+    cfg = models["unet_cfg"]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    params = _undegenerate(models["unet"], gen, torch)
+    params32 = cast_tree(params, torch.float32)
+    sample = torch.randn((2, *IMAGE_HW, 4), generator=gen, device="cuda")
+    text = text_pair.float()
+    run = lambda p, x, c: apply_unet2d(p, cfg, x, 500, c)[0]
+    keys = OVERALL_GUIDANCE_ATTN_KEYS
+    walk = lambda p, lat, dt, c: pipeline2d._energy_and_grad(p, cfg, lat, 801, c, guidance, keys,
+                                                             g_cfg, dt, None)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain path in full fp32
+    try:
+        with torch.no_grad():
+            eps = run(params, sample.bfloat16(), text.bfloat16())
+            with plain_route():
+                ref = run(params32, sample, text)
+        lat = latents.float()
+        e_k, g_k = walk(params, lat, torch.bfloat16, text[1:].bfloat16())
+        with plain_route():
+            e_r, g_r = walk(params32, lat, torch.float32, text[1:])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    scale = ref.abs().max().item()
+    rel = (eps.float() - ref).abs().max().item() / scale
+    g_scale = g_r.abs().max().item()
+    g_rel = (g_k - g_r).abs().max().item() / g_scale
+    g_l2 = ((g_k - g_r).norm() / g_r.norm()).item()
+    log(f"[image] CFG UNet2D forward at {IMAGE_HW} against the plain path (fp32), max|d| / "
+        f"max|ref| (max|ref| {scale:.6g}): kernels (bf16) {rel:.6g} (gate {REFERENCE_TOL})")
+    log(f"[image] guided update's d(energy)/d(latents) against the plain route (fp32): energy "
+        f"{e_k.item():.6g} / {e_r.item():.6g}; max|d| / max|ref| {g_rel:.6g} (gate "
+        f"{GRADIENT_TOL}); |d| / |ref| (L2) {g_l2:.6g} (gate {GRADIENT_L2_TOL})")
+    if not (torch.isfinite(eps).all() and rel <= REFERENCE_TOL):
+        raise SystemExit("[image] the kernel path's UNet2D forward disagrees with the plain path")
+    if not (torch.isfinite(g_k).all() and g_rel <= GRADIENT_TOL and g_l2 <= GRADIENT_L2_TOL):
+        raise SystemExit("[image] the kernels' guided gradient disagrees with the plain route")
+    del eps, ref, params, params32, g_k, g_r
+    torch.cuda.empty_cache()
+
+
+def image_phase(torch):
+    """The 2D image path at SD 1.x's 512x512 in bf16: encode_prompts on the
+    ViT-L/14-wide CLIP, two per-object runs of generate_semantic_guidance
+    (4 steps, one guided update on each of the first 2, save_all_latents)
+    from get_input_latents_list's blended noise, their histories and the
+    background through compose_latents_with_alignment, and decode_images
+    of both objects and the composition, (3, 512, 512, 3) in [0, 1]. Each
+    run must launch kernels C and G exactly as often as lvd_tpu routes them
+    (``IMAGE_C_PER_FORWARD`` and the update's counts); then the reference
+    and gradient gates (``image_reference_phase``). Returns the runs'
+    launches."""
+    from lvd_tpu_torch import pipeline2d
+    from lvd_tpu_torch.config import SchedulerConfig
+    from lvd_tpu_torch.diffusion.guidance import OVERALL_GUIDANCE_ATTN_KEYS, GuidanceConfig
+    from lvd_tpu_torch.layout import latents as lat_mod
+    from lvd_tpu_torch.models.encode import encode_prompts
+    from lvd_tpu_torch.text.templates import NEGATIVE_PROMPT
+    from lvd_tpu_torch.text.tokenizer import load_tokenizer
+
+    t_phase = time.perf_counter()
+    models = image_models(torch)
+    cfg, keys = models["unet_cfg"], OVERALL_GUIDANCE_ATTN_KEYS
+    tok = load_tokenizer(None)
+    # loss_threshold 0: every guided step takes its one update
+    g_cfg = GuidanceConfig(loss_scale=2.5, loss_threshold=0.0, max_iter=1,
+                           max_index_step=IMAGE_GUIDED, fg_top_p=0.25, bg_top_p=0.25,
+                           bg_weight=2.0)
+    boxes = [box for _, box in IMAGE_OBJECTS]
+    size = (8 * IMAGE_HW[0], 8 * IMAGE_HW[1])
+    starts, latents_bg = lat_mod.get_input_latents_list(
+        cfg.in_channels, 1, 2, 0.1, *size, boxes, dtype=torch.bfloat16, device="cuda")
+    want = {"geglu_mlp": IMAGE_STEPS * IMAGE_C_PER_FORWARD + IMAGE_GUIDED * IMAGE_C_PER_UPDATE,
+            "geglu_mlp_bwd": IMAGE_GUIDED * IMAGE_G_PER_UPDATE}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    finals, histories, total, guide = [], [], {}, None
+    for (name, box), start in zip(IMAGE_OBJECTS, starts):
+        prefix = "a realistic photo of a"
+        t0 = time.perf_counter()
+        text_pair, _, _ = encode_prompts(models["clip"], models["clip_cfg"], tok,
+                                         [f"{prefix} {name}"], NEGATIVE_PROMPT)
+        position = len(tok.encode(prefix)) - 1
+        guide = pipeline2d.build_image_guidance([box], [[position]], keys, IMAGE_HW, g_cfg,
+                                                device="cuda")
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        zero_launches()
+        t0 = time.perf_counter()
+        final, history = pipeline2d.generate_semantic_guidance(
+            models["unet"], cfg, start, text_pair, SchedulerConfig(), IMAGE_STEPS,
+            guidance=guide, guidance_cfg=g_cfg, guidance_attn_keys=keys, save_all_latents=True)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_launches()
+        got = {k: launches[k] for k in want}
+        log(f"[image] {name}: encode_prompts + guidance pack {encode_s:.3f} s; "
+            f"generate_semantic_guidance {run_s:.3f} s ({IMAGE_STEPS} steps, guided "
+            f"{IMAGE_GUIDED}); history {tuple(history.shape)}; launches {json.dumps(launches)}; "
+            f"C and G {got} (want {want})")
+        if got != want or tuple(history.shape) != (IMAGE_STEPS + 1, 1, *IMAGE_HW, 4):
+            raise SystemExit(f"[image] {name}: launches {got} against {want}, "
+                             f"history {tuple(history.shape)}")
+        finals.append(final)
+        histories.append(history)
+        total = {k: total.get(k, 0) + n for k, n in launches.items()}
+    masks = [lat_mod.proportion_to_mask(box, *IMAGE_HW) for box in boxes]
+    t0 = time.perf_counter()
+    composed, fg_idx, offsets = lat_mod.compose_latents_with_alignment(
+        histories, masks, latents_bg, overall_bboxes=[[box] for box in boxes])
+    imgs = pipeline2d.decode_images(models["vae"], models["vae_cfg"],
+                                    torch.cat([*finals, composed[-1]]))
+    torch.cuda.synchronize()
+    log(f"[image] compose_latents_with_alignment + decode_images {time.perf_counter() - t0:.3f} s:"
+        f" images {tuple(imgs.shape)} {imgs.dtype}, min {imgs.min().item():.4f} max "
+        f"{imgs.max().item():.4f}; foreground indices {torch.bincount(fg_idx.flatten()).tolist()};"
+        f" offsets {offsets}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    if tuple(imgs.shape) != (3, *size, 3) or not torch.isfinite(imgs).all():
+        raise SystemExit(f"[image] bad images {tuple(imgs.shape)}")
+    image_reference_phase(torch, models, text_pair, guide, g_cfg, starts[-1])
+    del models, finals, histories, composed, imgs
+    torch.cuda.empty_cache()
+    log(f"[image] the image phase took {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def profile_phase(torch, models):
@@ -1612,11 +2029,12 @@ def entry_point_phase(torch, models):
     return entry, {"conv3x3": forms, "geglu_stream": j_forms}
 
 
-def kernels_line(records, knob_launches, entry_launches, forms, upsample_launches):
+def kernels_line(records, knob_launches, entry_launches, forms, path_launches):
     """One entry per kernel wrapper of selfcheck.SOURCES: its bf16 numbers at
-    its largest path shape, its worst errors in bf16 and fp32, and its
-    launches on this slice's main path (the entry points for sdpa() and
-    conv3x3()); B-D's and F-J's with their launches by form, C's, D's, F's
+    its largest path shape, its worst errors in bf16 and fp32, its launches
+    on this slice's main path (the entry points for sdpa() and conv3x3())
+    and on the upsample, train and image paths (``path_launches``, by
+    path); B-D's and F-J's with their launches by form, C's, D's, F's
     and J's with the same products' time through torch.matmul, C's, G's and
     J's with the time of the interleaved copy of W1 their ms includes, B's,
     F's, G's and J's with their first version's time and reading on the
@@ -1633,8 +2051,9 @@ def kernels_line(records, knob_launches, entry_launches, forms, upsample_launche
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "shapes": [json.loads(x) for x in sorted({json.dumps(r["shape"]) for r in recs + f32})],
             "launches": launches,
-            # the upsample path's run (cli.upsample.main, zsxl+sdxl)
-            "launches_upsample": upsample_launches.get(kname, 0),
+            # the upsample path's run (cli.upsample.main, zsxl+sdxl), the
+            # train phase's adapter-only steps, the image phase's two runs
+            **{f"launches_{path}": counts.get(kname, 0) for path, counts in path_launches.items()},
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "rel_err": max(r["rel_err"] for r in recs),
             "max_abs_err_fp32": max(r["max_abs_err"] for r in f32),
@@ -1692,6 +2111,8 @@ def main() -> int:
         upsample_launches = upsample_phase(torch, run_dir, refiner)
         del refiner
         torch.cuda.empty_cache()
+    train_launches = train_phase(torch)
+    image_launches = image_phase(torch)
     knob_launches, knob_forms = knob_phase(torch)
     fp32_phase(torch, models)
     entry_launches, entry_forms = entry_point_phase(torch, models)
@@ -1699,7 +2120,8 @@ def main() -> int:
     profile_phase(torch, models)
 
     kernels = kernels_line(records, knob_launches, entry_launches, {**knob_forms, **entry_forms},
-                           upsample_launches)
+                           {"upsample": upsample_launches, "train": train_launches,
+                            "image": image_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

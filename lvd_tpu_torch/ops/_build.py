@@ -164,16 +164,6 @@ def refuse_grad(name: str, *tensors) -> None:
                            "call it through its autograd.Function wrapper")
 
 
-def params_need_grad(tree) -> bool:
-    """Whether autograd would record a gradient for any tensor of a param
-    tree (the backward kernels compute input gradients only)."""
-    if not torch.is_grad_enabled():
-        return False
-    if isinstance(tree, dict):
-        return any(params_need_grad(v) for v in tree.values())
-    return isinstance(tree, torch.Tensor) and tree.requires_grad
-
-
 def dtype_code(t: torch.Tensor, name: str) -> int:
     """The entry points' code for t's type: bf16 or fp32; any other raises."""
     code = DTYPE_CODES.get(t.dtype)

@@ -30,10 +30,9 @@ counts each. Kernel J has two forms (``stream_launch_plan``): ``wgmma`` in
 bf16, two passes of 128 x 128 tiles (x times the interleaved W1 with the
 gate in the epilogue into a transient gated tensor in the stream's type,
 ``gated_chunks``; then gated W2 + b2), and its first version ``wmma`` in
-fp32; ``geglu_stream.launches_by_form`` counts each. Weight gradients are
-not part of this slice:
-on the card a parameter that requires grad raises, on the CPU the plain
-formulation's autograd gives them.
+fp32; ``geglu_stream.launches_by_form`` counts each. Weight and bias
+gradients come from the stock VJP of ``_unfused``, recomputed, as lvd_tpu's
+custom VJP gives them, beside dx from the route above.
 """
 
 from __future__ import annotations
@@ -379,36 +378,51 @@ def _unfused_dx(p, x, dy):
     return dx
 
 
+def _unfused_grads(x, dy, leaves, need):
+    """lvd_tpu's unfused recompute VJP: the gradients of ``_unfused`` on
+    stock ops for the inputs (x, w1, b1, w2, b2) that ``need`` marks, None
+    for the others."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip([x, *leaves], need)]
+        out = _unfused(inputs[0], *[t.to(x.dtype) for t in inputs[1:]])
+        grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad], dy))
+    return [next(grads) if n else None for n in need]
+
+
 class Geglu(torch.autograd.Function):
     """Forward kernel C or J, dx kernel G or the stock VJP, as lvd_tpu
-    routes them (plain versions of the kernels on the CPU)."""
+    routes them (plain versions of the kernels on the CPU). The weights
+    (w1, b1, w2, b2) are inputs too: where one needs a gradient, the
+    weights' and biases' gradients come from the stock VJP of ``_unfused``,
+    recomputed (lvd_tpu's ``_fused_bwd``), while dx still takes the route
+    above."""
 
     @staticmethod
-    def forward(ctx, x, p):
+    def forward(ctx, x, p, *leaves):
         resident = forward_kernel(x.shape[-1], p["out"]["w"].shape[0], x.dtype) == "C"
         if x.device.type == "cpu":
             out = geglu_mlp_plain(p, x) if resident else geglu_stream_plain(p, x)
         else:
             out = _launch_forward(p, x) if resident else geglu_stream(p, x)
-        ctx.save_for_backward(x)
+        ctx.save_for_backward(x, *leaves)
         ctx.p = p
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        (x,) = ctx.saved_tensors
-        if dx_route(x.shape[-1], ctx.p["out"]["w"].shape[0], x.dtype) == "G":
-            return geglu_mlp_bwd(ctx.p, x, dy), None
-        return _unfused_dx(ctx.p, x, dy), None
+        x, *leaves = ctx.saved_tensors
+        need_x, need_leaves = ctx.needs_input_grad[0], ctx.needs_input_grad[2:]
+        kernel = dx_route(x.shape[-1], ctx.p["out"]["w"].shape[0], x.dtype) == "G"
+        dx, dleaves = None, [None] * len(leaves)
+        if any(need_leaves):
+            dx, *dleaves = _unfused_grads(x, dy, leaves, (need_x and not kernel, *need_leaves))
+        if need_x and dx is None:
+            dx = geglu_mlp_bwd(ctx.p, x, dy) if kernel else _unfused_dx(ctx.p, x, dy)
+        return (dx, None, *dleaves)
 
 
 def geglu_mlp(p, x):
-    if _build.params_need_grad(p):
-        if x.device.type != "cpu":
-            raise RuntimeError("geglu_mlp: weight gradients come with the training slice "
-                               "(ROADMAP A6)")
-        return geglu_mlp_plain(p, x)
-    return Geglu.apply(x, p)
+    return Geglu.apply(x, p, p["proj"]["w"], p["proj"]["b"], p["out"]["w"], p["out"]["b"])
 
 
 geglu_mlp.launches = 0

@@ -23,20 +23,23 @@ lvd_tpu's unfused route. Kernels B and F have two forms each
 any other): ``wgmma`` in bf16 (64-row blocks of whole pixels,
 ``block_rows``, keys masked to the row's pixel, ``key_mask``; F's weight
 ring in the order ``bwd_stages`` lists) and the first version ``wmma`` in
-fp32; ``launches_by_form`` counts each. Weight gradients
-are not part of this slice: on the card a parameter that requires grad
-raises, on the CPU the plain formulation's autograd gives them. The FF
-stage stays outside (ops.geglu_fused).
+fp32; ``launches_by_form`` counts each. Weight and bias gradients come
+from the stock VJP of the plain pair, recomputed, as lvd_tpu's custom VJP
+gives them, beside y's from the route above. The FF stage stays outside
+(ops.geglu_fused).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.tree import flatten, unflatten_like
 from . import _build
 
 HEAD_DIM = 64
 MAX_CHANNELS = 640
+
+PAIR_PARAMS = ("norm1", "attn1", "norm2", "attn2")  # the params the pair reads
 
 FORMS = ("wgmma", "wmma")
 FORM_CODES = {"wmma": 0, "wgmma": 1}
@@ -427,12 +430,31 @@ def _stock_dy(p, y, dy, num_heads, eps, frames_major):
     return dx
 
 
+def _recompute_grads(p, y, dy, num_heads, eps, frames_major, need_y, need_leaves):
+    """lvd_tpu's unfused recompute VJP: the gradients of the plain pair, on
+    stock ops, for y (where ``need_y``) and the param leaves that
+    ``need_leaves`` marks; None for the others."""
+    with torch.enable_grad():
+        y_in = y.detach().requires_grad_(need_y)
+        leaves = {path: t.detach().requires_grad_(n)
+                  for (path, t), n in zip(flatten(p).items(), need_leaves)}
+        out = temporal_attention_pair_plain(unflatten_like(p, leaves), y_in,
+                                            num_heads, eps, frames_major)
+        inputs = [y_in, *leaves.values()]
+        grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad], dy))
+    return [next(grads) if t.requires_grad else None for t in inputs]
+
+
 class TemporalPair(torch.autograd.Function):
     """Forward kernel B, backward kernel F or the stock VJP in y, as lvd_tpu
-    routes them (``bwd_route``; plain versions of the kernels on the CPU)."""
+    routes them (``bwd_route``; plain versions of the kernels on the CPU).
+    The param leaves are inputs too: where one needs a gradient, the
+    weights' and biases' gradients come from the stock VJP of the plain
+    pair, recomputed (lvd_tpu's ``_fused_pair_bwd``), while y's still takes
+    the route above."""
 
     @staticmethod
-    def forward(ctx, y, p, num_heads, eps, frames_major):
+    def forward(ctx, y, p, num_heads, eps, frames_major, *leaves):
         if y.device.type == "cpu":
             out = temporal_attention_pair_plain(p, y, num_heads, eps, frames_major)
         else:
@@ -445,12 +467,17 @@ class TemporalPair(torch.autograd.Function):
     def backward(ctx, dy):
         (y,) = ctx.saved_tensors
         p, num_heads, eps, frames_major = ctx.args
+        need_y, need_leaves = ctx.needs_input_grad[0], ctx.needs_input_grad[5:]
         pdim = y.shape[2] if frames_major else y.shape[1]
-        if bwd_route(pdim, y.shape[-1], frames_major) == "stock":
-            dx = _stock_dy(p, y, dy, num_heads, eps, frames_major)
-        else:
-            dx = temporal_attention_pair_bwd(p, y, dy, num_heads, eps, frames_major)
-        return dx, None, None, None, None
+        stock = bwd_route(pdim, y.shape[-1], frames_major) == "stock"
+        dx, dleaves = None, [None] * len(need_leaves)
+        if any(need_leaves):
+            dx, *dleaves = _recompute_grads(p, y, dy, num_heads, eps, frames_major,
+                                            stock and need_y, need_leaves)
+        if need_y and dx is None:
+            dx = (_stock_dy(p, y, dy, num_heads, eps, frames_major) if stock
+                  else temporal_attention_pair_bwd(p, y, dy, num_heads, eps, frames_major))
+        return (dx, None, None, None, None, *dleaves)
 
 
 def temporal_attention_pair(p, y, num_heads: int, eps: float = 1e-5,
@@ -461,12 +488,9 @@ def temporal_attention_pair(p, y, num_heads: int, eps: float = 1e-5,
     routed = supported_frames_major if frames_major else supported
     if not routed(y, num_heads):
         return temporal_attention_pair_plain(p, y, num_heads, eps, frames_major)
-    if _build.params_need_grad(p):
-        if y.device.type != "cpu":
-            raise RuntimeError("temporal_attention_pair: weight gradients come with the "
-                               "training slice (ROADMAP A6)")
-        return temporal_attention_pair_plain(p, y, num_heads, eps, frames_major)
-    return TemporalPair.apply(y, p, int(num_heads), float(eps), bool(frames_major))
+    own = {k: p[k] for k in PAIR_PARAMS}  # a transformer block also holds its FF
+    return TemporalPair.apply(y, own, int(num_heads), float(eps), bool(frames_major),
+                              *flatten(own).values())
 
 
 temporal_attention_pair.launches = 0

@@ -180,17 +180,21 @@ class TextToVideoPipeline:
         return video
 
     @torch.no_grad()
+    def decode_uint8(self, latents):
+        """(N, h, w, C) latents -> (N, H, W, 3) uint8 frames on the device
+        (lvd_tpu's ``_decode_jit``)."""
+        imgs = vae_decode(self.vae_params, self.preset.vae,
+                          latents / self.preset.vae.scaling_factor)
+        imgs = torch.clamp(imgs.float() / 2.0 + 0.5, 0.0, 1.0)
+        return torch.round(imgs * 255.0).to(torch.uint8)
+
+    @torch.no_grad()
     def decode_latents(self, latents, chunk: int = 24):
         """(B, F, h, w, C) latents -> (B, F, H, W, 3) float in [0, 1], via
         uint8 on the device (as lvd_tpu rounds it); frames in chunks."""
         b, f, h, w, c = latents.shape
         flat = latents.reshape(b * f, h, w, c)
-        outs = []
-        for i in range(0, b * f, chunk):
-            imgs = vae_decode(self.vae_params, self.preset.vae,
-                              flat[i:i + chunk] / self.preset.vae.scaling_factor)
-            imgs = torch.clamp(imgs.float() / 2.0 + 0.5, 0.0, 1.0)
-            outs.append(torch.round(imgs * 255.0).to(torch.uint8).cpu())
+        outs = [self.decode_uint8(flat[i:i + chunk]).cpu() for i in range(0, b * f, chunk)]
         imgs = torch.cat(outs).numpy().astype(np.float32) / 255.0
         return imgs.reshape(b, f, *imgs.shape[1:])
 
@@ -201,8 +205,12 @@ class TextToVideoPipeline:
                  latents=None, backward_guidance: Optional[dict] = None,
                  gligen_boxes=None, gligen_phrases=None,
                  gligen_scheduled_sampling_beta: float = 0.3, output_type: str = "np"):
-        """Returns (B, F, H, W, 3) float32 in [0, 1] (``output_type="np"``)
-        or the final latents (``"latent"``). ``latents`` may be passed in
+        """Returns (B, F, H, W, 3) float32 in [0, 1] (``output_type="np"``),
+        the final latents (``"latent"``), or the decoded frames as a uint8
+        (B*F, H, W, 3) tensor on the pipeline's device (``"uint8_device"``:
+        nothing in this call waits for the card there, so a caller can
+        overlap one video's copy to the host with the next one's sampling;
+        ``timings`` then holds no step seconds). ``latents`` may be passed in
         (B, F, h, w, 4); otherwise they are drawn from ``seed`` as lvd_tpu
         draws them. ``backward_guidance``: {boxes, object_positions, config,
         attn_keys[, pack]} as lvd_tpu takes it; the guided updates enable
@@ -217,9 +225,13 @@ class TextToVideoPipeline:
             raise ValueError(f"height/width must be multiples of 8: {height}x{width}")
         sf = preset.vae.scale_factor
 
+        # "uint8_device" returns the frames on the card without waiting for
+        # it (lvd_tpu/pipeline.py:406-424): no sync, and no timer that syncs.
+        on_host = output_type != "uint8_device"
         with self.timer.phase("encode_prompt"):
             text_pair = self.encode_prompt(prompt, negative_prompt).to(self.dtype)
-            sync(self.device)
+            if on_host:
+                sync(self.device)
         self.timings = {"encode_prompt": self.timer.last["encode_prompt"], "steps": [],
                         "guided": []}
 
@@ -249,10 +261,14 @@ class TextToVideoPipeline:
             final = sampler_mod.sample_video(
                 self.unet_params, preset.unet, latents, text_pair, coeffs,
                 float(guidance_scale), guidance, g_cfg, keys, gligen_pair=gligen_pair,
-                num_grounding_steps=n_ground, step_times=self.timings["steps"],
-                guided_times=self.timings["guided"])
+                num_grounding_steps=n_ground,
+                step_times=self.timings["steps"] if on_host else None,
+                guided_times=self.timings["guided"] if on_host else None)
         if output_type == "latent":
             return final
+        if not on_host:
+            b, f, h, w, c = final.shape
+            return self.decode_uint8(final.reshape(b * f, h, w, c))
         with self.timer.phase("decode"):
             video = self.decode_latents(final)
         self.timings["decode"] = self.timer.last["decode"]

@@ -13,6 +13,8 @@ threefry2x32 generator with ``jax_threefry_partitionable=True``:
   ``(b1, b2) = threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))``;
 * ``uniform(lo, hi)`` puts the top 23 bits into the mantissa of a float in
   [1, 2), subtracts 1, scales to [lo, hi) and clamps at lo;
+* ``randint`` draws two words from the halves of ``split(key)`` and folds
+  them into the span with JAX's modular multiplier;
 * ``normal`` is ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``, with
   XLA's float32 erfinv (Giles' polynomial);
 * in bfloat16 and float16, ``uniform`` keeps only the mantissa's bits of the
@@ -111,6 +113,34 @@ def _draw(key: Key, shape, device, of_bits, dtype) -> torch.Tensor:
 def random_bits(key: Key, shape, device="cpu") -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` on ``device``, as int64."""
     return _draw(key, shape, device, lambda bits: bits, torch.int64)
+
+
+def randint(key: Key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) on
+    ``device``, as int64: JAX's algorithm (jax/_src/random.py ``_randint``).
+    Two words of random bits from the two halves of ``split(key)``, the
+    bounds clamped to int32, ``span = maxval - minval`` (1 where maxval <=
+    minval), the multiplier ``(2**16 % span)**2 % span`` and the offset
+    ``((hi % span) * mult + lo % span) % span``, both in wrapping uint32
+    arithmetic."""
+    i32 = np.iinfo(np.int32)
+    clamp = lambda v: min(max(int(v), int(i32.min)), int(i32.max))
+    out_of_range = int(maxval) > int(i32.max)
+    lo_v, hi_v = clamp(minval), clamp(maxval)
+    span = (hi_v - lo_v) & _M32
+    if hi_v <= lo_v:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & _M32
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape, device), random_bits(k2, shape, device)
+    if span == 0:  # the full 2**32 range: XLA's x % 0 is x, and the offset lo
+        offset = lower
+    else:
+        mult = (((2 ** 16 % span) ** 2) & _M32) % span
+        offset = (((higher % span) * mult) & _M32) + lower % span
+        offset = (offset & _M32) % span
+    return ((offset + lo_v + 2 ** 31) & _M32) - 2 ** 31
 
 
 def uniform_from_bits(bits: torch.Tensor, minval=0.0, maxval=1.0) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Video/visualization IO: gif, mp4, npz, joblib writers, box overlays and
-the layout GIF (a copy of lvd_tpu/utils/vis.py). GIFs are written by PIL, lvd_tpu's own path
-where its native encoder is absent; mp4 uses cv2 when present, else is
-skipped with a warning.
+the layout GIF (a copy of lvd_tpu/utils/vis.py). GIFs are written by the
+native encoder (utils/native.py), or by PIL under ``LVD_DISABLE_NATIVE=1``,
+as lvd_tpu writes them; mp4 uses cv2 when present, else is skipped with a
+warning.
 """
 
 from __future__ import annotations
@@ -22,6 +23,12 @@ def _ensure_parent(path: str):
 def save_gif(path: str, frames: Sequence[np.ndarray], fps: int = 8):
     _ensure_parent(path)
     frames = np.asarray(frames, np.uint8)
+    # The native encoder (utils/native.py) first; PIL under
+    # LVD_DISABLE_NATIVE=1 and for frames that are not RGB.
+    from . import native
+
+    if native.gif_encode(path, frames, fps=fps):
+        return path
     images = [Image.fromarray(np.asarray(f, np.uint8)) for f in frames]
     images[0].save(
         path,

@@ -7,8 +7,8 @@ sequence of runner calls (parsed layout, seed, repeat index, the run
 keywords, the output directory), the save dir and stdout must be equal;
 ``prompt_batch``, ``eval_stage_one`` and ``eval_owl_vit`` (one fake judge
 injected into both) must write the same files and print the same text.
-GIFs are compared on lvd_tpu's PIL path (its native encoder turned off),
-the one GIF writer of the port.
+GIFs are compared on the PIL path of both packages (their native encoders
+turned off; tests/test_torch_outputs.py holds the encoders' bytes equal).
 
 End to end: ``LVD_TINY=1 LVD_PLATFORM=cpu python -m
 lvd_tpu_torch.cli.generate`` with the run models and flags of
@@ -45,12 +45,14 @@ BEAR = ("Reasoning: the bear walks right.\n" + "\n".join(
 @pytest.fixture(autouse=True)
 def quiet_lvd_tpu(monkeypatch):
     """lvd_tpu's CLIs leave the process's JAX compile cache alone
-    (LVD_NO_COMPILE_CACHE) and write GIFs with PIL, as the port does."""
+    (LVD_NO_COMPILE_CACHE), and both packages write GIFs with PIL."""
     from lvd_tpu.utils import native
+    from lvd_tpu_torch.utils import native as port_native
 
     monkeypatch.setenv("LVD_NO_COMPILE_CACHE", "1")
     monkeypatch.delenv("LVD_PLATFORM", raising=False)
     monkeypatch.setattr(native, "gif_encode", lambda *a, **k: False)
+    monkeypatch.setattr(port_native, "gif_encode", lambda *a, **k: False)
 
 
 def _lvd_cache(indices, responses):

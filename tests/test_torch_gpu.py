@@ -510,13 +510,62 @@ def test_backward_kernels_refuse_inputs_that_require_grad(cuda):
           "out": {"w": torch.zeros(512, 128, device=cuda), "b": torch.zeros(128, device=cuda)}}
     with pytest.raises(RuntimeError, match="autograd.Function"):
         gf.geglu_mlp_bwd(ff, x, x)
-    # Weight gradients are not part of the guided slice: asking for one raises.
-    p["attn1"]["to_q"]["w"].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="training slice"):
-        ta.temporal_attention_pair(p, x.detach(), 2, 1e-5, frames_major=True)
-    ff["out"]["w"].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="training slice"):
-        gf.geglu_mlp(ff, x.detach())
+
+
+def _weight_grad_case(name, layout, dtype, g, cuda):
+    """(wrapper on params of ``dtype`` that require grad, the plain version
+    on their fp32 copies, the fp32 params, the input, the counters of the
+    forward and dx kernels)."""
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops import temporal_attention as ta
+
+    if name == "pair":
+        fm = layout == "frames_major"
+        p = _pair_params(320, g, cuda)
+        x = torch.randn((1, 24, 48, 320) if fm else (1, 48, 24, 320), generator=g, device=cuda)
+        return (lambda pp, y: ta.temporal_attention_pair(pp, y, 5, 1e-5, frames_major=fm),
+                lambda pp, y: (ta._pair_ref_fm if fm else ta._pair_ref)(pp, y, 5, 1e-5), p, x,
+                (ta.temporal_attention_pair, ta.temporal_attention_pair_bwd))
+    p = _ff_params(128, 512, g, cuda)
+    return (gf.geglu_mlp, gf.geglu_mlp_plain, p, torch.randn(2048, 128, generator=g, device=cuda),
+            (gf.geglu_mlp, gf.geglu_mlp_bwd))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,layout", [("pair", "frames_major"), ("pair", "pixels_major"),
+                                         ("geglu", "tanh"), ("geglu", "exact")])
+def test_weight_gradients_through_b_and_c_match_plain(cuda, name, layout, dtype, monkeypatch):
+    """With every param requiring grad, kernel B or C still runs the forward
+    and kernel F or G dx, once each; the weight and bias gradients (the
+    stock VJP of the plain formulation, recomputed, as lvd_tpu's custom
+    VJPs give them) and dx match the plain version's autograd on fp32
+    copies: bf16 within the forward's gate, fp32 within the fp32 gate."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+    from lvd_tpu_torch.utils.tree import flatten, unflatten_like
+
+    if name == "geglu":
+        monkeypatch.setattr(gf, "GELU_FORM", layout)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    kernel, plain, p, x, (fwd, bwd) = _weight_grad_case(name, layout, dtype, g, cuda)
+    low = cast_tree(p, dtype)
+    leaves = [t.requires_grad_(True) for t in flatten(low).values()]
+    ref_flat = {path: t.clone().requires_grad_(True) for path, t in flatten(p).items()}
+    ref_leaves, ref_p = list(ref_flat.values()), unflatten_like(p, ref_flat)
+    x_low = x.to(dtype).requires_grad_(True)
+    x_ref = x.clone().requires_grad_(True)
+    before = (fwd.launches, bwd.launches)
+    out = kernel(low, x_low)
+    ct = torch.randn(out.shape, generator=g, device=cuda)
+    got = _grads(out, [x_low, *leaves], ct)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    with exact_fp32():
+        want = _grads(plain(ref_p, x_ref), [x_ref, *ref_leaves], ct)
+    tol = FP32_TOL if dtype == torch.float32 else (4.5e-2 if name == "pair" else 2e-2)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        assert _rel(a, b) <= tol, (i, _rel(a, b))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

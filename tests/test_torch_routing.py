@@ -169,7 +169,8 @@ def _port_pair_bwd_route(pdim, c, frames_major, monkeypatch):
     monkeypatch.setattr(t_ta, "_stock_dy", lambda p, y, dy, *a: taken.append("stock") or dy)
     shape = (1, 24, pdim, c) if frames_major else (1, pdim, 24, c)
     y = _meta(shape, "bfloat16")
-    ctx = types.SimpleNamespace(saved_tensors=(y,), args=(None, c // 64, 1e-5, frames_major))
+    ctx = types.SimpleNamespace(saved_tensors=(y,), args=(None, c // 64, 1e-5, frames_major),
+                                needs_input_grad=(True, False, False, False, False))
     t_ta.TemporalPair.backward(ctx, y)
     return taken[0]
 
