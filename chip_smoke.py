@@ -135,6 +135,37 @@ Phases, each fatal on failure:
                UNet2D forward against the plain path (fp32, 5e-2) and one
                guided update's gradient against the plain route (0.3
                max-element, 0.2 L2); seconds and peak memory;
+ 12f. sharded - lvd_tpu's frame-sharded sampling and the trainer's mesh on
+               torch.distributed: 2 ranks in processes of torch's spawn
+               context, both on the one card over gloo (NCCL refuses two
+               ranks on one device; gloo copies through the host), a
+               FileStore in a temporary directory, every collective and the
+               parent's wait limited to SHARDED_TIMEOUT; a rank that fails,
+               hangs or exits non-zero fails the smoke. Each rank draws
+               Zeroscope in lvd_tpu's key order (load_pipeline_models under
+               LVD_ALLOW_RANDOM_WEIGHTS=1, bf16), 12 of the 24 frames a
+               rank; rank 0 also runs every unsharded reference: (a) one
+               CFG UNet forward against the plain path (fp32, gate 5e-2;
+               A, B, C launched on each rank, D never: lvd_tpu's sharded
+               temporal conv is GroupNorm + halo conv3d), its census by
+               kind; (b) one guided update on the flagship layout: the
+               energy (0.2 relative) and the gradient (0.3 max-element, 0.2
+               L2) against the plain path, E, F, G launched; (c) a 4-step
+               guided generation (guidance on 2) through
+               TextToVideoPipeline(..., mesh=...): the final latents within
+               5e-2 of the unsharded pipeline's, the uint8 video (1, 24,
+               320, 576, 3); (d) one adapter-only fp32 step of the gated
+               Zeroscope (gates open) at 8 frames, batch 2, under meshes
+               (data 2, model 1) and (1, 2) against the unsharded step:
+               loss 1e-3 relative, each trained leaf's gradient (AdamW's
+               first moment) 1e-2 L2; each leaf's update 1e-2 L2 against
+               the one AdamW makes from the step's own gradient, and
+               against the unsharded update over the elements whose
+               reference gradient exceeds the gradient gate's budget, so
+               that their sign is sure (the whole update and the
+               gradient's sign flips printed); (e) rank
+               0 runs (a)'s forward through a one-rank NCCL group. Seconds
+               and peak memory per rank beside the unsharded ones;
  13. knobs   - a child process of this script with lvd_tpu's two opt-in
                switches set (LVD_ENABLE_FUSED_SC=1 LVD_FUSED_LINEAR=1; the
                second is read at import): phases 4 and 5 again, now with the
@@ -380,46 +411,6 @@ def _undegenerate(tree, gen, torch):
     return out
 
 
-def _linear_rows_plain(x, w, b=None, trans_w=False):
-    from lvd_tpu_torch.ops import linear_fused
-
-    return linear_fused.linear_plain(x, w.transpose(0, 1) if trans_w else w, b)
-
-
-@contextlib.contextmanager
-def plain_route():
-    """Points every kernel wrapper the UNet calls at its plain PyTorch
-    version, for the reference forward only (the wrappers themselves run the
-    plain version for CPU tensors alone)."""
-    from lvd_tpu_torch.ops import geglu_fused, linear_fused, packed_attention
-    from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
-
-    swaps = [
-        (packed_attention, "attention_packed", packed_attention.attention_packed_plain),
-        (temporal_attention, "temporal_attention_pair",
-         temporal_attention.temporal_attention_pair_plain),
-        (geglu_fused, "geglu_mlp", geglu_fused.geglu_mlp_plain),
-        (temp_conv_fused, "norm_silu_temporal_conv",
-         temp_conv_fused.norm_silu_temporal_conv_plain),
-        (spatial_conv_fused, "norm_silu_conv2d", spatial_conv_fused.norm_silu_conv2d_plain),
-        (linear_fused, "linear_rows", _linear_rows_plain),
-    ]
-    with _swapped([(module, name, plain) for module, name, plain in swaps]):
-        yield
-
-
-@contextlib.contextmanager
-def _swapped(swaps):
-    saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
-    for module, name, fn in swaps:
-        setattr(module, name, fn)
-    try:
-        yield
-    finally:
-        for module, name, wrapper in saved:
-            setattr(module, name, wrapper)
-
-
 @contextlib.contextmanager
 def detached_route():
     """Cuts each forward kernel's branch out of the gradient (its autograd
@@ -427,9 +418,10 @@ def detached_route():
     would: the reading of a broken gradient, beside which the gate is set."""
     from lvd_tpu_torch.ops import geglu_fused, linear_fused, packed_attention
     from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
+    from lvd_tpu_torch.ops.plain import swapped
 
     nothing = staticmethod(lambda ctx, *grads: (None,) * len(ctx.needs_input_grad))
-    with _swapped([(fn, "backward", nothing) for fn in (
+    with swapped([(fn, "backward", nothing) for fn in (
             packed_attention.PackedAttention, temporal_attention.TemporalPair, geglu_fused.Geglu,
             temp_conv_fused.NormSiluTemporalConv, spatial_conv_fused.NormSiluConv2d,
             linear_fused.LinearCore)]):
@@ -439,6 +431,7 @@ def detached_route():
 def reference_phase(torch, models):
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.models.unet3d import apply_unet3d
+    from lvd_tpu_torch.ops.plain import plain_route
 
     cfg = models.preset.unet
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -473,6 +466,7 @@ def gradient_phase(torch, models):
     from lvd_tpu_torch.diffusion import dpm_solver as dpm
     from lvd_tpu_torch.diffusion.sampler import energy_and_grad
     from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops.plain import plain_route
 
     cfg = models.preset.unet
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -738,6 +732,7 @@ def unet_census(torch, records):
     packed_attention.kernel_ok held)."""
     from lvd_tpu_torch.diffusion import sampler
     from lvd_tpu_torch.ops import packed_attention
+    from lvd_tpu_torch.ops.plain import swapped
 
     real_unet, real_ok = sampler.apply_unet3d, packed_attention.kernel_ok
     keys = []
@@ -758,7 +753,7 @@ def unet_census(torch, records):
                         "a_keys": sorted(set(keys[n_keys:]))})
         return out
 
-    with _swapped([(sampler, "apply_unet3d", apply_unet3d),
+    with swapped([(sampler, "apply_unet3d", apply_unet3d),
                    (packed_attention, "kernel_ok", kernel_ok)]):
         yield
 
@@ -877,6 +872,7 @@ def gligen_reference_phase(torch, pipe):
     is profiled."""
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.models.unet3d import apply_unet3d
+    from lvd_tpu_torch.ops.plain import plain_route
 
     cfg = pipe.preset.unet
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1029,6 +1025,7 @@ def cli_phase(torch, cwd):
     their wgmma forms; the sampled leaves must match the CPU draw. Returns
     the run dir, which the upsample phase reads."""
     from lvd_tpu_torch.cli import generate
+    from lvd_tpu_torch.ops.plain import swapped
     from lvd_tpu_torch.runners import base, lvd
 
     from lvd_tpu_torch.utils import native, vis
@@ -1053,7 +1050,7 @@ def cli_phase(torch, cwd):
     swaps = [(base, "load_pipeline_models", timed("draw", base.load_pipeline_models)),
              (base, "save_video", timed("save", base.save_video)),
              (vis, "save_gif", timed("gif", vis.save_gif))]
-    with _swapped(swaps):
+    with swapped(swaps):
         for k in saved_env:
             os.environ.pop(k, None)
         os.environ.update(env)
@@ -1139,6 +1136,7 @@ def attention_census(torch, records):
     """Appends (heads, S_q, S_k) of every attention() call on which
     packed_attention.kernel_ok held (kernel A's launches)."""
     from lvd_tpu_torch.ops import packed_attention
+    from lvd_tpu_torch.ops.plain import swapped
 
     real_ok = packed_attention.kernel_ok
 
@@ -1148,7 +1146,7 @@ def attention_census(torch, records):
             records.append((num_heads, q.shape[1], k.shape[1]))
         return ok
 
-    with _swapped([(packed_attention, "kernel_ok", kernel_ok)]):
+    with swapped([(packed_attention, "kernel_ok", kernel_ok)]):
         yield
 
 
@@ -1158,6 +1156,7 @@ def route_census(torch, records):
     predicates for kernels I (spatial_conv_fused.supported) and H
     (linear_fused.supported) on the path."""
     from lvd_tpu_torch.ops import linear_fused, spatial_conv_fused
+    from lvd_tpu_torch.ops.plain import swapped
 
     real_i, real_h = spatial_conv_fused.supported, linear_fused.supported
 
@@ -1171,7 +1170,7 @@ def route_census(torch, records):
         records.append(("H", (tuple(x.shape), tuple(w.shape)), ok))
         return ok
 
-    with _swapped([(spatial_conv_fused, "supported", sup_i), (linear_fused, "supported", sup_h)]):
+    with swapped([(spatial_conv_fused, "supported", sup_i), (linear_fused, "supported", sup_h)]):
         yield
 
 
@@ -1184,6 +1183,7 @@ def sdxl_reference_phase(torch, models, phase="sdxl"):
     Returns the launches of the kernel forward and the route census."""
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.models.unet2d import apply_unet2d
+    from lvd_tpu_torch.ops.plain import plain_route
 
     cfg = models.unet_cfg
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1278,6 +1278,7 @@ def upsample_phase(torch, run_dir, refiner):
     file must hold XL_FRAMES uint8; A-D must launch, B-D only in their
     wgmma forms."""
     from lvd_tpu_torch.cli import upsample
+    from lvd_tpu_torch.ops.plain import swapped
     from lvd_tpu_torch.pipeline_sdxl import SDXLRefinerPipeline
 
     t_phase = time.perf_counter()
@@ -1301,7 +1302,7 @@ def upsample_phase(torch, run_dir, refiner):
     os.environ["LVD_ALLOW_RANDOM_WEIGHTS"] = "1"
     upsample._xl_pipe, upsample._sdxl_pipe = None, sdxl
     try:
-        with _swapped([(upsample, "_get_xl_pipe", get_xl)]):
+        with swapped([(upsample, "_get_xl_pipe", get_xl)]):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             zero_launches()
@@ -1382,6 +1383,7 @@ TRAIN_LR = 1e-4
 # kernels, the plain route's full fp32 (TF32 off).
 TRAIN_GRAD_L2_TOL = 1e-2
 TRAIN_LOSS_TOL = 1e-3
+TRAIN_UPDATE_L2_TOL = 1e-2  # (d): each adapter leaf's update, where its gradient's sign is sure
 
 
 def train_batch(torch, cfg, frames, seed=11):
@@ -1495,6 +1497,7 @@ def full_step_check(torch, cfg, params):
     """One full-finetune step's gradient (every leaf) through the kernels
     against the plain route on the same params, batch and key, then one
     Trainer step (AdamW over every leaf), timed."""
+    from lvd_tpu_torch.ops.plain import plain_route
     from lvd_tpu_torch.training import train as tr
     from lvd_tpu_torch.utils import prng
     from lvd_tpu_torch.utils.tree import flatten, unflatten_like
@@ -1604,6 +1607,7 @@ def image_reference_phase(torch, models, text_pair, guidance, g_cfg, latents):
     from lvd_tpu_torch.diffusion.guidance import OVERALL_GUIDANCE_ATTN_KEYS
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.models.unet2d import apply_unet2d
+    from lvd_tpu_torch.ops.plain import plain_route
 
     cfg = models["unet_cfg"]
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -1902,6 +1906,7 @@ def fp32_phase(torch, models):
     """One full-width CFG UNet forward in the pipeline's default type (fp32)
     through the kernels, against the plain path in fp32, TF32 off on both."""
     from lvd_tpu_torch.models.unet3d import apply_unet3d
+    from lvd_tpu_torch.ops.plain import plain_route
     from lvd_tpu_torch.ops.selfcheck import exact_fp32
     from lvd_tpu_torch.pipeline import TextToVideoPipeline
 
@@ -2029,6 +2034,390 @@ def entry_point_phase(torch, models):
     return entry, {"conv3x3": forms, "geglu_stream": j_forms}
 
 
+# The sharded phase: lvd_tpu's frame-sharded sampling and the trainer's
+# ("data", "model") mesh on torch.distributed. Two gloo ranks share the card
+# (NCCL refuses two ranks on one device; gloo copies through the host), and
+# rank 0 alone then runs a one-rank NCCL group, the deployment's backend.
+SHARDED_RANKS = 2
+SHARDED_TIMEOUT = 900   # seconds: every collective's limit, and the parent's wait
+SHARDED_TRAIN_FRAMES = 8
+SHARDED_FORWARD = ("attention_packed", "temporal_attention_pair", "geglu_mlp")
+SHARDED_BACKWARD = ("attention_packed_bwd", "temporal_attention_pair_bwd", "geglu_mlp_bwd")
+
+
+def _rel_max(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def _update_err(got, ref):
+    """|got - ref| / |ref| (L2), or |got| where ref is all zero."""
+    scale = ref.float().norm()
+    return (got.float() - ref.float()).norm().item() / scale.item() if scale > 0 else \
+        got.float().norm().item()
+
+
+def _masked_update_err(torch, update, ref, grad, g_ref):
+    """_update_err over the elements whose reference gradient exceeds the
+    gradient gate's whole budget, TRAIN_GRAD_L2_TOL * |g_ref| (L2): where
+    that gate passes, no such element's gradient can change sign, so its
+    first AdamW update (about lr times that sign) must agree. Also returns
+    the count of elements whose gradient changed sign, and of those the
+    mask kept."""
+    keep = g_ref.float().abs() > TRAIN_GRAD_L2_TOL * g_ref.float().norm()
+    flips = torch.sign(grad) != torch.sign(g_ref)
+    return (_update_err(update[keep], ref[keep]), int(flips.sum()),
+            int((flips & keep).sum()), int(keep.sum()), keep.numel())
+
+
+def _applied_err(torch, tx, start, updates, grads):
+    """The worst leaf's update against the one ``tx`` (the step's AdamW)
+    makes from the same start on one device with the step's own gradient,
+    read from its first moment (mu / (1 - b1) on a first step): the blocks
+    of params and moments lined up and were written where they belong."""
+    def err(p, g):
+        mine = {p: start[p].clone()}
+        zero = {"count": 0, "mu": {p: torch.zeros_like(g)}, "nu": {p: torch.zeros_like(g)}}
+        tx.update({p: g / (1 - tx.b1)}, zero, mine)
+        return _update_err(updates[p], mine[p] - start[p])
+
+    return max((err(p, g), p) for p, g in grads.items())
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _exact_fp32(torch):
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain path in full fp32
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _report(rank, part, out, keys):
+    """One rank's readings of one check, as it goes."""
+    log(f"[sharded] rank {rank} {part}: {json.dumps({k: out[k] for k in keys if k in out})}")
+
+
+def _sharded_launches(phase, launches, need):
+    """The sharded path launched every kernel of ``need`` and never kernel
+    D (lvd_tpu sends a sharded temporal conv to GroupNorm + halo conv3d)."""
+    missing = [k for k in need if launches[k] <= 0]
+    if missing or launches["norm_silu_temporal_conv"]:
+        raise SystemExit(f"[sharded] {phase}: kernels never launched {missing}, kernel D "
+                         f"launched {launches['norm_silu_temporal_conv']} times")
+
+
+def _sharded_forward(torch, models, mesh, rank, nccl, out):
+    """(a) one CFG UNet forward frame-sharded against the plain path (fp32),
+    and (e) the same forward through a one-rank NCCL group on rank 0."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.models.unet3d import apply_unet3d
+    from lvd_tpu_torch.ops.plain import plain_route
+    from lvd_tpu_torch.parallel import comm
+    from lvd_tpu_torch.parallel.mesh import block
+
+    cfg = models.preset.unet
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = _undegenerate(models.unet_params, gen, torch)
+    sample = torch.randn((2, 24, 40, 72, 4), generator=gen, device="cuda")
+    text = torch.randn((2, 77, cfg.cross_attention_dim), generator=gen, device="cuda")
+    axis = mesh.data
+    fwd = lambda ax, s: apply_unet3d(params, cfg, s.bfloat16(), 500, text.bfloat16(),
+                                     spmd_axis=ax)
+    with torch.no_grad():
+        zero_launches()
+        comm.reset_census()
+        local, first = _timed(torch, lambda: fwd(axis, block(sample, axis, 1)))
+        out["census_forward"] = comm.read_census()
+        out["launches_forward"] = read_launches()
+        _sharded_launches("(a) sharded CFG forward", out["launches_forward"], SHARDED_FORWARD)
+        _, out["forward_s"] = _timed(torch, lambda: fwd(axis, block(sample, axis, 1)))
+        out["forward_first_s"] = first
+        eps = comm.gather(local, axis, 1)
+        _report(rank, "(a) forward", out, ("forward_first_s", "forward_s", "census_forward",
+                                           "launches_forward"))
+        if rank != 0:
+            return
+        fwd(None, sample)
+        unsharded, out["forward_unsharded_s"] = _timed(torch, lambda: fwd(None, sample))
+        with plain_route(), _exact_fp32(torch):
+            ref = apply_unet3d(cast_tree(params, torch.float32), cfg, sample, 500, text)
+        out["forward_rel"] = _rel_max(eps, ref)
+        out["forward_rel_unsharded"] = _rel_max(unsharded, ref)
+        out["forward_rel_to_unsharded"] = _rel_max(eps, unsharded)
+        if not (torch.isfinite(eps).all() and out["forward_rel"] <= REFERENCE_TOL):
+            raise SystemExit(f"[sharded] (a) the sharded forward reads {out['forward_rel']} "
+                             f"from the plain path (gate {REFERENCE_TOL})")
+        solo = comm.Group.of(nccl, "data")
+        zero_launches()
+        eps_nccl = fwd(solo, sample)
+        out["launches_nccl"] = read_launches()
+        _sharded_launches("(e) NCCL forward", out["launches_nccl"], SHARDED_FORWARD)
+        out["nccl_backend"] = solo.backend
+        out["nccl_rel"] = _rel_max(eps_nccl, ref)
+        _report(rank, "(a, e) against the plain path", out, (
+            "forward_unsharded_s", "forward_rel", "forward_rel_unsharded",
+            "forward_rel_to_unsharded", "nccl_backend", "nccl_rel", "launches_nccl"))
+        if solo.backend != "nccl" or not out["nccl_rel"] <= REFERENCE_TOL:
+            raise SystemExit(f"[sharded] (e) the {solo.backend} forward reads "
+                             f"{out['nccl_rel']} from the plain path (gate {REFERENCE_TOL})")
+
+
+def _sharded_guided_update(torch, models, mesh, rank, out):
+    """(b) one guided update on the flagship layout, frame-sharded: its
+    energy and gradient against the plain path (fp32), unsharded."""
+    from lvd_tpu_torch.diffusion import dpm_solver as dpm
+    from lvd_tpu_torch.diffusion.sampler import GuidanceTensors, energy_and_grad
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops.plain import plain_route
+    from lvd_tpu_torch.parallel import comm
+    from lvd_tpu_torch.parallel.mesh import block
+
+    cfg = models.preset.unet
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = _undegenerate(models.unet_params, gen, torch)
+    guide = flagship_guidance()
+    pack = guidance_tensors(guide)
+    lat = seeded_latents(torch)
+    text = torch.randn((1, 77, cfg.cross_attention_dim), generator=gen, device="cuda")
+    t = int(dpm.make_coeffs(models.preset.scheduler, 40).timestep[0])
+    axis = mesh.data
+    frames = lambda a: block(a, axis, 1)
+    shard = GuidanceTensors({k: frames(v) for k, v in pack.masks.items()}, pack.token_indices,
+                            pack.token_mask, {k: frames(v) for k, v in pack.k_fg.items()},
+                            {k: frames(v) for k, v in pack.k_bg.items()})
+    run = lambda p, x, g, dt, ax: energy_and_grad(p, cfg, x, t, text.to(dt), g, guide["attn_keys"],
+                                                  guide["config"], dt, ax)
+    zero_launches()
+    (energy, local), out["update_s"] = _timed(
+        torch, lambda: run(params, frames(lat), shard, torch.bfloat16, axis))
+    out["launches_update"] = read_launches()
+    _sharded_launches("(b) sharded guided update", out["launches_update"], SHARDED_BACKWARD)
+    grad = comm.gather(local, axis, 1)
+    out["energy"] = energy.item()
+    _report(rank, "(b) guided update", out, ("update_s", "energy", "launches_update"))
+    if rank != 0:
+        return
+    (e_k, g_k), out["update_unsharded_s"] = _timed(
+        torch, lambda: run(params, lat, pack, torch.bfloat16, None))
+    with plain_route(), _exact_fp32(torch):
+        e_r, g_r = run(cast_tree(params, torch.float32), lat, pack, torch.float32, None)
+    out["energy_ref"], out["energy_unsharded"] = e_r.item(), e_k.item()
+    out["energy_rel"] = abs(out["energy"] - e_r.item()) / abs(e_r.item())
+    out["grad_rel"], out["grad_rel_l2"] = _rel_max(grad, g_r), _rel_l2(grad, g_r)
+    out["grad_rel_unsharded"], out["grad_rel_l2_unsharded"] = _rel_max(g_k, g_r), _rel_l2(g_k, g_r)
+    _report(rank, "(b) against the plain path", out, (
+        "update_unsharded_s", "energy_ref", "energy_unsharded", "energy_rel", "grad_rel",
+        "grad_rel_l2", "grad_rel_unsharded", "grad_rel_l2_unsharded"))
+    if not (torch.isfinite(grad).all() and out["grad_rel"] <= GRADIENT_TOL
+            and out["grad_rel_l2"] <= GRADIENT_L2_TOL and out["energy_rel"] <= GRADIENT_L2_TOL):
+        raise SystemExit(f"[sharded] (b) the sharded guided update disagrees with the plain "
+                         f"path: energy {out['energy_rel']}, gradient {out['grad_rel']} max, "
+                         f"{out['grad_rel_l2']} L2")
+
+
+def _sharded_generation(torch, models, mesh, rank, out):
+    """(c) a 4-step guided generation through TextToVideoPipeline(...,
+    mesh=...): the final latents against the unsharded pipeline's, and the
+    uint8 video's shape."""
+    from lvd_tpu_torch.pipeline import TextToVideoPipeline
+    from lvd_tpu_torch.text.templates import NEGATIVE_PROMPT
+
+    guide = flagship_guidance()
+    guide["config"] = dataclasses.replace(guide["config"], max_index_step=GUIDED_INDEX_STEP)
+    call = lambda pipe: pipe(FLAG_PROMPT, NEGATIVE_PROMPT, height=320, width=576, num_frames=24,
+                             num_inference_steps=GUIDED_STEPS, guidance_scale=9.0, seed=0,
+                             backward_guidance=dict(guide), output_type="latent")
+    pipe = TextToVideoPipeline(models, dtype=torch.bfloat16, device="cuda", mesh=mesh)
+    zero_launches()
+    final, out["generation_s"] = _timed(torch, lambda: call(pipe))
+    out["launches_generation"] = read_launches()
+    _sharded_launches("(c) sharded guided generation", out["launches_generation"],
+                      SHARDED_FORWARD + SHARDED_BACKWARD)
+    out["generation_steps_s"] = pipe.timings["steps"]
+    video = pipe.decode_uint8(final.reshape(24, 40, 72, 4)).reshape(1, 24, 320, 576, 3)
+    out["video"] = [list(video.shape), str(video.dtype)]
+    _report(rank, "(c) guided generation", out, ("generation_s", "generation_steps_s", "video",
+                                                  "launches_generation"))
+    if tuple(video.shape) != (1, 24, 320, 576, 3) or video.dtype != torch.uint8:
+        raise SystemExit(f"[sharded] (c) the video is {out['video']}")
+    if rank != 0:
+        return
+    ref, out["generation_unsharded_s"] = _timed(
+        torch, lambda: call(TextToVideoPipeline(models, dtype=torch.bfloat16, device="cuda")))
+    out["generation_rel"] = _rel_max(final, ref)
+    out["generation_rel_l2"] = _rel_l2(final, ref)
+    _report(rank, "(c) against the unsharded pipeline", out, (
+        "generation_unsharded_s", "generation_rel", "generation_rel_l2"))
+    if not (torch.isfinite(final).all() and out["generation_rel"] <= REFERENCE_TOL):
+        raise SystemExit(f"[sharded] (c) the sharded latents read {out['generation_rel']} from "
+                         f"the unsharded pipeline's (gate {REFERENCE_TOL})")
+
+
+def _sharded_train(torch, rank, out):
+    """(d) one adapter-only fp32 step of the gated Zeroscope at 8 frames,
+    batch 2, under mesh (data 2, model 1) and (1, 2), against the
+    unsharded step (rank 0): the loss, and each trained leaf's gradient,
+    read from its first moment after the step (AdamW's mu = (1 - b1) * g),
+    the train phase's gates; and each leaf's update (1e-2 L2) against the
+    one AdamW makes from the step's own gradient (_applied_err) and against
+    the unsharded update over the elements whose gradient's sign the
+    gradient gate makes sure (_masked_update_err). On a first AdamW step
+    the update is lr * g / (|g| + eps), about lr times g's sign, so a
+    gradient element within rounding of zero flips it whole: the whole
+    update is printed beside the gates, with the count of such flips."""
+    from lvd_tpu_torch.config import PRESETS
+    from lvd_tpu_torch.models.unet3d import init_unet3d
+    from lvd_tpu_torch.parallel import mesh as mesh_mod
+    from lvd_tpu_torch.training import train as tr
+    from lvd_tpu_torch.utils import prng
+    from lvd_tpu_torch.utils.tree import flatten, unflatten_like
+
+    cfg = PRESETS["lvd-gligen_zeroscope"].unet
+    # The fusers' gates open, so the gradient reaches the sharded fuser weights.
+    params0 = _undegenerate(init_unet3d(prng.prng_key(0), cfg, device="cuda",
+                                        dtype=torch.float32),
+                            torch.Generator(device="cuda").manual_seed(5), torch)
+    start = flatten(params0)
+    halves = [train_batch(torch, cfg, SHARDED_TRAIN_FRAMES, seed) for seed in (11, 12)]
+    cat = lambda *xs: torch.cat(xs)
+    batch = {"latents": cat(*(h["latents"] for h in halves)),
+             "text": cat(*(h["text"] for h in halves)),
+             "gligen": {k: cat(*(h["gligen"][k] for h in halves)) for k in halves[0]["gligen"]}}
+    key = prng.prng_key(7)
+
+    def step(mesh):
+        trainer = tr.Trainer(cfg, learning_rate=TRAIN_LR, adapter_only=True)
+        own = unflatten_like(params0, {p: t.clone() for p, t in start.items()})
+        state = trainer.init(own, mesh=mesh)
+        rows = batch if mesh is None else tr.shard_batch(mesh, batch)
+        torch.cuda.reset_peak_memory_stats()
+        (state, loss), secs = _timed(torch, lambda: trainer.make_step(mesh)(state, rows, key))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        whole = lambda p, x: x if mesh is None else mesh_mod.full_leaf(mesh, p, x)
+        updates, grads = {}, {}
+        for p, t in flatten(state.params).items():
+            if trainer.tx.trains(p):
+                updates[p] = whole(p, t) - start[p]
+                grads[p] = whole(p, state.opt_state["mu"][p])
+        applied = _applied_err(torch, trainer.tx, start, updates, grads) \
+            if mesh is not None and rank == 0 else None
+        return loss.item(), updates, grads, secs, peak, applied
+
+    ref = step(None) if rank == 0 else None
+    torch.cuda.empty_cache()  # the two ranks and the parent share the card
+    for shape in ((2, 1), (1, 2)):
+        mesh = mesh_mod.make_mesh(model_parallel=shape[1])
+        loss, updates, grads, secs, peak, applied = step(mesh)
+        torch.cuda.empty_cache()
+        name = f"train_{shape[0]}x{shape[1]}"
+        out[name] = {"loss": loss, "s": secs, "peak_gib": peak}
+        if rank == 0:
+            worst = max((_update_err(g, ref[2][p]), p) for p, g in grads.items())
+            num = sum(((g - ref[2][p]).double() ** 2).sum() for p, g in grads.items())
+            den = sum((g.double() ** 2).sum() for g in ref[2].values())
+            masked = {p: _masked_update_err(torch, u, ref[1][p], grads[p], ref[2][p])
+                      for p, u in updates.items()}
+            worst_masked = max((m[0], p) for p, m in masked.items())
+            out[name].update(
+                loss_ref=ref[0], loss_rel=abs(loss - ref[0]) / abs(ref[0]),
+                worst_grad_l2=worst, grad_l2=math.sqrt(num.item() / den.item()),
+                worst_update_l2=max((_update_err(u, ref[1][p]), p) for p, u in updates.items()),
+                worst_update_l2_masked=worst_masked, worst_applied_l2=applied,
+                grad_sign_flips=sum(m[1] for m in masked.values()),
+                grad_sign_flips_kept=sum(m[2] for m in masked.values()),
+                kept=sum(m[3] for m in masked.values()),
+                elements=sum(m[4] for m in masked.values()),
+                leaves=len(updates), s_unsharded=ref[3], peak_gib_unsharded=ref[4])
+        _report(rank, f"(d) adapter-only step, mesh {shape}", out, (name,))
+        if rank == 0 and not (out[name]["loss_rel"] <= TRAIN_LOSS_TOL
+                              and worst[0] <= TRAIN_GRAD_L2_TOL
+                              and worst_masked[0] <= TRAIN_UPDATE_L2_TOL
+                              and applied[0] <= TRAIN_UPDATE_L2_TOL
+                              and set(grads) == set(ref[2])):
+            raise SystemExit(f"[sharded] (d) the {shape} mesh step disagrees with the "
+                             f"unsharded step: loss {out[name]['loss_rel']}, worst leaf "
+                             f"gradient {worst}, worst leaf update (masked) {worst_masked}, "
+                             f"worst leaf update against its own gradient's {applied}")
+
+
+def sharded_rank():
+    """One rank of the sharded phase, on the card's one device: the weights
+    are lvd_tpu's key-order draw (load_pipeline_models under
+    LVD_ALLOW_RANDOM_WEIGHTS=1), checks (a)-(e) fail the rank, and rank 0
+    also runs every unsharded reference. Returns the rank's readings."""
+    import torch
+    import torch.distributed as dist
+
+    from lvd_tpu_torch.models.loader import load_pipeline_models
+    from lvd_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    rank = dist.get_rank()
+    mesh = make_mesh()
+    nccl = dist.new_group([0], backend="nccl")  # every rank makes it; rank 0 uses it
+    out = {"rank": rank}
+    models, out["draw_s"] = _timed(
+        torch, lambda: load_pipeline_models("zeroscope", device="cuda", dtype=torch.bfloat16))
+    _sharded_forward(torch, models, mesh, rank, nccl, out)
+    torch.cuda.empty_cache()
+    _sharded_guided_update(torch, models, mesh, rank, out)
+    torch.cuda.empty_cache()
+    _sharded_generation(torch, models, mesh, rank, out)
+    out["peak_gib_sampling"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del models
+    torch.cuda.empty_cache()
+    _sharded_train(torch, rank, out)
+    dist.barrier()
+    return out
+
+
+def sharded_phase(torch):
+    """The sharded phase's ranks, each a process of torch's spawn context
+    over gloo and a FileStore in a temporary directory; a rank that fails,
+    hangs past SHARDED_TIMEOUT or exits non-zero fails the smoke. Returns
+    rank 0's launches over the sharded forward, update and generation."""
+    import tempfile
+
+    from lvd_tpu_torch.parallel.launch import RankPool
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    saved = os.environ.get("LVD_ALLOW_RANDOM_WEIGHTS")
+    os.environ["LVD_ALLOW_RANDOM_WEIGHTS"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as d, \
+                RankPool(SHARDED_RANKS, d, timeout=SHARDED_TIMEOUT) as pool:
+            results = pool.run(sharded_rank, timeout=SHARDED_TIMEOUT)
+    finally:
+        if saved is None:
+            os.environ.pop("LVD_ALLOW_RANDOM_WEIGHTS", None)
+        else:
+            os.environ["LVD_ALLOW_RANDOM_WEIGHTS"] = saved
+    for res in results:
+        log(f"[sharded] rank {res['rank']} of {SHARDED_RANKS} (gloo, one card): draw "
+            f"{res['draw_s']:.3f} s, peak memory sampling {res['peak_gib_sampling']:.3f} GiB")
+    r0 = results[0]
+    log(f"[sharded] census of one sharded CFG forward (per rank, {SHARDED_RANKS} ranks): "
+        f"{json.dumps(r0['census_forward'])}")
+    log(f"[sharded] the sharded phase took {time.perf_counter() - t0:.1f} s")
+    names = set(r0["launches_forward"])
+    return {k: r0["launches_forward"][k] + r0["launches_update"][k]
+            + r0["launches_generation"][k] for k in names}
+
+
 def kernels_line(records, knob_launches, entry_launches, forms, path_launches):
     """One entry per kernel wrapper of selfcheck.SOURCES: its bf16 numbers at
     its largest path shape, its worst errors in bf16 and fp32, its launches
@@ -2113,6 +2502,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     train_launches = train_phase(torch)
     image_launches = image_phase(torch)
+    sharded_launches = sharded_phase(torch)
     knob_launches, knob_forms = knob_phase(torch)
     fp32_phase(torch, models)
     entry_launches, entry_forms = entry_point_phase(torch, models)
@@ -2121,7 +2511,7 @@ def main() -> int:
 
     kernels = kernels_line(records, knob_launches, entry_launches, {**knob_forms, **entry_forms},
                            {"upsample": upsample_launches, "train": train_launches,
-                            "image": image_launches})
+                            "image": image_launches, "sharded": sharded_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

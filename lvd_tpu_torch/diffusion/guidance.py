@@ -14,8 +14,12 @@ center-of-mass position and velocity, ``attn_renorm``, ``upsample_scale``
 (bilinear or nearest) and ``smooth_attn``. lvd_tpu's known deviations from
 the torch reference (ADVICE.md) are kept: corner bands are derived from the
 rasterized masks with half-width ``boxdiff_L``, and smoothing blurs each
-token map spatially after the renorm. The frame-sharded (``axis_name``)
-branches of lvd_tpu are not part of this port yet (ROADMAP A5).
+token map spatially after the renorm. Frame-sharded (``axis_name``, a
+parallel/comm.Group over which the frames are split in order): the
+per-frame terms sum on each rank and the energy is psummed; the
+frame-coupled terms (attn-sync, the CoM velocity) take the boundary frame
+of the next rank by ppermute, and the video's last frame is the one
+without a successor.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import comm
 
 # The 6 instrumented cross-attention sites of the flagship runs (a copy of
 # lvd_tpu/runners/base.py:26-33).
@@ -125,18 +131,30 @@ def _topk_mean_via_log(values, k, eps, k_max: int = None):
     return (-torch.log(torch.clamp(top, min=eps)) * w).sum(-1)
 
 
-def _roll_next_frames(x, frame_axis: int):
+def _roll_next_frames(x, frame_axis: int, axis_name=None):
     """x at frame f+1 along ``frame_axis``; the last slot repeats the last
-    frame (callers weight it out with ``_frame_validity``)."""
+    frame, or sharded holds the next rank's first frame (zeros on the last
+    rank); callers weight the video's last frame out with
+    ``_frame_validity``."""
     n = x.shape[frame_axis]
     rest = x.narrow(frame_axis, 1, n - 1)
-    last = x.narrow(frame_axis, n - 1, 1)
+    if axis_name is None:
+        last = x.narrow(frame_axis, n - 1, 1)
+    else:
+        size = comm.axis_size(axis_name)
+        last = comm.ppermute(x.narrow(frame_axis, 0, 1), axis_name,
+                             [(i + 1, i) for i in range(size - 1)])
     return torch.cat([rest, last], dim=frame_axis)
 
 
-def _frame_validity(n_f: int, device):
-    """(F,) 1.0 for frames that have a successor."""
-    return (torch.arange(n_f, device=device) < n_f - 1).float()
+def _frame_validity(n_f: int, device, axis_name=None):
+    """(F_local,) 1.0 for frames that have a successor in the video."""
+    idx = torch.arange(n_f, device=device)
+    total = n_f
+    if axis_name is not None:
+        idx = idx + comm.axis_index(axis_name) * n_f
+        total = n_f * comm.axis_size(axis_name)
+    return (idx < total - 1).float()
 
 
 def _center_of_mass(x):
@@ -176,11 +194,13 @@ def gather_token_maps(attn, token_indices):
     return gathered.permute(3, 4, 0, 1, 2)
 
 
-def ca_energy_for_key(attn, masks, token_indices, token_mask, k_fg, k_bg, cfg: GuidanceConfig):
+def ca_energy_for_key(attn, masks, token_indices, token_mask, k_fg, k_bg, cfg: GuidanceConfig,
+                      axis_name=None):
     """Energy of one instrumented site: attn (F, heads, HW, L) fp32
     probabilities (cond-only), masks (O, F, Hk, Wk), token_indices (O, P)
-    int, token_mask (O, P), k_fg / k_bg (O, F) int. Returns the sum over
-    objects of per-object losses, each divided by its valid token count."""
+    int, token_mask (O, P), k_fg / k_bg (O, F) int; sharded, F is this
+    rank's frames of ``axis_name``. Returns the sum over objects of
+    per-object losses, each divided by its valid token count."""
     n_f, n_heads, hw, _ = attn.shape
     n_obj, n_p = token_indices.shape
     hk, wk = masks.shape[2], masks.shape[3]
@@ -236,10 +256,11 @@ def ca_energy_for_key(attn, masks, token_indices, token_mask, k_fg, k_bg, cfg: G
         obj_loss = obj_loss + cfg.bg_weight * (-torch.log(1.0 - bg_mean)).sum(-1)
 
     if cfg.attn_sync_weight != 0.0:
-        a_next = _roll_next_frames(a, 2)
+        a_next = _roll_next_frames(a, 2, axis_name)
         area = m.sum(-1) + 1e-6
         sync = ((((a - a_next) ** 2) * m).sum(-1) / area).sum(-1)
-        obj_loss = obj_loss + cfg.attn_sync_weight * sync * _frame_validity(n_f, a.device)
+        obj_loss = obj_loss + cfg.attn_sync_weight * sync * _frame_validity(n_f, a.device,
+                                                                              axis_name)
 
     if cfg.boxdiff_loss_scale > 0.0 or cfg.com_loss_scale > 0.0:
         a2d = a.reshape(n_obj, n_p, n_f, n_heads, hk, wk)
@@ -262,11 +283,11 @@ def ca_energy_for_key(attn, masks, token_indices, token_mask, k_fg, k_bg, cfg: G
         pos = ((com_a_h - com_m_h[:, None, :, None]) ** 2
                + (com_a_w - com_m_w[:, None, :, None]) ** 2)
         obj_loss = obj_loss + cfg.com_loss_scale * pos.mean(-1) * present[:, None, :]
-        nxt = lambda x: _roll_next_frames(x, 2)
-        nxt_m = lambda x: _roll_next_frames(x, 1)
+        nxt = lambda x: _roll_next_frames(x, 2, axis_name)
+        nxt_m = lambda x: _roll_next_frames(x, 1, axis_name)
         v_a_h, v_a_w = nxt(com_a_h) - com_a_h, nxt(com_a_w) - com_a_w
         v_m_h, v_m_w = nxt_m(com_m_h) - com_m_h, nxt_m(com_m_w) - com_m_w
-        both = present * nxt_m(present) * _frame_validity(n_f, masks.device)
+        both = present * nxt_m(present) * _frame_validity(n_f, masks.device, axis_name)
         vel = ((v_a_h - v_m_h[:, None, :, None]) ** 2
                + (v_a_w - v_m_w[:, None, :, None]) ** 2)
         obj_loss = obj_loss + cfg.com_loss_scale * vel.mean(-1) * both[:, None, :]
@@ -277,10 +298,12 @@ def ca_energy_for_key(attn, masks, token_indices, token_mask, k_fg, k_bg, cfg: G
 
 
 def compute_ca_energy(aux: Dict[Tuple, torch.Tensor], pack, guidance_attn_keys: Sequence[Tuple],
-                      cfg: GuidanceConfig):
+                      cfg: GuidanceConfig, axis_name=None):
     """Total energy over the instrumented sites: the per-site energies summed
     and divided by (num_objects * num_keys). ``pack`` holds the guidance
-    tensors (diffusion/sampler.GuidanceTensors) on the maps' device."""
+    tensors (diffusion/sampler.GuidanceTensors) on the maps' device, its
+    masks and k values this rank's frames where ``axis_name`` shards them;
+    the energy is then psummed over the ranks."""
     keys = [tuple(k) for k in guidance_attn_keys]
     num_objects = pack.token_indices.shape[0]
     device = next(iter(aux.values())).device if aux else pack.token_mask.device
@@ -289,5 +312,8 @@ def compute_ca_energy(aux: Dict[Tuple, torch.Tensor], pack, guidance_attn_keys: 
     loss = torch.zeros((), dtype=torch.float32, device=device)
     for key in keys:
         loss = loss + ca_energy_for_key(aux[key], pack.masks[key], pack.token_indices,
-                                        pack.token_mask, pack.k_fg[key], pack.k_bg[key], cfg)
+                                        pack.token_mask, pack.k_fg[key], pack.k_bg[key], cfg,
+                                        axis_name)
+    if axis_name is not None:
+        loss = comm.psum(loss, axis_name)
     return loss / (num_objects * len(keys))

@@ -35,8 +35,19 @@ and ``capture_only`` ends the walk once every key is captured. GLIGEN, as in
 lvd_tpu: ``gligen`` inputs go through the PositionNet once, after
 ``transformer_in``, and every spatial BasicTransformerBlock with a ``fuser``
 runs the gated self-attention between its self- and cross-attention; the
-temporal transformers take none. The frame-sharded path is not part of this
-port yet.
+temporal transformers take none.
+
+Frame-sharded (sequence-parallel) walk, as lvd_tpu's ``spmd_axis``
+(unet3d.py:394-551): with ``spmd_axis`` a parallel/comm.Group, each rank
+holds a contiguous block of the frames and runs every per-frame op on it
+alone. A temporal transformer psums its GroupNorm statistics over the
+group, all_to_alls the stream from frame shards to pixel shards (pixels
+zero-padded to a multiple of the group's size, the padding dropped after
+the way back), runs the attention pair on its pixels (kernel B's route
+decided on the shard) and all_to_alls back; a temporal conv psums its
+GroupNorm statistics and runs SiLU and a stock (3,1,1) ``conv3d`` over its
+frames extended by one halo frame from each neighbour (ppermute, zeros at
+the video's ends), lvd_tpu's route: kernel D does not run sharded.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ from ..ops.basic import (
     timestep_embedding,
     upsample_nearest_2x,
 )
+from ..parallel import comm
 from ..utils import prng
 from . import init
 from .gligen import apply_gated_self_attention, apply_position_net, position_net_leaves
@@ -263,13 +275,30 @@ def _spatial_transformer(p, x, context, num_heads, cfg, key=None, capture_keys=(
     return y.reshape(n, h, w, c) + residual
 
 
-def _temporal_transformer(p, x, num_frames, num_heads, cfg):
+def _a2a_frames_to_pixels(y, group):
+    """(B, F_local, P, C) -> (B, F, P_padded / n, C); returns it and P."""
+    p = y.shape[2]
+    pad = (-p) % comm.axis_size(group)
+    if pad:
+        y = F.pad(y, (0, 0, 0, pad))
+    return comm.all_to_all(y, group, split_axis=2, concat_axis=1), p
+
+
+def _a2a_pixels_to_frames(y, group, orig_p):
+    """The inverse of _a2a_frames_to_pixels; drops the pixel padding."""
+    return comm.all_to_all(y, group, split_axis=1, concat_axis=2)[:, :, :orig_p]
+
+
+def _temporal_transformer(p, x, num_frames, num_heads, cfg, spmd_axis=None):
     n, h, w, c = x.shape
     b = n // num_frames
     residual = x
     y = x.reshape(b, num_frames, h * w, c)
-    y = group_norm(p["norm"], y, cfg.norm_num_groups, cfg.transformer_norm_eps)
+    y = group_norm(p["norm"], y, cfg.norm_num_groups, cfg.transformer_norm_eps,
+                   axis_name=spmd_axis)
     y = linear(p["proj_in"], y)
+    if spmd_axis is not None:
+        y, orig_p = _a2a_frames_to_pixels(y, spmd_axis)
     # As lvd_tpu (unet3d.py:431-439): the frames-major stream where kernel B
     # takes it, else one relayout and the pixels-major pair.
     fm = temporal_attention.supported_frames_major(y, num_heads)
@@ -280,6 +309,8 @@ def _temporal_transformer(p, x, num_frames, num_heads, cfg):
         y = y + feed_forward(block["ff"], layer_norm(block["norm3"], y))
     if not fm:
         y = y.transpose(1, 2)
+    if spmd_axis is not None:
+        y = _a2a_pixels_to_frames(y, spmd_axis, orig_p)
     y = linear(p["proj_out"], y)
     return y.reshape(n, h, w, c) + residual
 
@@ -308,11 +339,28 @@ def _resnet(p, x, temb, cfg):
     return x + h
 
 
-def _temp_conv(p, x, num_frames, cfg):
+def _halo_conv3d_frames(conv_p, y, group):
+    """The (3,1,1) conv over frame-sharded (B, F_local, P, C) input: each
+    rank's boundary frames go to its neighbours by ppermute, and the ranks
+    at the video's ends receive ppermute's zeros, the conv's padding."""
+    n = comm.axis_size(group)
+    prev = comm.ppermute(y[:, -1:], group, [(i, i + 1) for i in range(n - 1)])
+    nxt = comm.ppermute(y[:, :1], group, [(i + 1, i) for i in range(n - 1)])
+    ext = torch.cat([prev, y, nxt], dim=1)
+    return conv3d(conv_p, ext[:, :, :, None, :], padding=((0, 0), (0, 0), (0, 0)))[:, :, :, 0]
+
+
+def _temp_conv(p, x, num_frames, cfg, spmd_axis=None):
     n, h, w, c = x.shape
     b = n // num_frames
     y4 = x.reshape(b, num_frames, h * w, c)
     identity = y4
+    if spmd_axis is not None:
+        for name in ("conv1", "conv2", "conv3", "conv4"):
+            blk = p[name]
+            y4 = group_norm(blk["norm"], y4, cfg.norm_num_groups, 1e-5, axis_name=spmd_axis)
+            y4 = _halo_conv3d_frames(blk["conv"], silu(y4), spmd_axis)
+        return (identity + y4).reshape(n, h, w, c)
     if os.environ.get("LVD_DISABLE_FUSED_TC") != "1" and temp_conv_fused.supported(y4):
         for name in ("conv1", "conv2", "conv3", "conv4"):
             blk = p[name]
@@ -328,17 +376,17 @@ def _temp_conv(p, x, num_frames, cfg):
 
 
 def _cross_attn_layer(p, x, temb, context, num_frames, num_heads, cfg, key=None,
-                      capture_keys=(), aux=None, gligen_objs=None):
+                      capture_keys=(), aux=None, gligen_objs=None, spmd_axis=None):
     x = _resnet(p["resnet"], x, temb, cfg)
-    x = _temp_conv(p["temp_conv"], x, num_frames, cfg)
+    x = _temp_conv(p["temp_conv"], x, num_frames, cfg, spmd_axis)
     x = _spatial_transformer(p["attn"], x, context, num_heads, cfg, key, capture_keys, aux,
                              gligen_objs)
-    return _temporal_transformer(p["temp_attn"], x, num_frames, num_heads, cfg)
+    return _temporal_transformer(p["temp_attn"], x, num_frames, num_heads, cfg, spmd_axis)
 
 
 def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_states, *,
                  gligen=None, capture_keys: Sequence[tuple] = (), capture_only: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, spmd_axis=None):
     """sample (B, F, H, W, C_in) channels-last; timesteps scalar or (B,);
     encoder_hidden_states (B, L, D); ``gligen`` None or {boxes (B*F, M, 4),
     masks (B*F, M), positive_embeddings (B*F, M, positive_len)}, the
@@ -348,7 +396,10 @@ def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_st
     probabilities of each captured site}), noise_pred None when
     ``capture_only`` ends the walk at the last captured site. ``remat``
     checkpoints each UNet layer below the deepest width
-    (torch.utils.checkpoint), for the energy's backward."""
+    (torch.utils.checkpoint), for the energy's backward. ``spmd_axis``: a
+    parallel/comm.Group over which the frames are sharded; ``sample`` holds
+    this rank's F_local frames, the GLIGEN inputs are its (B*F_local, ...)
+    rows, the captured maps its frames'."""
     capture_keys = tuple(tuple(k) for k in capture_keys)
     if capture_only and not capture_keys:
         raise ValueError("capture_only requires capture_keys")
@@ -363,7 +414,8 @@ def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_st
     context = encoder_hidden_states.to(sample.dtype).repeat_interleave(f, dim=0)
 
     x = conv2d(params["conv_in"], sample.reshape(b * f, h, w, sample.shape[-1]))
-    x = _temporal_transformer(params["transformer_in"], x, f, cfg.transformer_in_num_heads, cfg)
+    x = _temporal_transformer(params["transformer_in"], x, f, cfg.transformer_in_num_heads, cfg,
+                              spmd_axis)
 
     gligen_objs = None
     if gligen is not None:
@@ -380,9 +432,10 @@ def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_st
             local: dict = {}
             if with_attn:
                 y = _cross_attn_layer(lp, x, temb, context, f, num_heads, cfg, key,
-                                      capture_keys, local, gligen_objs)
+                                      capture_keys, local, gligen_objs, spmd_axis)
             else:
-                y = _temp_conv(lp["temp_conv"], _resnet(lp["resnet"], x, temb, cfg), f, cfg)
+                y = _temp_conv(lp["temp_conv"], _resnet(lp["resnet"], x, temb, cfg), f, cfg,
+                               spmd_axis)
             return (y, *(local[k] for k in layer_keys))
 
         if remat and num_heads * cfg.attention_head_dim < boc[-1]:
@@ -410,15 +463,15 @@ def apply_unet3d(params, cfg: UNet3DConfig, sample, timesteps, encoder_hidden_st
     mid = params["mid_block"]
     num_heads = cfg.num_heads(boc[-1])
     x = _resnet(mid["resnet_in"], x, temb, cfg)
-    x = _temp_conv(mid["temp_conv_in"], x, f, cfg)
+    x = _temp_conv(mid["temp_conv_in"], x, f, cfg, spmd_axis)
     for j, lp in enumerate(mid["layers"]):
         x = _spatial_transformer(lp["attn"], x, context, num_heads, cfg, ("mid", 0, j),
                                  capture_keys, aux, gligen_objs)
         if have_all_keys():
             return None, aux
-        x = _temporal_transformer(lp["temp_attn"], x, f, num_heads, cfg)
+        x = _temporal_transformer(lp["temp_attn"], x, f, num_heads, cfg, spmd_axis)
         x = _resnet(lp["resnet"], x, temb, cfg)
-        x = _temp_conv(lp["temp_conv"], x, f, cfg)
+        x = _temp_conv(lp["temp_conv"], x, f, cfg, spmd_axis)
 
     rev = list(reversed(boc))
     for i, block in enumerate(params["up_blocks"]):

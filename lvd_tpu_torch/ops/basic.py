@@ -44,10 +44,14 @@ def conv3d(p, x, padding=((1, 1), (0, 0), (0, 0))):
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def group_norm_coeffs(p, x, num_groups: int = 32, eps: float = 1e-5):
+def group_norm_coeffs(p, x, num_groups: int = 32, eps: float = 1e-5, axis_name=None,
+                      count_override: Optional[int] = None):
     """Per-channel affine GroupNorm coefficients (a, b), both (N, C) fp32,
     such that ``y = x * a + b``. One-pass fp32 statistics (m2 - mean^2),
-    as lvd_tpu computes them."""
+    as lvd_tpu computes them. ``axis_name``: a parallel/comm.Group over
+    which x is sharded (frames across ranks): the group sums are psummed
+    and the per-group count scaled by the group's size; ``count_override``
+    is the exact count where the shard carries zero padding."""
     n, c = x.shape[0], x.shape[-1]
     g = num_groups
     xr = x.reshape(n, -1, c)
@@ -58,6 +62,14 @@ def group_norm_coeffs(p, x, num_groups: int = 32, eps: float = 1e-5):
     del x32
     s1 = s1c.view(n, g, c // g).sum(-1)
     s2 = s2c.view(n, g, c // g).sum(-1)
+    if axis_name is not None:
+        from ..parallel import comm
+
+        s1 = comm.psum(s1, axis_name)
+        s2 = comm.psum(s2, axis_name)
+        per_group = per_group * comm.axis_size(axis_name)
+    if count_override is not None:
+        per_group = count_override
     mean_g = s1 / per_group
     var_g = torch.clamp(s2 / per_group - mean_g * mean_g, min=0.0)
     inv_g = torch.rsqrt(var_g + eps)
@@ -68,11 +80,13 @@ def group_norm_coeffs(p, x, num_groups: int = 32, eps: float = 1e-5):
     return a, b
 
 
-def group_norm(p, x, num_groups: int = 32, eps: float = 1e-5):
+def group_norm(p, x, num_groups: int = 32, eps: float = 1e-5, axis_name=None,
+               count_override: Optional[int] = None):
     """GroupNorm over channels-last input of any rank >= 2; statistics per
-    (batch, group) over all non-batch axes, applied in the input dtype."""
+    (batch, group) over all non-batch axes (and over ``axis_name``'s ranks,
+    see group_norm_coeffs), applied in the input dtype."""
     n, c = x.shape[0], x.shape[-1]
-    a, b = group_norm_coeffs(p, x, num_groups, eps)
+    a, b = group_norm_coeffs(p, x, num_groups, eps, axis_name, count_override)
     xr = x.reshape(n, -1, c)
     y = xr * a[:, None, :].to(x.dtype) + b[:, None, :].to(x.dtype)
     return y.reshape(x.shape)

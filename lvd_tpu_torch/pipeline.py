@@ -1,5 +1,4 @@
-"""TextToVideoPipeline (counterpart of lvd_tpu/pipeline.py:84-128 and
-225-427, without the frame-sharded path).
+"""TextToVideoPipeline (counterpart of lvd_tpu/pipeline.py).
 
 CLIP encodes the [negative; prompt] pair, DPM-Solver++ (2M) denoises with
 classifier-free guidance from fp32-carried latents, optionally with
@@ -18,6 +17,15 @@ sampled with the next key of lvd_tpu's ``split`` chain from
 ``PRNGKey(seed)``), they are renoised to ``strength`` of the schedule with
 ``PRNGKey(seed + 99991)``'s noise, and the tail steps denoise them with
 unguided CFG.
+
+With ``mesh`` (parallel/mesh.make_mesh), sampling runs frame-sharded over
+its "data" ranks, as lvd_tpu's ``_make_sharded_sample``
+(pipeline.py:161-223): the whole noise is drawn and each rank keeps its
+block of frames, the guidance pack's masks and k values are split on
+frames (token indices and mask stay whole), the GLIGEN pair is split as
+(2B, F, ...) and flattened back, and after the last step the ranks gather
+the frames, so every rank's call returns what the unsharded call returns
+(each decodes the whole video).
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from .models.clip import apply_clip_text
 from .models.loader import cast_tree
 from .models.vae import decode as vae_decode
 from .models.vae import encode as vae_encode
+from .parallel import comm
+from .parallel.mesh import block
 from .utils import prng
 from .utils.device import resolve_device, sync
 from .utils.profiling import PhaseTimer, maybe_trace
@@ -55,11 +65,13 @@ class PipelineModels:
 
 
 class TextToVideoPipeline:
-    def __init__(self, models: PipelineModels, dtype=torch.float32, device=None):
+    def __init__(self, models: PipelineModels, dtype=torch.float32, device=None, mesh=None):
         """Runs on the card unless ``device="cpu"`` is asked for; the params
         are cast to ``dtype`` (fp32 by default, as lvd_tpu's pipeline) and
-        moved to the device once."""
+        moved to the device once. ``mesh``: sample frame-sharded over its
+        "data" ranks (every rank makes the same calls)."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.m = models
         self.preset = models.preset
         self.dtype = dtype
@@ -169,15 +181,39 @@ class TextToVideoPipeline:
                         "encode_prompt": self.timer.last["encode_prompt"], "steps": [],
                         "guided": []}
         with self.timer.phase("sample"), maybe_trace("sample"):
-            final = sampler_mod.sample_video(
-                self.unet_params, preset.unet, latents, text_pair, coeffs,
-                float(guidance_scale), step_times=self.timings["steps"])
+            final = self._sample(latents, text_pair, coeffs, float(guidance_scale),
+                                 step_times=self.timings["steps"])
         if output_type == "latent":
             return final
         with self.timer.phase("decode"):
             video = self.decode_latents(final)
         self.timings["decode"] = self.timer.last["decode"]
         return video
+
+    def _sample(self, latents, text_pair, coeffs, guidance_scale, guidance=None, g_cfg=None,
+                keys=(), gligen_pair=None, **kwargs):
+        """sampler.sample_video, frame-sharded over the mesh's "data" ranks
+        where there is a mesh; returns the whole video's final latents."""
+        if self.mesh is None:
+            return sampler_mod.sample_video(self.unet_params, self.preset.unet, latents,
+                                            text_pair, coeffs, guidance_scale, guidance, g_cfg,
+                                            keys, gligen_pair=gligen_pair, **kwargs)
+        axis = self.mesh.data
+        frames = lambda t: block(t, axis, 1)
+        if guidance is not None:
+            guidance = sampler_mod.GuidanceTensors(
+                masks={k: frames(v) for k, v in guidance.masks.items()},
+                token_indices=guidance.token_indices, token_mask=guidance.token_mask,
+                k_fg={k: frames(v) for k, v in guidance.k_fg.items()},
+                k_bg={k: frames(v) for k, v in guidance.k_bg.items()})
+        if gligen_pair is not None:
+            f = latents.shape[1]
+            gligen_pair = {k: frames(v.reshape((-1, f) + v.shape[1:]))
+                           .reshape((-1,) + v.shape[1:]) for k, v in gligen_pair.items()}
+        final = sampler_mod.sample_video(self.unet_params, self.preset.unet, frames(latents),
+                                         text_pair, coeffs, guidance_scale, guidance, g_cfg, keys,
+                                         gligen_pair=gligen_pair, spmd_axis=axis, **kwargs)
+        return comm.gather(final, axis, 1)
 
     @torch.no_grad()
     def decode_uint8(self, latents):
@@ -258,10 +294,9 @@ class TextToVideoPipeline:
             gligen_pair = self.prepare_gligen_inputs(gligen_boxes, gligen_phrases, num_frames)
             n_ground = int(gligen_scheduled_sampling_beta * num_inference_steps)
         with self.timer.phase("sample"), maybe_trace("sample"):
-            final = sampler_mod.sample_video(
-                self.unet_params, preset.unet, latents, text_pair, coeffs,
-                float(guidance_scale), guidance, g_cfg, keys, gligen_pair=gligen_pair,
-                num_grounding_steps=n_ground,
+            final = self._sample(
+                latents, text_pair, coeffs, float(guidance_scale), guidance, g_cfg, keys,
+                gligen_pair=gligen_pair, num_grounding_steps=n_ground,
                 step_times=self.timings["steps"] if on_host else None,
                 guided_times=self.timings["guided"] if on_host else None)
         if output_type == "latent":

@@ -1,5 +1,4 @@
-"""Diffusion training step (counterpart of lvd_tpu/training/train.py, one
-device).
+"""Diffusion training step (counterpart of lvd_tpu/training/train.py).
 
 Epsilon-prediction MSE over the DDPM forward process and AdamW with optax's
 semantics, for full finetuning or GLIGEN-adapter-only training (everything
@@ -10,9 +9,21 @@ so a step from the same params, batch and key is lvd_tpu's step. On the
 card the forward launches the kernels, the input gradients take kernels
 E-G where lvd_tpu routes them, and the weight gradients of the temporal
 pair and the GEGLU come from their stock recompute VJPs, as lvd_tpu's
-custom VJPs give them. The ("data", "model") mesh of lvd_tpu's trainer
-(``Trainer.init(..., mesh)``, ``shard_batch``) comes with the frame-sharded
-slice (ROADMAP A5).
+custom VJPs give them.
+
+Over lvd_tpu's ("data", "model") mesh (parallel/mesh.py:
+``Trainer.init(params, mesh)``, ``make_step(mesh)``, ``shard_batch``) each
+rank holds its rows of the batch (axis 0 split on "data") and its "model"
+block of every column- or row-sharded leaf (``param_spec``) with that
+block's AdamW moments, which is the memory the "model" axis saves. A step
+gathers the full leaves over "model" (comm.all_gather, whose VJP sums each
+gradient back into the blocks), so every head count and the GEGLU's
+[h | g] projection meet lvd_tpu's whole weights; draws t and eps for the
+global batch from the key, as lvd_tpu does, and keeps its rows; and seeds
+the backward with 1 / ranks (parallel/comm.py's rule for a replicated
+value): a replicated leaf's gradient is then summed over every rank and a
+sharded block's over "data", which gives the gradient of the global mean
+loss, and each block takes the single-device update.
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ import torch
 from ..config import SchedulerConfig, UNet3DConfig
 from ..diffusion import schedule
 from ..models.unet3d import apply_unet3d
+from ..parallel import comm
+from ..parallel import mesh as mesh_mod
 from ..utils import prng
 from ..utils.tree import flatten, unflatten_like
 
@@ -100,17 +113,21 @@ def make_optimizer(learning_rate: float = 1e-4, weight_decay: float = 1e-2,
                  trainable=frozenset(p for p, m in mask.items() if m > 0.5))
 
 
-def diffusion_loss(params, cfg: UNet3DConfig, sqrt_abar, sqrt_1m_abar, batch, key):
+def diffusion_loss(params, cfg: UNet3DConfig, sqrt_abar, sqrt_1m_abar, batch, key, rows=None):
     """The standard epsilon-prediction loss, lvd_tpu's draws from ``key``.
 
     batch: {"latents": (B, F, h, w, C) clean latents, "text": (B, L, D)
     encoder states, optional "gligen": grounding inputs}; ``sqrt_abar`` and
     ``sqrt_1m_abar`` are fp32 tensors of the schedule on the latents'
-    device."""
+    device. ``rows`` (start, total): the batch is rows start.. of a global
+    batch of ``total``, whose draws are made and these rows kept."""
     lat = batch["latents"]
+    b = lat.shape[0]
+    start, total = rows or (0, b)
     t_key, n_key = prng.split(key)
-    t = prng.randint(t_key, (lat.shape[0],), 0, sqrt_abar.shape[0], lat.device)
-    eps = prng.normal_key(n_key, tuple(lat.shape), lat.device, lat.dtype)
+    t = prng.randint(t_key, (total,), 0, sqrt_abar.shape[0], lat.device)[start:start + b]
+    eps = prng.normal_key(n_key, (total,) + tuple(lat.shape[1:]), lat.device,
+                          lat.dtype)[start:start + b]
     a = sqrt_abar[t][:, None, None, None, None].to(lat.dtype)
     s = sqrt_1m_abar[t][:, None, None, None, None].to(lat.dtype)
     noisy = a * lat + s * eps
@@ -119,10 +136,23 @@ def diffusion_loss(params, cfg: UNet3DConfig, sqrt_abar, sqrt_1m_abar, batch, ke
     return torch.mean((pred.float() - eps.float()) ** 2)
 
 
+def _psum_leaves(grads: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Each tensor summed over ``group``, in one all_reduce of them all."""
+    if group.size == 1 or not grads:
+        return grads
+    flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads.values()]), group)
+    out, i = {}, 0
+    for path, g in grads.items():
+        out[path] = flat[i:i + g.numel()].view_as(g)
+        i += g.numel()
+    return out
+
+
 @dataclasses.dataclass
 class Trainer:
-    """lvd_tpu's Trainer on one device: ``init(params)`` then ``make_step()``
-    gives ``step(state, batch, key) -> (state, loss)``."""
+    """lvd_tpu's Trainer: ``init(params[, mesh])`` then ``make_step([mesh])``
+    gives ``step(state, batch, key) -> (state, loss)``; under a mesh every
+    rank calls both with its ``shard_batch`` rows."""
 
     unet_cfg: UNet3DConfig
     sched_cfg: SchedulerConfig = SchedulerConfig()
@@ -130,21 +160,18 @@ class Trainer:
     adapter_only: bool = False
 
     def init(self, params, mesh=None) -> TrainState:
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer.init(..., mesh): the sharded trainer comes with the frame-sharded "
-                "slice (ROADMAP A5)")
+        """Under ``mesh`` the state holds this rank's blocks of the sharded
+        leaves (mesh.shard_params) and their moments."""
         self.tx = make_optimizer(self.learning_rate, adapter_only=self.adapter_only,
                                  params=params)
+        if mesh is not None:
+            params = mesh_mod.shard_params(mesh, params)
         return TrainState(params=params, opt_state=self.tx.init(params), step=0)
 
     def make_step(self, mesh=None):
         """The step updates the state's params and moments in place, as
-        lvd_tpu donates the state to its jitted step."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer.make_step(mesh=...): the sharded trainer comes with the frame-sharded "
-                "slice (ROADMAP A5)")
+        lvd_tpu donates the state to its jitted step; under ``mesh`` the
+        returned loss is the global batch's."""
         abar = schedule.make_alphas_cumprod(self.sched_cfg)
         tables = {}
 
@@ -155,10 +182,26 @@ class Trainer:
                 tables[device] = tuple(torch.tensor(np.asarray(v, np.float32), device=device)
                                        for v in (abar ** 0.5, (1.0 - abar) ** 0.5))
             leaves = {p: t.detach().requires_grad_(self.tx.trains(p)) for p, t in flat.items()}
-            loss = diffusion_loss(unflatten_like(state.params, leaves), self.unet_cfg,
-                                  *tables[device], batch, key)
             trained = [p for p in leaves if self.tx.trains(p)]
-            grads = dict(zip(trained, torch.autograd.grad(loss, [leaves[p] for p in trained])))
+            if mesh is None:
+                loss = diffusion_loss(unflatten_like(state.params, leaves), self.unet_cfg,
+                                      *tables[device], batch, key)
+                grads = dict(zip(trained, torch.autograd.grad(loss,
+                                                              [leaves[p] for p in trained])))
+            else:
+                full = {p: mesh_mod.full_leaf(mesh, p, t, differentiable=True)
+                        for p, t in leaves.items()}
+                b = batch["latents"].shape[0]
+                loss = diffusion_loss(unflatten_like(state.params, full), self.unet_cfg,
+                                      *tables[device], batch, key,
+                                      rows=(mesh.data.rank * b, mesh.data.size * b))
+                seed = torch.full_like(loss, 1.0 / (mesh.data.size * mesh.model.size))
+                grads = dict(zip(trained, torch.autograd.grad(
+                    loss, [leaves[p] for p in trained], grad_outputs=seed)))
+                replicated = {p: g for p, g in grads.items() if full[p] is leaves[p]}
+                grads.update(_psum_leaves(replicated, mesh.model))
+                grads = _psum_leaves(grads, mesh.data)
+                loss = comm.all_reduce(loss.detach(), mesh.data) / mesh.data.size
             opt_state = self.tx.update(grads, state.opt_state, flat)
             return (TrainState(unflatten_like(state.params, flat), opt_state, state.step + 1),
                     loss.detach())
@@ -166,23 +209,51 @@ class Trainer:
         return step_fn
 
 
-def save_train_state(path: str, state: TrainState) -> None:
+def _map_state(params: Dict[str, torch.Tensor], opt_state: dict, fn):
+    """fn(path, tensor) over the flat params and the moments."""
+    return ({p: fn(p, t) for p, t in params.items()},
+            {"count": opt_state["count"],
+             **{m: {p: fn(p, t) for p, t in opt_state[m].items()} for m in ("mu", "nu")}})
+
+
+def save_train_state(path: str, state: TrainState, mesh=None) -> None:
     """Params (flat), the moments and the step, with ``torch.save`` into
     ``path/train_state.pt`` (the port's own format; lvd_tpu writes flax
-    msgpack)."""
-    os.makedirs(path, exist_ok=True)
-    torch.save({"params": flatten(state.params), "opt_state": state.opt_state,
-                "step": state.step}, os.path.join(path, "train_state.pt"))
+    msgpack). Under ``mesh`` every rank calls it: the blocks are gathered
+    into the full leaves, as ``jax.device_get`` gives them, and the first
+    rank writes the file, which a single device restores as well."""
+    params, opt_state = flatten(state.params), state.opt_state
+    if mesh is not None:
+        params, opt_state = _map_state(params, opt_state,
+                                       lambda p, t: mesh_mod.full_leaf(mesh, p, t))
+    if mesh is None or mesh.data.rank == mesh.model.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        torch.save({"params": params, "opt_state": opt_state, "step": state.step},
+                   os.path.join(path, "train_state.pt"))
+    if mesh is not None:
+        torch.distributed.barrier()
 
 
-def restore_train_state(path: str, template: TrainState) -> TrainState:
+def restore_train_state(path: str, template: TrainState, mesh=None) -> TrainState:
     """A TrainState saved by ``save_train_state``, on the template's device;
     ``template`` gives the param tree's structure (a fresh
-    ``Trainer.init``)."""
+    ``Trainer.init``, under ``mesh`` the mesh's), and under ``mesh`` each
+    full leaf is cut to this rank's block."""
     flat = flatten(template.params)
     device = next(iter(flat.values())).device
     saved = torch.load(os.path.join(path, "train_state.pt"), map_location=device)
     if set(saved["params"]) != set(flat):
         raise ValueError("restore_train_state: the saved params do not match the template")
-    return TrainState(unflatten_like(template.params, saved["params"]), saved["opt_state"],
-                      saved["step"])
+    params, opt_state = saved["params"], saved["opt_state"]
+    if mesh is not None:
+        params, opt_state = _map_state(params, opt_state,
+                                       lambda p, t: mesh_mod.leaf_block(mesh, p, t))
+    return TrainState(unflatten_like(template.params, params), opt_state, saved["step"])
+
+
+def shard_batch(mesh, batch):
+    """This rank's rows of every tensor of the batch: axis 0 split on
+    "data" (lvd_tpu's P("data"))."""
+    if isinstance(batch, dict):
+        return {k: shard_batch(mesh, v) for k, v in batch.items()}
+    return mesh_mod.block(torch.as_tensor(batch), mesh.data, 0)

@@ -1127,3 +1127,44 @@ def test_tiny_unet2d_and_sdxl_refiner_on_card_match_cpu(cuda, monkeypatch):
     err = np.abs(got - ref).max() / np.abs(ref).max()
     print(f"tiny SDXL refiner on the card vs its CPU run: {err:.3g}")
     assert got.shape == (64, 96, 3) and err <= FP32_TOL
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_collectives_on_cuda_tensors_over_gloo(cuda, dtype, tmp_path):
+    """parallel/comm.py's collectives and their VJPs on CUDA tensors of two
+    gloo ranks sharing the card (the smoke's sharded phase): each result
+    comes back on the card and equals its definition on the seeded
+    blocks; the gradient of 0.5 |y|^2 is x for the all_to_all, x where the
+    ppermute sends (zeros on the last rank), the all_reduced result for the
+    psum and n x for the all_gather."""
+    import _torch_parallel_ranks as ranks
+    from lvd_tpu_torch.parallel.launch import RankPool
+
+    with RankPool(2, str(tmp_path), timeout=300) as pool:
+        outs = pool.run(ranks.comm_on_card, dtype)
+    check_collectives(outs, dtype, "cuda")
+
+
+def check_collectives(outs, dtype, device):
+    import numpy as np
+
+    full = outs[0][0]
+    n = full.shape[0]
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == "bfloat16" else dict(rtol=1e-6, atol=1e-6)
+    rounded = lambda a: torch.from_numpy(a).to(getattr(torch, dtype)).float().numpy()
+    blocks = [rounded(full[r]) for r in range(n)]
+    for r, (_, got) in enumerate(outs):
+        assert all(d == device for *_, dy, dg in got.values() for d in (dy, dg))
+        x = blocks[r]
+        total = sum(blocks)
+        want = {
+            "psum": (total, n * total),
+            "all_to_all": (np.concatenate([b.reshape(n, -1, 6, 8)[r] for b in blocks], axis=1),
+                           x),
+            "ppermute": (blocks[r - 1] if r else np.zeros_like(x),
+                         x if r < n - 1 else np.zeros_like(x)),
+            "all_gather": (np.concatenate(blocks, axis=0), n * x),
+        }
+        for name, (y, g) in want.items():
+            np.testing.assert_allclose(got[name][0], y, **tol, err_msg=f"{name} rank {r}")
+            np.testing.assert_allclose(got[name][1], g, **tol, err_msg=f"{name} grad rank {r}")

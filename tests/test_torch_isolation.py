@@ -57,6 +57,18 @@ def test_source_imports_neither_jax_nor_lvd_tpu(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_source_scan_covers_the_parallel_package():
+    """The scan above reaches parallel/ (the collectives, the mesh, the
+    census, the ranks) and the rank tasks of the sharded tests, which the
+    ranks import without jax."""
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"parallel/comm.py", "parallel/mesh.py", "parallel/audit.py",
+            "parallel/launch.py"} <= scanned
+    helper = REPO / "tests" / "_torch_parallel_ranks.py"
+    bad = [m for m in _imported_modules(helper) if m.split(".")[0] in ("jax", "jaxlib", "lvd_tpu")]
+    assert not bad, bad
+
+
 def test_entry_points_raise_without_card(monkeypatch):
     from lvd_tpu_torch.models.loader import params_from_numpy
     from lvd_tpu_torch.pipeline import TextToVideoPipeline

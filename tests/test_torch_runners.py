@@ -49,7 +49,7 @@ def test_segment_boundaries_match(monkeypatch):
 
     guided, grounded = set(), []
 
-    def unet(params, cfg, lat_in, timestep, text, gligen=None):
+    def unet(params, cfg, lat_in, timestep, text, gligen=None, spmd_axis=None):
         grounded.append(gligen is not None)
         return torch.zeros_like(lat_in)
 

@@ -14,15 +14,15 @@ lvd_tpu's on the CPU, fp32.
   ``UPDATE_L2_TOL`` (L2) of lvd_tpu's;
 - the checkpoint round trip: a state saved after one step and restored
   into a fresh ``Trainer.init`` continues bit for bit like the state that
-  never stopped;
-- a mesh is refused with an error naming ROADMAP A5.
+  never stopped.
 
 lvd_tpu's step is compiled once a module, for tests/test_parallel.py's
 batch shapes and learning rate (the compile cache holds that executable).
 The adapter-only step is held to lvd_tpu's in
 tests/test_torch_train_adapter.py; the weight gradients through the pair's
 and the GEGLU's Functions, which the tiny UNet routes neither of, in
-tests/test_torch_weight_grads.py.
+tests/test_torch_weight_grads.py; the mesh trainer in
+tests/test_torch_parallel_train.py.
 """
 
 import jax
@@ -244,11 +244,3 @@ def test_step_updates_the_state_in_place(full_runs):
     assert {p: t.data_ptr() for p, t in new.opt_state["mu"].items()} == mu
     for path, v in flatten(new.params).items():
         np.testing.assert_array_equal(v.numpy(), got[0][0][path])
-
-
-def test_mesh_is_refused_until_roadmap_a5():
-    trainer = ttrain.Trainer(unet_cfg=tcfg.tiny_unet_config())
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        trainer.init({}, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        trainer.make_step(mesh=object())
