@@ -14,7 +14,8 @@ Phases, each fatal on failure:
                also at the GLIGEN fuser's ragged key counts, K and V at the
                start of NaN-tailed buffers), in
                bf16, against its plain PyTorch version on fp32 copies, and
-               each kernel in fp32 at its largest shape against the plain
+               each kernel in fp32 at its largest shape, and B, C, F and G
+               at the train step's shapes, against the plain
                version in fp32 with TF32 off (gate 5e-3 and below the bf16
                reading) (lvd_tpu_torch.ops.selfcheck), timed with CUDA
                events: the forwards A-D and I (resnet convs, row 12) at the
@@ -24,7 +25,8 @@ Phases, each fatal on failure:
                head, row 1, D = 64 to 256), conv3x3() (I without prologue,
                row 13) and geglu_mlp() where it streams (J, row 9); B, F, G
                and J also time their first versions beside their wgmma
-               forms; then the upsample path's shapes: A, B, C and D at the
+               forms (F and G in fp32 too); then the upsample path's
+               shapes: A, B, C and D at the
                Zeroscope-XL refine's 576x1024 CFG forward (A's
                self-attention at 9216 keys), A at the SDXL refiner's 12-
                and 24-head shapes, and D where lvd_tpu routes its kernel
@@ -43,8 +45,11 @@ Phases, each fatal on failure:
                walk whose kernel branches are cut out of the gradient must
                fail both gates;
   6. generation - unguided Zeroscope text-to-video at full width (all UNet,
-               CLIP and VAE widths, 24 frames, 576x320, CFG 9.0) from seeded
-               random bf16 weights, 4 DPM-Solver++ steps, through the entry
+               CLIP and VAE widths, 24 frames, 576x320, CFG 9.0) from
+               lvd_tpu's random weights (seed 0 in its JAX key order, drawn on
+               the card in bf16 by load_pipeline_models under
+               LVD_ALLOW_RANDOM_WEIGHTS=1, as every phase of this script
+               draws them), 4 DPM-Solver++ steps, through the entry
                points a user calls; launch counts are zeroed just before and
                read just after, and every forward kernel A-D must have run,
                every B, C and D launch in its new form (wgmma); then the
@@ -57,11 +62,16 @@ Phases, each fatal on failure:
                every kernel A-G must have run, B, C, D, F and G in their new
                form;
   8. certification - guidance_effect at full width, 16 guided updates at
-               the first timestep: the in-box attention share must rise by
-               more than lvd_tpu's flagship gate (gain > 1.004) and the
-               attention's CoM must move toward the box;
-  9. gligen  - the lvd-gligen_zeroscope preset at full width (seeded random
-               bf16 weights, the fusers' gates open at 0.5, the PositionNet's
+               the first timestep, lvd_tpu's two certificates: on the
+               flagship layout the in-box attention share must rise by more
+               than its gate (gain > 1.004) and the attention's CoM must
+               move toward the box; on bench.py's 2-object layout (a cat
+               and a chair, three-token phrases) the gain must exceed
+               1.0008; each printed beside lvd_tpu's reading on the same
+               weights (1.00683, 1.00111);
+  9. gligen  - the lvd-gligen_zeroscope preset at full width (lvd_tpu's
+               key-order bf16 weights, its gated init_unet3d, the fusers'
+               gates open at 0.5, the PositionNet's
                null features drawn) through runners.lvd_gligen.run: bench.py's
                flagship track as a six-frame layout, the phrase "bear", 4
                steps at beta 0.5, so the fuser runs in steps 0-1 and not in
@@ -117,12 +127,17 @@ Phases, each fatal on failure:
                a grounding pack of 2 boxes in 30 slots, the weights drawn on
                the card in lvd_tpu's key order: 3 adapter-only steps on one
                fixed batch (losses finite, every frozen leaf bit-unchanged,
-               every fuser and position_net leaf moved, A-G launched), then
-               one full-finetune gradient through the kernels against the
-               plain route (plain_route(), TF32 off; loss within 1e-3, the
-               flattened gradient within 1e-2 L2), and one full Trainer
-               step; seconds per step and peak memory (at the most frames
-               that fit, if 24 do not);
+               every fuser and position_net leaf moved, A-G launched, F
+               and G only in their fp32 wgmma forms, TF32, never their first
+               versions), then one full-finetune gradient through the kernels
+               against the plain route (plain_route(), TF32 off; loss within
+               1e-3, the flattened gradient within 1e-2 L2), and one full
+               Trainer step; seconds per step and peak memory; then each of
+               the two steps broken down: its launches of B, C, F, G and J by
+               shape, and with F's and G's fp32 forms first in their first
+               versions, then in their wgmma forms, one step's seconds and
+               peak memory and the device ms by kernel and by kernel symbol
+               (form) of a profiled step;
  12e. image  - the 2D image path at SD 1.x widths (UNet2DConfig()), 512x512
                (64x64 latents), bf16, weights drawn on the card in lvd_tpu's
                key order: encode_prompts on a ViT-L/14-wide CLIP, two
@@ -157,8 +172,11 @@ Phases, each fatal on failure:
                320, 576, 3); (d) one adapter-only fp32 step of the gated
                Zeroscope (gates open) at 8 frames, batch 2, under meshes
                (data 2, model 1) and (1, 2) against the unsharded step:
-               loss 1e-3 relative, each trained leaf's gradient (AdamW's
-               first moment) 1e-2 L2; each leaf's update 1e-2 L2 against
+               loss 1e-3 relative, the gradient (AdamW's first moment,
+               flattened) 1e-2 L2 and each trained leaf's no more than 1e-2
+               (L2) further from the exact fp32 gradient (the plain route,
+               TF32 off) than the unsharded step's (the per-leaf gap to the
+               unsharded step printed beside it); each leaf's update 1e-2 L2 against
                the one AdamW makes from the step's own gradient, and
                against the unsharded update over the elements whose
                reference gradient exceeds the gradient gate's budget, so
@@ -239,11 +257,16 @@ GRADIENT_L2_TOL = 0.2
 FP32_REFERENCE_TOL = 5e-3
 # lvd_tpu's two opt-in switches, set for the knob phase's child process.
 KNOBS = {"LVD_ENABLE_FUSED_SC": "1", "LVD_FUSED_LINEAR": "1"}
-# lvd_tpu's flagship certification gate (bench.py, certify).
+# lvd_tpu's certification gates (bench.py, certify): the flagship layout,
+# and the 2-object layout (no CoM gate); its bench read 1.00683 and 1.00111
+# on lvd_tpu's key-order weights (BENCH_r05.json), which the smoke draws.
 CERT_MIN_GAIN = 1.004
+CERT_MULTI_MIN_GAIN = 1.0008
+LVD_TPU_GAIN, LVD_TPU_GAIN_MULTI = 1.00683, 1.00111
 CERT_ITERS = 16
 GUIDED_STEPS, GUIDED_INDEX_STEP = 4, 2  # guided generation: guidance on steps 0 and 1
 FLAG_PROMPT = "A bear walks from the left to the right, forest background"
+MULTI_PROMPT = "A white fluffy cat walks toward a brown wooden chair, living room background"
 
 
 def log(msg):
@@ -300,14 +323,15 @@ def build_phase(torch):
     for c in (320, 512, 640):  # kernels B, F and G at the path's widths
         smem[f"B wgmma bf16 C={c}"] = lib.lvd_temporal_pair_smem(c // 64)
         smem[f"F wgmma bf16 C={c}"] = lib.lvd_temporal_pair_bwd_smem(c // 64)
-        smem[f"G wgmma bf16 C={c}"] = lib.lvd_geglu_bwd_smem(c)
+        smem[f"G wgmma bf16 C={c}"] = lib.lvd_geglu_bwd_smem(c, 0)
+        smem[f"G wgmma fp32 C={c}"] = lib.lvd_geglu_bwd_smem(c, 1)
     log(f"[build] A-I dynamic shared memory per block (bytes): {json.dumps(smem)}")
 
 
 # Sources whose kernels get one ptxas record each (registers, spills).
 PTXAS_SOURCES = ("packed_attention.cu", "packed_attention_bwd.cu", "linear.cu", "conv3x3.cu",
                  "geglu.cu", "temp_conv.cu", "temporal_attention.cu", "geglu_bwd.cu",
-                 "temporal_attention_bwd.cu", "geglu_stream.cu")
+                 "temporal_attention_bwd.cu", "geglu_stream.cu", "pair_bwd_tf32.cu")
 
 
 def ptxas_summary(build_log, sources):
@@ -377,6 +401,30 @@ def seeded_latents(torch, seed=0):
     from lvd_tpu_torch.utils import prng
 
     return torch.from_numpy(prng.normal(seed, (1, 24, 40, 72, 4))).cuda()
+
+
+def lvd_tpu_models(torch, preset):
+    """lvd_tpu's random weights for ``preset``, seed 0 in its JAX key order
+    (models/init.py), drawn on the card in bf16: load_pipeline_models under
+    LVD_ALLOW_RANDOM_WEIGHTS=1 with no checkpoint root, as the cli phase's
+    CLI draws them."""
+    from lvd_tpu_torch.models.loader import load_pipeline_models
+
+    keys = ("LVD_ALLOW_RANDOM_WEIGHTS", "LVD_CHECKPOINT_ROOT")
+    saved = {k: os.environ.pop(k, None) for k in keys}
+    os.environ["LVD_ALLOW_RANDOM_WEIGHTS"] = "1"
+    try:
+        t0 = time.perf_counter()
+        models = load_pipeline_models(preset, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"[weights] {preset}: lvd_tpu's key-order draw on the card in "
+            f"{time.perf_counter() - t0:.2f} s")
+        return models
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
 
 
 def _undegenerate(tree, gen, torch):
@@ -555,14 +603,16 @@ def read_forms():
             if hasattr(fn, "launches_by_form")}
 
 
-def check_new_forms(phase, forms, redesigned=()):
-    """Fails unless every launch of B-D and F-J took the new form (wgmma in
-    bf16, mma_sync in fp32): every UNet and conv3x3() shape has Cin and
-    Cout % 64 == 0, and only other widths take I's WMMA form; C's WMMA form
-    is kept for fp32 C > 384, B's, F's, G's and J's first versions (WMMA)
-    for fp32, which the bf16 paths this is called on never reach. Each
-    wrapper of ``redesigned`` must have launched its wgmma form."""
-    old = {name: f["wmma"] for name, f in forms.items() if f.get("wmma")}
+def check_new_forms(phase, forms, redesigned=(), first=()):
+    """Fails unless every launch of B-D and F-J took its new form (wgmma in
+    bf16, and in fp32 wgmma for F and G, mma_sync for C and D): every UNet
+    and conv3x3() shape has Cin and Cout % 64 == 0, and only other widths
+    take I's WMMA form; C's WMMA form is kept for fp32 C > 384, B's and
+    J's first versions (WMMA) for fp32, which the bf16 paths this is called
+    on never reach. ``first`` names the wrappers whose first version the
+    path may launch (B on the fp32 train path). Each wrapper of
+    ``redesigned`` must have launched its wgmma form."""
+    old = {name: f["wmma"] for name, f in forms.items() if f.get("wmma") and name not in first}
     if old:
         raise SystemExit(f"[{phase}] launches of the WMMA form on the path: {old}")
     idle = [name for name in redesigned if forms[name]["wgmma"] <= 0]
@@ -677,22 +727,44 @@ def guided_generation_phase(torch, models, kernels=GUIDED_KERNELS):
     return pipe, launches
 
 
-def certification_phase(torch, pipe):
-    """lvd_tpu's flagship certificate at full width (bench.py's certify)."""
+def multi_guidance(frames=24):
+    """bench.py's 2-object layout (its benchmark-protocol shape): a cat
+    moving right toward a fixed chair, multi-token phrases, the flagship's
+    GuidanceConfig."""
+    guide = flagship_guidance(frames)
+    move = lambda f: 0.55 * f / max(frames - 1, 1)
+    guide["boxes"] = [[[0.05 + move(f), 0.45, 0.30 + move(f), 0.80] for f in range(frames)],
+                      [[0.65, 0.40, 0.95, 0.85] for _ in range(frames)]]
+    guide["object_positions"] = [[2, 3, 4], [9, 10, 11]]
+    return guide
+
+
+def _certify(torch, pipe, label, prompt, guide, min_gain, check_com, lvd_tpu_gain):
     from lvd_tpu_torch.diffusion.certify import guidance_effect
 
-    guide = flagship_guidance()
-    cond = pipe.encode_prompt(FLAG_PROMPT, "dull, blurry")[1:].to(torch.bfloat16)
+    cond = pipe.encode_prompt(prompt, "dull, blurry")[1:].to(torch.bfloat16)
     t0 = time.perf_counter()
     eff = guidance_effect(pipe.unet_params, pipe.preset.unet, pipe.preset.scheduler,
                           seeded_latents(torch).bfloat16(), cond, guidance_tensors(guide),
                           guide["attn_keys"], guide["config"], num_inference_steps=40,
                           n_iters=CERT_ITERS)
-    log(f"[certify] {json.dumps(eff)} in {time.perf_counter() - t0:.2f} s "
-        f"(gates: gain > {CERT_MIN_GAIN}, CoM distance falling)")
-    if not (eff["gain"] > CERT_MIN_GAIN and eff["com_dist_after"] < eff["com_dist_before"]):
-        raise SystemExit("[certify] guidance did not move attention into the box")
+    log(f"[certify] {label}: {json.dumps(eff)} in {time.perf_counter() - t0:.2f} s (gates: "
+        f"gain > {min_gain}{', CoM distance falling' if check_com else ''}; lvd_tpu's bench "
+        f"read gain {lvd_tpu_gain} on these weights, BENCH_r05.json)")
+    if not (eff["gain"] > min_gain
+            and (not check_com or eff["com_dist_after"] < eff["com_dist_before"])):
+        raise SystemExit(f"[certify] {label}: guidance did not move attention into the boxes")
     return eff
+
+
+def certification_phase(torch, pipe):
+    """lvd_tpu's two certificates at full width (bench.py's certify): the
+    flagship layout (gain > 1.004, CoM distance falling) and the 2-object
+    layout (gain > 1.0008)."""
+    return {"flagship": _certify(torch, pipe, "flagship", FLAG_PROMPT, flagship_guidance(),
+                                 CERT_MIN_GAIN, True, LVD_TPU_GAIN),
+            "multi": _certify(torch, pipe, "2-object", MULTI_PROMPT, multi_guidance(),
+                              CERT_MULTI_MIN_GAIN, False, LVD_TPU_GAIN_MULTI)}
 
 
 # GLIGEN: bench.py's flagship track (one box moving left to right) as the
@@ -713,12 +785,11 @@ FUSER_LONG_KEYS = (2910, 750)  # S + 30 grounding tokens at L0 and L1
 
 
 def gligen_models(torch):
-    """The lvd-gligen_zeroscope preset at full width, seeded random bf16
-    weights, the fusers' gates open (``_undegenerate``)."""
-    from lvd_tpu_torch.models.loader import random_pipeline_models
-
+    """The lvd-gligen_zeroscope preset at full width, lvd_tpu's key-order
+    bf16 weights (its gated ``init_unet3d``), the fusers' gates open
+    (``_undegenerate``)."""
+    models = lvd_tpu_models(torch, "lvd-gligen_zeroscope")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    models = random_pipeline_models("lvd-gligen_zeroscope", gen, "cuda", torch.bfloat16)
     models.unet_params = _undegenerate(models.unet_params, gen, torch)
     return models
 
@@ -1407,8 +1478,9 @@ def train_batch(torch, cfg, frames, seed=11):
             "gligen": {"boxes": boxes, "masks": masks, "positive_embeddings": embs}}
 
 
-def _loss_and_grads(torch, cfg, params, batch, key):
-    """diffusion_loss at the params and its gradient for every leaf, fp32."""
+def _loss_and_grads(torch, cfg, params, batch, key, trains=None):
+    """diffusion_loss at the params and its gradient for every leaf (or for
+    each leaf ``trains`` names), fp32."""
     from lvd_tpu_torch.config import SchedulerConfig
     from lvd_tpu_torch.diffusion import schedule
     from lvd_tpu_torch.training import train as tr
@@ -1417,10 +1489,12 @@ def _loss_and_grads(torch, cfg, params, batch, key):
     abar = schedule.make_alphas_cumprod(SchedulerConfig())
     tables = [torch.tensor(np.asarray(v, np.float32), device="cuda")
               for v in (abar ** 0.5, (1.0 - abar) ** 0.5)]
-    leaves = {p: t.detach().requires_grad_(True) for p, t in flatten(params).items()}
+    leaves = {p: t.detach().requires_grad_(trains is None or trains(p))
+              for p, t in flatten(params).items()}
     loss = tr.diffusion_loss(unflatten_like(params, leaves), cfg, *tables, batch, key)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    return loss.detach(), dict(zip(leaves, grads))
+    wanted = [p for p, t in leaves.items() if t.requires_grad]
+    grads = torch.autograd.grad(loss, [leaves[p] for p in wanted])
+    return loss.detach(), dict(zip(wanted, grads))
 
 
 def _timed_steps(torch, step, state, batch, keys):
@@ -1432,6 +1506,65 @@ def _timed_steps(torch, step, state, batch, keys):
         losses.append(loss.item())
         seconds.append(time.perf_counter() - t0)
     return state, losses, seconds
+
+
+# Kernels whose fp32 forms were redesigned for Hopper: the train phase's
+# adapter-only steps must launch their wgmma forms and never their first
+# (WMMA) versions (probes/train_step_forms.py times the step with both).
+TRAIN_REDESIGNED = ("temporal_attention_pair_bwd", "geglu_mlp_bwd")
+
+
+@contextlib.contextmanager
+def kernel_shape_census(counts):
+    """Counts the launches of kernels B, C, F, G and J by (kernel, shape,
+    type) into ``counts``, through their wrappers; the launches made while
+    it is on reach no launch counter that read_launches() reads."""
+    from lvd_tpu_torch.ops import geglu_fused, temporal_attention
+    from lvd_tpu_torch.ops.plain import swapped
+
+    def counted(kernel, fn, arg):
+        def call(*args, **kwargs):
+            t = args[arg]
+            key = f"{kernel} {list(t.shape)} {str(t.dtype).replace('torch.', '')}"
+            counts[key] = counts.get(key, 0) + 1
+            return fn(*args, **kwargs)
+        # A wrapper counts its launches on itself, by its module-level name.
+        call.launches = 0
+        if hasattr(fn, "launches_by_form"):
+            call.launches_by_form = dict.fromkeys(fn.launches_by_form, 0)
+        return call
+
+    with swapped([
+            (temporal_attention, "_launch_forward",
+             counted("B", temporal_attention._launch_forward, 1)),
+            (temporal_attention, "temporal_attention_pair_bwd",
+             counted("F", temporal_attention.temporal_attention_pair_bwd, 1)),
+            (geglu_fused, "_launch_forward", counted("C", geglu_fused._launch_forward, 1)),
+            (geglu_fused, "geglu_mlp_bwd", counted("G", geglu_fused.geglu_mlp_bwd, 1)),
+            (geglu_fused, "geglu_stream", counted("J", geglu_fused.geglu_stream, 1))]):
+        yield
+
+
+def train_breakdown(torch, label, step, state, batch, key):
+    """One train step's breakdown: its launches of B, C, F, G and J by shape,
+    then the step's seconds and peak memory (one step) and its device ms by
+    kernel and by kernel symbol (the form) under the profiler (two more
+    steps)."""
+    counts = {}
+    with kernel_shape_census(counts):
+        state, _ = step(state, batch, key)
+    log(f"[train] {label}: launches a step by kernel, shape and type: {json.dumps(counts)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, loss = step(state, batch, key)
+    loss = loss.item()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train] {label}: one step {seconds:.3f} s, loss {loss:.6g}, max_memory_allocated "
+        f"{peak:.3f} GiB")
+    prof = _profile(torch, f"{label} step", lambda: step(state, batch, key))
+    return state, {"launches": counts, "seconds": seconds, "peak_gib": peak, **prof}
 
 
 def train_phase(torch):
@@ -1483,6 +1616,9 @@ def train_phase(torch):
         raise SystemExit(f"[train] adapter-only: losses {losses}, frozen leaves changed "
                          f"{changed[:5]}, trained leaves that never moved {still[:5]}, kernels "
                          f"never launched {missing}")
+    check_new_forms("train", forms, TRAIN_REDESIGNED, first=("temporal_attention_pair",))
+    state, _ = train_breakdown(torch, "adapter-only", trainer.make_step(), state, batch,
+                               prng.prng_key(TRAIN_STEPS))
     del state, trainer, frozen, trained, after
     torch.cuda.empty_cache()
 
@@ -1550,6 +1686,7 @@ def full_step_check(torch, cfg, params):
         f"moments included); launches {json.dumps(read_launches())}")
     if not math.isfinite(losses[0]):
         raise SystemExit("[train] the full-finetune step's loss is not finite")
+    state, _ = train_breakdown(torch, "full-finetune", trainer.make_step(), state, batch, key)
     del state, own, trainer
 
 
@@ -1800,6 +1937,10 @@ def _profile(torch, label, fn):
     log(f"[profile] {label}: wall {wall_ms:.3f} ms (CUDA events, profiler on), "
         f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}")
     log(f"[profile] {label}, device ms by kernel: {json.dumps(split)}")
+    by_symbol = {k[:120]: [round(ms, 3), n] for k, (ms, n) in sorted(
+        by_name.items(), key=lambda kv: -kv[1][0]) if k in ours}
+    log(f"[profile] {label}, the kernels' device ms and calls by symbol (form): "
+        f"{json.dumps(by_symbol)}")
     kinds = {}
     for ms, n, k in stock:
         kind = next((kind for kind, subs in STOCK_KINDS if any(sub in k for sub in subs)),
@@ -1811,6 +1952,7 @@ def _profile(torch, label, fn):
         f"{json.dumps({k: [round(ms, 3), n] for k, (ms, n) in kinds.items()})}")
     for ms, n, k in stock[:30]:
         log(f"[profile] {label}, stock {ms:.3f} ms in {n} calls: {k[:300]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "split": split, "by_symbol": by_symbol}
 
 
 def knob_child(torch) -> int:
@@ -1821,12 +1963,10 @@ def knob_child(torch) -> int:
     missing = [k for k, v in KNOBS.items() if os.environ.get(k) != v]
     if missing:
         raise SystemExit(f"[knobs] switches not set: {missing}")
-    from lvd_tpu_torch.models.loader import random_pipeline_models
     from lvd_tpu_torch.ops import _build
 
     _build.lib()
-    models = random_pipeline_models(
-        "zeroscope", torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    models = lvd_tpu_models(torch, "zeroscope")
     zero_launches()
     reference_phase(torch, models)
     ref_launches = read_launches()
@@ -2073,6 +2213,38 @@ def _masked_update_err(torch, update, ref, grad, g_ref):
             int((flips & keep).sum()), int(keep.sum()), keep.numel())
 
 
+def _exact_first_moment(torch, cfg, params, batch, key):
+    """AdamW's first moment after a first adapter-only step, (1 - b1) g, from
+    the exact fp32 gradient of the unsharded step: the plain route with TF32
+    off (as the train phase's reference), each trained leaf."""
+    from lvd_tpu_torch.ops.plain import plain_route
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+    from lvd_tpu_torch.training import train as tr
+
+    tx = tr.make_optimizer(TRAIN_LR, adapter_only=True, params=params)
+    with plain_route(), exact_fp32():
+        _, grads = _loss_and_grads(torch, cfg, params, batch, key, tx.trains)
+    return {p: (1 - tx.b1) * g for p, g in grads.items()}
+
+
+def _leaf_gate(got, ref, exact):
+    """The mesh step's leaf gradient ``got`` against the unsharded step's
+    ``ref``: (gap, gate, exempt), gap = _update_err(got, ref). The gate is
+    TRAIN_GRAD_L2_TOL wherever the unsharded gradient lies within it of the
+    exact fp32 gradient ``exact`` (the plain route, TF32 off). A leaf whose
+    unsharded gradient is itself further than that from exact (a gated
+    fuser's scalar alpha whose gradient is mostly rounding of cancelling
+    terms, ROADMAP C9) is exempt from it and held instead to that distance,
+    |got - ref| <= |ref - exact| (over |ref|): the mesh may move it no
+    further than the kernels' rounding already does."""
+    gap = _update_err(got, ref)
+    if _update_err(ref, exact) <= TRAIN_GRAD_L2_TOL:
+        return gap, TRAIN_GRAD_L2_TOL, False
+    scale = ref.float().norm().item()
+    off = (ref.float() - exact.float()).norm().item()
+    return gap, off / scale if scale > 0 else off, True
+
+
 def _applied_err(torch, tx, start, updates, grads):
     """The worst leaf's update against the one ``tx`` (the step's AdamW)
     makes from the same start on one device with the step's own gradient,
@@ -2271,7 +2443,11 @@ def _sharded_train(torch, rank, out):
     batch 2, under mesh (data 2, model 1) and (1, 2), against the
     unsharded step (rank 0): the loss, and each trained leaf's gradient,
     read from its first moment after the step (AdamW's mu = (1 - b1) * g),
-    the train phase's gates; and each leaf's update (1e-2 L2) against the
+    the train phase's gates: each leaf's gradient (1e-2 L2) against the
+    unsharded step's, bar the leaves named exempt, whose unsharded gradient
+    is itself further than that from the exact fp32 one and which are held
+    to that distance instead (_leaf_gate), and the flattened gradient
+    (1e-2 L2); and each leaf's update (1e-2 L2) against the
     one AdamW makes from the step's own gradient (_applied_err) and against
     the unsharded update over the elements whose gradient's sign the
     gradient gate makes sure (_masked_update_err). On a first AdamW step
@@ -2317,6 +2493,7 @@ def _sharded_train(torch, rank, out):
         return loss.item(), updates, grads, secs, peak, applied
 
     ref = step(None) if rank == 0 else None
+    exact = _exact_first_moment(torch, cfg, params0, batch, key) if rank == 0 else None
     torch.cuda.empty_cache()  # the two ranks and the parent share the card
     for shape in ((2, 1), (1, 2)):
         mesh = mesh_mod.make_mesh(model_parallel=shape[1])
@@ -2325,7 +2502,13 @@ def _sharded_train(torch, rank, out):
         name = f"train_{shape[0]}x{shape[1]}"
         out[name] = {"loss": loss, "s": secs, "peak_gib": peak}
         if rank == 0:
-            worst = max((_update_err(g, ref[2][p]), p) for p, g in grads.items())
+            gates = {p: _leaf_gate(g, ref[2][p], exact[p]) for p, g in grads.items()}
+            worst = max(((gap, p) for p, (gap, _, ex) in gates.items() if not ex),
+                        default=(0.0, None))
+            exempt = {p: {"gap": gap, "bound": gate,
+                          "unsharded_from_exact": _update_err(ref[2][p], exact[p])}
+                      for p, (gap, gate, ex) in gates.items() if ex}
+            misses = sorted((p, gap, gate) for p, (gap, gate, _) in gates.items() if gap > gate)
             num = sum(((g - ref[2][p]).double() ** 2).sum() for p, g in grads.items())
             den = sum((g.double() ** 2).sum() for g in ref[2].values())
             masked = {p: _masked_update_err(torch, u, ref[1][p], grads[p], ref[2][p])
@@ -2333,7 +2516,8 @@ def _sharded_train(torch, rank, out):
             worst_masked = max((m[0], p) for p, m in masked.items())
             out[name].update(
                 loss_ref=ref[0], loss_rel=abs(loss - ref[0]) / abs(ref[0]),
-                worst_grad_l2=worst, grad_l2=math.sqrt(num.item() / den.item()),
+                worst_grad_l2=worst, exempt_leaves=exempt, grad_misses=misses,
+                grad_l2=math.sqrt(num.item() / den.item()),
                 worst_update_l2=max((_update_err(u, ref[1][p]), p) for p, u in updates.items()),
                 worst_update_l2_masked=worst_masked, worst_applied_l2=applied,
                 grad_sign_flips=sum(m[1] for m in masked.values()),
@@ -2343,14 +2527,17 @@ def _sharded_train(torch, rank, out):
                 leaves=len(updates), s_unsharded=ref[3], peak_gib_unsharded=ref[4])
         _report(rank, f"(d) adapter-only step, mesh {shape}", out, (name,))
         if rank == 0 and not (out[name]["loss_rel"] <= TRAIN_LOSS_TOL
-                              and worst[0] <= TRAIN_GRAD_L2_TOL
+                              and not misses
+                              and out[name]["grad_l2"] <= TRAIN_GRAD_L2_TOL
                               and worst_masked[0] <= TRAIN_UPDATE_L2_TOL
                               and applied[0] <= TRAIN_UPDATE_L2_TOL
                               and set(grads) == set(ref[2])):
             raise SystemExit(f"[sharded] (d) the {shape} mesh step disagrees with the "
-                             f"unsharded step: loss {out[name]['loss_rel']}, worst leaf "
-                             f"gradient {worst}, worst leaf update (masked) {worst_masked}, "
-                             f"worst leaf update against its own gradient's {applied}")
+                             f"unsharded step: loss {out[name]['loss_rel']}, leaf gradients "
+                             f"over their gate {misses}, gradient (flattened) "
+                             f"{out[name]['grad_l2']}, worst leaf update (masked) "
+                             f"{worst_masked}, worst leaf update against its own gradient's "
+                             f"{applied}")
 
 
 def sharded_rank():
@@ -2456,7 +2643,16 @@ def kernels_line(records, knob_launches, entry_launches, forms, path_launches):
         for key in ("form", "products_ms", "copy_ms", "first_ms", "first_rel_err"):
             if key in main:
                 kernels[-1][key] = main[key]
+        # Its fp32 readings: each shape's form, ms, bound and first version's ms.
+        kernels[-1]["fp32"] = [{k: r[k] for k in ("shape", "form", "ms", "bound_ms", "first_ms",
+                                                   "rel_err") if k in r} for r in f32]
+        if kname in FP32_SOURCES:
+            kernels[-1]["source_fp32"] = FP32_SOURCES[kname]
     return kernels
+
+
+# The kernels whose fp32 form has a source of its own.
+FP32_SOURCES = {"temporal_attention_pair_bwd": "lvd_tpu_torch/csrc/pair_bwd_tf32.cu"}
 
 
 def main() -> int:
@@ -2471,11 +2667,7 @@ def main() -> int:
     name = device_phase(torch)
     build_phase(torch)
     records = kernel_phase()
-
-    from lvd_tpu_torch.models.loader import random_pipeline_models
-
-    models = random_pipeline_models(
-        "zeroscope", torch.Generator(device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+    models = lvd_tpu_models(torch, "zeroscope")
     reference_phase(torch, models)
     gradient_phase(torch, models)
     generation_phase(torch, models)

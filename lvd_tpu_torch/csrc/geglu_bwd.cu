@@ -56,8 +56,26 @@
 // tiles, the 16 KB cotangent tile and the ring, 224 KB at every width
 // (8 stages at C = 320, 5 at 512, 3 at 640).
 //
-// The first version (the `wmma` form; fp32, and bf16 when asked for by
-// name): one block per 32-row tile holds its x and dy rows in shared
+// fp32 (the `wgmma` form on TF32, `geglu_bwd_tf32_kernel`; the same widths):
+// the same block, chunks and warpgroup columns on m64nNk8 TF32 products.
+// TF32 `wgmma` reads both operands K-major only, so GEMM1's B is W1's
+// interleaved copy transposed, (2I, C), which the wrapper stages once a
+// call beside it; every operand (x, dy, both W1 copies, W2) is rounded to
+// TF32 once a call by `geglu_bwd_round_kernel` (round to nearest, ties
+// away: the first version's load rounding), and the cotangents in the
+// gate. A tile is twice bf16's bytes, so only x stays resident (64 x C
+// fp32, C/32 128-byte boxes): dy's K-tiles come through the ring beside
+// W2's, one 16 KB stage (dy 64 x 32, W2 64 x 32) per 32 columns of C. A
+// chunk takes C/32 GEMM1 stages (both warpgroups' 64 rows of W1^T x 32),
+// C/32 d_inner stages and NW/16 GEMM2 stages (for each warpgroup 16 rows
+// of the interleaved W1 x the chunk's 128 columns, four 2 KB boxes), with
+// m64n64 / m64n32 / m64n16 products; dx in 16-column pieces, NW/2 fp32
+// accumulators a thread. Shared memory: x (64 C x 4 bytes), the 32 KB
+// cotangent tile (four 64 x 32 K-tiles) and the ring: 7 stages at C = 320,
+// 6 at 384, 4 at 512, 2 at 640, 227 KB at most.
+//
+// The first version (the `wmma` form, when asked for by name, in either
+// type): one block per 32-row tile holds its x and dy rows in shared
 // memory and walks the inner dimension in 64-wide chunks: h, g and d_inner
 // for the chunk come from WMMA products (fp32); the two gated cotangents
 // are rounded to the stream's type in shared memory; dx accumulates in an
@@ -643,6 +661,295 @@ cudaError_t launch_wgmma(const void* x, const void* dy, const void* w1, const vo
   return cudaGetLastError();
 }
 
+// ---- fp32: TMA weight ring + TF32 wgmma ----
+
+template <int NF>
+struct WgBwdF32 {
+  static constexpr int BM = 64;                  // rows a block
+  static constexpr int kThreads = 2 * 128 + 32;  // consumer warpgroups, then the producer warp
+  static constexpr int C = 64 * NF;
+  static constexpr int NK = 2 * NF;               // 32-column (128-byte) K-tiles of C
+  static constexpr int kSplit = NF >= 6 ? 2 : 1;  // blocks on one 64-row tile
+  static constexpr int NW = C / (2 * kSplit);     // dx columns of one warpgroup
+  static constexpr int NG = NW / 16;              // its 16-column GEMM2 pieces (stages)
+  static constexpr int U = 2 * NK + NG;           // stages an inner chunk takes
+  static constexpr int kStage = 16384;            // two 64 x 32 fp32 boxes (or eight 16 x 32)
+  static constexpr int kX = NK * 8192;            // the x tile
+  static constexpr int kCot = 4 * 8192;           // the cotangent tile: four 64 x 32 K-tiles
+  static constexpr int kFixed = kX + kCot + 256 + 1024;  // + barriers, alignment slack
+  static constexpr int kFit = (kMaxSmem - kFixed) / kStage;
+  static constexpr int kStages = kFit > 8 ? 8 : kFit;
+  static constexpr int kSmem = kStages * kStage + kFixed;
+  static_assert(kStages >= 2, "the fp32 ring needs two stages");
+};
+
+template <int NF>
+__global__ void __launch_bounds__(WgBwdF32<NF>::kThreads, 1)
+geglu_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_dy,
+                      const __grid_constant__ CUtensorMap tm_w1t,
+                      const __grid_constant__ CUtensorMap tm_w1n,
+                      const __grid_constant__ CUtensorMap tm_w2, const float* __restrict__ b1,
+                      float* __restrict__ dx, int R, int I, int exact) {
+  using G = WgBwdF32<NF>;
+  constexpr int NS = G::kStages, U = G::U, C = G::C, NW = G::NW, NK = G::NK;
+  constexpr int kPair = NS >= 4 ? 2 : 1;  // K-tiles a GEMM1 group (one group in flight)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ring = smem;
+  float* xs = reinterpret_cast<float*>(smem + NS * G::kStage);
+  float* cot = xs + NK * 2048;
+  uint64_t* full = reinterpret_cast<uint64_t*>(cot + 4 * 2048);
+  uint64_t* empty = full + NS;
+  uint64_t* xfull = empty + NS;
+  const int r0 = blockIdx.x * G::BM;
+  const int n0 = blockIdx.y * 2 * NW;  // this block's first dx column
+  const int nk = I / 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8);  // every consumer warp
+    }
+    hop::mbar_init(xfull, 1);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer warp: one lane issues every TMA load
+    if (lane == 0) {
+      hop::mbar_expect_tx(xfull, G::kX);
+      for (int kt = 0; kt < NK; ++kt) hop::tma_load_2d(xs + kt * 2048, &tm_x, xfull, 32 * kt, r0);
+      // Stage v (chunk k = v / U, j = v % U): for j < NK, K-tile j of W1^T's
+      // rows 128 k + 64 h .. (warpgroup h's [h32 | g32], interleaved); then
+      // for e = j - NK < NK, K-tile e of dy's rows and of W2's rows 64 k ..;
+      // then for piece p, for each warpgroup, 16 rows n0 + NW wg + 16 p .. of
+      // the interleaved W1 x its columns 128 k + 32 h .., at (4 wg + h) * 2 KB.
+      for (int v = 0; v < nk * U; ++v) {
+        const int s = v % NS, k = v / U, j = v % U;
+        if (v >= NS) hop::mbar_wait(&empty[s], (v / NS - 1) & 1);
+        float* st = reinterpret_cast<float*>(ring + s * G::kStage);
+        hop::mbar_expect_tx(&full[s], G::kStage);
+        if (j < NK) {
+          for (int h = 0; h < 2; ++h)
+            hop::tma_load_2d(st + h * 2048, &tm_w1t, &full[s], 32 * j, 128 * k + 64 * h);
+        } else if (j < 2 * NK) {
+          hop::tma_load_2d(st, &tm_dy, &full[s], 32 * (j - NK), r0);
+          hop::tma_load_2d(st + 2048, &tm_w2, &full[s], 32 * (j - NK), 64 * k);
+        } else {
+          const int p = j - 2 * NK;
+          for (int wg = 0; wg < 2; ++wg)
+            for (int h = 0; h < 4; ++h)
+              hop::tma_load_2d(st + (4 * wg + h) * 512, &tm_w1n, &full[s], 128 * k + 32 * h,
+                               n0 + NW * wg + 16 * p);
+        }
+      }
+    }
+    return;
+  }
+  auto wait_full = [&](int uu) { hop::mbar_wait(&full[uu % NS], (uu / NS) & 1); };
+  auto stage = [&](int uu) { return reinterpret_cast<const float*>(ring + (uu % NS) * G::kStage); };
+
+  // Warpgroup wg: inner columns 64 k + 32 wg .. + 31 of each chunk, dx
+  // columns n0 + NW wg .. + NW - 1.
+  const int wg = warp / 4, wq = warp % 4;
+  const int r4 = lane / 4, cq = 2 * (lane % 4);
+  float acc[G::NG][8];
+#pragma unroll
+  for (int p = 0; p < G::NG; ++p)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[p][e] = 0.f;
+  float hg[32], dd[16];
+  // Stages are consumed in order; `done` is the first not yet released.
+  int u = 0, done = 0;
+  auto release_to = [&](int end) {
+    for (; done < end; ++done) {
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[done % NS]);
+    }
+  };
+  hop::mbar_wait(xfull, 0);
+  for (int k = 0; k < nk; ++k) {
+    // GEMM1: [h | g] = x [W1h | W1g] over C, kPair K-tiles a group; its
+    // first wait retires the previous chunk's last GEMM2 group.
+#pragma unroll
+    for (int kt = 0; kt < NK; kt += kPair) {
+      const int n = NK - kt < kPair ? NK - kt : kPair;
+      wait_full(u);
+      if (n == 2) wait_full(u + 1);
+      hop::fence_regs(hg);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < kPair; ++t) {
+        if (t < n) {
+          const float* Bs = stage(u + t) + wg * 2048;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hop::wgmma_tf32_n64(hg, hop::desc_sw128(xs + (kt + t) * 2048 + kk * 8),
+                                hop::desc_sw128(Bs + kk * 8), kt + t > 0 || kk > 0);
+        }
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();
+      release_to(u);
+      u += n;
+    }
+    // d_inner = dy W2[64 k + 32 wg .. + 31, :]^T, one K-tile of dy and of W2
+    // a stage.
+#pragma unroll
+    for (int e = 0; e < NK; ++e) {
+      wait_full(u);
+      const float* st = stage(u);
+      hop::fence_regs(dd);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_tf32_n32(dd, hop::desc_sw128(st + kk * 8),
+                            hop::desc_sw128(st + 2048 + wg * 1024 + kk * 8), e > 0 || kk > 0);
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();
+      release_to(u);
+      ++u;
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_regs(hg);
+    hop::fence_regs(dd);
+    release_to(u);
+
+    // The gate: inner column i0 + 8 c + cq (+1) has h in hg[4 c (+1)], g in
+    // hg[4 (c + 4) (+1)] and d_inner in dd[4 c (+1)]; + 2 for row r4 + 8.
+    // dh and dg, rounded to TF32 as GEMM2's operand, go to the warpgroup's
+    // two K-tiles of the cotangent tile (64 rows x 32 fp32 each, 16-byte
+    // chunk c of row r at c ^ (r % 8)). Both warpgroups' GEMM2 of the
+    // previous chunk has retired (each one's wait above), so the tile is free
+    // once both are here.
+    hop::bar_sync(1, 256);
+    float* ct = cot + wg * 2 * 2048;
+    const int i0 = 64 * k + 32 * wg;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = 8 * c + cq;
+      const float2 bh = *reinterpret_cast<const float2*>(b1 + i0 + col);
+      const float2 bg = *reinterpret_cast<const float2*>(b1 + I + i0 + col);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float h0 = hg[4 * c + 2 * hf] + bh.x, h1 = hg[4 * c + 2 * hf + 1] + bh.y;
+        const float g0 = hg[4 * (c + 4) + 2 * hf] + bg.x;
+        const float g1 = hg[4 * (c + 4) + 2 * hf + 1] + bg.y;
+        const float d0 = dd[4 * c + 2 * hf], d1 = dd[4 * c + 2 * hf + 1];
+        float u0, du0, u1, du1;
+        gelu_val_grad(g0, exact, u0, du0);
+        gelu_val_grad(g1, exact, u1, du1);
+        const int row = 16 * wq + r4 + 8 * hf;
+        const int at = row * 32 + (((col >> 2) ^ r4) << 2) + (col & 3);
+        *reinterpret_cast<float2*>(ct + at) =
+            make_float2(hop::tf32_rna(d0 * u0), hop::tf32_rna(d1 * u1));
+        *reinterpret_cast<float2*>(ct + 2048 + at) =
+            make_float2(hop::tf32_rna(d0 * h0 * du0), hop::tf32_rna(d1 * h1 * du1));
+      }
+    }
+    hop::fence_proxy_async();
+    hop::bar_sync(2, 256);  // all four K-tiles of the cotangent tile are in place
+
+    // GEMM2: the warpgroup's dx piece p += cot (64 x 128) times its 16 rows
+    // of the interleaved W1 (K-major), one group a stage, each releasing the
+    // stage before it; the last stays in flight under the next GEMM1.
+#pragma unroll
+    for (int p = 0; p < G::NG; ++p, ++u) {
+      wait_full(u);
+      const float* Bs = stage(u) + wg * 4 * 512;
+      hop::fence_regs(acc[p]);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_tf32_n16(acc[p], hop::desc_sw128(cot + h * 2048 + kk * 8),
+                              hop::desc_sw128(Bs + h * 512 + kk * 8), 1);
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();
+      release_to(u);
+    }
+  }
+  hop::wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < G::NG; ++p) hop::fence_regs(acc[p]);
+  release_to(u);
+
+  // dx column n0 + NW wg + 16 p + 8 c + cq (+1) is acc[p][4 c (+1)] (+ 2 for
+  // row r4 + 8).
+  float* dxw = dx + n0 + NW * wg;
+#pragma unroll
+  for (int p = 0; p < G::NG; ++p)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = 16 * p + 8 * c + cq;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r0 + 16 * wq + r4 + 8 * hf;
+        if (row < R)
+          *reinterpret_cast<float2*>(dxw + (size_t)row * C + col) =
+              make_float2(acc[p][4 * c + 2 * hf], acc[p][4 * c + 2 * hf + 1]);
+      }
+    }
+}
+
+template <int NF>
+cudaError_t launch_tf32(const void* x, const void* dy, const void* w1, const void* w1t,
+                        const void* b1, const void* w2, void* dx, int R, int I, int exact,
+                        cudaStream_t stream) {
+  using G = WgBwdF32<NF>;
+  constexpr int C = G::C;
+  CUtensorMap tx, tdy, tw1t, tw1n, tw2;
+  cudaError_t err = make_map_2d_f32(&tx, x, R, C, 64);
+  if (err == cudaSuccess) err = make_map_2d_f32(&tdy, dy, R, C, 64);
+  if (err == cudaSuccess) err = make_map_2d_f32(&tw1t, w1t, 2 * (long long)I, C, 64);
+  if (err == cudaSuccess) err = make_map_2d_f32(&tw1n, w1, C, 2 * I, 16);
+  if (err == cudaSuccess) err = make_map_2d_f32(&tw2, w2, I, C, 64);
+  if (err == cudaSuccess) err = set_smem(geglu_bwd_tf32_kernel<NF>, G::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((R + G::BM - 1) / G::BM, G::kSplit);
+  geglu_bwd_tf32_kernel<NF><<<grid, G::kThreads, G::kSmem, stream>>>(
+      tx, tdy, tw1t, tw1n, tw2, static_cast<const float*>(b1), static_cast<float*>(dx), R, I,
+      exact);
+  return cudaGetLastError();
+}
+
+// The TF32 form at one width, or its shared memory (smem_only).
+template <int NF>
+long long tf32_width(const void* x, const void* dy, const void* w1, const void* w1t,
+                     const void* b1, const void* w2, void* dx, int R, int I, int exact, int split,
+                     cudaStream_t s, bool smem_only) {
+  if (smem_only) return WgBwdF32<NF>::kSmem;
+  if (split != WgBwdF32<NF>::kSplit) return cudaErrorInvalidValue;
+  return launch_tf32<NF>(x, dy, w1, w1t, b1, w2, dx, R, I, exact, s);
+}
+
+long long tf32_c(const void* x, const void* dy, const void* w1, const void* w1t, const void* b1,
+                 const void* w2, void* dx, int R, int C, int I, int exact, int split,
+                 cudaStream_t s, bool smem_only) {
+#define LVD_WIDTH(nf) \
+  tf32_width<nf>(x, dy, w1, w1t, b1, w2, dx, R, I, exact, split, s, smem_only)
+  switch (C / 64) {
+    case 1: return LVD_WIDTH(1);
+    case 2: return LVD_WIDTH(2);
+    case 3: return LVD_WIDTH(3);
+    case 4: return LVD_WIDTH(4);
+    case 5: return LVD_WIDTH(5);
+    case 6: return LVD_WIDTH(6);
+    case 7: return LVD_WIDTH(7);
+    case 8: return LVD_WIDTH(8);
+    case 9: return LVD_WIDTH(9);
+    default: return LVD_WIDTH(10);
+  }
+#undef LVD_WIDTH
+}
+
+__global__ void geglu_bwd_round_kernel(const float* src, float* dst, long long n) {
+  hop::tf32_round_rows(src, dst, n);
+}
+
 // Whether the resident forms (wgmma, and the first version's) take this width.
 inline bool resident_width(int C, int I) {
   return C % 64 == 0 && C >= 64 && C <= 640 && I % kBI == 0;
@@ -745,11 +1052,45 @@ LVD_EXPORT int lvd_geglu_bwd(const void* x, const void* dy, const void* w1, cons
   });
 }
 
+// The fp32 wgmma form (TF32, C = 64..640 step 64, I % 64 == 0): x, dy (R,
+// C), w1 (C, 2I) interleaved in 32s as kernel C's and w1t = w1^T (2I, C),
+// w2 (I, C), each already rounded to TF32 (lvd_geglu_bwd_round); b1 (2I,) as
+// stored; dx (R, C). row_block, inner_chunk and split are the wrapper's
+// launch plan; one the form was not built for is refused.
+LVD_EXPORT int lvd_geglu_bwd_tf32(const void* x, const void* dy, const void* w1,
+                                  const void* w1t, const void* b1, const void* w2, void* dx,
+                                  int R, int C, int I, int exact, int row_block, int inner_chunk,
+                                  int split, void* stream) {
+  using namespace lvd;
+  cudaGetLastError();
+  if (C <= 0 || I <= 0 || R <= 0 || !plan_fits(kFormWgmma, C, I, row_block, inner_chunk, split))
+    return cudaErrorInvalidValue;
+  return (int)tf32_c(x, dy, w1, w1t, b1, w2, dx, R, C, I, exact, split,
+                     static_cast<cudaStream_t>(stream), false);
+}
+
+// dst = src rounded to TF32 (round to nearest, ties away, as the first
+// version rounds its operands), n fp32 values; src and dst may be the same.
+LVD_EXPORT int lvd_geglu_bwd_round(const void* src, void* dst, long long n, void* stream) {
+  using namespace lvd;
+  cudaGetLastError();
+  if (n <= 0) return cudaErrorInvalidValue;
+  const long long want = (n / 4 + 255) / 256;
+  const int blocks = (int)(want < 1 ? 1 : want > 1056 ? 1056 : want);  // 8 a SM at most
+  geglu_bwd_round_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<float*>(dst), n);
+  return cudaGetLastError();
+}
+
 // Bytes of dynamic shared memory one block of kernel G's wgmma form takes
-// at width C (C = 64..640 step 64); 0 for any other width.
-LVD_EXPORT long long lvd_geglu_bwd_smem(int C) {
+// at width C (C = 64..640 step 64) in bf16 (dtype 0) or fp32 (1); 0 for
+// any other width.
+LVD_EXPORT long long lvd_geglu_bwd_smem(int C, int dtype) {
   using namespace lvd;
   if (C % 64 != 0 || C < 64 || C > 640) return 0;
+  if (dtype == kF32)
+    return tf32_c(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, C, 64, 0, 0,
+                  nullptr, true);
   return wgmma_c(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, C, 64, 0, 0, nullptr,
                  true);
 }

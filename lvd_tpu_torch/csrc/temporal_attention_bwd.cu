@@ -68,7 +68,10 @@
 // the per-head attention steps, the LayerNorm passes and the workspace
 // traffic, which stall both warpgroups together, set its pace.
 //
-// fp32, and F > 64 (the `wmma` form, the first version): like kernel B's
+// fp32 (the `wgmma` form at F <= 64 in fp32, on TF32 wgmma): a chain of
+// passes, csrc/pair_bwd_tf32.cu.
+//
+// F > 64, and fp32 when named (the `wmma` form, the first version): like kernel B's
 // first version, one block holds G = 2 pixels x F frames (48 rows at
 // F = 24) and works through the whole chain for them; the rows of the
 // residual stream and of the LayerNorm output sit in shared memory beside
@@ -1445,6 +1448,14 @@ long long wgmma_heads(const void* x, const void* dy, void* dx, const void* const
 }
 
 }  // namespace
+
+// The fp32 form on TF32 wgmma (csrc/pair_bwd_tf32.cu).
+long long pair_bwd_tf32_workspace(int B, int F, int P, int C);
+cudaError_t pair_bwd_tf32(const void* x, const void* dy, void* dx, const void* const* wts,
+                          void* ws, int B, int F, int P, int C, long long sB, long long sF,
+                          long long sP, float eps, cudaStream_t s);
+constexpr int kTf32RowBlock = 128;  // its projections' output tiles: 128 rows a block
+
 }  // namespace lvd
 
 // Bytes of device-memory workspace lvd_temporal_pair_bwd needs for this
@@ -1456,7 +1467,9 @@ LVD_EXPORT long long lvd_temporal_pair_bwd_workspace(int B, int F, int P, int C,
   using namespace lvd;
   if (B <= 0 || F <= 0 || P <= 0 || C % 64 != 0) return -1;
   if (form == 1) {
-    if (dtype != kBF16 || C > 640 || F > 64) return -1;
+    if (C > 640 || F > 64) return -1;
+    if (dtype == kF32) return pair_bwd_tf32_workspace(B, F, P, C);
+    if (dtype != kBF16) return -1;
     const int grid = wgmma_grid(B, F, P);
     return grid <= 0 ? -1 : (long long)grid * 65536LL * (C / 64);
   }
@@ -1470,10 +1483,11 @@ LVD_EXPORT long long lvd_temporal_pair_bwd_workspace(int B, int F, int P, int C,
 // + p*sP + c (strides in elements; c contiguous). Per attention i: ln
 // scale/bias (C,) fp32, wqkv (C, 3C) and wo (C, C) in x's type, bo (C,) fp32.
 // ws: the workspace, lvd_temporal_pair_bwd_workspace bytes for the same
-// form. C = H*64. form 1 is the wgmma form (bf16, H <= 10, F <= 64;
-// row_block 64 and pixels 64 / F), form 0 the first version (row_block and
-// pixels its tile search's R and G); a plan the form was not built for is
-// refused.
+// form. C = H*64. form 1 is the wgmma form (H <= 10, F <= 64): in bf16
+// row_block 64 and pixels 64 / F, in fp32 (csrc/pair_bwd_tf32.cu) row_block
+// 128 (its projections' tiles) and pixels 1 (its attention passes); form 0
+// the first version (row_block and pixels its tile search's R and G); a
+// plan the form was not built for is refused.
 LVD_EXPORT int lvd_temporal_pair_bwd(const void* x, const void* dy, void* dx, const void* ln1_s,
                                      const void* ln1_b, const void* wqkv1, const void* wo1,
                                      const void* bo1, const void* ln2_s, const void* ln2_b,
@@ -1486,6 +1500,11 @@ LVD_EXPORT int lvd_temporal_pair_bwd(const void* x, const void* dy, void* dx, co
   if (C != H * kD || F <= 0 || P <= 0 || B <= 0) return cudaErrorInvalidValue;
   const void* wts[10] = {ln1_s, ln1_b, wqkv1, wo1, bo1, ln2_s, ln2_b, wqkv2, wo2, bo2};
   auto s = static_cast<cudaStream_t>(stream);
+  if (form == 1 && dtype == kF32) {
+    if (H < 1 || H > 10 || F > 64 || row_block != kTf32RowBlock || pixels != 1)
+      return cudaErrorInvalidValue;
+    return (int)pair_bwd_tf32(x, dy, dx, wts, ws, B, F, P, C, sB, sF, sP, eps, s);
+  }
   if (form == 1) {
     if (dtype != kBF16 || H < 1 || H > 10 || F > 64 || row_block != 64 || pixels != 64 / F)
       return cudaErrorInvalidValue;

@@ -35,23 +35,15 @@ class Const(NamedTuple):
     value: float
 
 
-def draw(tree, device=None, dtype=torch.float32, generator=None):
+def draw(tree, device=None, dtype=torch.float32):
     """The tree with every leaf made a tensor of ``dtype`` on ``device`` (the
     card unless asked); each Normal is drawn in fp32 there, scaled in fp32,
-    then cast. With ``generator`` (a torch.Generator on ``device``) each
-    Normal is drawn from it instead, in the tree's walk order, and its key is
-    not used: the port's own seeded weights (loader.random_pipeline_models)."""
+    then cast."""
     device = resolve_device(device)
-
-    def normal(leaf):
-        if generator is None:
-            return prng.normal_key(leaf.key, leaf.shape, device)
-        return torch.randn(leaf.shape, generator=generator, device=device,
-                           dtype=torch.float32)
 
     def make(node):
         if isinstance(node, Normal):
-            return (normal(node) * node.scale).to(dtype)
+            return (prng.normal_key(node.key, node.shape, device) * node.scale).to(dtype)
         if isinstance(node, Const):
             return torch.full(node.shape, node.value, dtype=dtype, device=device)
         if isinstance(node, dict):

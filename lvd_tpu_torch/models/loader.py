@@ -1,7 +1,6 @@
 """Weights for the port: the bridge from lvd_tpu's param trees, an npz
-reader, the checkpoint loader, lvd_tpu's random and tiny weights (counterpart
-of lvd_tpu/models/loader.py), and this package's own seeded full-width
-weights (``random_pipeline_models``), which ``chip_smoke.py``'s gates read.
+reader, the checkpoint loader and lvd_tpu's random and tiny weights
+(counterpart of lvd_tpu/models/loader.py).
 
 Param trees are nested dicts/lists of tensors with lvd_tpu's keys and
 layouts (linears (din, dout), convs HWIO), so one tree feeds both packages.
@@ -19,9 +18,9 @@ from ..text.tokenizer import load_tokenizer
 from ..utils import prng
 from ..utils.device import resolve_device
 from . import init
-from .clip import clip_text_leaves, init_clip_text
-from .unet3d import init_unet3d, unet3d_leaves
-from .vae import init_vae, vae_leaves
+from .clip import init_clip_text
+from .unet3d import init_unet3d
+from .vae import init_vae
 
 
 def unflatten_tree(flat: dict):
@@ -83,40 +82,6 @@ def cast_tree(tree, dtype, device=None):
     return tree.to(device=device, dtype=dtype if tree.is_floating_point() else tree.dtype)
 
 
-_WALK_KEY = prng.prng_key(0)  # the walks need a key; a generator replaces its draws
-
-
-def random_unet3d(cfg: config_mod.UNet3DConfig, generator: torch.Generator, device=None,
-                  dtype=torch.float32):
-    """lvd_tpu's UNet tree (``unet3d_leaves``) drawn from ``generator``."""
-    return init.draw(unet3d_leaves(_WALK_KEY, cfg), device, dtype, generator=generator)
-
-
-def random_pipeline_models(preset, generator: torch.Generator, device=None,
-                           dtype=torch.bfloat16):
-    """Full-width random weights for a preset (name or ModelPreset): lvd_tpu's
-    trees and scales (models/init.py), every Normal drawn from ``generator``
-    (which must live on ``device``) in the trees' walk order instead of from
-    its key. The values are not lvd_tpu's (those come from ``_drawn_models``);
-    chip_smoke.py's gates were set on them. The VAE is its decoder half."""
-    from ..pipeline import PipelineModels
-
-    if isinstance(preset, str):
-        preset = config_mod.PRESETS[preset]
-    device = resolve_device(device)
-    draw = lambda tree: init.draw(tree, device, dtype, generator=generator)
-    unet = random_unet3d(preset.unet, generator, device, dtype)
-    clip = draw(clip_text_leaves(_WALK_KEY, preset.clip))
-    # The decoder's mid attention first: the order the smoke's gates were read on.
-    leaves = vae_leaves(_WALK_KEY, preset.vae)
-    mid = leaves["decoder"]["mid"]
-    attn, mid["attn"] = draw(mid["attn"]), {}
-    vae = draw({"decoder": leaves["decoder"], "post_quant_conv": leaves["post_quant_conv"]})
-    vae["decoder"]["mid"]["attn"] = attn
-    return PipelineModels(preset=preset, unet_params=unet, clip_params=clip,
-                          vae_params=vae, tokenizer=load_tokenizer(None))
-
-
 def _checkpoint_dir(preset: config_mod.ModelPreset):
     root = os.environ.get("LVD_CHECKPOINT_ROOT", "")
     if not root or not preset.checkpoint:
@@ -163,7 +128,7 @@ def load_pipeline_models(preset_name: str, device=None, dtype=torch.float32):
     if os.environ.get("LVD_ALLOW_RANDOM_WEIGHTS") != "1":
         raise FileNotFoundError(
             f"No converted checkpoint for preset {preset_name!r} under "
-            f"LVD_CHECKPOINT_ROOT; run `python -m lvd_tpu.models.convert` on the "
+            f"LVD_CHECKPOINT_ROOT; run `python -m lvd_tpu_torch.models.convert` on the "
             "HF checkpoint first, or set LVD_ALLOW_RANDOM_WEIGHTS=1 for a "
             "weightless smoke run.")
     print(f"[lvd_tpu] No checkpoint for {preset_name!r}; using RANDOM weights "

@@ -47,6 +47,8 @@ SIGNATURES = {
     "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
     "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F] + [_I] * 3 + [_I, _P],
     "lvd_geglu_bwd": [_P] * 6 + [_I] * 8 + [_I, _P],
+    "lvd_geglu_bwd_tf32": [_P] * 7 + [_I] * 7 + [_P],
+    "lvd_geglu_bwd_round": [_P, _P, _L, _P],
     "lvd_linear": [_P] * 4 + [_I] * 4 + [_I, _P],
     "lvd_conv3x3": [_P] * 6 + [_I] * 10 + [_I, _P],
 }
@@ -59,7 +61,7 @@ SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 6,
                 "lvd_linear_smem": [_I],
                 "lvd_conv3x3_smem": [_I] * 5,
                 "lvd_geglu_smem": [_I] * 3,
-                "lvd_geglu_bwd_smem": [_I],
+                "lvd_geglu_bwd_smem": [_I] * 2,
                 "lvd_temporal_pair_smem": [_I],
                 "lvd_temp_conv_smem": [_I] * 2}
 

@@ -24,10 +24,11 @@ derive the wgmma form's chunk plan from it, which the CPU tests hold to
 lvd_tpu's resident kernel. Kernel G has three forms (``bwd_launch_plan``):
 ``wgmma`` in bf16 at the resident widths (kernel C's structure: 64-row
 blocks, the interleaved W1, dx columns split between two blocks at
-C >= 384, ``dx_columns``), its first version ``wmma`` in fp32 there, and
-the ``general`` form at every other width; ``geglu_mlp_bwd.launches_by_form``
-counts each. Kernel J has two forms (``stream_launch_plan``): ``wgmma`` in
-bf16, two passes of 128 x 128 tiles (x times the interleaved W1 with the
+C >= 384, ``dx_columns``) in bf16 and, on TF32 wgmma with its operands
+rounded to TF32 on each call (``tf32_operands``), in fp32; its first
+version ``wmma`` when named; and the ``general`` form at every other width;
+``geglu_mlp_bwd.launches_by_form`` counts each. Kernel J has two forms
+(``stream_launch_plan``): ``wgmma`` in bf16, two passes of 128 x 128 tiles (x times the interleaved W1 with the
 gate in the epilogue into a transient gated tensor in the stream's type,
 ``gated_chunks``; then gated W2 + b2), and its first version ``wmma`` in
 fp32; ``geglu_stream.launches_by_form`` counts each. Weight and bias
@@ -115,36 +116,70 @@ BWD_FORM_CODES = {"wmma": 0, "wgmma": 1, "general": 2}
 
 def bwd_launch_plan(c: int, inner: int, dtype, form: str = None) -> dict:
     """Kernel G's form at width (c, inner) and its launch plan, which the
-    kernel checks: ``wgmma`` in bf16 at the resident widths (C = 64..640
-    step 64, inner % 64 == 0; W1 passed interleaved, ``interleave_w1``),
-    64 rows a block, ``split`` = 2 blocks on each 64-row tile at C >= 384,
-    each warpgroup writing ``wg_columns`` = C / (2 split) dx columns; the
-    first version ``wmma`` in fp32 at those widths (32 rows a block); the
-    ``general`` form everywhere else (32 rows a block, one block per
-    64-column dx slice). ``form`` names one of the resident forms instead
-    (the selfcheck times the first version beside the new one)."""
+    kernel checks: ``wgmma`` at the resident widths (C = 64..640 step 64,
+    inner % 64 == 0; W1 passed interleaved, ``interleave_w1``), 64 rows a
+    block, ``split`` = 2 blocks on each 64-row tile at C >= 384, each
+    warpgroup writing ``wg_columns`` = C / (2 split) dx columns in pieces of
+    ``piece`` columns (32 in bf16; 16 in fp32, the TF32 form, whose W1 is
+    also passed transposed); the first version ``wmma`` only when named (32
+    rows a block); the ``general`` form everywhere else (32 rows a block,
+    one block per 64-column dx slice). ``form`` names one of the resident
+    forms instead (the selfcheck times the first version beside the new
+    one)."""
     if form is None:
-        if not _covers(c, inner):
-            form = "general"
-        else:
-            form = "wgmma" if dtype == torch.bfloat16 else "wmma"
+        form = "wgmma" if _covers(c, inner) else "general"
+    piece = 0
     if form == "wgmma":
         split = 2 if c // 64 >= 6 else 1
         rows, wg_columns = 64, c // (2 * split)
+        piece = 32 if dtype == torch.bfloat16 else 16
     elif form == "wmma":
         rows, split, wg_columns = BWD_ROWS, 1, 0
     else:
         rows, split, wg_columns = BWD_ROWS, -(-c // 64), 0
     return {"form": form, "code": BWD_FORM_CODES[form], "row_block": rows,
-            "inner_chunk": INNER_CHUNK, "split": split, "wg_columns": wg_columns}
+            "inner_chunk": INNER_CHUNK, "split": split, "wg_columns": wg_columns,
+            "piece": piece}
 
 
-def dx_columns(c: int, half: int, wg: int):
+def dx_columns(c: int, half: int, wg: int, dtype=torch.bfloat16):
     """The dx columns warpgroup ``wg`` of the wgmma form's block ``half``
     (of the plan's ``split``) writes: ``wg_columns`` from
-    (2 half + wg) * wg_columns on, in 32-column GEMM2 pieces."""
-    n = bwd_launch_plan(c, 4 * c, torch.bfloat16)["wg_columns"]
+    (2 half + wg) * wg_columns on, in ``piece``-column GEMM2 pieces
+    (``dx_pieces``)."""
+    n = bwd_launch_plan(c, 4 * c, dtype)["wg_columns"]
     return range((2 * half + wg) * n, (2 * half + wg + 1) * n)
+
+
+def dx_pieces(c: int, half: int, wg: int, dtype=torch.bfloat16):
+    """``dx_columns`` as the GEMM2 pieces that write them, in order: 32
+    columns each in bf16, 16 in fp32 (the TF32 form's m64n16 products; a
+    bf16 piece reaching past the warpgroup's columns stores only its own)."""
+    cols = dx_columns(c, half, wg, dtype)
+    piece = bwd_launch_plan(c, 4 * c, dtype)["piece"]
+    return [range(q, min(q + piece, cols.stop)) for q in range(cols.start, cols.stop, piece)]
+
+
+def tf32_round(t):
+    """t rounded to TF32 (round to nearest, ties away from zero), a new
+    tensor: the operand rounding of kernel G's first version, through the
+    kernel's own rounding pass on the card; on the CPU the same rounding
+    of the fp32 bits."""
+    if t.device.type == "cpu":
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    out = torch.empty_like(t)
+    _build.check(_build.lib().lvd_geglu_bwd_round(t.data_ptr(), out.data_ptr(), t.numel(),
+                                                 _build.stream_of(t)), "geglu_mlp_bwd round")
+    return out
+
+
+def tf32_operands(x, dy, w1, w2, inner):
+    """The fp32 wgmma form's operands, staged on each call: x, dy, the
+    interleaved W1, its transpose (the K-major B of GEMM1: TF32 wgmma takes
+    no transposed operand) and W2, each rounded to TF32 (``tf32_round``)."""
+    w1 = interleave_w1(w1, inner)
+    return [tf32_round(t) for t in (x, dy, w1, w1.transpose(0, 1).contiguous(), w2)]
 
 
 STREAM_FORMS = ("wgmma", "wmma")
@@ -352,18 +387,27 @@ def geglu_mlp_bwd(p, x, dy, form: str = None):
         raise ValueError(f"geglu_mlp_bwd: dy {tuple(dy.shape)} for x {tuple(x.shape)}")
     w1, b1, w2, _ = _kernel_weights(p, rows, "geglu_mlp_bwd")
     plan = bwd_launch_plan(c, inner, x.dtype, form)
-    if plan["form"] == "wgmma":
-        w1 = interleave_w1(w1, inner)
     n = rows.shape[0]
-    # In fp32 the first version accumulates dx in the output itself, 32 rows
-    # a block; every other form writes dx rows directly.
-    resident_fp32 = x.dtype == torch.float32 and plan["form"] == "wmma"
-    padded = -(-n // BWD_ROWS) * BWD_ROWS if resident_fp32 else n
-    dx = torch.empty((padded, c), dtype=x.dtype, device=x.device)
-    err = _build.lib().lvd_geglu_bwd(
-        rows.data_ptr(), drows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        dx.data_ptr(), n, c, inner, int(GELU_FORM != "tanh"), plan["code"], plan["row_block"],
-        plan["inner_chunk"], plan["split"], code, _build.stream_of(rows))
+    exact = int(GELU_FORM != "tanh")
+    if plan["form"] == "wgmma" and x.dtype == torch.float32:
+        dx = torch.empty_like(rows)
+        ops = tf32_operands(rows, drows, w1, w2, inner)
+        err = _build.lib().lvd_geglu_bwd_tf32(
+            *[t.data_ptr() for t in ops[:4]], b1.data_ptr(), ops[4].data_ptr(), dx.data_ptr(),
+            n, c, inner, exact, plan["row_block"], plan["inner_chunk"], plan["split"],
+            _build.stream_of(rows))
+    else:
+        if plan["form"] == "wgmma":
+            w1 = interleave_w1(w1, inner)
+        # In fp32 the first version accumulates dx in the output itself, 32
+        # rows a block; every other form writes dx rows directly.
+        resident_fp32 = x.dtype == torch.float32 and plan["form"] == "wmma"
+        padded = -(-n // BWD_ROWS) * BWD_ROWS if resident_fp32 else n
+        dx = torch.empty((padded, c), dtype=x.dtype, device=x.device)
+        err = _build.lib().lvd_geglu_bwd(
+            rows.data_ptr(), drows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            dx.data_ptr(), n, c, inner, exact, plan["code"], plan["row_block"],
+            plan["inner_chunk"], plan["split"], code, _build.stream_of(rows))
     _build.check(err, "geglu_mlp_bwd")
     geglu_mlp_bwd.launches += 1
     geglu_mlp_bwd.launches_by_form[plan["form"]] += 1

@@ -32,18 +32,19 @@ forward projection alone: the refiner runs no backward), and kernel D where
 lvd_tpu routes its kernel past 32 frames (frame groups) and at
 C % 64 != 0 (C = 72, 520), in bf16 and, at three of those shapes, in fp32.
 
-Each kernel also runs in fp32 at its largest path shape, against the plain
-version in fp32 with TF32 off, gated at 5e-3 and below the same shape's
+Each kernel also runs in fp32 at its largest path shape, and B, C, F and G
+at the train step's shapes (batch 1, 24 frames, L0 and L1), against the
+plain version in fp32 with TF32 off, gated at 5e-3 and below the same shape's
 bf16 reading, so a kernel that rounded fp32 to bf16 would fail. Every
 reference runs with ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` off.
 
 Kernels B-D and F-J record the form each call took (``launches_by_form``:
-``wgmma`` in bf16, ``mma_sync`` in fp32; C's kept ``wmma`` form for fp32
-C > 384, I's for widths % 64 != 0, B's, F's, G's and J's first versions,
-``wmma``, in fp32). B, F, G and J in their ``wgmma`` form also run and time
-their first version on the same inputs (``first_ms``, ``first_rel_err``),
-held to no gate. C, D, F and J also time the same products alone through
+``wgmma`` in bf16, and for F and G in fp32 too (TF32), ``mma_sync`` for
+the others in fp32; C's kept ``wmma`` form for fp32 C > 384, I's for widths
+% 64 != 0, B's and J's first versions, ``wmma``, in fp32). B, F, G and J in
+their ``wgmma`` form also run and time their first version on the same
+inputs (``first_ms``, ``first_rel_err``), held to no gate. C, D, F and J also time the same products alone through
 ``torch.matmul`` on pre-made operands (``products_ms``: x W1 and gated W2;
 the three shifted products; F's seven projections, [q | k | v] and the
 output of both attentions and dO and dz of both VJPs): not a library call
@@ -151,6 +152,13 @@ ATTN_BWD_SHAPES = [  # (batch, S_q, S_k, C): self-attention at every level, unca
 ]
 PAIR_BWD_SHAPES = [(1, 24, 2880, 320), (1, 24, 2880, 512), (1, 24, 720, 640)]
 GEGLU_BWD_SHAPES = [(69120, 320), (69120, 512), (17280, 640)]
+# The train step's shapes in its type, fp32 (batch 1, 24 frames at 40x72
+# latents: L0 69120 rows at C = 320, L1 17280 at C = 640), beyond the fp32
+# checks at the first shapes above: B at both levels, F and G at L1, C at L0
+# (its mma_sync form) and at L1 (its WMMA form, which the path routes to
+# stock ops in fp32).
+TRAIN_PAIR_SHAPES = [(1, 24, 2880, 320), (1, 24, 720, 640)]
+TRAIN_GEGLU_SHAPES = [(69120, 320), (17280, 640)]
 
 _A = "lvd_tpu/ops/pallas_attention.py"
 SOURCES = {  # kernel wrapper -> (CUDA source, the TPU kernels it replaces)
@@ -337,6 +345,8 @@ def check_geglu(gen, shape, dtype=torch.bfloat16):
     p = _cast({"proj": _linear_p(gen, c, 2 * inner), "out": _linear_p(gen, inner, c)}, dtype)
     x = _randn(gen, (rows, c)).to(dtype)
     fn = lambda: geglu_fused.geglu_mlp(p, x)
+    if geglu_fused.forward_kernel(c, inner, dtype) != "C":  # the route streams: launch C itself
+        fn = lambda: geglu_fused._launch_forward(p, x)
     out, form = _launched_form(geglu_fused.geglu_mlp, fn)
     ref = _ref(lambda pp, xx: geglu_fused._unfused(*_geglu_args(pp, xx)), p, x)
     ms = time_ms(fn)
@@ -682,7 +692,10 @@ FP32_PLAN = [(fn, shapes[0]) for fn, shapes in (
     (check_conv3x3, CONV3X3_SHAPES), (check_attention, FUSER_ATTN_SHAPES))] + [
     (check_sdpa, s) for s in SDPA_SHAPES] + [
     (check_geglu_stream, s) for s in GEGLU_STREAM_FP32_SHAPES] + [
-    (check_temp_conv, s) for s in C4_TCONV_FP32_SHAPES]
+    (check_temp_conv, s) for s in C4_TCONV_FP32_SHAPES] + [
+    (check_pair, s) for s in TRAIN_PAIR_SHAPES] + [
+    (check_pair_bwd, TRAIN_PAIR_SHAPES[1]), (check_geglu_bwd, TRAIN_GEGLU_SHAPES[1])] + [
+    (check_geglu, s) for s in TRAIN_GEGLU_SHAPES]
 PLAN = ([(fn, s, torch.bfloat16) for fn, s in BF16_PLAN]
         + [(fn, s, torch.float32) for fn, s in FP32_PLAN])
 

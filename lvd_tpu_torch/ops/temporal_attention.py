@@ -22,10 +22,13 @@ lvd_tpu's unfused route. Kernels B and F have two forms each
 (``launch_plan``, ``bwd_launch_plan``, passed to the kernel, which refuses
 any other): ``wgmma`` in bf16 (64-row blocks of whole pixels,
 ``block_rows``, keys masked to the row's pixel, ``key_mask``; F's weight
-ring in the order ``bwd_stages`` lists) and the first version ``wmma`` in
-fp32; ``launches_by_form`` counts each. Weight and bias gradients come
-from the stock VJP of the plain pair, recomputed, as lvd_tpu's custom VJP
-gives them, beside y's from the route above. The FF stage stays outside
+ring in the order ``bwd_stages`` lists), for F also in fp32 (the passes
+of csrc/pair_bwd_tf32.cu: projections on TF32 wgmma in 128-row tiles,
+LayerNorms and mma.sync attention steps between them), and the first version
+``wmma`` (B in fp32; F past F = 64 and when named); ``launches_by_form``
+counts each. Weight and bias gradients come from the stock VJP of the plain
+pair, recomputed, as lvd_tpu's custom VJP gives them, beside y's from the
+route above. The FF stage stays outside
 (ops.geglu_fused).
 """
 
@@ -145,18 +148,25 @@ def _wmma_bwd_tile(f: int, c: int, itemsize: int):
     return 0, 0
 
 
+TF32_ROW_BLOCK = 128  # rows a block of the fp32 wgmma form's projections
+
+
 def bwd_launch_plan(f: int, c: int, dtype, form: str = None) -> dict:
     """Kernel F's form and launch plan, which the kernel checks: ``wgmma``
-    in bf16 up to F = 64, 64-row tiles of ``pixels`` = 64 // F whole pixels
+    up to F = 64, in bf16 64-row tiles of ``pixels`` = 64 // F whole pixels
     (kernel B's ``block_rows``), one persistent block per SM walking them;
-    the first version ``wmma`` in fp32 and past F = 64, G pixels in R rows as
-    its tile search picks them (``_wmma_bwd_tile``). ``form`` names one of
-    them instead (the selfcheck times the first version beside the new
-    one)."""
+    in fp32 the passes of csrc/pair_bwd_tf32.cu: its projections in
+    ``row_block`` = 128-row output tiles, its attention steps per (pixel,
+    head) pair (``pixels`` = 1), a warp 16 of the pair's frames; the first version ``wmma``
+    past F = 64, G pixels in R rows as its tile search picks them
+    (``_wmma_bwd_tile``). ``form`` names one of them instead (the selfcheck
+    times the first version beside the new one)."""
     if form is None:
-        form = "wgmma" if dtype == torch.bfloat16 and f <= ROW_BLOCK else "wmma"
-    if form == "wgmma":
+        form = "wgmma" if f <= ROW_BLOCK else "wmma"
+    if form == "wgmma" and dtype == torch.bfloat16:
         rows, pixels = ROW_BLOCK, ROW_BLOCK // f
+    elif form == "wgmma":
+        rows, pixels = TF32_ROW_BLOCK, 1
     else:
         pixels, rows = _wmma_bwd_tile(f, c, dtype.itemsize)
     return {"form": form, "code": FORM_CODES[form], "row_block": rows, "pixels": pixels}

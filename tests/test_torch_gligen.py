@@ -11,7 +11,8 @@ numpy from a seed, fp32: ``fourier_embed`` within 1e-6, the PositionNet
 (some masks off) and the gated fuser within 1e-5, the tiny gated UNet
 forward with grounding inputs within 1e-4 of max|ref|. On the port alone:
 with the gates shut the gated UNet gives the ungated UNet's output bit for
-bit, and ``random_unet3d``'s gated tree has lvd_tpu's keys and shapes.
+bit, and the port's key-order ``init_unet3d`` gives a gated tree with
+lvd_tpu's keys and shapes.
 Then lvd-plus (guidance on 2 of 4 steps, the fuser to step 3): the tiny
 pipeline's latents within 1e-4 and the lvd_plus runner's files and frames,
 through the helpers tests/test_torch_runners.py shares.
@@ -79,16 +80,22 @@ def open_gates(tree, seed=0):
     return tree
 
 
+def _key_order_unet(cfg, seed=0):
+    """The port's ``init_unet3d``: lvd_tpu's tree drawn in its JAX key order
+    from PRNGKey(seed), on the CPU."""
+    from lvd_tpu_torch.models.unet3d import init_unet3d
+    from lvd_tpu_torch.utils import prng
+
+    return init_unet3d(prng.prng_key(seed), cfg, device="cpu")
+
+
 def tiny_gated_tree(seed=0):
-    """The tiny gated UNet as numpy, drawn by this package's seeded
-    ``random_unet3d``: lvd_tpu's ``init_unet3d`` recipe and tree, which
+    """The tiny gated UNet as numpy, lvd_tpu's ``init_unet3d`` tree in its
+    key order through the port's own draw, which
     test_random_gated_tree_has_lvd_tpus_keys_and_shapes holds key for key
     against lvd_tpu's. (lvd_tpu's own draw of it compiles for ~150 s on the
     CPU.)"""
-    from lvd_tpu_torch.models.loader import random_unet3d
-
-    tree = random_unet3d(tcfg.tiny_unet_config("gated"), torch.Generator().manual_seed(seed),
-                         "cpu")
+    tree = _key_order_unet(tcfg.tiny_unet_config("gated"), seed)
     return jax.tree_util.tree_map(lambda t: t.numpy(), tree)
 
 
@@ -167,11 +174,10 @@ def test_gated_unet_forward_matches(gated_params):
 
 
 def test_closed_gates_give_the_ungated_unet_bit_for_bit():
-    from lvd_tpu_torch.models.loader import random_unet3d
     from lvd_tpu_torch.models.unet3d import apply_unet3d
 
     cfg = tcfg.tiny_unet_config("gated")
-    gated = random_unet3d(cfg, torch.Generator().manual_seed(0), "cpu")
+    gated = _key_order_unet(cfg)
 
     rng = np.random.default_rng(4)
     sample = torch.from_numpy(rng.standard_normal((1, 4, 16, 24, 4)).astype(np.float32))
@@ -198,12 +204,10 @@ def _shapes(tree, prefix=""):
 
 def test_random_gated_tree_has_lvd_tpus_keys_and_shapes(gated_params):
     from lvd_tpu.models.unet3d import init_unet3d
-    from lvd_tpu_torch.models.loader import random_unet3d
 
     ref = _shapes(jax.eval_shape(lambda k: init_unet3d(k, jcfg.tiny_unet_config("gated")),
                                  jax.random.PRNGKey(0)))
-    got = random_unet3d(tcfg.tiny_unet_config("gated"), torch.Generator().manual_seed(0),
-                        "cpu")
+    got = _key_order_unet(tcfg.tiny_unet_config("gated"))
     assert _shapes(got) == _shapes(gated_params) == ref
     n_fusers = sum(k.endswith("fuser/alpha_attn") for k in ref)
     assert n_fusers == 16 and ref["position_net/linears_0/w"] == (64 + 64, 512)

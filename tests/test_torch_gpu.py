@@ -616,8 +616,9 @@ def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch
     """Kernels B, C, D, F, G and J check the wrapper's launch plan: C's and
     G's split (1 at C = 320, 2 at 640) and rows a block, D's m64 tiles,
     window rows and first frame, B's and F's rows and pixels a block (and
-    form), J's rows, inner chunk and column block (and form); each changed
-    value is refused, and the plan as given launches."""
+    form), J's rows, inner chunk and column block (and form), F's and G's
+    in bf16 and in fp32 (their TF32 forms); each changed value is refused,
+    and the plan as given launches."""
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.ops import geglu_fused as gf
     from lvd_tpu_torch.ops import temp_conv_fused as tc
@@ -630,10 +631,11 @@ def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch
             mod, name = ta, "bwd_launch_plan"
             changes = [("pixels", 1), ("pixels", 3), ("row_block", 48), ("code", 0)]
             for c in (320, 640):
-                p = cast_tree(_pair_params(c, g, cuda), torch.bfloat16)
-                y = torch.randn(1, 24, 16, c, generator=g, device=cuda).bfloat16()
-                cases.append((lambda p=p, y=y, c=c: ta.temporal_attention_pair_bwd(
-                    p, y, y, c // 64, 1e-5, True), (24, c, torch.bfloat16)))
+                for dt in (torch.bfloat16, torch.float32):  # fp32: the TF32 passes
+                    p = cast_tree(_pair_params(c, g, cuda), dt)
+                    y = torch.randn(1, 24, 16, c, generator=g, device=cuda).to(dt)
+                    cases.append((lambda p=p, y=y, c=c: ta.temporal_attention_pair_bwd(
+                        p, y, y, c // 64, 1e-5, True), (24, c, dt)))
         elif kernel == "J":
             mod, name = gf, "stream_launch_plan"
             changes = [("row_block", 64), ("row_block", 16), ("inner_chunk", 128),
@@ -653,10 +655,10 @@ def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch
             mod, name = gf, "bwd_launch_plan"
             changes = [("split", 2), ("split", 1), ("row_block", 32), ("inner_chunk", 128)]
             for c in (320, 640):
-                p = cast_tree(_ff_params(c, 4 * c, g, cuda), torch.bfloat16)
-                x = torch.randn(300, c, generator=g, device=cuda).bfloat16()
-                cases.append((lambda p=p, x=x: gf.geglu_mlp_bwd(p, x, x),
-                              (c, 4 * c, torch.bfloat16)))
+                for dt in (torch.bfloat16, torch.float32):  # fp32: the TF32 form
+                    p = cast_tree(_ff_params(c, 4 * c, g, cuda), dt)
+                    x = torch.randn(300, c, generator=g, device=cuda).to(dt)
+                    cases.append((lambda p=p, x=x: gf.geglu_mlp_bwd(p, x, x), (c, 4 * c, dt)))
         plan = getattr(mod, name)
         with torch.no_grad():
             for run, args in cases:
@@ -916,6 +918,115 @@ def test_geglu_bwd_wgmma_form_matches_plain(cuda, c, gelu, monkeypatch):
     assert torch.isfinite(dx).all() and err <= 2e-2
 
 
+@pytest.mark.parametrize("gelu", ["tanh", "exact"])
+@pytest.mark.parametrize("rows,c", [(69083, 320), (17251, 640), (2085, 64), (2085, 384),
+                                    (2085, 448)])
+def test_geglu_bwd_tf32_form_matches_plain(cuda, rows, c, gelu, monkeypatch):
+    """Kernel G's fp32 wgmma form (TF32) at the train step's L0 and L1
+    widths with a ragged last 64-row block, at one block a row tile (C = 64)
+    and two (384, 448: 96 and 112 dx columns a warpgroup, six and seven
+    16-column pieces), inner = 4C, against the plain dx in fp32 with TF32
+    off: the fp32 gate, 5e-3. The first version runs on the same inputs."""
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    monkeypatch.setattr(gf, "GELU_FORM", gelu)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    p = _ff_params(c, 4 * c, g, cuda)
+    x = torch.randn(rows, c, generator=g, device=cuda)
+    dy = torch.randn(rows, c, generator=g, device=cuda)
+    before = dict(gf.geglu_mlp_bwd.launches_by_form)
+    with torch.no_grad():
+        dx = gf.geglu_mlp_bwd(p, x, dy)
+        first = gf.geglu_mlp_bwd(p, x, dy, form="wmma")
+        with exact_fp32():
+            ref = gf.geglu_mlp_bwd_plain(p, x, dy)
+    after = gf.geglu_mlp_bwd.launches_by_form
+    assert {k: after[k] - before[k] for k in after} == {"wgmma": 1, "wmma": 1, "general": 0}
+    err, err_first = _rel(dx, ref), _rel(first, ref)
+    print(f"kernel G fp32 rows={rows} C={c} {gelu}: wgmma {err:.3g}, wmma {err_first:.3g}")
+    assert dx.dtype == torch.float32 and torch.isfinite(dx).all() and err <= FP32_TOL
+
+
+@pytest.mark.parametrize("f,p,c,frames_major", [
+    (24, 2880, 320, True), (24, 720, 640, True), (24, 45, 320, False), (24, 45, 640, False),
+    (5, 45, 128, True), (64, 7, 192, False), (40, 9, 192, True), (13, 7, 192, False)])
+def test_pair_bwd_tf32_form_matches_plain(cuda, f, p, c, frames_major):
+    """Kernel F's fp32 wgmma form (TF32 projections between its row and
+    attention passes) at the train step's L0 and L1 shapes, at ragged row
+    counts (1080 rows: the last 128-row tile of 56) in both layouts, at
+    F = 5, 13, 40 and 64 (the attention's frames padded to 16, 16, 48 and
+    64, 4, 4, 1 and 1 (pixel, head) pairs a block, the last block ragged at
+    F = 13) and an odd head count, against the plain dy in fp32 with
+    TF32 off: the fp32 gate, 5e-3. The first version runs on the same
+    inputs where it has a tile (not at F = 64 in fp32)."""
+    from lvd_tpu_torch.ops import temporal_attention as ta
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(32)
+    params = _pair_params(c, g, cuda)
+    shape = (1, f, p, c) if frames_major else (1, p, f, c)
+    y = torch.randn(shape, generator=g, device=cuda)
+    dy = torch.randn(shape, generator=g, device=cuda)
+    has_first = ta._wmma_bwd_tile(f, c, 4)[0] > 0  # fp32 F = 64 fits no first-version tile
+    before = dict(ta.temporal_attention_pair_bwd.launches_by_form)
+    with torch.no_grad():
+        out = ta.temporal_attention_pair_bwd(params, y, dy, c // 64, 1e-5, frames_major)
+        if has_first:
+            first = ta.temporal_attention_pair_bwd(params, y, dy, c // 64, 1e-5, frames_major,
+                                                   "wmma")
+        with exact_fp32():
+            ref = ta.temporal_attention_pair_bwd_plain(params, y, dy, c // 64, 1e-5,
+                                                        frames_major)
+    after = ta.temporal_attention_pair_bwd.launches_by_form
+    assert {k: after[k] - before[k] for k in after} == {"wgmma": 1, "wmma": int(has_first)}
+    err = _rel(out, ref)
+    err_first = f"{_rel(first, ref):.3g}" if has_first else "no tile"
+    print(f"kernel F fp32 F={f} P={p} C={c} fm={frames_major}: wgmma {err:.3g}, "
+          f"wmma {err_first}")
+    assert out.dtype == torch.float32 and torch.isfinite(out).all() and err <= FP32_TOL
+
+
+@pytest.mark.parametrize("name,shape", [("pair", (1, 24, 2880, 320)), ("pair", (1, 24, 720, 640)),
+                                        ("geglu", (69083, 320))])
+def test_tf32_forms_weight_gradients_match_plain(cuda, name, shape):
+    """At the train step's shapes in fp32, every param requiring grad: B or
+    C runs the forward and the new fp32 form of F or G the dx, once each
+    (no WMMA launch of F or G); dx and every weight and bias gradient match
+    the plain version's autograd in fp32 with TF32 off: 5e-3."""
+    from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops import temporal_attention as ta
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+    from lvd_tpu_torch.utils.tree import flatten, unflatten_like
+
+    g = torch.Generator(device=cuda).manual_seed(33)
+    if name == "pair":
+        c = shape[-1]
+        p = _pair_params(c, g, cuda)
+        kernel = lambda pp, y: ta.temporal_attention_pair(pp, y, c // 64, 1e-5, frames_major=True)
+        plain = lambda pp, y: ta._pair_ref_fm(pp, y, c // 64, 1e-5)
+        bwd = ta.temporal_attention_pair_bwd
+    else:
+        c = shape[-1]
+        p = _ff_params(c, 4 * c, g, cuda)
+        kernel, plain, bwd = gf.geglu_mlp, gf.geglu_mlp_plain, gf.geglu_mlp_bwd
+    x = torch.randn(shape, generator=g, device=cuda)
+    leaves = {path: t.clone().requires_grad_(True) for path, t in flatten(p).items()}
+    ref_leaves = {path: t.clone().requires_grad_(True) for path, t in flatten(p).items()}
+    x_k, x_r = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    before = dict(bwd.launches_by_form)
+    out = kernel(unflatten_like(p, leaves), x_k)
+    ct = torch.randn(out.shape, generator=g, device=cuda)
+    got = _grads(out, [x_k, *leaves.values()], ct)
+    after = bwd.launches_by_form
+    assert after["wgmma"] - before["wgmma"] == 1 and after["wmma"] == before["wmma"]
+    with exact_fp32():
+        want = _grads(plain(unflatten_like(p, ref_leaves), x_r), [x_r, *ref_leaves.values()], ct)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert _rel(a, b) <= FP32_TOL, (i, _rel(a, b))
+
+
 def test_tiny_unet_forward_on_card_matches_cpu(cuda, monkeypatch):
     """The tiny UNet (16-wide heads, widths 32-64) in fp32 on the card
     against its CPU run: 1e-4 of max|ref|, TF32 off. Its attentions take
@@ -924,16 +1035,17 @@ def test_tiny_unet_forward_on_card_matches_cpu(cuda, monkeypatch):
     off here (LVD_DISABLE_FUSED_TC, read per call) and held to its own gate
     in test_temp_conv_forms_match_plain."""
     from lvd_tpu_torch import config as cfg_mod
-    from lvd_tpu_torch.models.loader import cast_tree, random_unet3d
-    from lvd_tpu_torch.models.unet3d import apply_unet3d
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.models.unet3d import apply_unet3d, init_unet3d
     from lvd_tpu_torch.ops import packed_attention as pa
     from lvd_tpu_torch.ops import temporal_attention as ta
     from lvd_tpu_torch.ops.selfcheck import exact_fp32
+    from lvd_tpu_torch.utils import prng
 
     monkeypatch.setenv("LVD_DISABLE_FUSED_TC", "1")
     cfg = cfg_mod.tiny_unet_config()
     gen = torch.Generator().manual_seed(0)
-    params = random_unet3d(cfg, gen, "cpu")
+    params = init_unet3d(prng.prng_key(0), cfg, device="cpu")
     sample = torch.randn((1, 4, 16, 16, 4), generator=gen)
     text = torch.randn((1, 77, cfg.cross_attention_dim), generator=gen)
     with torch.no_grad():
@@ -955,14 +1067,15 @@ def test_tiny_gated_unet_forward_on_card_matches_cpu(cuda, monkeypatch):
     kernel D off, as in test_tiny_unet_forward_on_card_matches_cpu; the
     fuser must move the output."""
     from lvd_tpu_torch import config as cfg_mod
-    from lvd_tpu_torch.models.loader import cast_tree, random_unet3d
-    from lvd_tpu_torch.models.unet3d import apply_unet3d
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.models.unet3d import apply_unet3d, init_unet3d
     from lvd_tpu_torch.ops.selfcheck import exact_fp32
+    from lvd_tpu_torch.utils import prng
 
     monkeypatch.setenv("LVD_DISABLE_FUSED_TC", "1")
     cfg = cfg_mod.tiny_unet_config("gated")
     gen = torch.Generator().manual_seed(1)
-    params = random_unet3d(cfg, gen, "cpu")
+    params = init_unet3d(prng.prng_key(1), cfg, device="cpu")
 
     def open_gates(node):
         if isinstance(node, list):

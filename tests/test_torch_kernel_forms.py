@@ -72,10 +72,14 @@ form of kernel I uses (``ops/conv3x3.py``: ``launch_plan``,
   streaming branch in interpret mode and the plain version, at C = 72 and
   128, both GELU forms.
 
-Every selfcheck shape of B, F and G takes its ``wgmma`` form in bf16 and
-the first version (``wmma``) in fp32, and so does J at every
-``GEGLU_STREAM_SHAPES`` width; every F shape is one lvd_tpu's backward
-route gives a kernel.
+Every selfcheck shape of B and J (at every ``GEGLU_STREAM_SHAPES`` width)
+takes its ``wgmma`` form in bf16 and the first version (``wmma``) in fp32;
+F and G take their ``wgmma`` forms in both types, in fp32 on TF32 wgmma:
+kernel G's fp32 chunk plan (``dx_pieces`` of 16 columns, W1 staged
+transposed, operands TF32-rounded by ``tf32_round``) and kernel F's fp32
+passes (``_tf32_passes``, ``_tf32_gemm_tiles``) equal lvd_tpu's interpreted
+kernels unrounded and hold the fp32 gate rounded; every F shape is one
+lvd_tpu's backward route gives a kernel.
 """
 
 import numpy as np
@@ -385,12 +389,16 @@ def test_pair_and_geglu_bwd_shapes_take_their_forms(on_tpu, dtype):
                                            c // 64)
         plan = t_ta.launch_plan(f, c, tdt)
         assert plan["form"] == want and plan["pixels"] * f <= plan["row_block"]
-        # lvd_tpu's backward takes a kernel there, and the port kernel F.
+        # lvd_tpu's backward takes a kernel there, and the port kernel F: its
+        # wgmma form in both types (in fp32 the TF32 passes, one pixel and
+        # head a block of its attention steps, 128-row projection tiles).
         if (b, f, p, c) in selfcheck.PAIR_BWD_SHAPES:
             assert j_ta._pick_g_bwd(p, c, True) or j_ta._pick_g_bwd(p, c, False)
             assert t_ta.bwd_route(p, c, True) != "stock"
             plan = t_ta.bwd_launch_plan(f, c, tdt)
-            assert plan["form"] == want and plan["pixels"] * f <= plan["row_block"]
+            assert plan["form"] == "wgmma" and plan["pixels"] * f <= plan["row_block"]
+            if dtype == "float32":
+                assert (plan["row_block"], plan["pixels"]) == (t_ta.TF32_ROW_BLOCK, 1)
     for rows, c in selfcheck.GEGLU_STREAM_SHAPES:
         assert t_gf.stream_launch_plan(tdt)["form"] == want
         if c == 1280:  # lvd_tpu streams the C = 1280 feed-forward in either type
@@ -398,11 +406,12 @@ def test_pair_and_geglu_bwd_shapes_take_their_forms(on_tpu, dtype):
     routed = [c for _, c in selfcheck.GEGLU_BWD_SHAPES if t_gf.dx_route(c, 4 * c, tdt) == "G"]
     # fp32 weights of C = 512 and 640 exceed lvd_tpu's resident budget: stock dx.
     assert routed == {"bfloat16": [320, 512, 640], "float32": [320]}[dtype]
-    for c in routed:
+    for c in routed:  # G's wgmma form in both types (TF32 in fp32)
         plan = t_gf.bwd_launch_plan(c, 4 * c, tdt)
-        assert plan["form"] == want
-        if want == "wgmma":  # each warpgroup's columns, in 32-column pieces, cover C once
-            assert plan["wg_columns"] * 2 * plan["split"] == c
+        assert plan["form"] == "wgmma"
+        # each warpgroup's columns, in 32- (bf16) or 16-column (fp32) pieces, cover C once
+        assert plan["wg_columns"] * 2 * plan["split"] == c
+        assert plan["piece"] == (32 if dtype == "bfloat16" else 16)
     # Widths the resident forms do not cover take the general form.
     assert t_gf.bwd_launch_plan(72, 256, tdt)["form"] == "general"
 
@@ -764,3 +773,303 @@ def test_geglu_stream_two_pass_plan_gives_lvd_tpu(form, c, monkeypatch):
     p = {"proj": {"w": torch.from_numpy(w1), "b": torch.from_numpy(b1)},
          "out": {"w": torch.from_numpy(w2), "b": torch.from_numpy(b2)}}
     _close(got, t_gf.geglu_stream_plain(p, torch.from_numpy(x)).numpy())
+
+
+@pytest.mark.parametrize("c", [64 * n for n in range(1, 11)])
+def test_geglu_bwd_tf32_pieces_cover_dx_once(c):
+    """Kernel G's fp32 wgmma form at every resident width: each of C's dx
+    columns is written by exactly one (block, warpgroup, 16-column piece),
+    the pieces of a warpgroup whole (no piece reaching past its columns),
+    and a thread's fp32 accumulators (8 a piece) stay within the 80 that
+    the bf16 form's 32-column pieces hold at C = 320."""
+    plan = t_gf.bwd_launch_plan(c, 4 * c, torch.float32)
+    assert plan["form"] == "wgmma" and plan["piece"] == 16 and plan["row_block"] == 64
+    owner = {}
+    for half in range(plan["split"]):
+        for wg in (0, 1):
+            pieces = t_gf.dx_pieces(c, half, wg, torch.float32)
+            assert all(len(piece) == 16 for piece in pieces)
+            assert len(pieces) * 8 <= 80
+            for piece in pieces:
+                for col in piece:
+                    assert col not in owner
+                    owner[col] = (half, wg)
+    assert sorted(owner) == list(range(c))
+
+
+def _chunk_plan_geglu_bwd_tf32(x, dy, w1, b1, w2, rounded=True):
+    """Kernel G's fp32 wgmma form in torch: 64-row blocks (rows past R
+    zero), ``split`` blocks on each; operands TF32-rounded (``tf32_round``)
+    where ``rounded``. Per 64-wide inner chunk k: warpgroup j's [h | g] =
+    x times rows 128 k + 64 j .. of W1i^T (K-major, 32-column K-tiles of
+    C) + b1, d_inner = dy times rows 64 k + 32 j .. of W2 (its own K-tiles);
+    the cotangent tile's four 32-column K-tiles [dh0 | dg0 | dh1 | dg1],
+    rounded; then each warpgroup's ``dx_pieces`` += cot times its 16 rows
+    of W1i over the chunk's 128 columns."""
+    r, c = x.shape
+    inner = w2.shape[0]
+    plan = t_gf.bwd_launch_plan(c, inner, torch.float32)
+    rb, ch = plan["row_block"], plan["inner_chunk"]
+    rnd = t_gf.tf32_round if rounded else (lambda t: t)
+    w1i = rnd(t_gf.interleave_w1(w1, inner))
+    w1t, w2r = rnd(t_gf.interleave_w1(w1, inner).transpose(0, 1).contiguous()), rnd(w2)
+    xr, dyr = rnd(x), rnd(dy)
+    dx = torch.full_like(x, float("nan"))
+    for r0 in range(0, r, rb):
+        n = min(rb, r - r0)
+        xb, dyb = torch.zeros(rb, c), torch.zeros(rb, c)
+        xb[:n], dyb[:n] = xr[r0:r0 + n], dyr[r0:r0 + n]
+        for half in range(plan["split"]):
+            pieces = {j: t_gf.dx_pieces(c, half, j, torch.float32) for j in (0, 1)}
+            acc = {j: torch.zeros(rb, 16 * len(pieces[j])) for j in (0, 1)}
+            for k in range(inner // ch):
+                cot = torch.empty(rb, 2 * ch)
+                for j in (0, 1):
+                    wt = w1t[128 * k + 64 * j:128 * k + 64 * j + 64]  # (64, C), K-major
+                    wd = w2r[ch * k + 32 * j:ch * k + 32 * j + 32]    # (32, C), K-major
+                    hg = sum(xb[:, kt:kt + 32] @ wt[:, kt:kt + 32].T for kt in range(0, c, 32))
+                    hg = hg + b1[t_gf.gemm1_columns(k, j, inner)]
+                    d = sum(dyb[:, kt:kt + 32] @ wd[:, kt:kt + 32].T for kt in range(0, c, 32))
+                    u, du = t_gf.gelu_val_grad(hg[:, 32:], t_gf.GELU_FORM)
+                    cot[:, 64 * j:64 * j + 32] = rnd(d * u)
+                    cot[:, 64 * j + 32:64 * j + 64] = rnd(d * hg[:, :32] * du)
+                for j in (0, 1):
+                    for q, piece in enumerate(pieces[j]):
+                        rows = w1i[piece.start:piece.stop, 2 * ch * k:2 * ch * (k + 1)]
+                        acc[j][:, 16 * q:16 * q + 16] += sum(
+                            cot[:, 32 * h:32 * h + 32] @ rows[:, 32 * h:32 * h + 32].T
+                            for h in range(4))
+            for j in (0, 1):
+                for q, piece in enumerate(pieces[j]):
+                    dx[r0:r0 + n, piece.start:piece.stop] = acc[j][:n, 16 * q:16 * q + 16]
+    return dx
+
+
+@pytest.mark.parametrize("form", ["tanh", "exact"])
+@pytest.mark.parametrize("c", [192, 448])
+def test_geglu_bwd_tf32_chunk_plan_gives_lvd_tpu(form, c, monkeypatch):
+    """C = 192 (one block, 96 dx columns a warpgroup: six pieces) and 448
+    (two blocks, 112 a warpgroup: seven pieces), inner 256 (four chunks),
+    150 rows (the last block ragged): unrounded, lvd_tpu's interpreted
+    resident dx kernel and the plain dx; TF32-rounded, within the fp32 gate
+    (5e-3) of the plain dx."""
+    monkeypatch.setattr(j_gf, "GELU_FORM", form)
+    monkeypatch.setattr(t_gf, "GELU_FORM", form)
+    r, inner = 150, 256
+    rng = np.random.default_rng(43)
+    x = rng.standard_normal((r, c)).astype(np.float32)
+    dy = rng.standard_normal((r, c)).astype(np.float32)
+    w1 = (rng.standard_normal((c, 2 * inner)) * c ** -0.5).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(2 * inner)).astype(np.float32)
+    w2 = (rng.standard_normal((inner, c)) * inner ** -0.5).astype(np.float32)
+    args = tuple(map(torch.from_numpy, (x, dy, w1, b1, w2)))
+    got = _chunk_plan_geglu_bwd_tf32(*args, rounded=False).numpy()
+    _close(got, j_gf._fused_rows_bwd_resident(*map(jnp.asarray, (x, dy, w1, b1, w2)),
+                                              block_m=64, nk=2, interpret=True))
+    p = {"proj": {"w": args[2], "b": args[3]}, "out": {"w": args[4], "b": torch.zeros(c)}}
+    plain = t_gf.geglu_mlp_bwd_plain(p, args[0], args[1]).numpy()
+    _close(got, plain)
+    tf32 = _chunk_plan_geglu_bwd_tf32(*args).numpy()
+    err = np.abs(tf32 - plain).max() / np.abs(plain).max()
+    assert 0 < err <= selfcheck.FP32_TOL
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """The TF32 rounding the fp32 forms give their operands (on the CPU, the
+    same bits as the kernels' cvt.rna.tf32.f32): 10 mantissa bits kept,
+    round to nearest with ties away from zero, signs kept."""
+    ulp = 2.0 ** -10
+    t = torch.tensor([1.0, 1.0 + ulp / 2, 1.0 + ulp / 4, -(1.0 + ulp / 2), 1.0 + 1.5 * ulp,
+                      3.0e-3, 0.0])
+    got = t_gf.tf32_round(t)
+    assert got[:5].tolist() == [1.0, 1.0 + ulp, 1.0, -(1.0 + ulp), 1.0 + 2 * ulp]
+    bits = got.view(torch.int32)
+    assert bool(((bits & 0x1FFF) == 0).all()) and got[6].item() == 0.0
+    assert abs(got[5].item() - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+
+
+def _tf32_passes(c):
+    """Kernel F's fp32 form's passes in launch order, as csrc/pair_bwd_tf32.cu's
+    ``pair_bwd_tf32`` runs them on R rows of C (rows in the stream's order):
+    ("ln", source, norm, out), ("gemm", A, B, N, K, out, epilogue) with out =
+    A B^T for a B of N rows of K (the staged weights: "wqkv1t" is wqkv1^T
+    (3C, C), "wo1" wo1 as stored (C, C), ...), ("attn", qkv, out), ("round",
+    src, out), ("attn_vjp", qkv, dO) (dq, dk, dv over qkv) and ("ln_vjp",
+    dz, x, stats, norm, resid, out, rounded copy or None)."""
+    return [
+        ("ln", "y", "norm1", "z", "stats1"),
+        ("gemm", "z", "wqkv1t", 3 * c, c, "qkv1", None),
+        ("attn", "qkv1", "o"),
+        ("gemm", "o", "wo1t", c, c, "x1", ("bo1", "y")),
+        ("ln", "x1", "norm2", "z", "stats2"),
+        ("gemm", "z", "wqkv2t", 3 * c, c, "qkv2", None),
+        ("round", "dy", "u"),
+        ("gemm", "u", "wo2", c, c, "o", None),
+        ("attn_vjp", "qkv2", "o"),
+        ("gemm", "qkv2", "wqkv2", c, 3 * c, "dz", None),
+        ("ln_vjp", "dz", "x1", "stats2", "norm2", "dy", "dx1", "u"),
+        ("gemm", "u", "wo1", c, c, "o", None),
+        ("attn_vjp", "qkv1", "o"),
+        ("gemm", "qkv1", "wqkv1", c, 3 * c, "dz", None),
+        ("ln_vjp", "dz", "y", "stats1", "norm1", "dx1", "dx", None),
+    ]
+
+
+def _tf32_gemm_tiles(m, n):
+    """The output tiles of the fp32 form's projections, (row0, col0, rows,
+    cols), as its GEMM's grid takes them: ``bwd_launch_plan``'s 128-row
+    blocks (the last ragged, rows past m never stored) by 128-column blocks
+    where n % 128 == 0, else 64."""
+    rb = t_ta.bwd_launch_plan(24, 64, torch.float32)["row_block"]
+    bn = 128 if n % 128 == 0 else 64
+    return [(r0, c0, min(rb, m - r0), bn) for r0 in range(0, m, rb) for c0 in range(0, n, bn)]
+
+
+def _pair_bwd_tf32_passes(p, y, dy, heads, frames_major, rounded=True):
+    """Kernel F's fp32 wgmma form in torch: ``_tf32_passes`` run in order on
+    named (R, .) buffers whose rows keep the stream's order; each
+    projection tiled by ``_tf32_gemm_tiles`` (every output element written
+    once) against the staged weights (wqkv, wo as stored or transposed);
+    each attention step per (pixel, head) on the pixel's rows found through
+    the stream's strides, in the kernels' 16-frame tiles; operands
+    TF32-rounded where ``rounded``."""
+    rnd = t_gf.tf32_round if rounded else (lambda t: t)
+    shape = y.shape
+    c = shape[-1]
+    if frames_major:
+        bsz, f, pdim, _ = shape
+        strides = (f * pdim * c, pdim * c, c)
+    else:
+        bsz, pdim, f, _ = shape
+        strides = (f * pdim * c, c, f * c)
+    r = y.numel() // c
+    buf = {"y": y.reshape(r, c), "dy": dy.reshape(r, c)}
+    for at in "12":
+        pa = p["attn" + at]
+        wqkv = torch.cat([pa[n]["w"] for n in ("to_q", "to_k", "to_v")], dim=1)
+        wo = pa["to_out"]["w"]
+        buf |= {f"wqkv{at}": rnd(wqkv), f"wqkv{at}t": rnd(wqkv.T.contiguous()),
+                f"wo{at}": rnd(wo), f"wo{at}t": rnd(wo.T.contiguous()),
+                f"bo{at}": pa["to_out"]["b"]}
+    rows_of = lambda b, px: [(b * strides[0] + fr * strides[1] + px * strides[2]) // c
+                             for fr in range(f)]
+    scale = 64 ** -0.5
+    for step in _tf32_passes(c):
+        kind = step[0]
+        if kind == "ln":
+            _, src, norm, out, stats = step
+            x = buf[src]
+            mean = x.mean(-1, keepdim=True)
+            rstd = torch.rsqrt((x * x).mean(-1, keepdim=True) - mean * mean + 1e-5)
+            buf[out] = rnd((x - mean) * rstd * p[norm]["scale"] + p[norm]["bias"])
+            buf[stats] = (mean, rstd)
+        elif kind == "gemm":
+            _, a, w, n_out, k, out, epi = step
+            am, wm = buf[a], buf[w]
+            assert am.shape == (r, k) and wm.shape == (n_out, k)
+            res = torch.full((r, n_out), float("nan"))
+            for r0, c0, nr, nc in _tf32_gemm_tiles(r, n_out):
+                assert bool(res[r0:r0 + nr, c0:c0 + nc].isnan().all())
+                res[r0:r0 + nr, c0:c0 + nc] = am[r0:r0 + nr] @ wm[c0:c0 + nc].T
+            if epi is not None:
+                res = res + buf[epi[0]] + buf[epi[1]]
+            buf[out] = res
+        elif kind == "round":
+            buf[step[2]] = rnd(buf[step[1]])
+        elif kind in ("attn", "attn_vjp"):
+            # Per (pixel, head) pair, frames padded to fp = 16 k with zero rows
+            # and the keys past f masked; each 16-frame tile of queries (then,
+            # for dk and dv, of keys) written once, the padded rows never.
+            qkv = buf[step[1]]
+            fp = -(-f // 16) * 16
+            pad = lambda t: torch.cat([t, t.new_zeros(fp - f, t.shape[1])])
+            live = torch.arange(fp) < f
+            new = torch.full((r, c) if kind == "attn" else qkv.shape, float("nan"))
+
+            def put(idx, col, g):
+                for t0 in range(0, fp, 16):
+                    rows = [i for i in range(t0, t0 + 16) if i < f]
+                    sel = [idx[i] for i in rows]
+                    assert bool(new[sel, col:col + 64].isnan().all())
+                    new[sel, col:col + 64] = rnd(g[rows])
+
+            for b in range(bsz):
+                for px in range(pdim):
+                    idx = rows_of(b, px)
+                    for h in range(heads):
+                        q, k_, v = (pad(rnd(qkv[idx, m * c + 64 * h:m * c + 64 * h + 64]))
+                                    for m in range(3))
+                        s_ = (q @ k_.T * scale).masked_fill(~live, float("-inf"))
+                        pr = torch.softmax(s_, dim=-1)
+                        if kind == "attn":
+                            put(idx, 64 * h, rnd(pr) @ v)
+                            continue
+                        do = pad(rnd(buf[step[2]][idx, 64 * h:64 * h + 64]))
+                        tmp = (do @ v.T) * pr
+                        dl = rnd((tmp - pr * tmp.sum(-1, keepdim=True)) * scale)
+                        pt = lambda t: t.masked_fill(~live[:, None], 0.0).T
+                        for m, g in enumerate((dl @ k_, pt(dl) @ q, rnd(pt(pr)) @ do)):
+                            put(idx, m * c + 64 * h, g)
+            assert not bool(new.isnan().any())
+            buf[step[1] if kind == "attn_vjp" else step[2]] = new
+        else:
+            _, dz, src, stats, norm, resid, out, out_round = step
+            mean, rstd = buf[stats]
+            xhat = (buf[src] - mean) * rstd
+            g = buf[dz] * p[norm]["scale"]
+            o = buf[resid] + rstd * (g - g.mean(-1, keepdim=True)
+                                     - xhat * (g * xhat).mean(-1, keepdim=True))
+            buf[out] = o
+            if out_round is not None:
+                buf[out_round] = rnd(o)
+    return buf["dx"].reshape(shape)
+
+
+@pytest.mark.parametrize("f,pdim,c,frames_major", [(5, 16, 128, True), (24, 5, 64, False)])
+def test_pair_bwd_tf32_passes_give_lvd_tpu(f, pdim, c, frames_major):
+    """Kernel F's fp32 passes at F = 5 and 24, 80 and 120 rows (ragged
+    128-row projection tiles), H = 2 and 1, both layouts: unrounded,
+    lvd_tpu's interpreted ``_pallas_pair_bwd`` and the plain dy; TF32-rounded,
+    within the fp32 gate (5e-3) of the plain dy."""
+    rng = np.random.default_rng(47)
+    heads = c // 64
+    p = _pair_params_np(rng, c)
+    shape = (1, f, pdim, c) if frames_major else (1, pdim, f, c)
+    y = rng.standard_normal(shape).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+    tree = lambda fn: {k: {n: {m: fn(t) for m, t in w.items()} if isinstance(w, dict) else fn(w)
+                           for n, w in v.items()} for k, v in p.items()}
+    tp = tree(torch.from_numpy)
+    ty, tdy = torch.from_numpy(y), torch.from_numpy(dy)
+    got = _pair_bwd_tf32_passes(tp, ty, tdy, heads, frames_major, rounded=False).numpy()
+    g = j_ta._pick_g_bwd(pdim, c, frames_major) or j_ta._pick_g_bwd(pdim, c)
+    assert g > 0
+    jy, jdy = jnp.asarray(y), jnp.asarray(dy)
+    if frames_major and not j_ta._pick_g_bwd(pdim, c, True):
+        jy, jdy = jnp.swapaxes(jy, 1, 2), jnp.swapaxes(jdy, 1, 2)
+    ref = np.asarray(j_ta._pallas_pair_bwd(tree(jnp.asarray), jy, jdy, heads, g, 1e-5,
+                                           frames_major=frames_major and bool(
+                                               j_ta._pick_g_bwd(pdim, c, True)),
+                                           interpret=True))
+    if ref.shape != got.shape:
+        ref = np.swapaxes(ref, 1, 2)
+    _close(got, ref)
+    plain = t_ta.temporal_attention_pair_bwd_plain(tp, ty, tdy, heads, 1e-5, frames_major).numpy()
+    _close(got, plain)
+    tf32 = _pair_bwd_tf32_passes(tp, ty, tdy, heads, frames_major).numpy()
+    err = np.abs(tf32 - plain).max() / np.abs(plain).max()
+    assert 0 < err <= selfcheck.FP32_TOL
+
+
+def test_pair_bwd_tf32_gemm_tiles_cover_each_output_once():
+    """The fp32 form's projection tiles at the train step's L0 and L1 (69120
+    and 17280 rows; N = C and 3C) and a ragged row count: 128-column tiles
+    where N % 128 == 0, else 64, each output element once."""
+    for m, c in ((69120, 320), (17280, 640), (1080, 192)):
+        for n in (c, 3 * c):
+            tiles = _tf32_gemm_tiles(m, n)
+            assert {nc for *_, nc in tiles} == {128 if n % 128 == 0 else 64}
+            assert sum(nr * nc for _, _, nr, nc in tiles) == m * n
+            assert len({(r0, c0) for r0, c0, _, _ in tiles}) == len(tiles)
+            assert all(r0 % 128 == 0 and c0 % nc == 0 and r0 + nr <= m and c0 + nc <= n
+                       for r0, c0, nr, nc in tiles)
