@@ -25,7 +25,7 @@ Phases, each fatal on failure:
                head, row 1, D = 64 to 256), conv3x3() (I without prologue,
                row 13) and geglu_mlp() where it streams (J, row 9); B, F, G
                and J also time their first versions beside their wgmma
-               forms (F and G in fp32 too); then the upsample path's
+               forms (B, F and G in fp32 too); then the upsample path's
                shapes: A, B, C and D at the
                Zeroscope-XL refine's 576x1024 CFG forward (A's
                self-attention at 9216 keys), A at the SDXL refiner's 12-
@@ -127,17 +127,17 @@ Phases, each fatal on failure:
                a grounding pack of 2 boxes in 30 slots, the weights drawn on
                the card in lvd_tpu's key order: 3 adapter-only steps on one
                fixed batch (losses finite, every frozen leaf bit-unchanged,
-               every fuser and position_net leaf moved, A-G launched, F
+               every fuser and position_net leaf moved, A-G launched, B, F
                and G only in their fp32 wgmma forms, TF32, never their first
                versions), then one full-finetune gradient through the kernels
                against the plain route (plain_route(), TF32 off; loss within
                1e-3, the flattened gradient within 1e-2 L2), and one full
-               Trainer step; seconds per step and peak memory; then each of
-               the two steps broken down: its launches of B, C, F, G and J by
-               shape, and with F's and G's fp32 forms first in their first
-               versions, then in their wgmma forms, one step's seconds and
-               peak memory and the device ms by kernel and by kernel symbol
-               (form) of a profiled step;
+               Trainer step; seconds per step and peak memory; then the
+               adapter-only step broken down: its launches of B, C, F, G and
+               J by shape, one step's seconds and peak memory, and the device
+               ms by kernel and by kernel symbol (form) of a profiled step
+               (probes/train_step_forms.py times the step with B's first
+               version beside its new form);
  12e. image  - the 2D image path at SD 1.x widths (UNet2DConfig()), 512x512
                (64x64 latents), bf16, weights drawn on the card in lvd_tpu's
                key order: encode_prompts on a ViT-L/14-wide CLIP, two
@@ -201,7 +201,8 @@ Phases, each fatal on failure:
                smoke;
  14. fp32    - one full-width CFG UNet forward in TextToVideoPipeline's
                default type (fp32) through the kernels against the plain
-               path in fp32, TF32 off on both;
+               path in fp32, TF32 off on both; A-D must launch, B only in
+               its fp32 wgmma form (TF32) and no kernel in a WMMA form;
  15. entry points - the public sdpa() (forward and backward) at D = 64
                (L0 shape), 192 and 256 (the D-sliced A and E), conv3x3() at
                L0, and geglu_mlp() with the seeded UNet's feed-forward
@@ -331,7 +332,8 @@ def build_phase(torch):
 # Sources whose kernels get one ptxas record each (registers, spills).
 PTXAS_SOURCES = ("packed_attention.cu", "packed_attention_bwd.cu", "linear.cu", "conv3x3.cu",
                  "geglu.cu", "temp_conv.cu", "temporal_attention.cu", "geglu_bwd.cu",
-                 "temporal_attention_bwd.cu", "geglu_stream.cu", "pair_bwd_tf32.cu")
+                 "temporal_attention_bwd.cu", "geglu_stream.cu", "pair_bwd_tf32.cu",
+                 "pair_fwd_tf32.cu")
 
 
 def ptxas_summary(build_log, sources):
@@ -603,16 +605,15 @@ def read_forms():
             if hasattr(fn, "launches_by_form")}
 
 
-def check_new_forms(phase, forms, redesigned=(), first=()):
+def check_new_forms(phase, forms, redesigned=()):
     """Fails unless every launch of B-D and F-J took its new form (wgmma in
-    bf16, and in fp32 wgmma for F and G, mma_sync for C and D): every UNet
-    and conv3x3() shape has Cin and Cout % 64 == 0, and only other widths
-    take I's WMMA form; C's WMMA form is kept for fp32 C > 384, B's and
-    J's first versions (WMMA) for fp32, which the bf16 paths this is called
-    on never reach. ``first`` names the wrappers whose first version the
-    path may launch (B on the fp32 train path). Each wrapper of
+    bf16, and in fp32 wgmma for B, F and G, TF32, mma_sync for C and D):
+    every UNet and conv3x3() shape has Cin and Cout % 64 == 0, and only
+    other widths take I's WMMA form; the WMMA forms kept are B's and F's
+    past 64 frames, C's for fp32 C > 384 and J's first version for fp32,
+    which no path this is called on reaches. Each wrapper of
     ``redesigned`` must have launched its wgmma form."""
-    old = {name: f["wmma"] for name, f in forms.items() if f.get("wmma") and name not in first}
+    old = {name: f["wmma"] for name, f in forms.items() if f.get("wmma")}
     if old:
         raise SystemExit(f"[{phase}] launches of the WMMA form on the path: {old}")
     idle = [name for name in redesigned if forms[name]["wgmma"] <= 0]
@@ -1418,7 +1419,8 @@ def upsample_phase(torch, run_dir, refiner):
 # Substrings of the kernels' device symbols (B-D's and F-J's: every form).
 KERNEL_SYMBOLS = {
     "attention_packed": "attn_packed_kernel",
-    "temporal_attention_pair": ("::temporal_pair_kernel", "::temporal_pair_wgmma_kernel"),
+    "temporal_attention_pair": ("::temporal_pair_kernel", "::temporal_pair_wgmma_kernel",
+                                "::temporal_pair_fwd_tf32::"),
     "geglu_mlp": "::geglu_w",
     "norm_silu_temporal_conv": "::temp_conv_w",
     "attention_packed_bwd": "attn_bwd_",
@@ -1511,7 +1513,7 @@ def _timed_steps(torch, step, state, batch, keys):
 # Kernels whose fp32 forms were redesigned for Hopper: the train phase's
 # adapter-only steps must launch their wgmma forms and never their first
 # (WMMA) versions (probes/train_step_forms.py times the step with both).
-TRAIN_REDESIGNED = ("temporal_attention_pair_bwd", "geglu_mlp_bwd")
+TRAIN_REDESIGNED = ("temporal_attention_pair", "temporal_attention_pair_bwd", "geglu_mlp_bwd")
 
 
 @contextlib.contextmanager
@@ -1616,7 +1618,7 @@ def train_phase(torch):
         raise SystemExit(f"[train] adapter-only: losses {losses}, frozen leaves changed "
                          f"{changed[:5]}, trained leaves that never moved {still[:5]}, kernels "
                          f"never launched {missing}")
-    check_new_forms("train", forms, TRAIN_REDESIGNED, first=("temporal_attention_pair",))
+    check_new_forms("train", forms, TRAIN_REDESIGNED)
     state, _ = train_breakdown(torch, "adapter-only", trainer.make_step(), state, batch,
                                prng.prng_key(TRAIN_STEPS))
     del state, trainer, frozen, trained, after
@@ -2044,7 +2046,8 @@ def knob_phase(torch):
 
 def fp32_phase(torch, models):
     """One full-width CFG UNet forward in the pipeline's default type (fp32)
-    through the kernels, against the plain path in fp32, TF32 off on both."""
+    through the kernels, against the plain path in fp32, TF32 off on both;
+    B must launch its fp32 wgmma form only, and no kernel a WMMA form."""
     from lvd_tpu_torch.models.unet3d import apply_unet3d
     from lvd_tpu_torch.ops.plain import plain_route
     from lvd_tpu_torch.ops.selfcheck import exact_fp32
@@ -2066,7 +2069,7 @@ def fp32_phase(torch, models):
         eps = apply_unet3d(params, cfg, sample, 500, text)
         end.record()
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches, forms = read_launches(), read_forms()
         with plain_route():
             ref = apply_unet3d(params, cfg, sample, 500, text)
     scale = ref.abs().max().item()
@@ -2074,10 +2077,11 @@ def fp32_phase(torch, models):
     log(f"[fp32] full-width CFG UNet forward in fp32 through the kernels against the plain "
         f"path (fp32, TF32 off), max|d| / max|ref| (max|ref| {scale:.6g}): {rel:.6g} "
         f"(gate {FP32_REFERENCE_TOL}); kernel path {start.elapsed_time(end):.3f} ms (first "
-        f"fp32 call, CUDA events); launches {json.dumps(launches)}")
+        f"fp32 call, CUDA events); launches {json.dumps(launches)}; by form {json.dumps(forms)}")
     missing = [name for name in FORWARD_KERNELS if launches[name] <= 0]
     if missing or eps.dtype != torch.float32:
         raise SystemExit(f"[fp32] kernels never launched in fp32: {missing}")
+    check_new_forms("fp32", forms, ("temporal_attention_pair",))
     if not (torch.isfinite(eps).all() and rel <= FP32_REFERENCE_TOL):
         raise SystemExit("[fp32] the fp32 kernel path disagrees with the plain path")
     del eps, ref, params
@@ -2652,7 +2656,8 @@ def kernels_line(records, knob_launches, entry_launches, forms, path_launches):
 
 
 # The kernels whose fp32 form has a source of its own.
-FP32_SOURCES = {"temporal_attention_pair_bwd": "lvd_tpu_torch/csrc/pair_bwd_tf32.cu"}
+FP32_SOURCES = {"temporal_attention_pair": "lvd_tpu_torch/csrc/pair_fwd_tf32.cu",
+                "temporal_attention_pair_bwd": "lvd_tpu_torch/csrc/pair_bwd_tf32.cu"}
 
 
 def main() -> int:

@@ -52,10 +52,17 @@
 // and v of both warpgroups (32 KB) and a ring of 16 KB stages: 224 KB at
 // C = 320 (7 stages), 512 (4) and 640 (2).
 //
-// fp32, and F > 64 (the `wmma` form, the first version): one block per
-// (batch, group of G pixels) holds the G*F rows of its pixels in shared
-// memory (residual, LN output and per-head outputs) and runs both
-// attentions there. q/k/v for one head at a time come from WMMA products
+// fp32 up to F = 64 (the `wgmma` form on TF32; csrc/pair_fwd_tf32.cu): a
+// chain of passes per attention on the kernels it shares with kernel F's fp32
+// form (csrc/pair_tf32.cuh): LayerNorm, [q | k | v] on a TF32 `wgmma` GEMM in
+// 128-row tiles, the F x F attention per (pixel, head) on mma.sync TF32 with
+// F padded to 16..64 frames, and the output projection with the bias and the
+// residual in the GEMM's epilogue, through a device-memory workspace.
+//
+// F > 64 in either type, and fp32 when named (the `wmma` form, the first
+// version): one block per (batch, group of G pixels) holds the G*F rows of
+// its pixels in shared memory (residual, LN output and per-head outputs)
+// and runs both attentions there. q/k/v for one head at a time come from WMMA products
 // against the weights in device memory (L2-resident); the F x F attention
 // runs as one (R, R) product masked to its per-pixel blocks, with an exact
 // softmax (running max; the TPU kernel's clamped no-max exp2 is not
@@ -70,8 +77,9 @@
 // 640 G = 1 with the residual in the output (R = 32; 173 and 205 KB).
 //
 // The wrapper's launch plan (ops/temporal_attention.py `launch_plan`: the
-// form, rows a block, pixels a block) is passed in, and a plan the form
-// was not built for is refused.
+// form, rows a block, pixels a block, the attention's frames, and the
+// workspace's bytes) is passed in, and a plan the form was not built for is
+// refused.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -775,24 +783,44 @@ long long wgmma_heads(const void* x, void* out, const void* const* wts, int B, i
 }  // namespace
 }  // namespace lvd
 
+namespace lvd {
+// The fp32 form on TF32 wgmma (csrc/pair_fwd_tf32.cu).
+long long pair_fwd_tf32_workspace(int B, int F, int P, int C);
+cudaError_t pair_fwd_tf32(const void* x, void* out, const void* const* wts, void* ws, int B,
+                          int F, int P, int C, long long sB, long long sF, long long sP,
+                          float eps, cudaStream_t s);
+constexpr int kTf32RowBlock = 128;  // its projections' output tiles: 128 rows a block
+}  // namespace lvd
+
 // x/out: (dtype 0 bf16, 1 fp32) with element (b, f, p, c) at b*sB + f*sF +
 // p*sP + c (strides in elements; c contiguous). Per attention i: ln
 // scale/bias (C,) fp32, wqkv (C, 3C) = [Wq | Wk | Wv] and wo (C, C) in x's
-// type, bo (C,) fp32. C = H*64. form 1 is the wgmma form (bf16, H <= 10,
-// F <= 64; row_block 64 and pixels 64 / F), form 0 the first version
-// (row_block and pixels its tile search's R and G); a plan the form was not
+// type, bo (C,) fp32. C = H*64. ws: lvd_temporal_pair_workspace bytes of
+// device workspace. form 1 is the wgmma form (H <= 10, F <= 64): in bf16
+// row_block 64, pixels 64 / F and frames F; in fp32 (csrc/pair_fwd_tf32.cu)
+// row_block 128 (its projections' tiles), pixels 1 and frames F rounded up
+// to 16 (its attention pass). form 0 is the first version (row_block and
+// pixels its tile search's R and G, frames F). A plan the form was not
 // built for is refused.
 LVD_EXPORT int lvd_temporal_pair(const void* x, void* out, const void* ln1_s, const void* ln1_b,
                                  const void* wqkv1, const void* wo1, const void* bo1,
                                  const void* ln2_s, const void* ln2_b, const void* wqkv2,
-                                 const void* wo2, const void* bo2, int B, int F, int P, int C,
-                                 int H, long long sB, long long sF, long long sP, float eps,
-                                 int form, int row_block, int pixels, int dtype, void* stream) {
+                                 const void* wo2, const void* bo2, void* ws, int B, int F, int P,
+                                 int C, int H, long long sB, long long sF, long long sP,
+                                 float eps, int form, int row_block, int pixels, int frames,
+                                 int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
   if (C != H * kD || F <= 0 || P <= 0 || B <= 0) return cudaErrorInvalidValue;
   const void* wts[10] = {ln1_s, ln1_b, wqkv1, wo1, bo1, ln2_s, ln2_b, wqkv2, wo2, bo2};
   auto s = static_cast<cudaStream_t>(stream);
+  if (form == 1 && dtype == kF32) {
+    if (H < 1 || H > 10 || F > 64 || row_block != kTf32RowBlock || pixels != 1 ||
+        frames != round_up(F, 16) || ws == nullptr)
+      return cudaErrorInvalidValue;
+    return (int)pair_fwd_tf32(x, out, wts, ws, B, F, P, C, sB, sF, sP, eps, s);
+  }
+  if (frames != F) return cudaErrorInvalidValue;
   if (form == 1) {
     if (dtype != kBF16 || H < 1 || H > 10 || F > 64 || row_block != 64 || pixels != 64 / F)
       return cudaErrorInvalidValue;
@@ -803,6 +831,18 @@ LVD_EXPORT int lvd_temporal_pair(const void* x, void* out, const void* ln1_s, co
     return launch_wmma<decltype(tag)>(x, out, wts, B, F, P, C, H, sB, sF, sP, eps, row_block,
                                       pixels, s);
   });
+}
+
+// Bytes of device-memory workspace lvd_temporal_pair needs for this shape,
+// form and type (-1 if the shape or type is not supported): the fp32 wgmma
+// form's (pair_fwd_tf32_workspace), none in any other form (the entry
+// refuses a form it does not know).
+LVD_EXPORT long long lvd_temporal_pair_workspace(int B, int F, int P, int C, int form,
+                                                 int dtype) {
+  using namespace lvd;
+  if (B <= 0 || F <= 0 || P <= 0 || C % kD != 0 || (dtype != kBF16 && dtype != kF32)) return -1;
+  if (form != 1 || dtype != kF32) return 0;
+  return C > 10 * kD || F > 64 ? -1 : pair_fwd_tf32_workspace(B, F, P, C);
 }
 
 // Bytes of dynamic shared memory one block of kernel B's wgmma form takes

@@ -40,7 +40,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # the int before the stream is the element type, DTYPE_CODES).
 SIGNATURES = {
     "lvd_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
-    "lvd_temporal_pair": [_P] * 12 + [_I] * 5 + [_L] * 3 + [_F] + [_I] * 3 + [_I, _P],
+    "lvd_temporal_pair": [_P] * 13 + [_I] * 5 + [_L] * 3 + [_F] + [_I] * 4 + [_I, _P],
     "lvd_geglu": [_P] * 6 + [_I] * 8 + [_I, _P],
     "lvd_geglu_stream": [_P] * 7 + [_I] * 8 + [_I, _P],
     "lvd_temp_conv": [_P] * 6 + [_I] * 11 + [_I, _P],
@@ -54,7 +54,8 @@ SIGNATURES = {
 }
 # Entry points that return a byte count instead of a CUDA error code (a
 # workspace size, or the dynamic shared memory of kernels A-I).
-SIZE_QUERIES = {"lvd_temporal_pair_bwd_workspace": [_I] * 6,
+SIZE_QUERIES = {"lvd_temporal_pair_workspace": [_I] * 6,
+                "lvd_temporal_pair_bwd_workspace": [_I] * 6,
                 "lvd_temporal_pair_bwd_smem": [_I],
                 "lvd_attention_packed_smem": [_I] * 2,
                 "lvd_attention_packed_bwd_smem": [_I] * 3,

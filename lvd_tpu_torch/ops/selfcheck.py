@@ -40,12 +40,14 @@ reference runs with ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` off.
 
 Kernels B-D and F-J record the form each call took (``launches_by_form``:
-``wgmma`` in bf16, and for F and G in fp32 too (TF32), ``mma_sync`` for
-the others in fp32; C's kept ``wmma`` form for fp32 C > 384, I's for widths
-% 64 != 0, B's and J's first versions, ``wmma``, in fp32). B, F, G and J in
-their ``wgmma`` form also run and time their first version on the same
-inputs (``first_ms``, ``first_rel_err``), held to no gate. C, D, F and J also time the same products alone through
-``torch.matmul`` on pre-made operands (``products_ms``: x W1 and gated W2;
+``wgmma`` in bf16, and for B, F and G in fp32 too (TF32), ``mma_sync`` for
+C and D in fp32; C's kept ``wmma`` form for fp32 C > 384, I's for widths
+% 64 != 0, J's first version, ``wmma``, in fp32). B, F, G and J in their
+``wgmma`` form also run and time their first version on the same inputs
+(``first_ms``, ``first_rel_err``), held to no gate; B also in bf16 at the
+train step's shapes, the reading its fp32 checks there must beat. C, D, F
+and J also time the same products alone through ``torch.matmul`` on
+pre-made operands (``products_ms``: x W1 and gated W2;
 the three shifted products; F's seven projections, [q | k | v] and the
 output of both attentions and dO and dz of both VJPs): not a library call
 for the same function, and the port never calls it. C's Hopper forms and
@@ -679,7 +681,7 @@ BF16_PLAN = ([(check_attention, s) for s in ATTN_SHAPES + FUSER_ATTN_SHAPES]
              + [(check_attention, s) for s in XL_ATTN_SHAPES + SDXL_ATTN_SHAPES]
              + [(check_spatial_conv, s) for s in SDXL_SCONV_SHAPES]
              + [(check_linear_forward, s) for s in SDXL_LINEAR_SHAPES]
-             + [(check_pair, s) for s in XL_PAIR_SHAPES]
+             + [(check_pair, s) for s in XL_PAIR_SHAPES + TRAIN_PAIR_SHAPES]
              + [(check_geglu, s) for s in XL_GEGLU_SHAPES]
              + [(check_temp_conv, s) for s in XL_TCONV_SHAPES + C4_TCONV_SHAPES])
 # Each kernel in fp32 at its first (largest) path shape, kernel A also at the

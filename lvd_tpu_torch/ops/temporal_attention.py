@@ -22,14 +22,15 @@ lvd_tpu's unfused route. Kernels B and F have two forms each
 (``launch_plan``, ``bwd_launch_plan``, passed to the kernel, which refuses
 any other): ``wgmma`` in bf16 (64-row blocks of whole pixels,
 ``block_rows``, keys masked to the row's pixel, ``key_mask``; F's weight
-ring in the order ``bwd_stages`` lists), for F also in fp32 (the passes
-of csrc/pair_bwd_tf32.cu: projections on TF32 wgmma in 128-row tiles,
-LayerNorms and mma.sync attention steps between them), and the first version
-``wmma`` (B in fp32; F past F = 64 and when named); ``launches_by_form``
-counts each. Weight and bias gradients come from the stock VJP of the plain
-pair, recomputed, as lvd_tpu's custom VJP gives them, beside y's from the
-route above. The FF stage stays outside
-(ops.geglu_fused).
+ring in the order ``bwd_stages`` lists), and in fp32 the passes of
+csrc/pair_fwd_tf32.cu (B) and csrc/pair_bwd_tf32.cu (F) on the kernels they
+share (csrc/pair_tf32.cuh: projections on TF32 wgmma in 128-row tiles,
+LayerNorms and mma.sync attention steps between them, through a workspace
+whose bytes the library gives); and the first version ``wmma`` (past F = 64
+and when named); ``launches_by_form`` counts each. Weight and bias
+gradients come from the stock VJP of the plain pair, recomputed, as
+lvd_tpu's custom VJP gives them, beside y's from the route above. The FF
+stage stays outside (ops.geglu_fused).
 """
 
 from __future__ import annotations
@@ -69,21 +70,38 @@ def _wmma_tile(f: int, c: int, itemsize: int):
     return 0, 0
 
 
+TF32_ROW_BLOCK = 128  # rows a block of the fp32 wgmma forms' projections
+
+
+def tf32_frames(f: int) -> int:
+    """The fp32 wgmma forms' attention pass at F frames (F <= 64): F rounded
+    up to 16, the keys past F masked."""
+    return -(-f // 16) * 16
+
+
 def launch_plan(f: int, c: int, dtype, form: str = None) -> dict:
     """Kernel B's form for F frames and C channels of this type, and its
-    launch plan, which the kernel checks: ``wgmma`` in bf16 up to F = 64,
+    launch plan, which the kernel checks: ``wgmma`` up to F = 64, in bf16
     one block per ``row_block`` = 64 rows holding ``pixels`` = 64 // F
-    whole pixels (row r: pixel r // F, frame r % F, ``block_rows``); the first version
-    ``wmma`` in fp32 and past F = 64, G pixels in R rows as its tile search
-    picks them (``_wmma_tile``). ``form`` names one of them instead (the
+    whole pixels (row r: pixel r // F, frame r % F, ``block_rows``), in
+    fp32 the passes of csrc/pair_fwd_tf32.cu: its projections in
+    ``row_block`` = 128-row output tiles, its attention pass per (pixel,
+    head) pair (``pixels`` = 1) over ``frames`` = F rounded up to 16
+    (``tf32_frames``); the first version ``wmma`` past F = 64, G pixels in
+    R rows as its tile search picks them (``_wmma_tile``). ``frames`` is F
+    but in the fp32 wgmma form. ``form`` names one of them instead (the
     selfcheck times the first version beside the new one)."""
     if form is None:
-        form = "wgmma" if dtype == torch.bfloat16 and f <= ROW_BLOCK else "wmma"
-    if form == "wgmma":
+        form = "wgmma" if f <= ROW_BLOCK else "wmma"
+    frames = f
+    if form == "wgmma" and dtype == torch.bfloat16:
         rows, pixels = ROW_BLOCK, ROW_BLOCK // f
+    elif form == "wgmma":
+        rows, pixels, frames = TF32_ROW_BLOCK, 1, tf32_frames(f)
     else:
         pixels, rows = _wmma_tile(f, c, dtype.itemsize)
-    return {"form": form, "code": FORM_CODES[form], "row_block": rows, "pixels": pixels}
+    return {"form": form, "code": FORM_CODES[form], "row_block": rows, "pixels": pixels,
+            "frames": frames}
 
 
 def block_rows(f: int, p: int, block: int):
@@ -146,9 +164,6 @@ def _wmma_bwd_tile(f: int, c: int, itemsize: int):
             if r <= 64 and total <= MAX_SMEM:
                 return g, r
     return 0, 0
-
-
-TF32_ROW_BLOCK = 128  # rows a block of the fp32 wgmma form's projections
 
 
 def bwd_launch_plan(f: int, c: int, dtype, form: str = None) -> dict:
@@ -386,11 +401,17 @@ def _launch_forward(p, y, num_heads, eps, frames_major, form=None):
         raise ValueError(f"temporal_attention_pair: C={c} is not {num_heads} heads of {HEAD_DIM}")
     plan = launch_plan(f, c, y.dtype, form)
     weights = _pair_weights(p, y.dtype)
+    lib = _build.lib()
+    ws_bytes = lib.lvd_temporal_pair_workspace(b, f, pdim, c, plan["code"], code)
+    if ws_bytes < 0:
+        raise ValueError(f"temporal_attention_pair: unsupported shape {tuple(y.shape)}")
+    ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=y.device) if ws_bytes else None
     out = torch.empty_like(y)
-    err = _build.lib().lvd_temporal_pair(
+    err = lib.lvd_temporal_pair(
         y.data_ptr(), out.data_ptr(), *[w.data_ptr() for w in weights],
-        b, f, pdim, c, num_heads, *strides, float(eps), plan["code"], plan["row_block"],
-        plan["pixels"], code, _build.stream_of(y))
+        None if ws is None else ws.data_ptr(), b, f, pdim, c, num_heads, *strides, float(eps),
+        plan["code"], plan["row_block"], plan["pixels"], plan["frames"], code,
+        _build.stream_of(y))
     _build.check(err, "temporal_attention_pair")
     temporal_attention_pair.launches += 1
     temporal_attention_pair.launches_by_form[plan["form"]] += 1

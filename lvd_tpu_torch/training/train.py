@@ -5,7 +5,10 @@ semantics, for full finetuning or GLIGEN-adapter-only training (everything
 frozen but the ``fuser`` and ``position_net`` leaves, the way lvd-gligen
 checkpoints are made). The timesteps and the noise are lvd_tpu's draws from
 the same key (utils/prng.py), and the UNet runs with lvd_tpu's remat rule,
-so a step from the same params, batch and key is lvd_tpu's step. On the
+so a step from the same params, batch and key is lvd_tpu's step. The batch
+is taken one sample at a time (each sample's loss gradient, summed): a
+sample's gradient then does not depend on the batch around it, so a
+data-parallel mesh gives the one-device step's bits. On the
 card the forward launches the kernels, the input gradients take kernels
 E-G where lvd_tpu routes them, and the weight gradients of the temporal
 pair and the GEGLU come from their stock recompute VJPs, as lvd_tpu's
@@ -20,10 +23,10 @@ gathers the full leaves over "model" (comm.all_gather, whose VJP sums each
 gradient back into the blocks), so every head count and the GEGLU's
 [h | g] projection meet lvd_tpu's whole weights; draws t and eps for the
 global batch from the key, as lvd_tpu does, and keeps its rows; and seeds
-the backward with 1 / ranks (parallel/comm.py's rule for a replicated
-value): a replicated leaf's gradient is then summed over every rank and a
-sharded block's over "data", which gives the gradient of the global mean
-loss, and each block takes the single-device update.
+each sample's backward with 1 / (ranks * rows) (parallel/comm.py's rule
+for a replicated value): a replicated leaf's gradient is then summed over
+every rank and a sharded block's over "data", which gives the gradient of
+the global mean loss, and each block takes the single-device update.
 """
 
 from __future__ import annotations
@@ -136,6 +139,16 @@ def diffusion_loss(params, cfg: UNet3DConfig, sqrt_abar, sqrt_1m_abar, batch, ke
     return torch.mean((pred.float() - eps.float()) ** 2)
 
 
+def _sample(batch, i, b):
+    """Sample ``i`` of ``b``: the i-th of b equal blocks of axis 0 of every
+    tensor of the batch, as ``shard_batch`` cuts them over b ranks (the
+    grounding inputs hold a sample's frames in their rows)."""
+    if isinstance(batch, dict):
+        return {k: _sample(v, i, b) for k, v in batch.items()}
+    n = batch.shape[0] // b
+    return batch.narrow(0, i * n, n)
+
+
 def _psum_leaves(grads: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
     """Each tensor summed over ``group``, in one all_reduce of them all."""
     if group.size == 1 or not grads:
@@ -183,25 +196,35 @@ class Trainer:
                                        for v in (abar ** 0.5, (1.0 - abar) ** 0.5))
             leaves = {p: t.detach().requires_grad_(self.tx.trains(p)) for p, t in flat.items()}
             trained = [p for p in leaves if self.tx.trains(p)]
-            if mesh is None:
-                loss = diffusion_loss(unflatten_like(state.params, leaves), self.unet_cfg,
-                                      *tables[device], batch, key)
-                grads = dict(zip(trained, torch.autograd.grad(loss,
-                                                              [leaves[p] for p in trained])))
-            else:
-                full = {p: mesh_mod.full_leaf(mesh, p, t, differentiable=True)
-                        for p, t in leaves.items()}
-                b = batch["latents"].shape[0]
-                loss = diffusion_loss(unflatten_like(state.params, full), self.unet_cfg,
-                                      *tables[device], batch, key,
-                                      rows=(mesh.data.rank * b, mesh.data.size * b))
-                seed = torch.full_like(loss, 1.0 / (mesh.data.size * mesh.model.size))
-                grads = dict(zip(trained, torch.autograd.grad(
-                    loss, [leaves[p] for p in trained], grad_outputs=seed)))
+            full = leaves if mesh is None else {
+                p: mesh_mod.full_leaf(mesh, p, t, differentiable=True) for p, t in leaves.items()}
+            params = unflatten_like(state.params, full)
+            b = batch["latents"].shape[0]
+            data = (0, 1) if mesh is None else (mesh.data.rank, mesh.data.size)
+            ranks = 1 if mesh is None else mesh.data.size * mesh.model.size
+            # One sample at a time, as a rank of a data-parallel mesh holding
+            # one row takes it: a sample's gradient is then the same bits
+            # whatever batch it came in, and the mesh's sum over ranks is the
+            # one-device sum over samples (ROADMAP C9).
+            loss, grads = 0.0, {}
+            for i in range(b):
+                one = diffusion_loss(params, self.unet_cfg, *tables[device], _sample(batch, i, b),
+                                     key, rows=(data[0] * b + i, data[1] * b))
+                seed = torch.full_like(one, 1.0 / (ranks * b))
+                got = torch.autograd.grad(one, [full[p] for p in trained], grad_outputs=seed)
+                for p, g in zip(trained, got):
+                    grads[p] = g if i == 0 else grads[p] + g
+                loss = loss + one.detach() / b
+            if mesh is not None:
+                gathered = [p for p in trained if full[p] is not leaves[p]]
+                if gathered:  # back through the gathers: each block's sum over "model"
+                    grads.update(zip(gathered, torch.autograd.grad(
+                        [full[p] for p in gathered], [leaves[p] for p in gathered],
+                        grad_outputs=[grads[p] for p in gathered])))
                 replicated = {p: g for p, g in grads.items() if full[p] is leaves[p]}
                 grads.update(_psum_leaves(replicated, mesh.model))
                 grads = _psum_leaves(grads, mesh.data)
-                loss = comm.all_reduce(loss.detach(), mesh.data) / mesh.data.size
+                loss = comm.all_reduce(loss, mesh.data) / mesh.data.size
             opt_state = self.tx.update(grads, state.opt_state, flat)
             return (TrainState(unflatten_like(state.params, flat), opt_state, state.step + 1),
                     loss.detach())

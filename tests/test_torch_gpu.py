@@ -616,9 +616,10 @@ def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch
     """Kernels B, C, D, F, G and J check the wrapper's launch plan: C's and
     G's split (1 at C = 320, 2 at 640) and rows a block, D's m64 tiles,
     window rows and first frame, B's and F's rows and pixels a block (and
-    form), J's rows, inner chunk and column block (and form), F's and G's
-    in bf16 and in fp32 (their TF32 forms); each changed value is refused,
-    and the plan as given launches."""
+    form), B's attention frames and workspace bytes, J's rows, inner chunk
+    and column block (and form), B's, F's and G's in bf16 and in fp32
+    (their TF32 forms); each changed value is refused, and the plan as given
+    launches."""
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.ops import geglu_fused as gf
     from lvd_tpu_torch.ops import temp_conv_fused as tc
@@ -645,12 +646,14 @@ def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch
             cases.append((lambda: gf.geglu_stream(p, x), (torch.bfloat16,)))
         elif kernel == "B":
             mod, name = ta, "launch_plan"
-            changes = [("pixels", 1), ("pixels", 3), ("row_block", 48), ("code", 2)]
+            changes = [("pixels", 1), ("pixels", 3), ("row_block", 48), ("code", 2),
+                       ("frames", 48)]
             for c in (320, 640):
-                p = cast_tree(_pair_params(c, g, cuda), torch.bfloat16)
-                y = torch.randn(1, 24, 16, c, generator=g, device=cuda).bfloat16()
-                cases.append((lambda p=p, y=y, c=c: ta._launch_forward(p, y, c // 64, 1e-5, True),
-                              (24, c, torch.bfloat16)))
+                for dt in (torch.bfloat16, torch.float32):  # fp32: the TF32 passes
+                    p = cast_tree(_pair_params(c, g, cuda), dt)
+                    y = torch.randn(1, 24, 16, c, generator=g, device=cuda).to(dt)
+                    cases.append((lambda p=p, y=y, c=c: ta._launch_forward(p, y, c // 64, 1e-5,
+                                                                           True), (24, c, dt)))
         else:
             mod, name = gf, "bwd_launch_plan"
             changes = [("split", 2), ("split", 1), ("row_block", 32), ("inner_chunk", 128)]
@@ -985,6 +988,152 @@ def test_pair_bwd_tf32_form_matches_plain(cuda, f, p, c, frames_major):
     print(f"kernel F fp32 F={f} P={p} C={c} fm={frames_major}: wgmma {err:.3g}, "
           f"wmma {err_first}")
     assert out.dtype == torch.float32 and torch.isfinite(out).all() and err <= FP32_TOL
+
+
+@pytest.mark.parametrize("c", [64 * h for h in range(1, 11)])
+def test_pair_tf32_form_matches_plain(cuda, c):
+    """Kernel B's fp32 wgmma form (TF32 projections between its LayerNorm and
+    attention passes) at H = C / 64 heads, F = 1, 5, 16, 24 and 64 (the
+    attention's frames padded to 16, 16, 16, 32 and 64, the keys past F
+    masked) on 45 pixels (45 F rows: every last 128-row projection tile
+    ragged), both layouts, against the plain version in fp32 with TF32 off:
+    the fp32 gate, 5e-3. Launched directly, once a case, bit-equal when run
+    again on the same inputs. The first version runs beside it where it
+    has a tile."""
+    from lvd_tpu_torch.ops import temporal_attention as ta
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(41)
+    params = _pair_params(c, g, cuda)
+    for f in (1, 5, 16, 24, 64):
+        for frames_major in (True, False):
+            shape = (1, f, 45, c) if frames_major else (1, 45, f, c)
+            y = torch.randn(shape, generator=g, device=cuda)
+            before = dict(ta.temporal_attention_pair.launches_by_form)
+            with torch.no_grad():
+                out = ta._launch_forward(params, y, c // 64, 1e-5, frames_major)
+                again = ta._launch_forward(params, y, c // 64, 1e-5, frames_major)
+                with exact_fp32():
+                    ref = (ta._pair_ref_fm if frames_major else ta._pair_ref)(params, y, c // 64,
+                                                                              1e-5)
+            after = ta.temporal_attention_pair.launches_by_form
+            assert {k: after[k] - before[k] for k in after} == {"wgmma": 2, "wmma": 0}
+            err = _rel(out, ref)
+            print(f"kernel B fp32 F={f} C={c} fm={frames_major}: wgmma {err:.3g}")
+            assert out.dtype == torch.float32 and torch.isfinite(out).all()
+            assert err <= FP32_TOL, (f, frames_major, err)
+            assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("shape,frames_major", [((2, 24, 2880, 320), True),
+                                                ((1, 24, 720, 640), True),
+                                                ((1, 45, 24, 320), False)])
+def test_pair_tf32_form_takes_a_strided_stream(cuda, shape, frames_major):
+    """Kernel B's fp32 form through the public wrapper on a stream that is a
+    strided view (every other channel block of a wider tensor, made
+    contiguous by the wrapper), at the selfcheck's batch-2 L0 shape (69120 x
+    2 rows), the train step's L1 and a pixels-major ragged one, against the
+    plain version in fp32 with TF32 off: 5e-3; the first version on the same
+    inputs reads within the same gate."""
+    from lvd_tpu_torch.ops import temporal_attention as ta
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(42)
+    c = shape[-1]
+    params = _pair_params(c, g, cuda)
+    wide = torch.randn(*shape[:-1], 2 * c, generator=g, device=cuda)
+    y = wide[..., c:]
+    assert not y.is_contiguous()
+    before = dict(ta.temporal_attention_pair.launches_by_form)
+    with torch.no_grad():
+        out = ta.temporal_attention_pair(params, y, c // 64, 1e-5, frames_major)
+        first = ta._launch_forward(params, y, c // 64, 1e-5, frames_major, "wmma")
+        with exact_fp32():
+            ref = ta.temporal_attention_pair_plain(params, y, c // 64, 1e-5, frames_major)
+    after = ta.temporal_attention_pair.launches_by_form
+    assert {k: after[k] - before[k] for k in after} == {"wgmma": 1, "wmma": 1}
+    err, err_first = _rel(out, ref), _rel(first, ref)
+    print(f"kernel B fp32 {shape} fm={frames_major}: wgmma {err:.3g}, wmma {err_first:.3g}")
+    assert out.shape == y.shape and torch.isfinite(out).all() and err <= FP32_TOL
+
+
+def test_pair_tf32_workspace_bytes(cuda):
+    """Kernel B's workspace, as the library sizes it: in the fp32 wgmma form
+    z-or-o (R x C) and q/k/v (R x 3C) fp32 and the four weights staged
+    (8 C^2), each buffer a whole number of 256-byte pieces; none in bf16 or
+    in the first version (nor in a form the entry refuses); -1 for a shape
+    the fp32 wgmma form does not take."""
+    from lvd_tpu_torch.ops import _build
+
+    size = _build.lib().lvd_temporal_pair_workspace
+    codes = _build.DTYPE_CODES
+    rows = 1 * 24 * 2880  # (1, 24, 2880, 320): 354 MB of rows, 3.3 MB of weights
+    assert size(1, 24, 2880, 320, 1, codes[torch.float32]) == 357171200
+    assert size(1, 24, 2880, 320, 1, codes[torch.float32]) == 4 * (4 * rows * 320 + 8 * 320 ** 2)
+    # five rows at C = 64: z-or-o 320 fp32, q/k/v 960, the weights 3, 3, 1 and 1 x 4096
+    assert size(1, 5, 1, 64, 1, codes[torch.float32]) == 4 * (320 + 960 + 8 * 4096)
+    for form, dt in ((1, torch.bfloat16), (0, torch.float32), (0, torch.bfloat16)):
+        assert size(1, 24, 2880, 320, form, codes[dt]) == 0
+    assert size(1, 65, 10, 320, 1, codes[torch.float32]) == -1
+    assert size(1, 24, 10, 704, 1, codes[torch.float32]) == -1
+    assert size(1, 24, 10, 320, 2, codes[torch.float32]) == 0
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 2880, 320), (2, 24, 720, 640)])
+def test_pair_tf32_forms_do_not_depend_on_the_batch(cuda, shape):
+    """B's and F's fp32 forms give a sample the same bits alone and beside
+    another (every pass works row by row or pixel by pixel): a rank of a
+    data-parallel mesh computes what the unsharded step computes for its
+    rows. Check (d)'s shape (8 frames) and the train step's L1."""
+    from lvd_tpu_torch.ops import temporal_attention as ta
+
+    g = torch.Generator(device=cuda).manual_seed(44)
+    c = shape[-1]
+    p = _pair_params(c, g, cuda)
+    y, dy = (torch.randn(shape, generator=g, device=cuda) for _ in range(2))
+    with torch.no_grad():
+        for run in (lambda yy, dd: ta._launch_forward(p, yy, c // 64, 1e-5, True),
+                    lambda yy, dd: ta.temporal_attention_pair_bwd(p, yy, dd, c // 64, 1e-5,
+                                                                  True)):
+            assert torch.equal(run(y, dy)[:1], run(y[:1].contiguous(), dy[:1].contiguous()))
+
+
+@pytest.mark.parametrize("shape,frames_major", [((1, 24, 2880, 320), True),
+                                                ((1, 45, 24, 640), False)])
+def test_pair_tf32_function_gradients_match_plain(cuda, shape, frames_major):
+    """The temporal pair's autograd Function in fp32 with every param
+    requiring grad: B's fp32 wgmma form runs the forward and F's the dy,
+    once each and no first version; the output, dy and every weight and bias
+    gradient (the stock VJP of the plain pair, recomputed) against the plain
+    route's autograd in fp32 with TF32 off: 1e-3."""
+    from lvd_tpu_torch.ops import temporal_attention as ta
+    from lvd_tpu_torch.ops.plain import plain_route
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+    from lvd_tpu_torch.utils.tree import flatten, unflatten_like
+
+    g = torch.Generator(device=cuda).manual_seed(43)
+    c = shape[-1]
+    p = _pair_params(c, g, cuda)
+    x = torch.randn(shape, generator=g, device=cuda)
+    leaves = {path: t.clone().requires_grad_(True) for path, t in flatten(p).items()}
+    ref_leaves = {path: t.clone().requires_grad_(True) for path, t in flatten(p).items()}
+    x_k, x_r = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    fwd, bwd = ta.temporal_attention_pair, ta.temporal_attention_pair_bwd
+    before = dict(fwd.launches_by_form), dict(bwd.launches_by_form)
+    out = ta.temporal_attention_pair(unflatten_like(p, leaves), x_k, c // 64, 1e-5, frames_major)
+    ct = torch.randn(out.shape, generator=g, device=cuda)
+    got = _grads(out, [x_k, *leaves.values()], ct)
+    for fn, was in zip((fwd, bwd), before):
+        assert {k: fn.launches_by_form[k] - was[k] for k in ta.FORMS} == {"wgmma": 1, "wmma": 0}
+    with exact_fp32(), plain_route():
+        ref = ta.temporal_attention_pair(unflatten_like(p, ref_leaves), x_r, c // 64, 1e-5,
+                                         frames_major)
+        want = _grads(ref, [x_r, *ref_leaves.values()], ct)
+    assert _rel(out, ref) <= 1e-3
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert _rel(a, b) <= 1e-3, (i, _rel(a, b))
+
 
 
 @pytest.mark.parametrize("name,shape", [("pair", (1, 24, 2880, 320)), ("pair", (1, 24, 720, 640)),

@@ -103,6 +103,16 @@ from lvd_tpu_torch.ops import temporal_attention as t_ta
 
 TOL = 1e-5
 NEW_FORM = {"bfloat16": "wgmma", "float32": "mma_sync"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The file's torch emulations on one thread: the suite runs its files in
+    parallel workers."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 # Kernel C in fp32 takes mma_sync up to C = 384 and keeps the WMMA form wider.
 C_FP32_MAX = 384
 
@@ -382,13 +392,17 @@ def test_geglu_chunk_plan_gives_lvd_tpu(form, c, monkeypatch):
 def test_pair_and_geglu_bwd_shapes_take_their_forms(on_tpu, dtype):
     tdt = getattr(torch, dtype)
     want = "wgmma" if dtype == "bfloat16" else "wmma"
-    for b, f, p, c in selfcheck.PAIR_SHAPES + selfcheck.PAIR_BWD_SHAPES:
+    for b, f, p, c in (selfcheck.PAIR_SHAPES + selfcheck.PAIR_BWD_SHAPES
+                       + selfcheck.TRAIN_PAIR_SHAPES):
         assert j_ta.supported_frames_major(
             jax.ShapeDtypeStruct((b, f, p, c), jnp.dtype(dtype)), c // 64)
         assert t_ta.supported_frames_major(torch.empty((b, f, p, c), dtype=tdt, device="meta"),
                                            c // 64)
+        # Kernel B's wgmma form in both types (in fp32 the TF32 passes).
         plan = t_ta.launch_plan(f, c, tdt)
-        assert plan["form"] == want and plan["pixels"] * f <= plan["row_block"]
+        assert plan["form"] == "wgmma" and plan["pixels"] * f <= plan["row_block"]
+        if dtype == "float32":
+            assert (plan["row_block"], plan["pixels"]) == (t_ta.TF32_ROW_BLOCK, 1)
         # lvd_tpu's backward takes a kernel there, and the port kernel F: its
         # wgmma form in both types (in fp32 the TF32 passes, one pixel and
         # head a block of its attention steps, 128-row projection tiles).
@@ -915,24 +929,64 @@ def _tf32_passes(c):
     ]
 
 
+def _tf32_fwd_passes(c):
+    """Kernel B's fp32 form's passes in launch order, as csrc/pair_fwd_tf32.cu's
+    ``pair_fwd_tf32`` runs them, in ``_tf32_passes``'s terms: per attention
+    LN into z, [q | k | v] from z, the attention over z (o), and o Wo + bo +
+    the residual into the output ("out"), attention 2's residual read from
+    there and overwritten."""
+    return [
+        ("ln", "y", "norm1", "z", None),
+        ("gemm", "z", "wqkv1t", 3 * c, c, "qkv", None),
+        ("attn", "qkv", "z"),
+        ("gemm", "z", "wo1t", c, c, "out", ("bo1", "y")),
+        ("ln", "out", "norm2", "z", None),
+        ("gemm", "z", "wqkv2t", 3 * c, c, "qkv", None),
+        ("attn", "qkv", "z"),
+        ("gemm", "z", "wo2t", c, c, "out", ("bo2", "out")),
+    ]
+
+
+def _gemm_width(n):
+    """The shared GEMM's tile width (csrc/pair_tf32.cuh ``gemm_width``)."""
+    return next(w for w in (192, 160, 128, 64) if n % w == 0)
+
+
 def _tf32_gemm_tiles(m, n):
-    """The output tiles of the fp32 form's projections, (row0, col0, rows,
-    cols), as its GEMM's grid takes them: ``bwd_launch_plan``'s 128-row
-    blocks (the last ragged, rows past m never stored) by 128-column blocks
-    where n % 128 == 0, else 64."""
+    """The output tiles of the fp32 forms' projections, (row0, col0, rows,
+    cols), as their GEMM walks them: 128-row tiles (``launch_plan`` and
+    ``bwd_launch_plan``'s row_block; the last ragged, rows past m never
+    stored), each row tile's columns in tiles of the widest of 192, 160, 128
+    and 64 that divides n."""
     rb = t_ta.bwd_launch_plan(24, 64, torch.float32)["row_block"]
-    bn = 128 if n % 128 == 0 else 64
+    assert t_ta.launch_plan(24, 64, torch.float32)["row_block"] == rb
+    bn = _gemm_width(n)
     return [(r0, c0, min(rb, m - r0), bn) for r0 in range(0, m, rb) for c0 in range(0, n, bn)]
 
 
 def _pair_bwd_tf32_passes(p, y, dy, heads, frames_major, rounded=True):
-    """Kernel F's fp32 wgmma form in torch: ``_tf32_passes`` run in order on
-    named (R, .) buffers whose rows keep the stream's order; each
-    projection tiled by ``_tf32_gemm_tiles`` (every output element written
-    once) against the staged weights (wqkv, wo as stored or transposed);
-    each attention step per (pixel, head) on the pixel's rows found through
-    the stream's strides, in the kernels' 16-frame tiles; operands
-    TF32-rounded where ``rounded``."""
+    """Kernel F's fp32 wgmma form in torch: ``_tf32_passes``."""
+    c = y.shape[-1]
+    buf = _run_tf32_passes(_tf32_passes(c), p, y, dy, heads, frames_major, rounded)
+    return buf["dx"].reshape(y.shape)
+
+
+def _pair_fwd_tf32_passes(p, y, heads, frames_major, rounded=True):
+    """Kernel B's fp32 wgmma form in torch: ``_tf32_fwd_passes``."""
+    c = y.shape[-1]
+    buf = _run_tf32_passes(_tf32_fwd_passes(c), p, y, None, heads, frames_major, rounded)
+    return buf["out"].reshape(y.shape)
+
+
+def _run_tf32_passes(passes, p, y, dy, heads, frames_major, rounded=True):
+    """The fp32 wgmma forms in torch: ``passes`` run in order on named (R, .)
+    buffers whose rows keep the stream's order; each projection tiled by
+    ``_tf32_gemm_tiles`` (every output element written once) against the
+    staged weights (wqkv, wo as stored or transposed); each attention step
+    per (pixel, head) on the pixel's rows found through the stream's
+    strides, in the kernels' 16-frame tiles (frames padded to
+    ``tf32_frames``); operands TF32-rounded where ``rounded``. Returns the
+    buffers by name, (R, .) each."""
     rnd = t_gf.tf32_round if rounded else (lambda t: t)
     shape = y.shape
     c = shape[-1]
@@ -943,7 +997,9 @@ def _pair_bwd_tf32_passes(p, y, dy, heads, frames_major, rounded=True):
         bsz, pdim, f, _ = shape
         strides = (f * pdim * c, c, f * c)
     r = y.numel() // c
-    buf = {"y": y.reshape(r, c), "dy": dy.reshape(r, c)}
+    buf = {"y": y.reshape(r, c)}
+    if dy is not None:
+        buf["dy"] = dy.reshape(r, c)
     for at in "12":
         pa = p["attn" + at]
         wqkv = torch.cat([pa[n]["w"] for n in ("to_q", "to_k", "to_v")], dim=1)
@@ -954,7 +1010,7 @@ def _pair_bwd_tf32_passes(p, y, dy, heads, frames_major, rounded=True):
     rows_of = lambda b, px: [(b * strides[0] + fr * strides[1] + px * strides[2]) // c
                              for fr in range(f)]
     scale = 64 ** -0.5
-    for step in _tf32_passes(c):
+    for step in passes:
         kind = step[0]
         if kind == "ln":
             _, src, norm, out, stats = step
@@ -962,7 +1018,8 @@ def _pair_bwd_tf32_passes(p, y, dy, heads, frames_major, rounded=True):
             mean = x.mean(-1, keepdim=True)
             rstd = torch.rsqrt((x * x).mean(-1, keepdim=True) - mean * mean + 1e-5)
             buf[out] = rnd((x - mean) * rstd * p[norm]["scale"] + p[norm]["bias"])
-            buf[stats] = (mean, rstd)
+            if stats is not None:
+                buf[stats] = (mean, rstd)
         elif kind == "gemm":
             _, a, w, n_out, k, out, epi = step
             am, wm = buf[a], buf[w]
@@ -981,7 +1038,7 @@ def _pair_bwd_tf32_passes(p, y, dy, heads, frames_major, rounded=True):
             # and the keys past f masked; each 16-frame tile of queries (then,
             # for dk and dv, of keys) written once, the padded rows never.
             qkv = buf[step[1]]
-            fp = -(-f // 16) * 16
+            fp = t_ta.tf32_frames(f)
             pad = lambda t: torch.cat([t, t.new_zeros(fp - f, t.shape[1])])
             live = torch.arange(fp) < f
             new = torch.full((r, c) if kind == "attn" else qkv.shape, float("nan"))
@@ -1022,7 +1079,7 @@ def _pair_bwd_tf32_passes(p, y, dy, heads, frames_major, rounded=True):
             buf[out] = o
             if out_round is not None:
                 buf[out_round] = rnd(o)
-    return buf["dx"].reshape(shape)
+    return buf
 
 
 @pytest.mark.parametrize("f,pdim,c,frames_major", [(5, 16, 128, True), (24, 5, 64, False)])
@@ -1062,14 +1119,90 @@ def test_pair_bwd_tf32_passes_give_lvd_tpu(f, pdim, c, frames_major):
 
 
 def test_pair_bwd_tf32_gemm_tiles_cover_each_output_once():
-    """The fp32 form's projection tiles at the train step's L0 and L1 (69120
-    and 17280 rows; N = C and 3C) and a ragged row count: 128-column tiles
-    where N % 128 == 0, else 64, each output element once."""
+    """The fp32 forms' projection tiles at the train step's L0 and L1 (69120
+    and 17280 rows; N = C and 3C) and a ragged row count: 192-column tiles
+    where N % 192 == 0 (N = 3C but at C = 256 and 512; 1920 at L1), else
+    160 (N = 320 at L0, 640 at L1), else 128 or 64, each output element
+    once."""
+    assert [_gemm_width(n) for n in (960, 320, 1920, 640, 192, 512, 448)] == [
+        192, 160, 192, 160, 192, 128, 64]
     for m, c in ((69120, 320), (17280, 640), (1080, 192)):
         for n in (c, 3 * c):
             tiles = _tf32_gemm_tiles(m, n)
-            assert {nc for *_, nc in tiles} == {128 if n % 128 == 0 else 64}
+            assert {nc for *_, nc in tiles} == {_gemm_width(n)}
             assert sum(nr * nc for _, _, nr, nc in tiles) == m * n
             assert len({(r0, c0) for r0, c0, _, _ in tiles}) == len(tiles)
             assert all(r0 % 128 == 0 and c0 % nc == 0 and r0 + nr <= m and c0 + nc <= n
                        for r0, c0, nr, nc in tiles)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_pair_fwd_tf32_launch_plan(dtype):
+    """Kernel B's launch plan: ``wgmma`` up to F = 64 in both types and the
+    first version past it; in fp32 128-row projection tiles, one (pixel,
+    head) pair a block's warp tile (``pixels`` = 1) and the attention's
+    frames F rounded up to 16 (F = 1, 5, 16, 24, 64 -> 16, 16, 16, 32, 64)."""
+    tdt = getattr(torch, dtype)
+    for f, fp in ((1, 16), (5, 16), (16, 16), (24, 32), (64, 64)):
+        plan = t_ta.launch_plan(f, 320, tdt)
+        assert plan["form"] == "wgmma" and plan["code"] == t_ta.FORM_CODES["wgmma"]
+        if dtype == "float32":
+            assert (plan["row_block"], plan["pixels"], plan["frames"]) == (128, 1, fp)
+        else:
+            assert (plan["row_block"], plan["pixels"], plan["frames"]) == (64, 64 // f, f)
+    for f in (65, 100):
+        assert t_ta.launch_plan(f, 320, tdt)["form"] == "wmma"
+        assert t_ta.launch_plan(f, 320, tdt)["frames"] == f
+    assert t_ta.launch_plan(24, 320, tdt, "wmma")["form"] == "wmma"
+
+
+@pytest.fixture(scope="module")
+def pair_fwd_case():
+    """(params, y, lvd_tpu's interpreted ``_pallas_pair`` on them) per case,
+    computed once for the file's tests."""
+    cache = {}
+
+    def get(f, pdim, c, bsz, frames_major):
+        key = (f, pdim, c, bsz, frames_major)
+        if key not in cache:
+            rng = np.random.default_rng(53)
+            p = _pair_params_np(rng, c)
+            shape = (bsz, f, pdim, c) if frames_major else (bsz, pdim, f, c)
+            y = rng.standard_normal(shape).astype(np.float32)
+            tree = lambda fn: {k: {n: {m: fn(t) for m, t in w.items()} if isinstance(w, dict)
+                                   else fn(w) for n, w in v.items()} for k, v in p.items()}
+            g = j_ta._pick_g(pdim, frames_major)
+            assert g > 0
+            ref = np.asarray(j_ta._pallas_pair(tree(jnp.asarray), jnp.asarray(y), c // 64, g,
+                                               1e-5, frames_major=frames_major, interpret=True))
+            cache[key] = (tree(torch.from_numpy), torch.from_numpy(y), ref)
+        return cache[key]
+
+    return get
+
+
+PAIR_FWD_CASES = [(5, 16, 128, 2, True), (5, 16, 128, 2, False), (24, 5, 192, 1, True),
+                  (24, 5, 192, 1, False)]
+
+
+@pytest.mark.parametrize("f,pdim,c,bsz,frames_major", PAIR_FWD_CASES)
+def test_pair_fwd_tf32_passes_give_lvd_tpu(pair_fwd_case, f, pdim, c, bsz, frames_major):
+    """Kernel B's fp32 passes, unrounded, at F = 5 (160 rows: one whole and
+    one ragged 128-row projection tile, two heads) and F = 24 (120 rows, a
+    ragged tile, three heads), both layouts: lvd_tpu's interpreted
+    ``_pallas_pair`` and the plain version, at 1e-5 of max|ref|."""
+    tp, ty, ref = pair_fwd_case(f, pdim, c, bsz, frames_major)
+    got = _pair_fwd_tf32_passes(tp, ty, c // 64, frames_major, rounded=False).numpy()
+    _close(got, ref)
+    _close(got, t_ta.temporal_attention_pair_plain(tp, ty, c // 64, 1e-5, frames_major).numpy())
+
+
+@pytest.mark.parametrize("f,pdim,c,bsz,frames_major", PAIR_FWD_CASES[::3])
+def test_pair_fwd_tf32_rounded_holds_the_fp32_gate(pair_fwd_case, f, pdim, c, bsz, frames_major):
+    """Kernel B's fp32 passes with every product operand TF32-rounded: within
+    the fp32 gate (5e-3) of lvd_tpu's interpreted kernel, and not equal to
+    it (the rounding is there)."""
+    tp, ty, ref = pair_fwd_case(f, pdim, c, bsz, frames_major)
+    got = _pair_fwd_tf32_passes(tp, ty, c // 64, frames_major).numpy()
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert 0 < err <= selfcheck.FP32_TOL

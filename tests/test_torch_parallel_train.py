@@ -10,7 +10,9 @@ test_parallel.py's trainers):
   slots a frame, key 0; and the same at batch 4 on a 4 x 1 mesh, where no
   leaf is cut;
 each held to the single-device step: the loss within rtol 1e-4 / atol
-1e-5, every leaf's update within 1e-2 (L2), frozen leaves bit-unchanged.
+1e-5, every leaf's update within 1e-2 (L2), frozen leaves bit-unchanged;
+on two "data" ranks the loss and every leaf bit for bit (the step takes
+one sample at a time, and a sum of two is the same in either order).
 Every rank stores only its model block of each column- and row-sharded
 leaf and of its AdamW moments.
 - a mesh checkpoint round trip: the state saved after one step (the blocks
@@ -114,6 +116,9 @@ def test_mesh_trainer_matches_single_device(pool, name):
         if c["adapter_only"] and "fuser" not in path and "position_net" not in path:
             assert not d_got.any(), path
     assert max(worst.values()) <= UPDATE_L2_TOL, sorted(worst.items(), key=lambda x: -x[1])[:5]
+    if N // c["model"] == 2:
+        assert losses[0] == want_loss
+        assert [p for p in start if not np.array_equal(got[p], want[p])] == []
     # Each rank stores its 1 / model of every sharded leaf, and its moments.
     _, _, blocks, moments = outs[0]
     assert blocks
