@@ -9,7 +9,8 @@ Phases, each fatal on failure:
                all started together, then one link (seconds and the -Xptxas
                -v register / shared-memory / spill lines, one record of
                registers and spills per kernel A-J instantiation, and the
-               dynamic shared memory per block of A-I);
+               dynamic shared memory per block of A-I; A's and E's wide
+               forms at D = 192 and 256 must not spill);
   3. kernels - every kernel at every shape the Zeroscope path gives it (A
                also at the GLIGEN fuser's ragged key counts, K and V at the
                start of NaN-tailed buffers), in
@@ -204,15 +205,17 @@ Phases, each fatal on failure:
                path in fp32, TF32 off on both; A-D must launch, B only in
                its fp32 wgmma form (TF32) and no kernel in a WMMA form;
  15. entry points - the public sdpa() (forward and backward) at D = 64
-               (L0 shape), 192 and 256 (the D-sliced A and E), conv3x3() at
-               L0, and geglu_mlp() with the seeded UNet's feed-forward
-               weights where lvd_tpu streams them (C = 1280 block at
-               (8640, 1280) in bf16, C = 640 block at (34560, 640) in fp32),
-               forward and dx through autograd, each against its plain
-               version on fp32 copies; counts zeroed just before and read
-               just after: kernels A, E, I (in its wgmma form) and J (twice:
-               its wgmma form in bf16, its first version in fp32) must have
-               run, and G must not (lvd_tpu's dx there is the stock VJP);
+               (L0 shape), 192 and 256 (A and E in their wide form: one
+               D64 and two wide launches of each, no D-sliced one),
+               conv3x3() at L0, and geglu_mlp() with the seeded UNet's
+               feed-forward weights where lvd_tpu streams them (C = 1280
+               block at (8640, 1280) in bf16, C = 640 block at (34560, 640)
+               in fp32), forward and dx through autograd, each against its
+               plain version on fp32 copies; counts zeroed just before and
+               read just after: kernels A, E, I (in its wgmma form) and J
+               (twice: its wgmma form in bf16, its first version in fp32)
+               must have run, and G must not (lvd_tpu's dx there is the
+               stock VJP);
  16. profile - one CFG UNet forward and one guided update under
                torch.profiler: device time per kernel and for the stock ops,
                and the device's idle share.
@@ -296,15 +299,26 @@ def build_phase(torch):
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"[build] {line.strip()}")
-    for rec in ptxas_summary(_build.build_info["log"], PTXAS_SOURCES):
+    ptxas = ptxas_summary(_build.build_info["log"], PTXAS_SOURCES)
+    for rec in ptxas:
         log(f"[build] ptxas A-J {json.dumps(rec)}")
+    spills = [rec for rec in ptxas if rec["source"].startswith("packed_attention")
+              and ("Li192E" in rec["kernel"] or "Li256E" in rec["kernel"])
+              and (rec.get("spill_store_bytes") or rec.get("spill_load_bytes"))]
+    if spills:
+        raise SystemExit(f"[build] A's and E's wide forms spill: {spills}")
     lib = _build.lib()
+    from lvd_tpu_torch.ops.packed_attention import launch_plan as attention_plan
+
     smem = {}
     for dtype, code in (("bf16", 0), ("fp32", 1)):
-        for d, form in ((64, "D64"), (128, "D128"), (192, "sliced")):
-            smem[f"A {dtype} {form}"] = lib.lvd_attention_packed_smem(d, code)
-            smem[f"E dkdv {dtype} {form}"] = lib.lvd_attention_packed_bwd_smem(d, code, 0)
-            smem[f"E dq {dtype} {form}"] = lib.lvd_attention_packed_bwd_smem(d, code, 1)
+        for d, form in ((64, None), (128, None), (192, None), (256, None), (192, "sliced")):
+            plan = attention_plan(d, form)
+            name = f"{plan['form']} D={d}"
+            smem[f"A {dtype} {name}"] = lib.lvd_attention_packed_smem(d, plan["code"], code)
+            for kind, part in ((0, "dkdv"), (1, "dq")):
+                smem[f"E {part} {dtype} {name}"] = lib.lvd_attention_packed_bwd_smem(
+                    d, plan["code"], code, kind)
         smem[f"H {dtype}"] = lib.lvd_linear_smem(code)
     from lvd_tpu_torch.ops.conv3x3 import launch_plan
 
@@ -598,22 +612,25 @@ def read_launches():
 
 
 def read_forms():
-    """Launches per form of kernels B-D and F-J (temporal_attention_pair,
-    geglu_mlp, norm_silu_temporal_conv, temporal_attention_pair_bwd,
-    geglu_mlp_bwd, linear_rows, norm_silu_conv2d, conv3x3, geglu_stream)."""
+    """Launches per form of kernels A-J (attention_packed,
+    temporal_attention_pair, geglu_mlp, norm_silu_temporal_conv,
+    attention_packed_bwd, temporal_attention_pair_bwd, geglu_mlp_bwd,
+    linear_rows, norm_silu_conv2d, conv3x3, geglu_stream)."""
     return {name: dict(fn.launches_by_form) for name, fn in wrappers().items()
             if hasattr(fn, "launches_by_form")}
 
 
 def check_new_forms(phase, forms, redesigned=()):
-    """Fails unless every launch of B-D and F-J took its new form (wgmma in
-    bf16, and in fp32 wgmma for B, F and G, TF32, mma_sync for C and D):
-    every UNet and conv3x3() shape has Cin and Cout % 64 == 0, and only
-    other widths take I's WMMA form; the WMMA forms kept are B's and F's
-    past 64 frames, C's for fp32 C > 384 and J's first version for fp32,
-    which no path this is called on reaches. Each wrapper of
-    ``redesigned`` must have launched its wgmma form."""
-    old = {name: f["wmma"] for name, f in forms.items() if f.get("wmma")}
+    """Fails unless every launch of A-J took its new form (wgmma in bf16,
+    and in fp32 wgmma for B, F and G, TF32, mma_sync for C and D; A and E
+    never D-sliced): every UNet and conv3x3() shape has Cin and Cout % 64 ==
+    0, and only other widths take I's WMMA form; the WMMA forms kept are
+    B's and F's past 64 frames, C's for fp32 C > 384, J's first version for
+    fp32 and A's and E's D-sliced form past D = 256, which no path this is
+    called on reaches. Each wrapper of ``redesigned`` must have launched
+    its wgmma form."""
+    old = {name: f.get("wmma", 0) + f.get("sliced", 0) for name, f in forms.items()
+           if f.get("wmma") or f.get("sliced")}
     if old:
         raise SystemExit(f"[{phase}] launches of the WMMA form on the path: {old}")
     idle = [name for name in redesigned if forms[name]["wgmma"] <= 0]
@@ -2134,6 +2151,7 @@ def entry_point_phase(torch, models):
     launches = read_launches()
     forms = read_forms()["conv3x3"]
     j_forms = read_forms()["geglu_stream"]
+    a_forms = {"A": read_forms()["attention_packed"], "E": read_forms()["attention_packed_bwd"]}
     rel = lambda a, r: ((a.float() - r).abs().max() / r.abs().max()).item()
     errs, tols = {}, {}
     with exact_fp32():
@@ -2161,21 +2179,24 @@ def entry_point_phase(torch, models):
         f"(bf16) and geglu_mlp() at (8640, 1280) bf16 and (34560, 640) fp32, against the "
         f"plain versions (fp32): {json.dumps(errs)}; launches {json.dumps(entry)}, "
         f"geglu_mlp_bwd {launches['geglu_mlp_bwd']}, conv3x3 by form {json.dumps(forms)}, "
-        f"geglu_stream by form {json.dumps(j_forms)}")
+        f"geglu_stream by form {json.dumps(j_forms)}, A and E by form {json.dumps(a_forms)}")
     want = {"sdpa": len(ENTRY_SDPA), "sdpa_bwd": len(ENTRY_SDPA), "conv3x3": 1,
             "geglu_stream": len(ff_in)}
     # J's wgmma form for the bf16 call; fp32 keeps the first version.
     j_want = {"wgmma": 1, "wmma": 1}
+    # A and E: D = 64 in its own form, 192 and 256 in the wide form, never D-sliced.
+    a_want = {"D64": 1, "D128": 0, "wide": len(ENTRY_SDPA) - 1, "sliced": 0}
     if (entry != want or launches["geglu_mlp_bwd"] != 0 or forms["wgmma"] != 1
-            or j_forms != j_want):
+            or j_forms != j_want or any(f != a_want for f in a_forms.values())):
         raise SystemExit(f"[entry] launches {entry}, geglu_mlp_bwd "
-                         f"{launches['geglu_mlp_bwd']}, conv3x3 by form {forms} and "
-                         f"geglu_stream by form {j_forms}, expected {want}, 0, one wgmma "
-                         f"launch and {j_want}")
+                         f"{launches['geglu_mlp_bwd']}, conv3x3 by form {forms}, "
+                         f"geglu_stream by form {j_forms} and A and E by form {a_forms}, "
+                         f"expected {want}, 0, one wgmma launch, {j_want} and {a_want}")
     bad = {k: e for k, e in errs.items() if not e <= tols.get(k, 2e-2)}
     if bad:
         raise SystemExit(f"[entry] an entry point disagrees with its plain version: {bad}")
-    return entry, {"conv3x3": forms, "geglu_stream": j_forms}
+    return entry, {"conv3x3": forms, "geglu_stream": j_forms,
+                   "sdpa": {f"{k} {f}": n for k, fs in a_forms.items() for f, n in fs.items()}}
 
 
 # The sharded phase: lvd_tpu's frame-sharded sampling and the trainer's

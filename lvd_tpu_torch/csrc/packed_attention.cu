@@ -40,25 +40,46 @@
 //  - Registers: BK/2 S accumulators (64 at D = 64, 32 at D = 128), D/2 O
 //    accumulators and BK/4 packed P registers a thread, within the 224
 //    that 288 threads leave each (ptxas: 154 and 145, no spills).
-// fp32, D = 64 and 128: TF32 wgmma takes only K-major operands, so the
+// bf16, D = 192 and 256 (the `wide` form; the public sdpa() and packed
+// attention at those head dims): the same kernel, products and softmax,
+// with 64-key tiles, three or four 128-byte boxes a row, and two changes
+// the widths force:
+//  - Registers: a consumer thread holds 96 or 128 O accumulators beside 32
+//    S and 16 P registers. Nine warps cap a thread at 168 (three of them
+//    share one of the SM's four register files), so the block is the two
+//    consumer warpgroups alone (255 a thread) and thread 0 issues the
+//    loads: Q and the first stages before the loop, then each stage again
+//    once all eight warps have arrived on its empty barrier.
+//  - Shared memory: Q is 48 or 64 KB and a K or V tile 24 or 32 KB, so the
+//    ring holds three stages at D = 192 (193 KB) and two at 256 (193 KB).
+// Each (S_q, S_k) product is computed once per tile pair, as at D = 64.
+// The bound is the tensor cores' (4 * S_q * S_k * D operations a head).
+// fp32, D = 64 to 256: TF32 wgmma takes only K-major operands, so the
 // same register-resident design runs on mma.sync m16n8k8 (TF32, fp32
-// accumulators): eight warps of 16 query rows, 64-key K/V tiles in a
-// two-stage cp.async ring, the same softmax on the m16n8 accumulator
-// fragments, P fed from the accumulators to the PV product (csrc/
-// warp_mma.cuh). Shared memory: 102 KB at D = 64, 198 KB at D = 128.
+// accumulators): warps of 16 query rows, K/V tiles in a two-stage cp.async
+// ring, the same softmax on the m16n8 accumulator fragments, P fed from the
+// accumulators to the PV product (csrc/warp_mma.cuh). Eight warps and
+// 64-key tiles up to D = 128 (102 KB at D = 64, 198 KB at 128); 32-key
+// tiles at D = 192 (eight warps, 196 KB) and at D = 256 (four warps, 195
+// KB), where O is D/2 accumulators a thread.
 //
-// Other head dims (lvd_tpu's row-1 and packed predicates take any D % 64 ==
-// 0, e.g. 192 or 256 through the public sdpa()) take a D-sliced form: block
-// z of a (head, query tile) owns output columns [64z, 64z + 64). Its logits
-// are summed over D in 64-wide chunks (the Q and K chunks staged in shared
-// memory, the warp's four (16, 16) logit accumulators in registers) before
-// the same online softmax and O += P V[:, slice], on WMMA with the logits,
-// P and O in shared memory. Each of the D/64 blocks of a query tile
-// recomputes the logits, so QK^T costs D/64 times its share.
+// Other head dims (D = 320 and up; lvd_tpu's row-1 and packed predicates
+// take any D % 64 == 0) take the D-sliced form: block z of a (head, query
+// tile) owns output columns [64z, 64z + 64). Its logits are summed over D
+// in 64-wide chunks (the Q and K chunks staged in shared memory, the
+// warp's four (16, 16) logit accumulators in registers) before the same
+// online softmax and O += P V[:, slice], on WMMA with the logits, P and O
+// in shared memory. Each of the D/64 blocks of a query tile recomputes the
+// logits, so QK^T costs D/64 times its share. Past D = 256 no form here
+// holds a query row's O in registers (D/2 a thread at 128 threads a row
+// group). The caller may name it at any D (form code 0): the selfcheck
+// times it beside the wide form.
 //
 // Log-sum-exp: with a non-null `lse` (B*H, S_q) fp32, every form writes
 // m + log2(l) of each query row in base-2 units of the scaled logits
 // (log2(e) * scale * q.k), which kernel E reads to recompute P.
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 #include "warp_mma.cuh"
@@ -258,15 +279,21 @@ cudaError_t launch_sliced(const void* q, const void* k, const void* v, void* o, 
 }
 
 
-// ---- bf16, D = 64 and 128: warp-specialised wgmma with a TMA ring ----
+// ---- bf16: wgmma with a TMA ring (warp-specialised at D = 64 and 128) ----
 
 template <int D>
 struct WgCfg {
+  // D = 64 / 128: a producer warp beside the consumers. At D = 192 / 256 a
+  // consumer thread holds D/2 O accumulators, and 9 warps cap it at 168
+  // registers (three warps share one of the SM's four register files), so
+  // the block is the two consumer warpgroups alone (255 a thread) and
+  // thread 0 issues the loads between its products.
+  static constexpr bool kProducerWarp = D <= 128;
   static constexpr int kBQ = 128;                 // queries per block: two warpgroups of 64
   static constexpr int kBK = D == 64 ? 128 : 64;  // keys per tile
-  static constexpr int kStages = 3;               // K/V tiles in flight
+  static constexpr int kStages = D == 256 ? 2 : 3;  // K/V tiles in flight (227 KB)
   static constexpr int kHalves = D / 64;          // 128-byte boxes per row
-  static constexpr int kThreads = 2 * 128 + 32;   // consumer warpgroups, then the producer warp
+  static constexpr int kThreads = 2 * 128 + (kProducerWarp ? 32 : 0);
   static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kTileBytes = kBK * D * 2;  // one K or V tile
   static constexpr int kBarOff = kQBytes + 2 * kStages * kTileBytes;
@@ -307,24 +334,35 @@ attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
 
-  if (warp == 8) {  // the producer: one lane issues every TMA load
-    if (lane == 0) {
-      hop::mbar_expect_tx(qbar, Cfg::kQBytes);
-      for (int hh = 0; hh < NH; ++hh)
-        hop::tma_load_3d(Qs + hh * Cfg::kBQ * 64, &tm_q, qbar, h * D + hh * 64, q0, b);
-      for (int j = 0; j < nk; ++j) {
-        const int s = j % NS;
-        if (j >= NS) hop::mbar_wait(&empty[s], (j / NS - 1) & 1);
-        hop::mbar_expect_tx(&full[s], 2 * Cfg::kTileBytes);
-        bf16* Kt = KVs + 2 * s * kTileE;
-        for (int hh = 0; hh < NH; ++hh) {
-          hop::tma_load_3d(Kt + hh * BK * 64, &tm_k, &full[s], h * D + hh * 64, j * BK, b);
-          hop::tma_load_3d(Kt + kTileE + hh * BK * 64, &tm_v, &full[s], h * D + hh * 64, j * BK,
-                           b);
+  // K/V tile j into stage j % NS, counted on full[j % NS] in bytes.
+  auto load_tile = [&](int j) {
+    const int s = j % NS;
+    hop::mbar_expect_tx(&full[s], 2 * Cfg::kTileBytes);
+    bf16* Kt = KVs + 2 * s * kTileE;
+    for (int hh = 0; hh < NH; ++hh) {
+      hop::tma_load_3d(Kt + hh * BK * 64, &tm_k, &full[s], h * D + hh * 64, j * BK, b);
+      hop::tma_load_3d(Kt + kTileE + hh * BK * 64, &tm_v, &full[s], h * D + hh * 64, j * BK, b);
+    }
+  };
+  auto load_q = [&] {
+    hop::mbar_expect_tx(qbar, Cfg::kQBytes);
+    for (int hh = 0; hh < NH; ++hh)
+      hop::tma_load_3d(Qs + hh * Cfg::kBQ * 64, &tm_q, qbar, h * D + hh * 64, q0, b);
+  };
+  if constexpr (Cfg::kProducerWarp) {
+    if (warp == 8) {  // the producer: one lane issues every TMA load
+      if (lane == 0) {
+        load_q();
+        for (int j = 0; j < nk; ++j) {
+          if (j >= NS) hop::mbar_wait(&empty[j % NS], (j / NS - 1) & 1);
+          load_tile(j);
         }
       }
+      return;
     }
-    return;
+  } else if (threadIdx.x == 0) {  // Q and the first NS tiles; the rest from the loop
+    load_q();
+    for (int j = 0; j < NS && j < nk; ++j) load_tile(j);
   }
 
   // Consumers: warpgroup wg owns query rows [64 wg, 64 wg + 64) of the
@@ -429,6 +467,14 @@ attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     for (int hh = 0; hh < NH; ++hh) hop::fence_regs(oacc[hh]);
     __syncwarp();
     if (lane == 0) hop::mbar_arrive(&empty[s]);
+    if constexpr (!Cfg::kProducerWarp) {
+      // Thread 0 refills the stage once all eight warps are done with it.
+      if (threadIdx.x == 0 && j + NS < nk) {
+        hop::mbar_wait(&empty[s], (j / NS) & 1);
+        load_tile(j + NS);
+      }
+      __syncwarp();
+    }
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -487,13 +533,15 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
   return cudaGetLastError();
 }
 
-// ---- fp32, D = 64 and 128: mma.sync TF32 with a cp.async ring ----
+// ---- fp32, D = 64 to 256: mma.sync TF32 with a cp.async ring ----
 
 template <int D>
 struct F32Cfg {
-  static constexpr int kWarps = 8;
-  static constexpr int kBQ = 16 * kWarps;  // queries per block
-  static constexpr int kBK = 64;           // keys per tile
+  // 227 KB holds 128 queries and two stages of 64 keys up to D = 128, of
+  // 32 keys at D = 192, and 64 queries and 32 keys at D = 256.
+  static constexpr int kWarps = D == 256 ? 4 : 8;
+  static constexpr int kBQ = 16 * kWarps;       // queries per block
+  static constexpr int kBK = D <= 128 ? 64 : 32;  // keys per tile
   static constexpr int kLd = D + 4;        // row stride (floats): 16 bytes of padding
   static constexpr int kTile = kBK * kLd;  // floats of one K or V tile
   static constexpr int kSmem = (kBQ * kLd + 4 * kTile) * 4;  // Q, two stages of K and V
@@ -621,41 +669,62 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
 }  // namespace
 }  // namespace lvd
 
+// The form of kernels A and E at head dim D (ops/packed_attention.py
+// `launch_plan`): 1 at D = 64, 2 at D = 128, 3 (the wide form) at D = 192
+// and 256, and 0 (the D-sliced form) at any other D % 64 == 0, or at any D
+// when the caller names it. -1 for a code the build does not know or a D
+// its form was not built for.
+LVD_EXPORT int lvd_attention_form_ok(int D, int form) {
+  if (D <= 0 || D % 64 != 0) return 0;
+  const int own = D == 64 ? 1 : D == 128 ? 2 : (D == 192 || D == 256) ? 3 : 0;
+  return form == 0 || form == own;
+}
+
 // q: (B, Sq, C), k/v: (B, Sk, C), o: (B, Sq, C), all of one type (dtype 0
-// bf16, 1 fp32); C = H*D with head dim D % 64 == 0 (64 and 128 run their
-// own kernels, every other D the D-sliced form). lse: null, or (B*H, Sq)
-// fp32 to receive each query row's base-2 log-sum-exp.
+// bf16, 1 fp32); C = H*D with head dim D % 64 == 0, run in the form `form`
+// names (lvd_attention_form_ok; any other is refused). lse: null, or
+// (B*H, Sq) fp32 to receive each query row's base-2 log-sum-exp.
 LVD_EXPORT int lvd_attention_packed(const void* q, const void* k, const void* v, void* o,
                                     void* lse, int B, int H, int Sq, int Sk, int C, float scale,
-                                    int dtype, void* stream) {
+                                    int form, int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();  // clear any stale error so the return value is this launch's
   if (H <= 0 || C % H != 0 || Sq <= 0 || Sk <= 0) return cudaErrorInvalidValue;
   const int D = C / H;
-  if (D % 64 != 0) return cudaErrorInvalidValue;
+  if (!lvd_attention_form_ok(D, form)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
   return dispatch(dtype, [&](auto tag) -> cudaError_t {
     using T = decltype(tag);
-    if (D == 64 || D == 128) {
+    if (form == 0) return launch_sliced<T>(q, k, v, o, l, B, H, Sq, Sk, C, D, scale, s);
+    auto run = [&](auto d) -> cudaError_t {
+      constexpr int kD = decltype(d)::value;
       if constexpr (sizeof(T) == 2) {
-        return D == 64 ? launch_wgmma<64>(q, k, v, o, l, B, H, Sq, Sk, C, scale, s)
-                       : launch_wgmma<128>(q, k, v, o, l, B, H, Sq, Sk, C, scale, s);
+        return launch_wgmma<kD>(q, k, v, o, l, B, H, Sq, Sk, C, scale, s);
       } else {
-        return D == 64 ? launch_f32<64>(q, k, v, o, l, B, H, Sq, Sk, C, scale, s)
-                       : launch_f32<128>(q, k, v, o, l, B, H, Sq, Sk, C, scale, s);
+        return launch_f32<kD>(q, k, v, o, l, B, H, Sq, Sk, C, scale, s);
       }
+    };
+    switch (D) {
+      case 64: return run(std::integral_constant<int, 64>{});
+      case 128: return run(std::integral_constant<int, 128>{});
+      case 192: return run(std::integral_constant<int, 192>{});
+      default: return run(std::integral_constant<int, 256>{});
     }
-    return launch_sliced<T>(q, k, v, o, l, B, H, Sq, Sk, C, D, scale, s);
   });
 }
 
 // Bytes of dynamic shared memory one block of kernel A takes at head dim D
-// (dtype 0 bf16, 1 fp32): the D = 64 / 128 kernels, else the D-sliced form.
-LVD_EXPORT long long lvd_attention_packed_smem(int D, int dtype) {
+// in form `form` (dtype 0 bf16, 1 fp32); -1 for a form D does not take.
+LVD_EXPORT long long lvd_attention_packed_smem(int D, int form, int dtype) {
   using namespace lvd;
+  if (!lvd_attention_form_ok(D, form)) return -1;
   const bool b16 = dtype == kBF16;
-  if (D == 64) return b16 ? WgCfg<64>::kSmem : F32Cfg<64>::kSmem;
-  if (D == 128) return b16 ? WgCfg<128>::kSmem : F32Cfg<128>::kSmem;
-  return b16 ? AttnCfg<bf16, 64>::kSmem : AttnCfg<float, 64>::kSmem;
+  if (form == 0) return b16 ? AttnCfg<bf16, 64>::kSmem : AttnCfg<float, 64>::kSmem;
+  switch (D) {
+    case 64: return b16 ? WgCfg<64>::kSmem : F32Cfg<64>::kSmem;
+    case 128: return b16 ? WgCfg<128>::kSmem : F32Cfg<128>::kSmem;
+    case 192: return b16 ? WgCfg<192>::kSmem : F32Cfg<192>::kSmem;
+    default: return b16 ? WgCfg<256>::kSmem : F32Cfg<256>::kSmem;
+  }
 }

@@ -45,15 +45,37 @@
 // Launch 2 is skipped when the caller needs no dk/dv (cross-attention keys
 // come from the text).
 //
-// Head dims other than 64 and 128 (any D % 64 == 0, which lvd_tpu's
-// predicates take) run a D-sliced form of launches 2 and 3 on WMMA: block z
-// of a tile owns columns [64z, 64z + 64) of dK and dV, or of dQ: for each
-// tile pair it sums S and dP = dO V^T over D in 64-wide chunks (the partial
-// sums kept in the warp's fp32 shared tiles, so registers do not grow),
-// then forms P and dS and multiplies them into its slice of q, dO or k.
-// Shared memory and registers are those of D = 64 plus two (launch 2) or one
-// (launch 3) slice tiles (fp32: 181 / 145 KB); each of the D/64 blocks
-// recomputes S and dP.
+// D = 192 and 256 (the `wide` form): the same register-resident design,
+// each (S_q, S_k) product computed once per tile pair. A warp's dK + dV for
+// 16 keys would be D fp32 registers a thread, so launch 2 splits them over
+// a warp pair (8 warps, 64 keys a block): one warp computes S^T, forms P^T
+// and accumulates dV; it hands P^T (fp32) to the other through a small
+// shared tile and a named barrier, which computes dP^T, forms dS^T and
+// accumulates dK. Each thread holds D/2 accumulators; the streamed query
+// tile is 32 queries (16 in fp32 at D = 256), so K, V and two stages fit in
+// 111-207 KB and the S^T tile stays beside the accumulators (64 queries
+// spilled in bf16 at D = 192). Launch 3 keeps its design, dQ in registers
+// (D/2 a thread), over 32-key (D = 192) or 16-key (256) tiles: two blocks
+// an SM in bf16, one in fp32 (eight warps over 32-key tiles measured 10%
+// slower at D = 192 and 6% faster at 256, PERF.md). The bound is the
+// tensor cores' (the 7 products run on mma.sync); the design keeps the
+// products once each and every operand tile in shared memory once per
+// block. With 166-250 registers a thread only eight warps share an SM,
+// which leaves E at 8-16% of its bound (five products; PERF.md), the
+// dk/dv launch about 60% of it; a wgmma design would hold dK and dV in two
+// warpgroups' fragments.
+//
+// Other head dims (D = 320 and up, which lvd_tpu's predicates take; no
+// form here holds dK and dV, or dQ, in registers there) run a D-sliced form
+// of launches 2 and 3 on WMMA: block z of a tile owns columns [64z, 64z +
+// 64) of dK and dV, or of dQ: for each tile pair it sums S and dP = dO V^T
+// over D in 64-wide chunks (the partial sums kept in the warp's fp32 shared
+// tiles, so registers do not grow), then forms P and dS and multiplies them
+// into its slice of q, dO or k. Shared memory and registers are those of
+// D = 64 plus two (launch 2) or one (launch 3) slice tiles (fp32: 181 / 145
+// KB); each of the D/64 blocks recomputes S and dP. The caller may name it
+// at any D (form code 0): the selfcheck times it beside the wide form. It
+// reads the log-sum-exp of any form of kernel A, as the other forms do.
 #include "common.cuh"
 #include "warp_mma.cuh"
 
@@ -386,7 +408,10 @@ struct RegBwdCfg {
   static constexpr int kBKey = 64;                       // dk/dv: keys per block
   static constexpr int kBQ = D == 64 ? 64 : 32;          // dk/dv: queries per streamed tile
   static constexpr int kBQd = 64;                        // dq: queries per block
-  static constexpr int kBKd = 64;                        // dq: keys per streamed tile
+  // dq: keys per streamed tile. At D = 192 / 256 the tile shrinks so that
+  // two blocks share an SM in bf16 (100 KB each) and one block fits in fp32
+  // (200 KB), and S + dP stay beside dQ's D/2 registers.
+  static constexpr int kBKd = D <= 128 ? 64 : D == 192 ? 32 : 16;
   // dk/dv: K, V, two stages of (q, dO) and of (lse, delta).
   static constexpr int kDkdvSmem = (2 * kBKey + 4 * kBQ) * kLd * (int)sizeof(T) + 4 * kBQ * 4;
   // dq: q, dO, two stages of (K, V).
@@ -561,6 +586,130 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 }
 
+// ---- D = 192 and 256: dk/dv on warp pairs ----
+// A warp's dK + dV for 16 keys is D fp32 registers a thread, too many at
+// these widths, so the two accumulators of a 16-key row group go to a warp
+// pair: warp p (role 0) computes S^T = K_w Q^T, forms P^T in its registers,
+// hands P^T (fp32) to its partner through a (16, BQ) shared tile and a
+// named barrier, and accumulates dV += P^T dO; warp p + 4 (role 1) computes
+// dP^T = V_w dO^T, reads P^T, forms dS^T and accumulates dK += dS^T Q. Each
+// of the four products runs once per tile pair, as at D = 64 / 128, and a
+// thread holds D/2 accumulators.
+
+template <typename T, int D>
+struct PairBwdCfg {
+  static constexpr int kLd = D + wm::WarpMma<T>::kPadE;  // tile rows, elements
+  static constexpr int kWarps = 8;                       // four pairs of 16 keys
+  static constexpr int kBKey = 64;                       // keys per block
+  // Queries per streamed tile: K, V and two stages of (q, dO) within 227 KB,
+  // and the S^T tile (BQ/2 registers) beside D/2 accumulators without a
+  // spill (64 queries at bf16 D = 192 spilled at 255 registers).
+  static constexpr int kBQ = sizeof(T) == 2 || D == 192 ? 32 : 16;
+  static constexpr int kLdP = kBQ + 8;  // fp32 P^T rows (float2 stores free of conflicts)
+  // K, V, two stages of (q, dO) and of (lse, delta), the four pairs' P^T.
+  static constexpr int kSmem = (2 * kBKey + 4 * kBQ) * kLd * (int)sizeof(T) + 4 * kBQ * 4 +
+                               4 * 16 * kLdP * 4;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(PairBwdCfg<T, D>::kWarps * 32)
+attn_bwd_dkdv_pair_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Sk, int C,
+                          float scale, float scale_log2e) {
+  using Cfg = PairBwdCfg<T, D>;
+  using W = wm::WarpMma<T>;
+  constexpr int ld = Cfg::kLd, BQ = Cfg::kBQ, NQ = BQ / 8, ND = D / 8, ldp = Cfg::kLdP;
+  constexpr int kT = Cfg::kWarps * 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + Cfg::kBKey * ld;
+  T* QDs = Vs + Cfg::kBKey * ld;  // stage s: q at 2s, dO at 2s + 1 (BQ rows each)
+  float* stats = reinterpret_cast<float*>(QDs + 4 * BQ * ld);  // stage s: lse, then delta
+  float* Pts = stats + 4 * BQ;                                 // pair p's P^T at p * 16 rows
+  const int k0 = blockIdx.x * Cfg::kBKey;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pair = warp % 4, role = warp / 4;
+  const size_t head = (size_t)h * D;
+  const T* qb = q + (size_t)b * Sq * C + head;
+  const T* db = dout + (size_t)b * Sq * C + head;
+  const float* lse_b = lse + (size_t)bh * Sq;
+  const float* delta_b = delta + (size_t)bh * Sq;
+  const int nq = (Sq + BQ - 1) / BQ;
+
+  // Query tile i into stage i & 1 (a query past S_q gets lse = +inf: P = 0).
+  auto load_stage = [&](int i) {
+    T* qs = QDs + 2 * (i & 1) * BQ * ld;
+    wm::cp_rows<T, D>(qs, ld, qb, i * BQ, BQ, Sq, C, kT);
+    wm::cp_rows<T, D>(qs + BQ * ld, ld, db, i * BQ, BQ, Sq, C, kT);
+    float* st = stats + 2 * (i & 1) * BQ;
+    for (int r = threadIdx.x; r < BQ; r += kT) {
+      const int qi = i * BQ + r;
+      st[r] = qi < Sq ? lse_b[qi] : INFINITY;
+      st[BQ + r] = qi < Sq ? delta_b[qi] : 0.f;
+    }
+  };
+  wm::cp_rows<T, D>(Ks, ld, k + (size_t)b * Sk * C + head, k0, Cfg::kBKey, Sk, C, kT);
+  wm::cp_rows<T, D>(Vs, ld, v + (size_t)b * Sk * C + head, k0, Cfg::kBKey, Sk, C, kT);
+  load_stage(0);
+  wm::cp_async_commit();
+
+  float acc[ND][4] = {};  // dV (role 0) or dK (role 1) of the pair's 16 keys
+  const T* Kw = Ks + pair * 16 * ld;
+  const T* Vw = Vs + pair * 16 * ld;
+  float* Pt = Pts + pair * 16 * ldp;
+  const int g = lane / 4, t2 = 2 * (lane % 4);
+  for (int i = 0; i < nq; ++i) {
+    if (i + 1 < nq) load_stage(i + 1);  // that stage is free since the last barrier
+    wm::cp_async_commit();
+    wm::cp_async_wait<1>();
+    __syncthreads();
+    const T* Qt = QDs + 2 * (i & 1) * BQ * ld;
+    const T* Dt = Qt + BQ * ld;
+    const float* st = stats + 2 * (i & 1) * BQ;
+    // Element e of tile c is (key g + 8 (e >> 1), query 8c + t2 + (e & 1)).
+    float sa[NQ][4] = {};
+    if (role == 0) {
+      wm::mma_rows_nk<T, NQ>(sa, Kw, Qt, ld, D, lane);  // S^T
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sa[c][e] = exp2f(fmaf(sa[c][e], scale_log2e, -st[8 * c + t2 + (e & 1)]));
+        *reinterpret_cast<float2*>(Pt + g * ldp + 8 * c + t2) = make_float2(sa[c][0], sa[c][1]);
+        *reinterpret_cast<float2*>(Pt + (g + 8) * ldp + 8 * c + t2) =
+            make_float2(sa[c][2], sa[c][3]);
+      }
+      wm::bar_arrive(1 + pair, 64);                     // P^T is in place for the partner
+      wm::mma_acc_kn<T, NQ, ND>(acc, sa, Dt, ld, lane);  // dV += P^T dO
+    } else {
+      wm::mma_rows_nk<T, NQ>(sa, Vw, Dt, ld, D, lane);  // dP^T
+      wm::bar_sync(1 + pair, 64);
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) {
+        const float2 p0 = *reinterpret_cast<const float2*>(Pt + g * ldp + 8 * c + t2);
+        const float2 p1 = *reinterpret_cast<const float2*>(Pt + (g + 8) * ldp + 8 * c + t2);
+        const float p[4] = {p0.x, p0.y, p1.x, p1.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sa[c][e] = p[e] * (sa[c][e] - st[BQ + 8 * c + t2 + (e & 1)]) * scale;
+      }
+      wm::mma_acc_kn<T, NQ, ND>(acc, sa, Qt, ld, lane);  // dK += dS^T Q
+    }
+    __syncthreads();  // every warp is done with this stage and its pair's P^T
+  }
+
+  const int row0 = k0 + pair * 16 + g;
+  T* out = (role == 0 ? dv : dk) + (size_t)b * Sk * C + head + t2;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    if (row0 < Sk) W::store2(out + (size_t)row0 * C + 8 * n, acc[n][0], acc[n][1]);
+    if (row0 + 8 < Sk) W::store2(out + (size_t)(row0 + 8) * C + 8 * n, acc[n][2], acc[n][3]);
+  }
+}
+
 template <typename T>
 cudaError_t launch_delta(const void* o, const void* dout, float* delta, int B, int H, int Sq,
                          int C, cudaStream_t s) {
@@ -610,11 +759,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   const float sl2e = scale * 1.4426950408889634f;
   cudaError_t err;
   if (dk != nullptr) {
-    if ((err = set_smem(attn_bwd_dkdv_kernel<T, D>, Cfg::kDkdvSmem)) != cudaSuccess) return err;
     const dim3 grid((Sk + Cfg::kBKey - 1) / Cfg::kBKey, B * H);
-    attn_bwd_dkdv_kernel<T, D><<<grid, kThreads, Cfg::kDkdvSmem, s>>>(
-        qp, kp, vp, dp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, C, scale,
-        sl2e);
+    if constexpr (D <= 128) {
+      if ((err = set_smem(attn_bwd_dkdv_kernel<T, D>, Cfg::kDkdvSmem)) != cudaSuccess) return err;
+      attn_bwd_dkdv_kernel<T, D><<<grid, kThreads, Cfg::kDkdvSmem, s>>>(
+          qp, kp, vp, dp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, C,
+          scale, sl2e);
+    } else {
+      using P = PairBwdCfg<T, D>;
+      if ((err = set_smem(attn_bwd_dkdv_pair_kernel<T, D>, P::kSmem)) != cudaSuccess) return err;
+      attn_bwd_dkdv_pair_kernel<T, D><<<grid, P::kWarps * 32, P::kSmem, s>>>(
+          qp, kp, vp, dp, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, C,
+          scale, sl2e);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if ((err = set_smem(attn_bwd_dq_kernel<T, D>, Cfg::kDqSmem)) != cudaSuccess) return err;
@@ -627,16 +784,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 }  // namespace lvd
 
+// Kernel A's form check (csrc/packed_attention.cu): kernel E takes the same
+// form codes.
+LVD_EXPORT int lvd_attention_form_ok(int D, int form);
+
 // q, o, dout, dq: (B, Sq, C); k, v, dk, dv: (B, Sk, C); all of one type
-// (dtype 0 bf16, 1 fp32), C = H*D with D % 64 == 0 (64 and 128 run their
-// own kernels, every other D the D-sliced form). lse: (B*H, Sq) fp32, the
-// base-2 log-sum-exp kernel A wrote for these q, k (required); delta:
-// (B*H, Sq) fp32 scratch. dk and dv may both be null (only dq is computed
-// then).
+// (dtype 0 bf16, 1 fp32), C = H*D with D % 64 == 0, run in the form `form`
+// names (kernel A's codes, lvd_attention_form_ok; any other is refused).
+// lse: (B*H, Sq) fp32, the base-2 log-sum-exp kernel A wrote for these q, k
+// in any form (required); delta: (B*H, Sq) fp32 scratch. dk and dv may both
+// be null (only dq is computed then).
 LVD_EXPORT int lvd_attention_packed_bwd(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, void* dq, void* dk,
                                         void* dv, const void* lse, void* delta, int B, int H,
-                                        int Sq, int Sk, int C, float scale, int dtype,
+                                        int Sq, int Sk, int C, float scale, int form, int dtype,
                                         void* stream) {
   using namespace lvd;
   cudaGetLastError();
@@ -644,7 +805,7 @@ LVD_EXPORT int lvd_attention_packed_bwd(const void* q, const void* k, const void
       lse == nullptr || delta == nullptr)
     return cudaErrorInvalidValue;
   const int D = C / H;
-  if (D % 64 != 0) return cudaErrorInvalidValue;
+  if (!lvd_attention_form_ok(D, form)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
   auto dl = static_cast<float*>(delta);
@@ -652,24 +813,36 @@ LVD_EXPORT int lvd_attention_packed_bwd(const void* q, const void* k, const void
     using T = decltype(tag);
     cudaError_t err = launch_delta<T>(o, dout, dl, B, H, Sq, C, s);
     if (err != cudaSuccess) return err;
-    if (D == 64) return launch<T, 64>(q, k, v, dout, dq, dk, dv, l, dl, B, H, Sq, Sk, C, scale, s);
-    if (D == 128)
-      return launch<T, 128>(q, k, v, dout, dq, dk, dv, l, dl, B, H, Sq, Sk, C, scale, s);
-    return launch_sliced<T>(q, k, v, dout, dq, dk, dv, l, dl, B, H, Sq, Sk, C, D, scale, s);
+    if (form == 0)
+      return launch_sliced<T>(q, k, v, dout, dq, dk, dv, l, dl, B, H, Sq, Sk, C, D, scale, s);
+    switch (D) {
+      case 64: return launch<T, 64>(q, k, v, dout, dq, dk, dv, l, dl, B, H, Sq, Sk, C, scale, s);
+      case 128:
+        return launch<T, 128>(q, k, v, dout, dq, dk, dv, l, dl, B, H, Sq, Sk, C, scale, s);
+      case 192:
+        return launch<T, 192>(q, k, v, dout, dq, dk, dv, l, dl, B, H, Sq, Sk, C, scale, s);
+      default:
+        return launch<T, 256>(q, k, v, dout, dq, dk, dv, l, dl, B, H, Sq, Sk, C, scale, s);
+    }
   });
 }
 
 // Bytes of dynamic shared memory one block of kernel E's dk/dv (kind 0) or
-// dq (kind 1) launch takes at head dim D (dtype 0 bf16, 1 fp32): the
-// D = 64 / 128 kernels, else the D-sliced form.
-LVD_EXPORT long long lvd_attention_packed_bwd_smem(int D, int dtype, int kind) {
+// dq (kind 1) launch takes at head dim D in form `form` (dtype 0 bf16, 1
+// fp32); -1 for a form D does not take.
+LVD_EXPORT long long lvd_attention_packed_bwd_smem(int D, int form, int dtype, int kind) {
   using namespace lvd;
+  if (!lvd_attention_form_ok(D, form)) return -1;
   auto pick = [&](auto tag) -> long long {
     using T = decltype(tag);
     using S = BwdCfg<T, 64>;
-    if (D == 64) return kind == 0 ? RegBwdCfg<T, 64>::kDkdvSmem : RegBwdCfg<T, 64>::kDqSmem;
-    if (D == 128) return kind == 0 ? RegBwdCfg<T, 128>::kDkdvSmem : RegBwdCfg<T, 128>::kDqSmem;
-    return kind == 0 ? S::kDkdvSmem + 2 * S::kTile : S::kDqSmem + S::kTile;
+    if (form == 0) return kind == 0 ? S::kDkdvSmem + 2 * S::kTile : S::kDqSmem + S::kTile;
+    switch (D) {
+      case 64: return kind == 0 ? RegBwdCfg<T, 64>::kDkdvSmem : RegBwdCfg<T, 64>::kDqSmem;
+      case 128: return kind == 0 ? RegBwdCfg<T, 128>::kDkdvSmem : RegBwdCfg<T, 128>::kDqSmem;
+      case 192: return kind == 0 ? PairBwdCfg<T, 192>::kSmem : RegBwdCfg<T, 192>::kDqSmem;
+      default: return kind == 0 ? PairBwdCfg<T, 256>::kSmem : RegBwdCfg<T, 256>::kDqSmem;
+    }
   };
   return dtype == kBF16 ? pick(bf16{}) : pick(float{});
 }

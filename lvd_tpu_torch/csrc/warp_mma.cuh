@@ -41,6 +41,17 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   return r;
 }
 
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads:
+// bar_sync waits for the others, bar_arrive only counts in (a warp that
+// hands a shared tile on and need not wait). Both order the thread's prior
+// shared-memory writes before the barrier completes.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // 16-byte asynchronous copy global -> shared; zero-fills when !valid.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),

@@ -39,12 +39,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points and their argument types (pointers and the stream as void*;
 # the int before the stream is the element type, DTYPE_CODES).
 SIGNATURES = {
-    "lvd_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    "lvd_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
     "lvd_temporal_pair": [_P] * 13 + [_I] * 5 + [_L] * 3 + [_F] + [_I] * 4 + [_I, _P],
     "lvd_geglu": [_P] * 6 + [_I] * 8 + [_I, _P],
     "lvd_geglu_stream": [_P] * 7 + [_I] * 8 + [_I, _P],
     "lvd_temp_conv": [_P] * 6 + [_I] * 11 + [_I, _P],
-    "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
+    "lvd_attention_packed_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P],
     "lvd_temporal_pair_bwd": [_P] * 14 + [_I] * 5 + [_L] * 3 + [_F] + [_I] * 3 + [_I, _P],
     "lvd_geglu_bwd": [_P] * 6 + [_I] * 8 + [_I, _P],
     "lvd_geglu_bwd_tf32": [_P] * 7 + [_I] * 7 + [_P],
@@ -57,8 +57,8 @@ SIGNATURES = {
 SIZE_QUERIES = {"lvd_temporal_pair_workspace": [_I] * 6,
                 "lvd_temporal_pair_bwd_workspace": [_I] * 6,
                 "lvd_temporal_pair_bwd_smem": [_I],
-                "lvd_attention_packed_smem": [_I] * 2,
-                "lvd_attention_packed_bwd_smem": [_I] * 3,
+                "lvd_attention_packed_smem": [_I] * 3,
+                "lvd_attention_packed_bwd_smem": [_I] * 4,
                 "lvd_linear_smem": [_I],
                 "lvd_conv3x3_smem": [_I] * 5,
                 "lvd_geglu_smem": [_I] * 3,

@@ -10,9 +10,15 @@ head ``_pallas_attention``, the public sdpa()'s kernel) and the backward
 kernel E (csrc/packed_attention_bwd.cu, replacing ``_pallas_attention_bwd``
 and ``_pallas_attention_bwd_heads``); on CPU tensors both run their plain
 versions. The kernels take bf16 or fp32 and any head dim D % 64 == 0, as
-lvd_tpu's predicates do (D of 64 and 128 in their own kernels, every other
-D in a D-sliced form). A raw launch on a tensor that requires grad raises
-(``_build.refuse_grad``).
+lvd_tpu's predicates do, in the form ``launch_plan`` gives: ``D64`` and
+``D128`` (their own kernels), ``wide`` at D = 192 and 256 (the same
+register-resident designs, A on wgmma in bf16 and mma.sync TF32 in fp32, E
+with dK and dV on warp pairs), and ``sliced`` at every other D (block z of
+a tile owns output columns [64z, 64z + 64)); the selfcheck and the card
+tests name ``sliced`` to time it beside ``wide``. The form's code is passed
+to the kernels, which refuse a code they do not know or a D the form was not
+built for. ``launches_by_form`` counts each. A raw launch on a tensor that
+requires grad raises (``_build.refuse_grad``).
 
 The backward recomputes P from the base-2 log-sum-exp of each query row
 (``lse``, (B*H, S_q) fp32, in units of log2(e) * scale * q.k), which the
@@ -29,6 +35,9 @@ import torch
 from . import _build
 
 LOG2E = 1.4426950408889634
+FORM_CODES = {"D64": 1, "D128": 2, "wide": 3, "sliced": 0}  # as csrc/packed_attention.cu
+FORMS = tuple(FORM_CODES)
+WIDE_HEAD_DIMS = (192, 256)
 # lvd_tpu's bound on the resident K/V block of its packed kernels
 # (pallas_attention.py:605-611): 2 * S_k * C * itemsize <= 8 MiB.
 KV_BYTES_MAX = 8 * 1024 * 1024
@@ -42,6 +51,17 @@ def kernel_ok(q, k, num_heads: int) -> bool:
     d = q.shape[-1] // num_heads
     return (d % 64 == 0 and q.dtype in (torch.bfloat16, torch.float32)
             and 2 * k.shape[1] * k.shape[2] * q.element_size() <= KV_BYTES_MAX)
+
+
+def launch_plan(d: int, form: str = None) -> dict:
+    """Kernel A's and E's form at head dim ``d`` and its code, which the
+    kernels check: ``D64`` and ``D128`` at their head dims, ``wide`` at 192
+    and 256, ``sliced`` at any other D % 64 == 0 (past 256 no form holds O,
+    or dK and dV, in registers). ``form`` names one instead (``sliced``
+    runs at any D; the selfcheck times it beside ``wide``)."""
+    if form is None:
+        form = {64: "D64", 128: "D128"}.get(d, "wide" if d in WIDE_HEAD_DIMS else "sliced")
+    return {"form": form, "code": FORM_CODES[form]}
 
 
 def _split(t, num_heads):
@@ -120,43 +140,49 @@ def _check_shapes(name, q, k, v, num_heads):
         raise ValueError(f"{name}: head dim {c // num_heads}; the kernels take D % 64 == 0")
 
 
-def _launch_forward(q, k, v, scale, num_heads, want_lse: bool):
-    """Kernel A on CUDA tensors: (out, lse), lse None unless ``want_lse``."""
+def _launch_forward(q, k, v, scale, num_heads, want_lse: bool, form: str = None):
+    """Kernel A on CUDA tensors in the form ``launch_plan`` gives (or the
+    form ``form`` names): (out, lse), lse None unless ``want_lse``."""
     _build.refuse_grad("attention_packed", q, k, v)
     code = _build.dtype_code(q, "attention_packed")
     q, k, v = (_build.kernel_input(t, q.dtype, f"attention_packed {n}")
                for t, n in ((q, "q"), (k, "k"), (v, "v")))
     _check_shapes("attention_packed", q, k, v, num_heads)
     b, s_q, c = q.shape
+    plan = launch_plan(c // num_heads, form)
     out = torch.empty_like(q)
     lse = (torch.empty((b * num_heads, s_q), dtype=torch.float32, device=q.device)
            if want_lse else None)
     err = _build.lib().lvd_attention_packed(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        b, num_heads, s_q, k.shape[1], c, float(scale), code, _build.stream_of(q))
+        b, num_heads, s_q, k.shape[1], c, float(scale), plan["code"], code,
+        _build.stream_of(q))
     _build.check(err, "attention_packed")
     attention_packed.launches += 1
+    attention_packed.launches_by_form[plan["form"]] += 1
     attention_packed.lse_launches += lse is not None
     return out, lse
 
 
-def attention_packed_with_lse(q, k, v, scale: float, num_heads: int):
+def attention_packed_with_lse(q, k, v, scale: float, num_heads: int, form: str = None):
     """(out, lse) of kernel A (the plain version on CPU tensors), outside
     autograd: the forward whose log-sum-exp a direct call of
-    ``attention_packed_bwd`` takes."""
+    ``attention_packed_bwd`` takes. ``form`` as in ``launch_plan``."""
     if q.device.type == "cpu":
         return attention_packed_plain(q, k, v, scale, num_heads, return_lse=True)
-    return _launch_forward(q, k, v, scale, num_heads, True)
+    return _launch_forward(q, k, v, scale, num_heads, True, form)
 
 
 def attention_packed_bwd(q, k, v, o, do, scale: float, num_heads: int, need_dkdv: bool = True,
-                         lse=None):
-    """(dq, dk, dv): kernel E on CUDA tensors, the plain version on CPU
-    tensors. ``lse`` is the base-2 log-sum-exp kernel A wrote for these q, k
-    ((B*H, S_q) fp32); kernel E requires it (it recomputes no statistics),
-    and a call without one raises. With ``need_dkdv`` False (keys and values
-    need no gradient, as at the text cross-attention) dk and dv are None."""
+                         lse=None, form: str = None):
+    """(dq, dk, dv): kernel E on CUDA tensors, in the form ``launch_plan``
+    gives (or the form ``form`` names), the plain version on CPU tensors.
+    ``lse`` is the base-2 log-sum-exp kernel A wrote for these q, k
+    ((B*H, S_q) fp32, in any form: every form writes the same statistic);
+    kernel E requires it (it recomputes no statistics), and a call without
+    one raises. With ``need_dkdv`` False (keys and values need no gradient,
+    as at the text cross-attention) dk and dv are None."""
     if q.device.type == "cpu":
         dq, dk, dv = attention_packed_bwd_plain(q, k, v, o, do, scale, num_heads, lse=lse)
         return (dq, dk, dv) if need_dkdv else (dq, None, None)
@@ -178,6 +204,7 @@ def attention_packed_bwd(q, k, v, o, do, scale: float, num_heads: int, need_dkdv
         raise ValueError(f"attention_packed_bwd: lse {tuple(lse.shape)} for "
                          f"{(b * num_heads, s_q)}")
     s_k = k.shape[1]
+    plan = launch_plan(c // num_heads, form)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k) if need_dkdv else None
     dv = torch.empty_like(v) if need_dkdv else None
@@ -186,9 +213,10 @@ def attention_packed_bwd(q, k, v, o, do, scale: float, num_heads: int, need_dkdv
     err = _build.lib().lvd_attention_packed_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         dq.data_ptr(), ptr(dk), ptr(dv), lse.data_ptr(), delta.data_ptr(),
-        b, num_heads, s_q, s_k, c, float(scale), code, _build.stream_of(q))
+        b, num_heads, s_q, s_k, c, float(scale), plan["code"], code, _build.stream_of(q))
     _build.check(err, "attention_packed_bwd")
     attention_packed_bwd.launches += 1
+    attention_packed_bwd.launches_by_form[plan["form"]] += 1
     return dq, dk, dv
 
 
@@ -226,5 +254,7 @@ def attention_packed(q, k, v, scale: float, num_heads: int):
 
 
 attention_packed.launches = 0
+attention_packed.launches_by_form = dict.fromkeys(FORMS, 0)
 attention_packed.lse_launches = 0
 attention_packed_bwd.launches = 0
+attention_packed_bwd.launches_by_form = dict.fromkeys(FORMS, 0)

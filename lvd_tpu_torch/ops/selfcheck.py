@@ -14,8 +14,9 @@ its K and V at the start of NaN-tailed buffers; the backwards E-G at
 the shapes of the guided energy walk (the cond-only UNet walk of batch 24
 down to the last captured site). The public entry points conv3x3() (kernel
 I without prologue, row 13) and sdpa() (kernel A with one head, row 1, and
-E in its backward; D = 192 and 256 in their D-sliced form) run at L0-sized
-shapes; kernel J (row 9), which the public geglu_mlp() runs where lvd_tpu's
+E in its backward) run at L0-sized shapes, sdpa() at D = 64 to 256 and,
+at D = 192 and 256, also at (2, 16, 4096, D), where the tensor cores and
+not the launch set the time; kernel J (row 9), which the public geglu_mlp() runs where lvd_tpu's
 ``_fused_rows`` streams its weights, at the feed-forward shapes of that
 branch (C = 1280 in bf16; C = 640 and 1280 in fp32). A backward is checked on
 each of its outputs (dq, dk and dv for E; dq alone where the walk asks for no
@@ -39,10 +40,14 @@ bf16 reading, so a kernel that rounded fp32 to bf16 would fail. Every
 reference runs with ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` off.
 
-Kernels B-D and F-J record the form each call took (``launches_by_form``:
+Kernels A-J record the form each call took (``launches_by_form``:
 ``wgmma`` in bf16, and for B, F and G in fp32 too (TF32), ``mma_sync`` for
 C and D in fp32; C's kept ``wmma`` form for fp32 C > 384, I's for widths
-% 64 != 0, J's first version, ``wmma``, in fp32). B, F, G and J in their
+% 64 != 0, J's first version, ``wmma``, in fp32; A and E by head dim,
+``D64``, ``D128``, ``wide`` at 192 and 256, ``sliced`` past it). sdpa()
+at D = 192 and 256 must take the ``wide`` form, and runs and times the
+D-sliced form of A and E on the same inputs (``first_ms``,
+``first_rel_err``; E's from the wide forward's log-sum-exp). B, F, G and J in their
 ``wgmma`` form also run and time their first version on the same inputs
 (``first_ms``, ``first_rel_err``), held to no gate; B also in bf16 at the
 train step's shapes, the reading its fp32 checks there must beat. C, D, F
@@ -109,7 +114,8 @@ LINEAR_SHAPES = [(34560, 640, 640), (8640, 1280, 1280), (3696, 1024, 640),
                  (3696, 1024, 1280)]
 # The public entry points: conv3x3() at the L0 resnet widths, sdpa() (B, H, S, D).
 CONV3X3_SHAPES = [(48, 40, 72, cin, 320) for cin in (320, 640, 960)]
-SDPA_SHAPES = [(48, 5, 2880, 64), (8, 4, 1024, 128), (8, 4, 1024, 192), (8, 4, 1024, 256)]
+SDPA_SHAPES = [(48, 5, 2880, 64), (8, 4, 1024, 128), (8, 4, 1024, 192), (8, 4, 1024, 256),
+               (2, 16, 4096, 192), (2, 16, 4096, 256)]
 # Kernel J (rows, C), inner = 4C, where lvd_tpu's _fused_rows streams: in bf16
 # the L2 feed-forward of the CFG forward (2 x 24 x 180 rows), L3, and the L2
 # of the cond-only guided walk; in fp32 (the pipeline's default) L1 and L2.
@@ -287,7 +293,8 @@ def check_attention(gen, shape, dtype=torch.bfloat16):
     q, k, v = (_randn(gen, (b, s, c)).to(dtype) for s in (s_q, s_k, s_k))
     k, v = _nan_tailed(k), _nan_tailed(v)
     scale = 64 ** -0.5
-    out = packed_attention.attention_packed(q, k, v, scale, heads)
+    out, form = _launched_form(packed_attention.attention_packed,
+                               lambda: packed_attention.attention_packed(q, k, v, scale, heads))
     ref = _ref(packed_attention.attention_packed_plain, q, k, v, scale, heads)
     ms = time_ms(lambda: packed_attention.attention_packed(q, k, v, scale, heads))
     plain_ms = time_ms(lambda: packed_attention.attention_packed_plain(q, k, v, scale, heads),
@@ -298,7 +305,7 @@ def check_attention(gen, shape, dtype=torch.bfloat16):
     flops = 4.0 * b * heads * s_q * s_k * 64
     nbytes = q.element_size() * (2 * b * s_q * c + 2 * b * s_k * c)
     rec = _record("attention_packed", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms, flops,
-                  nbytes, lib_ms)
+                  nbytes, lib_ms) | {"form": form}
     if not packed_attention.kernel_ok(q, k, heads):  # the path takes lvd_tpu's chunked route
         rec["chunked_ms"] = time_ms(lambda: attention.heads_chunked(q, k, v, scale, heads), 1, 2)
     return rec
@@ -332,9 +339,13 @@ def check_pair(gen, shape, dtype=torch.bfloat16):
 
 
 def _first_version(out, ref, ms):
-    """The first version's reading and time beside a redesigned form's."""
-    err, rel = _rel_err(out, ref)
-    return {"first_ms": ms, "first_rel_err": rel, "first_max_abs_err": err}
+    """The first version's reading and time beside a redesigned form's
+    (``out`` and ``ref`` may be tuples, a backward's outputs)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    errs = [_rel_err(o, r) for o, r in zip(outs, refs)]
+    return {"first_ms": ms, "first_rel_err": max(r for _, r in errs),
+            "first_max_abs_err": max(e for e, _ in errs)}
 
 
 def _geglu_args(pp, xx):
@@ -439,7 +450,7 @@ def check_attention_bwd(gen, shape, dtype=torch.bfloat16):
     need_kv = s_q == s_k
     fn = lambda: packed_attention.attention_packed_bwd(q, k, v, o, do, scale, heads, need_kv,
                                                        lse=lse)
-    out = fn()
+    out, form = _launched_form(packed_attention.attention_packed_bwd, fn)
     ref = _ref(packed_attention.attention_packed_bwd_plain, q, k, v, o, do, scale, heads)
     if not need_kv:
         out, ref = out[:1], ref[:1]
@@ -459,7 +470,7 @@ def check_attention_bwd(gen, shape, dtype=torch.bfloat16):
     nbytes = q.element_size() * (3 * b * s_q * c + (2 * b * s_k * c) * (2 if need_kv else 1)
                                  + b * s_q * c)
     return _record("attention_packed_bwd", shape, dtype, out, ref, DEFAULT_TOL, ms, plain_ms,
-                   flops, nbytes, lib_ms)
+                   flops, nbytes, lib_ms) | {"form": form}
 
 
 def check_pair_bwd(gen, shape, dtype=torch.bfloat16):
@@ -626,18 +637,23 @@ def check_linear_forward(gen, shape, dtype=torch.bfloat16):
 
 def check_sdpa(gen, shape, dtype=torch.bfloat16):
     """The public sdpa() with long keys, forward (kernel A, one head) and
-    backward (kernel E), through autograd."""
+    backward (kernel E), through autograd, each in the form ``launch_plan``
+    gives (the record fails otherwise); at D = 192 and 256 also A's and E's
+    D-sliced form on the same inputs (``first_ms``, ``first_rel_err``), E's
+    from the wide forward's log-sum-exp."""
     b, h, s, d = shape
     q, k, v = (_randn(gen, shape).to(dtype).requires_grad_(True) for _ in range(3))
     do = _randn(gen, shape).to(dtype)
     scale = d ** -0.5
     flat = lambda t: t.detach().reshape(b * h, s, d)
     with torch.no_grad():
-        out = _launched(packed_attention.attention_packed, lambda: attention.sdpa(q, k, v)[0])
+        out, form = _launched_form(packed_attention.attention_packed,
+                                   lambda: attention.sdpa(q, k, v)[0])
     with torch.enable_grad():
         o_graph = attention.sdpa(q, k, v)[0]
-    grads = _launched(packed_attention.attention_packed_bwd,
-                      lambda: torch.autograd.grad(o_graph, (q, k, v), do, retain_graph=True))
+    grads, bwd_form = _launched_form(
+        packed_attention.attention_packed_bwd,
+        lambda: torch.autograd.grad(o_graph, (q, k, v), do, retain_graph=True))
     ref_o = _ref(packed_attention.attention_packed_plain, flat(q), flat(k), flat(v), scale, 1)
     ref_g = _ref(packed_attention.attention_packed_bwd_plain, flat(q), flat(k), flat(v),
                  flat(o_graph), flat(do), scale, 1)
@@ -648,9 +664,9 @@ def check_sdpa(gen, shape, dtype=torch.bfloat16):
         plain_ms = time_ms(lambda: packed_attention.attention_packed_plain(
             flat(q), flat(k), flat(v), scale, 1), 1, 2)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, scale=scale))
-    records = [_record("sdpa", shape, dtype, out.reshape(b * h, s, d), ref_o, DEFAULT_TOL,
-                       fwd_ms, plain_ms, 4.0 * b * h * s * s * d, item * 4 * b * h * s * d,
-                       lib_ms)]
+    fwd = _record("sdpa", shape, dtype, out.reshape(b * h, s, d), ref_o, DEFAULT_TOL, fwd_ms,
+                  plain_ms, 4.0 * b * h * s * s * d, item * 4 * b * h * s * d,
+                  lib_ms) | {"form": form}
     bwd_ms = time_ms(lambda: torch.autograd.grad(o_graph, (q, k, v), do, retain_graph=True))
     plain_bwd_ms = time_ms(lambda: packed_attention.attention_packed_bwd_plain(
         flat(q), flat(k), flat(v), flat(o_graph), flat(do), scale, 1), 1, 2)
@@ -659,11 +675,22 @@ def check_sdpa(gen, shape, dtype=torch.bfloat16):
         lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
     lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
                                                      retain_graph=True))
-    records.append(_record(
+    bwd = _record(
         "sdpa_bwd", shape, dtype, tuple(g.reshape(b * h, s, d) for g in grads), ref_g,
         DEFAULT_TOL, bwd_ms, plain_bwd_ms, 10.0 * b * h * s * s * d, item * 8 * b * h * s * d,
-        lib_bwd_ms))
-    return records
+        lib_bwd_ms) | {"form": bwd_form}
+    want = packed_attention.launch_plan(d)["form"]
+    for rec in (fwd, bwd):
+        rec["ok"] = rec["ok"] and rec["form"] == want
+    if want == "wide":  # the D-sliced form on the same inputs
+        args = (flat(q), flat(k), flat(v))
+        first = lambda: packed_attention._launch_forward(*args, scale, 1, False, "sliced")[0]
+        fwd |= _first_version(first(), ref_o, time_ms(first))
+        o, lse = packed_attention.attention_packed_with_lse(*args, scale, 1)
+        first_bwd = lambda: packed_attention.attention_packed_bwd(
+            *args, o, flat(do), scale, 1, lse=lse, form="sliced")
+        bwd |= _first_version(first_bwd(), ref_g, time_ms(first_bwd))
+    return [fwd, bwd]
 
 
 BF16_PLAN = ([(check_attention, s) for s in ATTN_SHAPES + FUSER_ATTN_SHAPES]

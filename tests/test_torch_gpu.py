@@ -100,10 +100,14 @@ def test_kernels_take_fp32(cuda):
         _build.dtype_code(q.double(), "test")
 
 
-@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def _form_launches(wrapper, before):
+    return {k: n - before[k] for k, n in wrapper.launches_by_form.items() if n != before[k]}
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320])
 def test_sdpa_long_keys_launch_kernels_a_and_e(cuda, d):
-    """D = 64 and 128 run their own instantiations, 192 and 256 the D-sliced
-    form of kernels A and E."""
+    """D = 64 and 128 run their own forms, 192 and 256 the wide form of
+    kernels A and E, 320 the D-sliced form."""
     from lvd_tpu_torch.ops import packed_attention as pa
     from lvd_tpu_torch.ops.attention import sdpa
 
@@ -111,17 +115,132 @@ def test_sdpa_long_keys_launch_kernels_a_and_e(cuda, d):
     q, k, v = (torch.randn(2, 3, 300, d, generator=g, device=cuda).bfloat16().requires_grad_(True)
                for _ in range(3))
     fwd, bwd = pa.attention_packed.launches, pa.attention_packed_bwd.launches
+    forms = dict(pa.attention_packed.launches_by_form), dict(pa.attention_packed_bwd.launches_by_form)
+    want = {64: "D64", 128: "D128", 192: "wide", 256: "wide", 320: "sliced"}[d]
     out, probs = sdpa(q, k, v)
     assert probs is None and pa.attention_packed.launches == fwd + 1
     ct = torch.randn(out.shape, generator=g, device=cuda)
     grads = torch.autograd.grad(out.float(), (q, k, v), ct)
     assert pa.attention_packed_bwd.launches == bwd + 1
+    assert _form_launches(pa.attention_packed, forms[0]) == {want: 1}
+    assert _form_launches(pa.attention_packed_bwd, forms[1]) == {want: 1}
     leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
     flat = lambda t: t.reshape(6, 300, d)
     ref = pa.attention_packed_plain(*(flat(t) for t in leaves), d ** -0.5, 1).reshape(out.shape)
     assert _rel(out, ref) <= 2e-2
     for got, want in zip(grads, torch.autograd.grad(ref, leaves, ct)):
         assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [300, 1024])
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_form_matches_plain(cuda, d, heads, s, dtype):
+    """Kernels A and E in their wide form at D = 192 and 256, one and three
+    heads (C = 576, 768), ragged (300) and whole (1024) tiles, forward and
+    the gradients through autograd, against the plain versions on fp32
+    copies (TF32 off): 2e-2 in bf16; in fp32 5e-3 and below the same
+    shape's bf16 reading."""
+    from lvd_tpu_torch.ops import packed_attention as pa
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(d + heads + s)
+    c = heads * d
+    q, k, v, do = (torch.randn(2, s, c, generator=g, device=cuda) for _ in range(4))
+    with exact_fp32():
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref = pa.attention_packed_plain(*leaves, d ** -0.5, heads)
+        ref_g = torch.autograd.grad(ref, leaves, do)
+    errs = {}
+    for dt in (torch.bfloat16, dtype):
+        forms = dict(pa.attention_packed.launches_by_form), dict(
+            pa.attention_packed_bwd.launches_by_form)
+        low = [t.to(dt).requires_grad_(True) for t in (q, k, v)]
+        out = pa.attention_packed(*low, d ** -0.5, heads)
+        grads = torch.autograd.grad(out, low, do.to(dt))
+        assert _form_launches(pa.attention_packed, forms[0]) == {"wide": 1}
+        assert _form_launches(pa.attention_packed_bwd, forms[1]) == {"wide": 1}
+        assert torch.isfinite(out).all()
+        errs[dt] = max([_rel(out, ref)] + [_rel(a, b) for a, b in zip(grads, ref_g)])
+    print(f"wide form D={d} H={heads} S={s} {dtype}: {errs}")
+    if dtype == torch.bfloat16:
+        assert errs[dtype] <= 2e-2
+    else:
+        assert errs[dtype] <= FP32_TOL and errs[dtype] < errs[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s_k", [77, 300])
+def test_wide_form_through_packed_attention(cuda, s_k, dtype):
+    """The packed attention() at three heads of 192 (C = 576) over 77 text
+    keys and 300 keys: kernel_ok holds, kernel A runs its wide form (and E
+    through autograd), against the plain route on fp32 copies."""
+    from lvd_tpu_torch.ops import attention as at
+    from lvd_tpu_torch.ops import packed_attention as pa
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(s_k)
+    lin = lambda a, b: {"w": torch.randn(a, b, generator=g, device=cuda) * a ** -0.5,
+                        "b": 0.1 * torch.randn(b, generator=g, device=cuda)}
+    p = {n: lin(576, 576) for n in ("to_q", "to_k", "to_v", "to_out")}
+    x = torch.randn(2, 300, 576, generator=g, device=cuda)
+    ctx = torch.randn(2, s_k, 576, generator=g, device=cuda)
+    ct = torch.randn(2, 300, 576, generator=g, device=cuda)
+    with exact_fp32():
+        leaf = x.clone().requires_grad_(True)
+        ref = at.attention(p, leaf, ctx, num_heads=3, return_probs=True)[0]
+        (ref_dx,) = torch.autograd.grad(ref, leaf, ct)
+    cast = lambda t: {n: {kk: vv.to(dtype) for kk, vv in w.items()} for n, w in t.items()}
+    forms = dict(pa.attention_packed.launches_by_form), dict(pa.attention_packed_bwd.launches_by_form)
+    xl = x.to(dtype).requires_grad_(True)
+    out, probs = at.attention(cast(p), xl, ctx.to(dtype), num_heads=3)
+    (dx,) = torch.autograd.grad(out, xl, ct.to(dtype))
+    assert probs is None
+    assert _form_launches(pa.attention_packed, forms[0]) == {"wide": 1}
+    assert _form_launches(pa.attention_packed_bwd, forms[1]) == {"wide": 1}
+    err = max(_rel(out, ref), _rel(dx, ref_dx))
+    print(f"packed attention() C=576 S_k={s_k} {dtype}: {err:.3g}")
+    assert err <= (2e-2 if dtype == torch.bfloat16 else FP32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_and_sliced_forms_share_the_lse(cuda, d, dtype):
+    """Both forms of kernel A write the same base-2 log-sum-exp (to
+    rounding), and each form of kernel E takes the other form's: the crossed
+    gradients read as the matched ones against the plain backward; the wide
+    forms give bit-equal results run to run."""
+    from lvd_tpu_torch.ops import packed_attention as pa
+    from lvd_tpu_torch.ops.selfcheck import FP32_TOL, exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v, do = (torch.randn(2, 300, 3 * d, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    scale = d ** -0.5
+    fwd = {f: pa.attention_packed_with_lse(q, k, v, scale, 3, form=f) for f in ("wide", "sliced")}
+    with exact_fp32():
+        ref, ref_lse = pa.attention_packed_plain(q.float(), k.float(), v.float(), scale, 3,
+                                                 return_lse=True)
+        ref_g = pa.attention_packed_bwd_plain(q.float(), k.float(), v.float(),
+                                              fwd["wide"][0].float(), do.float(), scale, 3)
+    tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
+    for out, lse in fwd.values():
+        assert _rel(out, ref) <= tol and _rel(lse, ref_lse) <= 1e-3
+    assert _rel(fwd["wide"][1], fwd["sliced"][1]) <= 1e-3
+    o = fwd["wide"][0]
+    for bwd_form in ("wide", "sliced"):
+        for lse_form in ("wide", "sliced"):
+            grads = pa.attention_packed_bwd(q, k, v, o, do, scale, 3, lse=fwd[lse_form][1],
+                                            form=bwd_form)
+            errs = [_rel(a, b) for a, b in zip(grads, ref_g)]
+            print(f"E {bwd_form} from A {lse_form}'s lse, D={d} {dtype}: {errs}")
+            assert max(errs) <= tol
+    again = pa.attention_packed_with_lse(q, k, v, scale, 3)
+    assert torch.equal(again[0], fwd["wide"][0]) and torch.equal(again[1], fwd["wide"][1])
+    first = pa.attention_packed_bwd(q, k, v, o, do, scale, 3, lse=fwd["wide"][1])
+    second = pa.attention_packed_bwd(q, k, v, o, do, scale, 3, lse=fwd["wide"][1])
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _ff_params(c, inner, g, cuda):
@@ -611,21 +730,45 @@ def test_geglu_forms_match_plain(cuda, c, gelu, dtype, monkeypatch):
         assert errs[dtype] <= FP32_TOL and errs[dtype] < errs[torch.bfloat16]
 
 
-@pytest.mark.parametrize("kernel", ["C", "D", "B", "G", "F", "J"])
+@pytest.mark.parametrize("kernel", ["C", "D", "B", "G", "F", "J", "A", "E"])
 def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch):
     """Kernels B, C, D, F, G and J check the wrapper's launch plan: C's and
     G's split (1 at C = 320, 2 at 640) and rows a block, D's m64 tiles,
     window rows and first frame, B's and F's rows and pixels a block (and
     form), B's attention frames and workspace bytes, J's rows, inner chunk
     and column block (and form), B's, F's and G's in bf16 and in fp32
-    (their TF32 forms); each changed value is refused, and the plan as given
-    launches."""
+    (their TF32 forms); A and E their form code (a code they do not know,
+    another head dim's form, the wide form past D = 256), in both types;
+    each changed value is refused, and the plan as given launches."""
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.ops import geglu_fused as gf
+    from lvd_tpu_torch.ops import packed_attention as pa
     from lvd_tpu_torch.ops import temp_conv_fused as tc
     from lvd_tpu_torch.ops import temporal_attention as ta
 
     g = torch.Generator(device=cuda).manual_seed(12)
+    if kernel in ("A", "E"):
+        plan = pa.launch_plan
+        with torch.no_grad():
+            for d in (64, 192, 256, 320):
+                for dt in (torch.bfloat16, torch.float32):
+                    q = torch.randn(1, 300, 2 * d, generator=g, device=cuda).to(dt)
+                    if kernel == "A":
+                        run = lambda q=q: pa.attention_packed_with_lse(q, q, q, 0.1, 2)
+                    else:
+                        o, lse = pa.attention_packed_with_lse(q, q, q, 0.1, 2)
+                        run = lambda q=q, o=o, lse=lse: pa.attention_packed_bwd(
+                            q, q, q, o, q, 0.1, 2, lse=lse)
+                    run()  # the plan as given
+                    own = plan(d)["code"]
+                    for code in {7, -1, 1 if d != 64 else 2, 3 if d not in (192, 256) else 1}:
+                        assert code != own and code != 0
+                        monkeypatch.setattr(pa, "launch_plan",
+                                            lambda *a, c=code: {**plan(*a), "code": c})
+                        with pytest.raises(RuntimeError, match="launch failed"):
+                            run()
+                        monkeypatch.setattr(pa, "launch_plan", plan)
+        return
     if kernel in ("B", "G", "F", "J"):
         cases = []
         if kernel == "F":

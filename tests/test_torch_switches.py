@@ -208,7 +208,7 @@ def test_pipeline_default_dtype_matches_lvd_tpu():
 @pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_sdpa_long_keys_matches_attention_bh(d):
     """The port's sdpa() with 300 keys (kernel A and E with one head on the
-    card; D = 192 and 256 in their D-sliced form) against lvd_tpu's
+    card; D = 192 and 256 in their wide form) against lvd_tpu's
     attention_bh (its _chunked_sdpa on the CPU), forward and gradient."""
     rng = np.random.default_rng(5)
     q, k, v, ct = (_normal(rng, (2, 2, 300, d)) for _ in range(4))
