@@ -8,7 +8,7 @@ Phases, each fatal on failure:
   2. build   - nvcc builds lvd_tpu_torch/csrc/*.cu, one process per source,
                all started together, then one link (seconds and the -Xptxas
                -v register / shared-memory / spill lines, one record of
-               registers and spills per kernel A-J instantiation, and the
+               registers and spills per kernel A-M instantiation, and the
                dynamic shared memory per block of A-I; A's and E's wide
                forms at D = 192 and 256 must not spill);
   3. kernels - every kernel at every shape the Zeroscope path gives it (A
@@ -32,13 +32,19 @@ Phases, each fatal on failure:
                self-attention at 9216 keys), A at the SDXL refiner's 12-
                and 24-head shapes, and D where lvd_tpu routes its kernel
                past 32 frames (frame groups) and at C = 72 and 520, in bf16
-               and three of those in fp32;
+               and three of those in fp32; then kernels K, L (both forms)
+               and M at the UNet's GroupNorm and LayerNorm shapes, the VAE
+               decoder's widest GroupNorm, the refiner's C = 3072 and CLIP's
+               LayerNorm, bf16 (1e-2; K's fp32 statistics 1e-4) and
+               fp32 (1e-5);
   4. reference - one full-width CFG UNet forward through the kernels (bf16)
                against the plain path (fp32) on the same inputs, with weights
                whose attention/FF/temporal-conv branches are not zero-init,
                so every kernel's output reaches the noise prediction; the
                plain path in bf16 is printed beside it as the yardstick of
-               what bf16 rounding alone costs;
+               what bf16 rounding alone costs; the forward must launch K, L
+               (by form) and M exactly as often as the UNet's tree gives
+               (norm_launches: 166, 33 + 45, 65);
   5. gradient - one full-width guided energy gradient d(energy)/d(latents)
                through the kernels (bf16) against the plain path (fp32), on
                the same inputs and weights, gated on the max-element and the
@@ -52,16 +58,16 @@ Phases, each fatal on failure:
                LVD_ALLOW_RANDOM_WEIGHTS=1, as every phase of this script
                draws them), 4 DPM-Solver++ steps, through the entry
                points a user calls; launch counts are zeroed just before and
-               read just after, and every forward kernel A-D must have run,
-               every B, C and D launch in its new form (wgmma); then the
+               read just after, and every forward kernel A-D and K-M must
+               have run, every B, C and D launch in its new form (wgmma); then the
                same call under output_type="uint8_device" must return uint8
                (24, 320, 576, 3) frames on the card within one uint8 level
                of the float video x 255;
   7. guided generation - the flagship layout (one box moving left to right)
                and GuidanceConfig through the same entry point with
                ``backward_guidance``, 4 steps with guidance on the first 2;
-               every kernel A-G must have run, B, C, D, F and G in their new
-               form;
+               every kernel A-G and K-M must have run, B, C, D, F and G in
+               their new form;
   8. certification - guidance_effect at full width, 16 guided updates at
                the first timestep, lvd_tpu's two certificates: on the
                flagship layout the in-box attention share must rise by more
@@ -217,8 +223,8 @@ Phases, each fatal on failure:
                must have run, and G must not (lvd_tpu's dx there is the
                stock VJP);
  16. profile - one CFG UNet forward and one guided update under
-               torch.profiler: device time per kernel and for the stock ops,
-               and the device's idle share.
+               torch.profiler: device time per kernel (K-M included) and for
+               the stock ops by kind, and the device's idle share.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
@@ -301,7 +307,7 @@ def build_phase(torch):
             log(f"[build] {line.strip()}")
     ptxas = ptxas_summary(_build.build_info["log"], PTXAS_SOURCES)
     for rec in ptxas:
-        log(f"[build] ptxas A-J {json.dumps(rec)}")
+        log(f"[build] ptxas A-M {json.dumps(rec)}")
     spills = [rec for rec in ptxas if rec["source"].startswith("packed_attention")
               and ("Li192E" in rec["kernel"] or "Li256E" in rec["kernel"])
               and (rec.get("spill_store_bytes") or rec.get("spill_load_bytes"))]
@@ -347,7 +353,7 @@ def build_phase(torch):
 PTXAS_SOURCES = ("packed_attention.cu", "packed_attention_bwd.cu", "linear.cu", "conv3x3.cu",
                  "geglu.cu", "temp_conv.cu", "temporal_attention.cu", "geglu_bwd.cu",
                  "temporal_attention_bwd.cu", "geglu_stream.cu", "pair_bwd_tf32.cu",
-                 "pair_fwd_tf32.cu")
+                 "pair_fwd_tf32.cu", "norms.cu")
 
 
 def ptxas_summary(build_log, sources):
@@ -366,7 +372,8 @@ def ptxas_summary(build_log, sources):
         if m:
             name = m.group(1)
             # the kernel's length-prefixed identifier and its template arguments
-            short = re.search(r"\d((?:attn|linear|conv3x3|geglu|temp_conv|temporal_pair)_\w*?kernel"
+            short = re.search(r"\d((?:attn|linear|conv3x3|geglu|temp_conv|temporal_pair|gn|ln)_"
+                              r"\w*?kernel"
                               r"(?:\w*?I\w*?EE)?)", name)
             rec = {"source": source, "kernel": name if short is None else short.group(1)}
             records.append(rec)
@@ -479,7 +486,9 @@ def _undegenerate(tree, gen, torch):
 def detached_route():
     """Cuts each forward kernel's branch out of the gradient (its autograd
     Function passes no gradient back), as a kernel wrapper outside autograd
-    would: the reading of a broken gradient, beside which the gate is set."""
+    would: the reading of a broken gradient, beside which the gate is set.
+    Kernels K-M keep their gradients: the captured maps reach the latents
+    only through the norms."""
     from lvd_tpu_torch.ops import geglu_fused, linear_fused, packed_attention
     from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
     from lvd_tpu_torch.ops.plain import swapped
@@ -506,7 +515,9 @@ def reference_phase(torch, models):
     torch.backends.cudnn.allow_tf32 = False  # the plain path in full fp32
     try:
         with torch.no_grad():
+            zero_launches()
             eps = apply_unet3d(params, cfg, sample.bfloat16(), 500, text.bfloat16())
+            check_norm_launches("reference", params, read_launches(), read_forms())
             with plain_route():
                 plain = apply_unet3d(params, cfg, sample.bfloat16(), 500, text.bfloat16())
                 ref = apply_unet3d(cast_tree(params, torch.float32), cfg, sample, 500, text)
@@ -522,6 +533,24 @@ def reference_phase(torch, models):
         raise SystemExit("[reference] the kernel path disagrees with the plain path")
     del eps, plain, ref, params
     torch.cuda.empty_cache()
+
+
+def check_norm_launches(phase, params, launches, forms):
+    """Fails unless one CFG forward launched K, L (by form) and M exactly as
+    often as norm_launches derives from the UNet's tree (166, 33 + 45, 65
+    at Zeroscope's widths); each launch of kernel I (the opt-in resnet conv
+    route) takes a GroupNorm's statistics from K and its apply + SiLU from
+    I's prologue in place of L."""
+    want = norm_launches(params)
+    want["group_norm_apply"]["affine_silu"] -= launches["norm_silu_conv2d"]
+    got = {"group_norm_stats": launches["group_norm_stats"],
+           "group_norm_apply": {f: forms["group_norm_apply"][f] for f in ("affine", "affine_silu")},
+           "layer_norm_rows": launches["layer_norm_rows"]}
+    log(f"[{phase}] kernels K-M in one CFG forward: {json.dumps(got)} (from the UNet's tree: "
+        f"{json.dumps(want)})")
+    if got != want:
+        raise SystemExit(f"[{phase}] kernels K-M launched {got} times in one CFG forward, "
+                         f"the code gives {want}")
 
 
 def gradient_phase(torch, models):
@@ -581,8 +610,8 @@ def gradient_phase(torch, models):
 
 
 def wrappers():
-    """Every kernel wrapper, A-J, by kernel name (sdpa() counts on A's)."""
-    from lvd_tpu_torch.ops import conv3x3, geglu_fused, linear_fused, packed_attention
+    """Every kernel wrapper, A-M, by kernel name (sdpa() counts on A's)."""
+    from lvd_tpu_torch.ops import conv3x3, geglu_fused, linear_fused, norms, packed_attention
     from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
 
     return {
@@ -597,6 +626,9 @@ def wrappers():
         "norm_silu_conv2d": spatial_conv_fused.norm_silu_conv2d,
         "conv3x3": conv3x3.conv3x3,
         "geglu_stream": geglu_fused.geglu_stream,
+        "group_norm_stats": norms.group_norm_stats,
+        "group_norm_apply": norms.group_norm_apply,
+        "layer_norm_rows": norms.layer_norm_rows,
     }
 
 
@@ -612,10 +644,11 @@ def read_launches():
 
 
 def read_forms():
-    """Launches per form of kernels A-J (attention_packed,
+    """Launches per form of kernels A-M (attention_packed,
     temporal_attention_pair, geglu_mlp, norm_silu_temporal_conv,
     attention_packed_bwd, temporal_attention_pair_bwd, geglu_mlp_bwd,
-    linear_rows, norm_silu_conv2d, conv3x3, geglu_stream)."""
+    linear_rows, norm_silu_conv2d, conv3x3, geglu_stream, group_norm_stats,
+    group_norm_apply, layer_norm_rows)."""
     return {name: dict(fn.launches_by_form) for name, fn in wrappers().items()
             if hasattr(fn, "launches_by_form")}
 
@@ -638,8 +671,46 @@ def check_new_forms(phase, forms, redesigned=()):
         raise SystemExit(f"[{phase}] the wgmma form never launched on the path: {idle}")
 
 
+def norm_launches(params):
+    """Launches of kernels K, L (by form) and M in one apply_unet3d call
+    without GLIGEN inputs, derived from the UNet's param tree: every resnet
+    runs two GroupNorm + SiLU (K, L ``affine_silu``) and ``conv_norm_out``
+    one; every temporal conv block four GroupNorms, each K and kernel D's
+    prologue; every spatial and
+    temporal transformer one GroupNorm (K, L ``affine``); every spatial
+    block three LayerNorms (M), every temporal block one (norm3; B holds
+    the other two)."""
+    sites = {"resnet": 0, "temp_conv": 0, "spatial": 0, "temporal": 0}
+
+    def walk(node):
+        if isinstance(node, list):
+            for v in node:
+                walk(v)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                if k in ("resnet", "resnet_in", "resnets"):
+                    sites["resnet"] += len(v) if isinstance(v, list) else 1
+                elif k in ("temp_conv", "temp_conv_in"):
+                    sites["temp_conv"] += 1
+                elif k == "attn" and isinstance(v, dict) and "blocks" in v:
+                    sites["spatial"] += len(v["blocks"])
+                elif k in ("temp_attn", "transformer_in"):
+                    sites["temporal"] += 1
+                else:
+                    walk(v)
+
+    walk(params)
+    transformers = sites["spatial"] + sites["temporal"]
+    silu = 2 * sites["resnet"] + 1
+    return {"group_norm_stats": 2 * sites["resnet"] + 1 + 4 * sites["temp_conv"] + transformers,
+            "group_norm_apply": {"affine": transformers, "affine_silu": silu},
+            "layer_norm_rows": 3 * sites["spatial"] + sites["temporal"]}
+
+
+# Kernels K-M: GroupNorm statistics, GroupNorm apply (+ SiLU), LayerNorm.
+NORM_KERNELS = ("group_norm_stats", "group_norm_apply", "layer_norm_rows")
 FORWARD_KERNELS = ("attention_packed", "temporal_attention_pair", "geglu_mlp",
-                   "norm_silu_temporal_conv")
+                   "norm_silu_temporal_conv") + NORM_KERNELS
 GUIDED_KERNELS = FORWARD_KERNELS + ("attention_packed_bwd", "temporal_attention_pair_bwd",
                                     "geglu_mlp_bwd")
 # This slice's main path: the guided generation under the two opt-in switches.
@@ -1433,7 +1504,8 @@ def upsample_phase(torch, run_dir, refiner):
     return launches
 
 
-# Substrings of the kernels' device symbols (B-D's and F-J's: every form).
+# Substrings of the kernels' device symbols (B-D's and F-J's: every form; K's
+# two passes).
 KERNEL_SYMBOLS = {
     "attention_packed": "attn_packed_kernel",
     "temporal_attention_pair": ("::temporal_pair_kernel", "::temporal_pair_wgmma_kernel",
@@ -1446,6 +1518,9 @@ KERNEL_SYMBOLS = {
     "linear": "::linear_",
     "conv3x3 (kernel I)": "::conv3x3_",
     "geglu_stream": "::geglu_stream_",
+    "group_norm_stats": ("::gn_partial_kernel", "::gn_finish_kernel"),
+    "group_norm_apply": "::gn_apply_kernel",
+    "layer_norm_rows": "::ln_rows_kernel",
 }
 
 
@@ -2087,6 +2162,7 @@ def fp32_phase(torch, models):
         end.record()
         torch.cuda.synchronize()
         launches, forms = read_launches(), read_forms()
+        check_norm_launches("fp32", params, launches, forms)
         with plain_route():
             ref = apply_unet3d(params, cfg, sample, 500, text)
     scale = ref.abs().max().item()
@@ -2206,7 +2282,7 @@ def entry_point_phase(torch, models):
 SHARDED_RANKS = 2
 SHARDED_TIMEOUT = 900   # seconds: every collective's limit, and the parent's wait
 SHARDED_TRAIN_FRAMES = 8
-SHARDED_FORWARD = ("attention_packed", "temporal_attention_pair", "geglu_mlp")
+SHARDED_FORWARD = ("attention_packed", "temporal_attention_pair", "geglu_mlp") + NORM_KERNELS
 SHARDED_BACKWARD = ("attention_packed_bwd", "temporal_attention_pair_bwd", "geglu_mlp_bwd")
 
 

@@ -25,8 +25,7 @@ import torch.utils.checkpoint
 
 from ..ops.basic import (
     conv2d,
-    group_norm,
-    silu,
+    group_norm_silu,
     time_embedding_mlp,
     timestep_embedding,
     upsample_nearest_2x,
@@ -259,5 +258,5 @@ def apply_unet2d(params, cfg: UNet2DConfig, sample, timesteps, encoder_hidden_st
                     y = y.permute(0, 2, 3, 1)
             x = conv2d(block["upsample"], y)
 
-    x = group_norm(params["conv_norm_out"], x, cfg.norm_num_groups, cfg.norm_eps)
-    return conv2d(params["conv_out"], silu(x)), aux
+    x = group_norm_silu(params["conv_norm_out"], x, cfg.norm_num_groups, cfg.norm_eps)
+    return conv2d(params["conv_out"], x), aux

@@ -68,6 +68,7 @@ from ..ops.basic import (
     feed_forward,
     group_norm,
     group_norm_coeffs,
+    group_norm_silu,
     layer_norm,
     linear,
     silu,
@@ -318,7 +319,8 @@ def _temporal_transformer(p, x, num_frames, num_heads, cfg, spmd_axis=None):
 def _gn_silu_conv(norm_p, conv_p, x, cfg):
     """GroupNorm -> SiLU -> 3x3 conv; under ``LVD_ENABLE_FUSED_SC=1`` (read
     per call, as lvd_tpu reads it) the shapes lvd_tpu's predicate routes take
-    kernel I with its prologue, the GroupNorm statistics a stock reduction."""
+    kernel I with its prologue, the GroupNorm statistics kernel K; elsewhere
+    kernels K and L (``affine_silu``) before cuDNN's conv."""
     if (os.environ.get("LVD_ENABLE_FUSED_SC") == "1"
             and tuple(conv_p["w"].shape[:2]) == (3, 3)
             and spatial_conv_fused.supported(x, conv_p["w"])):
@@ -327,7 +329,7 @@ def _gn_silu_conv(norm_p, conv_p, x, cfg):
         if bias is None:
             bias = torch.zeros(conv_p["w"].shape[-1], dtype=x.dtype, device=x.device)
         return spatial_conv_fused.norm_silu_conv2d(x, a, b, conv_p["w"], bias)
-    return conv2d(conv_p, silu(group_norm(norm_p, x, cfg.norm_num_groups, cfg.norm_eps)))
+    return conv2d(conv_p, group_norm_silu(norm_p, x, cfg.norm_num_groups, cfg.norm_eps))
 
 
 def _resnet(p, x, temb, cfg):
@@ -358,8 +360,9 @@ def _temp_conv(p, x, num_frames, cfg, spmd_axis=None):
     if spmd_axis is not None:
         for name in ("conv1", "conv2", "conv3", "conv4"):
             blk = p[name]
-            y4 = group_norm(blk["norm"], y4, cfg.norm_num_groups, 1e-5, axis_name=spmd_axis)
-            y4 = _halo_conv3d_frames(blk["conv"], silu(y4), spmd_axis)
+            y4 = group_norm_silu(blk["norm"], y4, cfg.norm_num_groups, 1e-5,
+                                 axis_name=spmd_axis)
+            y4 = _halo_conv3d_frames(blk["conv"], y4, spmd_axis)
         return (identity + y4).reshape(n, h, w, c)
     if os.environ.get("LVD_DISABLE_FUSED_TC") != "1" and temp_conv_fused.supported(y4):
         for name in ("conv1", "conv2", "conv3", "conv4"):
@@ -371,7 +374,7 @@ def _temp_conv(p, x, num_frames, cfg, spmd_axis=None):
     y = x.reshape(b, num_frames, h, w, c)
     for name in ("conv1", "conv2", "conv3", "conv4"):
         blk = p[name]
-        y = conv3d(blk["conv"], silu(group_norm(blk["norm"], y, cfg.norm_num_groups, 1e-5)))
+        y = conv3d(blk["conv"], group_norm_silu(blk["norm"], y, cfg.norm_num_groups, 1e-5))
     return (x.reshape(b, num_frames, h, w, c) + y).reshape(n, h, w, c)
 
 

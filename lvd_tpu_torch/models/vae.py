@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import VAEConfig
-from ..ops.basic import conv2d, group_norm, linear, silu, upsample_nearest_2x
+from ..ops.basic import conv2d, group_norm, group_norm_silu, linear, upsample_nearest_2x
 from ..utils import prng
 from . import init
 
@@ -83,8 +83,8 @@ def init_vae(key, cfg: VAEConfig, device=None, dtype=torch.float32):
 
 
 def _resnet(p, x, groups, eps=1e-6):
-    h = conv2d(p["conv1"], silu(group_norm(p["norm1"], x, groups, eps)))
-    h = conv2d(p["conv2"], silu(group_norm(p["norm2"], h, groups, eps)))
+    h = conv2d(p["conv1"], group_norm_silu(p["norm1"], x, groups, eps))
+    h = conv2d(p["conv2"], group_norm_silu(p["norm2"], h, groups, eps))
     if "conv_shortcut" in p:
         x = conv2d(p["conv_shortcut"], x, padding=0)
     return x + h
@@ -118,7 +118,7 @@ def encode(params, cfg: VAEConfig, images):
     x = _resnet(enc["mid"]["resnet_1"], x, g)
     x = _attn(enc["mid"]["attn"], x, g)
     x = _resnet(enc["mid"]["resnet_2"], x, g)
-    x = conv2d(enc["conv_out"], silu(group_norm(enc["conv_norm_out"], x, g, 1e-6)))
+    x = conv2d(enc["conv_out"], group_norm_silu(enc["conv_norm_out"], x, g, 1e-6))
     x = conv2d(params["quant_conv"], x, padding=0)
     mean, logvar = x.chunk(2, dim=-1)
     return mean, logvar.clamp(-30.0, 20.0)
@@ -139,4 +139,4 @@ def decode(params, cfg: VAEConfig, latents):
             x = _resnet(rp, x, g)
         if "upsample" in block:
             x = conv2d(block["upsample"], upsample_nearest_2x(x))
-    return conv2d(dec["conv_out"], silu(group_norm(dec["conv_norm_out"], x, g, 1e-6)))
+    return conv2d(dec["conv_out"], group_norm_silu(dec["conv_norm_out"], x, g, 1e-6))

@@ -37,7 +37,8 @@ NVCC_FLAGS = [
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 # C entry points and their argument types (pointers and the stream as void*;
-# the int before the stream is the element type, DTYPE_CODES).
+# the int before the stream is the element type, DTYPE_CODES, or for kernels
+# K-M ops/norms.DTYPE_CODES, which adds fp16).
 SIGNATURES = {
     "lvd_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
     "lvd_temporal_pair": [_P] * 13 + [_I] * 5 + [_L] * 3 + [_F] + [_I] * 4 + [_I, _P],
@@ -51,6 +52,9 @@ SIGNATURES = {
     "lvd_geglu_bwd_round": [_P, _P, _L, _P],
     "lvd_linear": [_P] * 4 + [_I] * 4 + [_I, _P],
     "lvd_conv3x3": [_P] * 6 + [_I] * 10 + [_I, _P],
+    "lvd_gn_stats": [_P] * 7 + [_I] * 11 + [_F, _F] + [_I, _I, _P],
+    "lvd_gn_apply": [_P] * 4 + [_I] * 10 + [_I, _P],
+    "lvd_layer_norm": [_P] * 4 + [_I] * 3 + [_F] + [_I, _I, _P],
 }
 # Entry points that return a byte count instead of a CUDA error code (a
 # workspace size, or the dynamic shared memory of kernels A-I).

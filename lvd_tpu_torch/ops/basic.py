@@ -18,6 +18,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import norms
+
 
 def linear(p, x):
     y = x @ p["w"].to(x.dtype)
@@ -47,60 +49,33 @@ def conv3d(p, x, padding=((1, 1), (0, 0), (0, 0))):
 def group_norm_coeffs(p, x, num_groups: int = 32, eps: float = 1e-5, axis_name=None,
                       count_override: Optional[int] = None):
     """Per-channel affine GroupNorm coefficients (a, b), both (N, C) fp32,
-    such that ``y = x * a + b``. One-pass fp32 statistics (m2 - mean^2),
-    as lvd_tpu computes them. ``axis_name``: a parallel/comm.Group over
-    which x is sharded (frames across ranks): the group sums are psummed
-    and the per-group count scaled by the group's size; ``count_override``
-    is the exact count where the shard carries zero padding."""
-    n, c = x.shape[0], x.shape[-1]
-    g = num_groups
-    xr = x.reshape(n, -1, c)
-    per_group = xr.shape[1] * (c // g)
-    s1c = xr.sum(dim=1, dtype=torch.float32)
-    x32 = xr.float()
-    s2c = (x32 * x32).sum(dim=1)
-    del x32
-    s1 = s1c.view(n, g, c // g).sum(-1)
-    s2 = s2c.view(n, g, c // g).sum(-1)
-    if axis_name is not None:
-        from ..parallel import comm
-
-        s1 = comm.psum(s1, axis_name)
-        s2 = comm.psum(s2, axis_name)
-        per_group = per_group * comm.axis_size(axis_name)
-    if count_override is not None:
-        per_group = count_override
-    mean_g = s1 / per_group
-    var_g = torch.clamp(s2 / per_group - mean_g * mean_g, min=0.0)
-    inv_g = torch.rsqrt(var_g + eps)
-    inv_c = inv_g.repeat_interleave(c // g, dim=1)
-    mean_c = mean_g.repeat_interleave(c // g, dim=1)
-    a = inv_c * p["scale"].float()[None, :]
-    b = p["bias"].float()[None, :] - mean_c * a
-    return a, b
+    such that ``y = x * a + b`` (kernel K; ops/norms.py): one-pass fp32
+    statistics (m2 - mean^2), as lvd_tpu computes them. ``axis_name``: a
+    parallel/comm.Group over which x is sharded (frames across ranks): the
+    group sums are psummed and the per-group count scaled by the group's
+    size; ``count_override`` is the exact count where the shard carries
+    zero padding."""
+    return norms.group_norm_coeffs(p, x, num_groups, eps, axis_name, count_override)
 
 
 def group_norm(p, x, num_groups: int = 32, eps: float = 1e-5, axis_name=None,
                count_override: Optional[int] = None):
     """GroupNorm over channels-last input of any rank >= 2; statistics per
     (batch, group) over all non-batch axes (and over ``axis_name``'s ranks,
-    see group_norm_coeffs), applied in the input dtype."""
-    n, c = x.shape[0], x.shape[-1]
-    a, b = group_norm_coeffs(p, x, num_groups, eps, axis_name, count_override)
-    xr = x.reshape(n, -1, c)
-    y = xr * a[:, None, :].to(x.dtype) + b[:, None, :].to(x.dtype)
-    return y.reshape(x.shape)
+    see group_norm_coeffs), applied in the input dtype (kernels K and L)."""
+    return norms.group_norm(p, x, num_groups, eps, axis_name, count_override)
+
+
+def group_norm_silu(p, x, num_groups: int = 32, eps: float = 1e-5, axis_name=None,
+                    count_override: Optional[int] = None):
+    """silu(group_norm(...)), SiLU applied in kernel L's pass."""
+    return norms.group_norm_silu(p, x, num_groups, eps, axis_name, count_override)
 
 
 def layer_norm(p: Optional[dict], x, eps: float = 1e-5):
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    m2 = (x32 * x32).mean(dim=-1, keepdim=True)
-    var = torch.clamp(m2 - mean * mean, min=0.0)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    if p is not None:
-        y = y * p["scale"].float() + p["bias"].float()
-    return y.to(x.dtype)
+    """LayerNorm over the last axis, fp32 statistics, one rounding to x's
+    type (kernel M)."""
+    return norms.layer_norm(p, x, eps)
 
 
 def silu(x):

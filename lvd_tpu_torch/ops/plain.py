@@ -28,8 +28,9 @@ def _linear_rows_plain(x, w, b=None, trans_w=False):
 
 
 def plain_route():
-    """A context in which kernels A-D, H and I run their plain versions."""
-    from . import geglu_fused, linear_fused, packed_attention, spatial_conv_fused
+    """A context in which kernels A-D, H, I and K-M run their plain
+    versions."""
+    from . import geglu_fused, linear_fused, norms, packed_attention, spatial_conv_fused
     from . import temp_conv_fused, temporal_attention
 
     return swapped([
@@ -41,4 +42,8 @@ def plain_route():
          temp_conv_fused.norm_silu_temporal_conv_plain),
         (spatial_conv_fused, "norm_silu_conv2d", spatial_conv_fused.norm_silu_conv2d_plain),
         (linear_fused, "linear_rows", _linear_rows_plain),
+        (norms, "group_norm_coeffs", norms.group_norm_coeffs_plain),
+        (norms, "group_norm", norms.group_norm_plain),
+        (norms, "group_norm_silu", norms.group_norm_silu_plain),
+        (norms, "layer_norm", norms.layer_norm_plain),
     ])

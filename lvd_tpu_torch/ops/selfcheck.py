@@ -59,6 +59,20 @@ for the same function, and the port never calls it. C's Hopper forms and
 the wgmma forms of G and J also time the interleaved copy of W1 that each
 call makes (``copy_ms``, included in ``ms``).
 
+Kernels K, L and M (ops/norms.py: GroupNorm statistics, GroupNorm apply
+in its ``affine`` and ``affine_silu`` forms, LayerNorm), which replace XLA's
+fusions of lvd_tpu's norms and no Pallas kernel, run in bf16 and fp32 at
+the UNet's GroupNorm and LayerNorm shapes, the VAE decoder's widest
+GroupNorm, the SDXL refiner's C = 3072 and CLIP's LayerNorm, against their
+plain versions on fp32 copies: within 1e-2 of max|ref| in bf16 (K, whose
+output is fp32 statistics, within 1e-4) and 1e-5 in fp32. Their yardsticks
+are ``torch.var_mean`` over the grouped view (K's statistics),
+``F.group_norm`` on a channels-first view (statistics and apply: K + L's
+work, set beside L), then ``F.silu`` (L's ``affine_silu``), and
+``F.layer_norm`` (M); their
+bound counts the arithmetic at the CUDA cores' fp32 rate (67 TFLOP/s), so
+the bytes set it.
+
 Each shape is also timed with CUDA events: the kernel, the plain version
 on the same inputs, and where one PyTorch call computes the same function
 (``scaled_dot_product_attention`` and its backward for A, E and sdpa,
@@ -78,16 +92,24 @@ import json
 import torch
 import torch.nn.functional as F
 
-from . import (attention, conv3x3, geglu_fused, linear_fused, packed_attention,
+from . import (attention, conv3x3, geglu_fused, linear_fused, norms, packed_attention,
                spatial_conv_fused, temp_conv_fused, temporal_attention)
 
 # NVIDIA H100 SXM data sheet, dense: tensor-core peaks and the HBM3 rate.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}  # fp32 products run in TF32
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_SIMT_FLOPS = 67e12  # fp32 outside the tensor cores: the norms' arithmetic
 
 DEFAULT_TOL = 2e-2
 PAIR_TOL = 4.5e-2
 FP32_TOL = 5e-3
+# Kernels K-M against their plain versions on fp32 copies: L and M in bf16
+# within 1e-2 of max|ref| (one rounding of the output), fp32 within 1e-5
+# (the sums' order alone); K, whose output is fp32 in every type, within
+# 1e-4 in bf16 and fp16.
+NORM_TOL = 1e-2
+NORM_STATS_TOL = 1e-4
+NORM_FP32_TOL = 1e-5
 
 # The shapes the 576x320, 24-frame CFG forward gives each kernel.
 ATTN_SHAPES = [  # (batch, S_q, S_k, C): self-attention at L0/L1, cross at every level
@@ -168,6 +190,17 @@ GEGLU_BWD_SHAPES = [(69120, 320), (69120, 512), (17280, 640)]
 TRAIN_PAIR_SHAPES = [(1, 24, 2880, 320), (1, 24, 720, 640)]
 TRAIN_GEGLU_SHAPES = [(69120, 320), (17280, 640)]
 
+# Kernels K and L (N, R, C): the spatial GroupNorms at L0 (48 frames of 2880
+# pixels), the temporal ones at L0 (2 x 24 frames of 2880 pixels: N = 2),
+# the spatial ones at L1 and L2, the VAE decoder's widest (24 frames at
+# 320x576, 256 channels, 2.26 GB in bf16) and the SDXL refiner's C = 3072
+# (2 x 9 x 16 pixels); 32 groups each. Kernel M (rows, C): the transformer
+# blocks' LayerNorms at L0, L1 and L2 (48 x 2880, 720, 180 rows) and CLIP's
+# (2 x 77 tokens, C = 1024).
+NORM_GN_SHAPES = [(48, 2880, 320), (2, 69120, 320), (48, 720, 640), (48, 180, 1280),
+                  (24, 184320, 256), (2, 144, 3072)]
+NORM_LN_SHAPES = [(138240, 320), (34560, 640), (8640, 1280), (154, 1024)]
+
 _A = "lvd_tpu/ops/pallas_attention.py"
 SOURCES = {  # kernel wrapper -> (CUDA source, the TPU kernels it replaces)
     "attention_packed": ("lvd_tpu_torch/csrc/packed_attention.cu",
@@ -191,6 +224,13 @@ SOURCES = {  # kernel wrapper -> (CUDA source, the TPU kernels it replaces)
     "sdpa": ("lvd_tpu_torch/csrc/packed_attention.cu", f"{_A}:109 _pallas_attention"),
     "geglu_stream": ("lvd_tpu_torch/csrc/geglu_stream.cu",
                      "lvd_tpu/ops/geglu_fused.py:194 _fused_rows"),
+    # K-M replace no Pallas kernel: XLA's fusions of these functions.
+    "group_norm_stats": ("lvd_tpu_torch/csrc/norms.cu",
+                         "lvd_tpu/ops/basic.py:59 group_norm_coeffs (XLA's fusion)"),
+    "group_norm_apply": ("lvd_tpu_torch/csrc/norms.cu",
+                         "lvd_tpu/ops/basic.py:113 group_norm (XLA's fusion)"),
+    "layer_norm_rows": ("lvd_tpu_torch/csrc/norms.cu",
+                        "lvd_tpu/ops/basic.py:144 layer_norm (XLA's fusion)"),
 }
 
 
@@ -219,8 +259,10 @@ def exact_fp32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def bound(flops: float, nbytes: float, dtype=torch.bfloat16):
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+def bound(flops: float, nbytes: float, dtype=torch.bfloat16, peak=None):
+    """(ms, "operations" or "bytes"): ``peak`` is the operations' rate where
+    they do not run on the tensor cores (else the type's tensor-core peak)."""
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -258,7 +300,8 @@ def _ref(fn, *args):
                     for a in args))
 
 
-def _record(name, shape, dtype, out, ref, tol, ms, plain_ms, flops, nbytes, library_ms=None):
+def _record(name, shape, dtype, out, ref, tol, ms, plain_ms, flops, nbytes, library_ms=None,
+            peak=None, fp32_tol=FP32_TOL):
     """One check's record; ``out`` and ``ref`` may be tuples (a backward's
     outputs), each held to the gate on its own."""
     outs = out if isinstance(out, tuple) else (out,)
@@ -268,8 +311,8 @@ def _record(name, shape, dtype, out, ref, tol, ms, plain_ms, flops, nbytes, libr
     rel = max(r for _, r in errs)
     finite = all(torch.isfinite(o).all().item() for o in outs)
     if dtype == torch.float32:
-        tol = FP32_TOL
-    b_ms, b_by = bound(flops, nbytes, dtype)
+        tol = fp32_tol
+    b_ms, b_by = bound(flops, nbytes, dtype, peak)
     return {"name": name, "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "rel_err": rel, "tol": tol, "ok": bool(rel <= tol and finite),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -693,6 +736,88 @@ def check_sdpa(gen, shape, dtype=torch.bfloat16):
     return [fwd, bwd]
 
 
+def _norm_record(name, shape, dtype, out, ref, ms, plain_ms, ops, nbytes, library_ms, form,
+                 tol=NORM_TOL):
+    """A record of kernels K-M: their gates (``tol`` in the half types,
+    NORM_FP32_TOL), their operations on the CUDA cores."""
+    return _record(name, shape, dtype, out, ref, tol, ms, plain_ms, ops, nbytes,
+                   library_ms, peak=PEAK_SIMT_FLOPS, fp32_tol=NORM_FP32_TOL) | {"form": form}
+
+
+def _gn_inputs(gen, shape, dtype):
+    """x (N, R, C) with a non-zero mean, as activations carry, and norm params."""
+    return (_randn(gen, shape) + 0.5).to(dtype), _cast(_norm_p(gen, shape[-1]), dtype)
+
+
+def _group_norm_library(x, p, groups, silu=False):
+    """F.group_norm on a channels-first view of x (N, R, C) (then F.silu):
+    statistics and apply, K + L's work, set beside L; the port never calls
+    it."""
+    n, r, c = x.shape
+    y = F.group_norm(x.view(n, r, 1, c).permute(0, 3, 1, 2), groups, p["scale"], p["bias"], 1e-5)
+    return F.silu(y) if silu else y
+
+
+def check_gn_stats(gen, shape, dtype=torch.bfloat16):
+    """Kernel K's ``coeffs`` form at (N, R, C), 32 groups."""
+    n, r, c = shape
+    groups, item = 32, torch.finfo(dtype).bits // 8
+    x, p = _gn_inputs(gen, shape, dtype)
+    count = r * (c // groups)
+    fn = lambda: norms.group_norm_stats(x, p["scale"], p["bias"], groups, 1e-5, count)
+    out, form = _launched_form(norms.group_norm_stats, fn)
+    plain = lambda xx, pp: norms._coeffs_fn(xx, pp["scale"], pp["bias"], groups, 1e-5, count)
+    rec = _norm_record(
+        "group_norm_stats", shape, dtype, out, _ref(plain, x, p), time_ms(fn),
+        time_ms(lambda: plain(x, p), 1, 2), 3.0 * x.numel(),
+        x.numel() * item + 2 * c * item + 8.0 * n * c,
+        time_ms(lambda: torch.var_mean(x.view(n, r, groups, c // groups), dim=(1, 3),
+                                       correction=0)),
+        form, tol=NORM_STATS_TOL)
+    # K's output is fp32 from the same values in either type: its fp32
+    # reading is held to its own gate, not below the bf16 one.
+    rec["below_bf16"] = False
+    return rec
+
+
+def check_gn_apply(gen, shape, dtype=torch.bfloat16, silu=False):
+    """Kernel L at (N, R, C), form ``affine`` or (``silu``) ``affine_silu``."""
+    n, r, c = shape
+    x, p = _gn_inputs(gen, shape, dtype)
+    a, b = 1.0 + _randn(gen, (n, c), 0.1), _randn(gen, (n, c), 0.1)
+    fn = lambda: norms.group_norm_apply(x, a, b, silu)
+    out, form = _launched_form(norms.group_norm_apply, fn)
+    plain = lambda xx, aa, bb: norms.group_norm_apply_plain(xx, aa, bb, silu)
+    return _norm_record(
+        "group_norm_apply", [*shape, form], dtype, out, _ref(plain, x, a, b), time_ms(fn),
+        time_ms(lambda: plain(x, a, b), 1, 2), (6.0 if silu else 2.0) * x.numel(),
+        2.0 * x.numel() * x.element_size() + 8.0 * n * c,
+        time_ms(lambda: _group_norm_library(x, p, 32, silu)), form)
+
+
+def check_gn_apply_silu(gen, shape, dtype=torch.bfloat16):
+    return check_gn_apply(gen, shape, dtype, silu=True)
+
+
+def check_layer_norm(gen, shape, dtype=torch.bfloat16):
+    """Kernel M's ``affine`` form at (rows, C)."""
+    rows, c = shape
+    x, p = _gn_inputs(gen, shape, dtype)
+    fn = lambda: norms.layer_norm_rows(x, p["scale"], p["bias"], 1e-5)
+    out, form = _launched_form(norms.layer_norm_rows, fn)
+    return _norm_record(
+        "layer_norm_rows", shape, dtype, out, _ref(norms.layer_norm_plain, p, x, 1e-5),
+        time_ms(fn), time_ms(lambda: norms.layer_norm_plain(p, x, 1e-5), 1, 2),
+        8.0 * x.numel(), (2.0 * x.numel() + 2 * c) * x.element_size(),
+        time_ms(lambda: F.layer_norm(x, (c,), p["scale"], p["bias"], 1e-5)), form)
+
+
+NORM_PLAN = ([(check_gn_stats, s) for s in NORM_GN_SHAPES]
+             + [(check_gn_apply, s) for s in NORM_GN_SHAPES]
+             + [(check_gn_apply_silu, s) for s in NORM_GN_SHAPES]
+             + [(check_layer_norm, s) for s in NORM_LN_SHAPES])
+
+
 BF16_PLAN = ([(check_attention, s) for s in ATTN_SHAPES + FUSER_ATTN_SHAPES]
              + [(check_pair, s) for s in PAIR_SHAPES]
              + [(check_geglu, s) for s in GEGLU_SHAPES]
@@ -710,7 +835,8 @@ BF16_PLAN = ([(check_attention, s) for s in ATTN_SHAPES + FUSER_ATTN_SHAPES]
              + [(check_linear_forward, s) for s in SDXL_LINEAR_SHAPES]
              + [(check_pair, s) for s in XL_PAIR_SHAPES + TRAIN_PAIR_SHAPES]
              + [(check_geglu, s) for s in XL_GEGLU_SHAPES]
-             + [(check_temp_conv, s) for s in XL_TCONV_SHAPES + C4_TCONV_SHAPES])
+             + [(check_temp_conv, s) for s in XL_TCONV_SHAPES + C4_TCONV_SHAPES]
+             + NORM_PLAN)
 # Each kernel in fp32 at its first (largest) path shape, kernel A also at the
 # fuser's L0 shape, sdpa() at every head dim, and kernel J at its fp32 shapes.
 FP32_PLAN = [(fn, shapes[0]) for fn, shapes in (
@@ -724,7 +850,7 @@ FP32_PLAN = [(fn, shapes[0]) for fn, shapes in (
     (check_temp_conv, s) for s in C4_TCONV_FP32_SHAPES] + [
     (check_pair, s) for s in TRAIN_PAIR_SHAPES] + [
     (check_pair_bwd, TRAIN_PAIR_SHAPES[1]), (check_geglu_bwd, TRAIN_GEGLU_SHAPES[1])] + [
-    (check_geglu, s) for s in TRAIN_GEGLU_SHAPES]
+    (check_geglu, s) for s in TRAIN_GEGLU_SHAPES] + NORM_PLAN
 PLAN = ([(fn, s, torch.bfloat16) for fn, s in BF16_PLAN]
         + [(fn, s, torch.float32) for fn, s in FP32_PLAN])
 
@@ -747,7 +873,9 @@ def run(seed: int = 0, emit=print, plan=None):
     """Runs every check of ``plan`` (default PLAN, every bf16 check before
     the fp32 ones); returns the list of records (one per shape, type and
     call), each emitted as a JSON line. An fp32 record also carries the same
-    check's bf16 reading and fails unless it lies below it."""
+    check's bf16 reading and fails unless it lies below it (unless the
+    record says ``below_bf16`` False: kernel K, whose output is fp32 in
+    either type)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     records = []
     bf16 = {}
@@ -760,7 +888,8 @@ def run(seed: int = 0, emit=print, plan=None):
                 bf16[key] = rec["rel_err"]
             elif key in bf16:
                 rec["bf16_rel_err"] = bf16[key]
-                rec["ok"] = bool(rec["ok"] and rec["rel_err"] < bf16[key])
+                if rec.get("below_bf16", True):
+                    rec["ok"] = bool(rec["ok"] and rec["rel_err"] < bf16[key])
             records.append(rec)
             emit(json.dumps(rec))
         torch.cuda.empty_cache()

@@ -730,7 +730,7 @@ def test_geglu_forms_match_plain(cuda, c, gelu, dtype, monkeypatch):
         assert errs[dtype] <= FP32_TOL and errs[dtype] < errs[torch.bfloat16]
 
 
-@pytest.mark.parametrize("kernel", ["C", "D", "B", "G", "F", "J", "A", "E"])
+@pytest.mark.parametrize("kernel", ["C", "D", "B", "G", "F", "J", "A", "E", "K", "L", "M"])
 def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch):
     """Kernels B, C, D, F, G and J check the wrapper's launch plan: C's and
     G's split (1 at C = 320, 2 at 640) and rows a block, D's m64 tiles,
@@ -739,7 +739,11 @@ def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch
     and column block (and form), B's, F's and G's in bf16 and in fp32
     (their TF32 forms); A and E their form code (a code they do not know,
     another head dim's form, the wide form past D = 256), in both types;
-    each changed value is refused, and the plan as given launches."""
+    each changed value is refused, and the plan as given launches. K and L
+    their vector width, slabs, row lanes, chunk rows and form code, M its
+    form code, in bf16, fp16 and fp32."""
+    if kernel in ("K", "L", "M"):
+        return _refuse_norm_plans(kernel, cuda, monkeypatch)
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.ops import geglu_fused as gf
     from lvd_tpu_torch.ops import packed_attention as pa
@@ -845,6 +849,39 @@ def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch
                 with pytest.raises(RuntimeError, match="launch failed"):
                     run()
                 monkeypatch.setattr(mod, "launch_plan", plan)
+
+
+def _refuse_norm_plans(kernel, cuda, monkeypatch):
+    from lvd_tpu_torch.ops import norms
+
+    g = torch.Generator(device=cuda).manual_seed(35)
+    forms = {"K": "STATS_FORMS", "L": "APPLY_FORMS", "M": "LN_FORMS"}[kernel]
+    # M takes no plan: one warp a row, the kernel's own rows a block.
+    changes = [] if kernel == "M" else [("vec", 4), ("vec", 8), ("slabs", 2),
+                                        ("slab_vecs", 64), ("row_lanes", 3), ("chunk_rows", 100)]
+    plan, codes = norms.launch_plan, getattr(norms, forms)
+    with torch.no_grad():
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            for c in (320, 3072):
+                x = torch.randn(2, 300, c, generator=g, device=cuda).to(dt)
+                s, a = torch.ones(c, device=cuda), torch.ones(2, c, device=cuda)
+                run = {"K": lambda: norms.group_norm_stats(x, s, s, 32, 1e-5, 300 * c // 32),
+                       "L": lambda: norms.group_norm_apply(x, a, a, True),
+                       "M": lambda: norms.layer_norm_rows(x[0], s, s, 1e-5)}[kernel]
+                run()  # the plan as given
+                own = plan(c, dt)
+                for key, value in changes:
+                    if own[key] == value:
+                        continue
+                    monkeypatch.setattr(norms, "launch_plan", lambda *args, k=key, v=value: {
+                        **plan(*args), k: v})
+                    with pytest.raises(RuntimeError, match="launch failed"):
+                        run()
+                    monkeypatch.setattr(norms, "launch_plan", plan)
+                monkeypatch.setattr(norms, forms, dict.fromkeys(codes, 3))
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    run()
+                monkeypatch.setattr(norms, forms, codes)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1573,3 +1610,170 @@ def check_collectives(outs, dtype, device):
         for name, (y, g) in want.items():
             np.testing.assert_allclose(got[name][0], y, **tol, err_msg=f"{name} rank {r}")
             np.testing.assert_allclose(got[name][1], g, **tol, err_msg=f"{name} grad rank {r}")
+
+
+# ---- kernels K, L and M (ops/norms.py, csrc/norms.cu) ----
+
+NORM_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+# (N, R, C): the spatial GroupNorms at L0-L2, the temporal one at L0 (N = 2),
+# the VAE decoder's widest (24 frames at 320x576, C = 256), the refiner's
+# C = 3072; (rows, C): the transformer LayerNorms at L0-L2, CLIP's, C = 3072.
+NORM_GN_CASES = [(48, 2880, 320), (2, 69120, 320), (48, 720, 640), (48, 180, 1280),
+                 (24, 184320, 256), (2, 144, 3072)]
+NORM_LN_CASES = [(138240, 320), (34560, 640), (8640, 1280), (154, 1024), (288, 3072)]
+
+
+def _norm_case(shape, g, cuda):
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=cuda) + 0.5
+    p = {"scale": 1 + 0.1 * torch.randn(c, generator=g, device=cuda),
+         "bias": 0.1 * torch.randn(c, generator=g, device=cuda)}
+    return x, p
+
+
+def _norm_tol(dtype, kernel="L"):
+    """Of max|ref|: 1e-5 in fp32; in bf16 and fp16 1e-2 where the output
+    rounds to x's type (L, M), 1e-4 for K's fp32 statistics."""
+    if dtype == torch.float32:
+        return 1e-5
+    return 1e-4 if kernel == "K" else 1e-2
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+@pytest.mark.parametrize("kernel", ["K", "L", "L_silu"])
+@pytest.mark.parametrize("shape", NORM_GN_CASES)
+def test_group_norm_kernels_match_plain(cuda, shape, kernel, dtype):
+    """K's (a, b) and L's y (both forms) against the plain versions on fp32
+    copies: 1e-5 of max|ref| in fp32, in bf16 and fp16 1e-4 for K and 1e-2
+    for L; L against its
+    plain version in x's own type: bit for bit in ``affine``, within one
+    unit of the last place in ``affine_silu`` (exp)."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import norms
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x32, p32 = _norm_case(shape, g, cuda)
+    x, p = x32.to(dtype), cast_tree(p32, dtype)
+    n, r, c = shape
+    if kernel == "K":
+        wrapper, count = norms.group_norm_stats, r * (c // 32)
+        before = wrapper.launches
+        out = wrapper(x, p["scale"], p["bias"], 32, 1e-5, count)
+        with exact_fp32():
+            ref = norms._coeffs_fn(x.float(), p["scale"].float(), p["bias"].float(), 32, 1e-5,
+                                   count)
+    else:
+        silu = kernel == "L_silu"
+        a = 1 + 0.1 * torch.randn(n, c, generator=g, device=cuda)
+        b = 0.1 * torch.randn(n, c, generator=g, device=cuda)
+        wrapper = norms.group_norm_apply
+        before = wrapper.launches
+        out = (wrapper(x, a, b, silu),)
+        ref = (norms.group_norm_apply_plain(x.float(), a, b, silu),)
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        own = norms.group_norm_apply_plain(x, a, b, silu)
+        ulps = (out[0].view(bits).long() - own.view(bits).long()).abs().max()
+        assert ulps.item() <= (1 if silu else 0)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    for got, want in zip(out, ref):
+        assert got.dtype == (torch.float32 if kernel == "K" else dtype)
+        assert torch.isfinite(got).all() and _rel(got, want) <= _norm_tol(dtype, kernel)
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+@pytest.mark.parametrize("form", ["affine", "normalize"])
+@pytest.mark.parametrize("shape", NORM_LN_CASES)
+def test_layer_norm_kernel_matches_plain(cuda, shape, form, dtype):
+    """M against layer_norm_plain on fp32 copies (params in x's type, and
+    fp32 params beside half x), 1e-5 of max|ref| in fp32, 1e-2 in bf16 and
+    fp16."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import norms
+
+    g = torch.Generator(device=cuda).manual_seed(32)
+    x32, p32 = _norm_case(shape, g, cuda)
+    x = x32.to(dtype)
+    for p in ([cast_tree(p32, dtype), p32] if form == "affine" else [None]):
+        before = norms.layer_norm_rows.launches_by_form[form]
+        out = norms.layer_norm_rows(x, None if p is None else p["scale"],
+                                    None if p is None else p["bias"], 1e-5)
+        ref = norms.layer_norm_plain(None if p is None else cast_tree(p, torch.float32),
+                                     x.float(), 1e-5)
+        torch.cuda.synchronize()
+        assert norms.layer_norm_rows.launches_by_form[form] == before + 1
+        assert out.dtype == dtype and torch.isfinite(out).all()
+        assert _rel(out, ref) <= _norm_tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 69120, 320), (2, 2880, 1280), (2, 144, 3072)])
+def test_group_norm_stats_are_the_same_bits_alone_and_in_a_batch(cuda, shape, dtype):
+    """K's statistics of a sample do not depend on the batch around it or
+    on the run: each sample alone equals its row of the batch of 2 bit for
+    bit, in both forms, and a second run equals the first."""
+    from lvd_tpu_torch.ops import norms
+
+    g = torch.Generator(device=cuda).manual_seed(33)
+    x32, p32 = _norm_case(shape, g, cuda)
+    x = x32.to(dtype)
+    r, c = shape[1], shape[2]
+    for form in ("coeffs", "sums"):
+        run = lambda t: norms.group_norm_stats(t, p32["scale"], p32["bias"], 32, 1e-5,
+                                               r * (c // 32), form)
+        batch = run(x)
+        for i in range(2):
+            alone = run(x[i:i + 1].clone())
+            assert all(torch.equal(u[i], v[0]) for u, v in zip(batch, alone))
+        assert all(torch.equal(u, v) for u, v in zip(batch, run(x)))
+
+
+def test_norm_kernels_refuse_inputs_that_require_grad(cuda):
+    from lvd_tpu_torch.ops import norms
+
+    x = torch.randn(2, 16, 64, device=cuda).requires_grad_(True)
+    a = torch.ones(2, 64, device=cuda)
+    s = torch.ones(64, device=cuda)
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        norms.group_norm_stats(x, s, s, 8, 1e-5, 128)
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        norms.group_norm_apply(x, a, a)
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        norms.layer_norm_rows(x[0], s, s, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("fn", ["group_norm_coeffs", "group_norm", "group_norm_silu",
+                                "layer_norm"])
+def test_norm_functions_gradients_match_plain(cuda, fn, dtype):
+    """Each public function launches its kernels once in the forward; dx,
+    dscale and dbias through its Function (the plain version's VJP,
+    recomputed) against the plain version's autograd on fp32 copies: 1e-5
+    of max|ref| in fp32, 2e-2 in the half types."""
+    from lvd_tpu_torch.ops import norms
+    from lvd_tpu_torch.ops.selfcheck import exact_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(34)
+    x32, p32 = _norm_case((2, 24, 180, 320), g, cuda)
+    args = (32, 1e-5) if fn != "layer_norm" else (1e-5,)
+    low = [x32.to(dtype), p32["scale"].to(dtype), p32["bias"].to(dtype)]
+    low = [t.requires_grad_(True) for t in low]
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in low]
+    counters = (norms.group_norm_stats, norms.group_norm_apply, norms.layer_norm_rows)
+    before = [w.launches for w in counters]
+    out = getattr(norms, fn)({"scale": low[1], "bias": low[2]}, low[0], *args)
+    want_launches = {"group_norm_coeffs": [1, 0, 0], "layer_norm": [0, 0, 1]}.get(fn, [1, 1, 0])
+    assert [w.launches - b for w, b in zip(counters, before)] == want_launches
+    with exact_fp32():
+        ref = getattr(norms, f"{fn}_plain")({"scale": ref_leaves[1], "bias": ref_leaves[2]},
+                                            ref_leaves[0], *args)
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    cts = [torch.randn(o.shape, generator=g, device=cuda) for o in refs]
+    got = torch.autograd.grad(outs, low, [ct.to(o.dtype) for ct, o in zip(cts, outs)])
+    with exact_fp32():
+        want = torch.autograd.grad(refs, ref_leaves, cts)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        assert _rel(a, b) <= tol
