@@ -8,7 +8,7 @@ Phases, each fatal on failure:
   2. build   - nvcc builds lvd_tpu_torch/csrc/*.cu, one process per source,
                all started together, then one link (seconds and the -Xptxas
                -v register / shared-memory / spill lines, one record of
-               registers and spills per kernel A-M instantiation, and the
+               registers and spills per kernel A-O instantiation, and the
                dynamic shared memory per block of A-I; A's and E's wide
                forms at D = 192 and 256 must not spill);
   3. kernels - every kernel at every shape the Zeroscope path gives it (A
@@ -36,7 +36,10 @@ Phases, each fatal on failure:
                and M at the UNet's GroupNorm and LayerNorm shapes, the VAE
                decoder's widest GroupNorm, the refiner's C = 3072 and CLIP's
                LayerNorm, bf16 (1e-2; K's fp32 statistics 1e-4) and
-               fp32 (1e-5);
+               fp32 (1e-5), and their backwards N (``affine``,
+               ``affine_silu``, ``coeffs``) and O at the guided update's
+               shapes, L0 to L3, dx in bf16 (2e-2) and with dscale and dbias
+               in fp32 (1e-4);
   4. reference - one full-width CFG UNet forward through the kernels (bf16)
                against the plain path (fp32) on the same inputs, with weights
                whose attention/FF/temporal-conv branches are not zero-init,
@@ -50,7 +53,10 @@ Phases, each fatal on failure:
                the same inputs and weights, gated on the max-element and the
                L2 ratio, with the plain path in bf16 printed beside it; a
                walk whose kernel branches are cut out of the gradient must
-               fail both gates;
+               fail both gates; its backward must launch N (by form) and O
+               exactly as often as the UNet's tree gives
+               (norm_bwd_launches: 26 affine + 38 affine_silu + 76 coeffs,
+               51) and K's sums form never;
   6. generation - unguided Zeroscope text-to-video at full width (all UNet,
                CLIP and VAE widths, 24 frames, 576x320, CFG 9.0) from
                lvd_tpu's random weights (seed 0 in its JAX key order, drawn on
@@ -66,7 +72,7 @@ Phases, each fatal on failure:
   7. guided generation - the flagship layout (one box moving left to right)
                and GuidanceConfig through the same entry point with
                ``backward_guidance``, 4 steps with guidance on the first 2;
-               every kernel A-G and K-M must have run, B, C, D, F and G in
+               every kernel A-G and K-O must have run, B, C, D, F and G in
                their new form;
   8. certification - guidance_effect at full width, 16 guided updates at
                the first timestep, lvd_tpu's two certificates: on the
@@ -134,11 +140,13 @@ Phases, each fatal on failure:
                a grounding pack of 2 boxes in 30 slots, the weights drawn on
                the card in lvd_tpu's key order: 3 adapter-only steps on one
                fixed batch (losses finite, every frozen leaf bit-unchanged,
-               every fuser and position_net leaf moved, A-G launched, B, F
-               and G only in their fp32 wgmma forms, TF32, never their first
-               versions), then one full-finetune gradient through the kernels
-               against the plain route (plain_route(), TF32 off; loss within
-               1e-3, the flattened gradient within 1e-2 L2), and one full
+               every fuser and position_net leaf moved, A-G and K-O
+               launched, B, F and G only in their fp32 wgmma forms, TF32,
+               never their first versions), then one full-finetune gradient
+               through the kernels against the plain route (plain_route(),
+               TF32 off; loss within 1e-3, the flattened gradient within
+               1e-2 L2; each norm site of its forward one N or O launch in
+               its form, K's sums form never), and one full
                Trainer step; seconds per step and peak memory; then the
                adapter-only step broken down: its launches of B, C, F, G and
                J by shape, one step's seconds and peak memory, and the device
@@ -223,8 +231,9 @@ Phases, each fatal on failure:
                must have run, and G must not (lvd_tpu's dx there is the
                stock VJP);
  16. profile - one CFG UNet forward and one guided update under
-               torch.profiler: device time per kernel (K-M included) and for
-               the stock ops by kind, and the device's idle share.
+               torch.profiler: device time per kernel (K-O included) and for
+               the stock ops by kind, the stock launches, and the device's
+               idle share.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1 and
 prints no result.
@@ -307,7 +316,7 @@ def build_phase(torch):
             log(f"[build] {line.strip()}")
     ptxas = ptxas_summary(_build.build_info["log"], PTXAS_SOURCES)
     for rec in ptxas:
-        log(f"[build] ptxas A-M {json.dumps(rec)}")
+        log(f"[build] ptxas A-O {json.dumps(rec)}")
     spills = [rec for rec in ptxas if rec["source"].startswith("packed_attention")
               and ("Li192E" in rec["kernel"] or "Li256E" in rec["kernel"])
               and (rec.get("spill_store_bytes") or rec.get("spill_load_bytes"))]
@@ -353,7 +362,7 @@ def build_phase(torch):
 PTXAS_SOURCES = ("packed_attention.cu", "packed_attention_bwd.cu", "linear.cu", "conv3x3.cu",
                  "geglu.cu", "temp_conv.cu", "temporal_attention.cu", "geglu_bwd.cu",
                  "temporal_attention_bwd.cu", "geglu_stream.cu", "pair_bwd_tf32.cu",
-                 "pair_fwd_tf32.cu", "norms.cu")
+                 "pair_fwd_tf32.cu", "norms.cu", "norms_bwd.cu")
 
 
 def ptxas_summary(build_log, sources):
@@ -487,7 +496,7 @@ def detached_route():
     """Cuts each forward kernel's branch out of the gradient (its autograd
     Function passes no gradient back), as a kernel wrapper outside autograd
     would: the reading of a broken gradient, beside which the gate is set.
-    Kernels K-M keep their gradients: the captured maps reach the latents
+    Kernels K-O keep their gradients: the captured maps reach the latents
     only through the norms."""
     from lvd_tpu_torch.ops import geglu_fused, linear_fused, packed_attention
     from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
@@ -553,6 +562,46 @@ def check_norm_launches(phase, params, launches, forms):
                          f"the code gives {want}")
 
 
+def check_norm_bwd_launches(phase, launches, forms, want):
+    """Fails unless kernels N (by form) and O (by form) launched as often as
+    ``want`` gives and K's ``sums`` form never did (the unsharded
+    backwards read K's saved statistics); each launch of kernel I (the
+    opt-in resnet conv route) moves a GroupNorm + SiLU's backward from N's
+    ``affine_silu`` form to its ``coeffs`` form."""
+    want = {k: dict(v) for k, v in want.items()}
+    want["group_norm_bwd"]["affine_silu"] -= launches["norm_silu_conv2d"]
+    want["group_norm_bwd"]["coeffs"] += launches["norm_silu_conv2d"]
+    got = {k: forms[k] for k in ("group_norm_bwd", "layer_norm_bwd")}
+    sums = forms["group_norm_stats"]["sums"]
+    log(f"[{phase}] kernels N and O in one guided update's backward: {json.dumps(got)} (from "
+        f"the UNet's tree: {json.dumps(want)}); K's sums form {sums} times")
+    if got != want or sums:
+        raise SystemExit(f"[{phase}] kernels N and O launched {got} times in one guided update, "
+                         f"the code gives {want}; K's sums form {sums} times (0)")
+
+
+def check_train_norm_bwd(phase, launches, forms, after):
+    """Fails unless every norm site of a full-finetune gradient's forward
+    (``launches`` and ``forms``, read before its backward; all params are
+    trained, so each site's backward runs once, whatever the step's remat
+    recomputes) launched N or O once in its form (``after``, read after
+    the backward): N ``affine`` / ``affine_silu`` as often as L's forms,
+    ``coeffs`` as the rest of K's launches (kernel D's statistics), O
+    ``dx_params`` as M; never K's ``sums`` form."""
+    n_apply = launches["group_norm_apply"]
+    want = {"group_norm_bwd": {**{f: forms["group_norm_apply"][f] for f in
+                                  ("affine", "affine_silu")},
+                               "coeffs": launches["group_norm_stats"] - n_apply, "sums": 0,
+                               "apply": 0, "apply_silu": 0},
+            "layer_norm_bwd": {"dx": 0, "dx_params": launches["layer_norm_rows"]}}
+    got = {k: after[k] for k in ("group_norm_bwd", "layer_norm_bwd")}
+    log(f"[{phase}] kernels N and O in one full-finetune gradient: {json.dumps(got)} (one a "
+        f"norm site of its forward: {json.dumps(want)})")
+    if got != want or after["group_norm_stats"]["sums"]:
+        raise SystemExit(f"[{phase}] kernels N and O launched {got}, the forward's norm sites "
+                         f"give {want}")
+
+
 def gradient_phase(torch, models):
     """d(energy)/d(latents) at full width: kernels (bf16), plain path (fp32
     reference, and bf16), and the walk with the kernel branches cut out."""
@@ -574,10 +623,13 @@ def gradient_phase(torch, models):
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # the plain path in full fp32
     try:
+        zero_launches()
         t0 = time.perf_counter()
         e_k, g_k = run(params, torch.bfloat16)
         torch.cuda.synchronize()
         kernel_s = time.perf_counter() - t0
+        check_norm_bwd_launches("gradient", read_launches(), read_forms(),
+                                norm_bwd_launches(params, guide["attn_keys"]))
         with plain_route():
             e_p, g_p = run(params, torch.bfloat16)
             e_r, g_r = run(cast_tree(params, torch.float32), torch.float32)
@@ -610,7 +662,7 @@ def gradient_phase(torch, models):
 
 
 def wrappers():
-    """Every kernel wrapper, A-M, by kernel name (sdpa() counts on A's)."""
+    """Every kernel wrapper, A-O, by kernel name (sdpa() counts on A's)."""
     from lvd_tpu_torch.ops import conv3x3, geglu_fused, linear_fused, norms, packed_attention
     from lvd_tpu_torch.ops import spatial_conv_fused, temp_conv_fused, temporal_attention
 
@@ -629,6 +681,8 @@ def wrappers():
         "group_norm_stats": norms.group_norm_stats,
         "group_norm_apply": norms.group_norm_apply,
         "layer_norm_rows": norms.layer_norm_rows,
+        "group_norm_bwd": norms.group_norm_bwd,
+        "layer_norm_bwd": norms.layer_norm_bwd,
     }
 
 
@@ -644,11 +698,11 @@ def read_launches():
 
 
 def read_forms():
-    """Launches per form of kernels A-M (attention_packed,
+    """Launches per form of kernels A-O (attention_packed,
     temporal_attention_pair, geglu_mlp, norm_silu_temporal_conv,
     attention_packed_bwd, temporal_attention_pair_bwd, geglu_mlp_bwd,
     linear_rows, norm_silu_conv2d, conv3x3, geglu_stream, group_norm_stats,
-    group_norm_apply, layer_norm_rows)."""
+    group_norm_apply, layer_norm_rows, group_norm_bwd, layer_norm_bwd)."""
     return {name: dict(fn.launches_by_form) for name, fn in wrappers().items()
             if hasattr(fn, "launches_by_form")}
 
@@ -707,12 +761,71 @@ def norm_launches(params):
             "layer_norm_rows": 3 * sites["spatial"] + sites["temporal"]}
 
 
-# Kernels K-M: GroupNorm statistics, GroupNorm apply (+ SiLU), LayerNorm.
+def norm_bwd_launches(params, keys):
+    """Launches of kernels N (by form) and O in the backward of one guided
+    update (the energy's cond-only walk, no GLIGEN inputs, no remat),
+    derived from the UNet's param tree in apply_unet3d's order: the walk
+    ends with the layer of the last captured site of ``keys`` (a mid
+    layer after its spatial transformer), and each norm site before that
+    site reaches the energy and runs one backward: a resnet's two GroupNorm
+    + SiLU (N ``affine_silu``), a temporal conv block's four GroupNorm
+    statistics before kernel D (N ``coeffs``), a transformer's GroupNorm (N
+    ``affine``), a spatial block's three LayerNorms and a temporal block's
+    one (O ``dx``: the guided update asks no parameter's gradient); of the
+    last captured block only norm1 and norm2 precede its maps."""
+    seq = []  # the norm sites and captured maps in the walk's order
+
+    def resnet():
+        seq.extend(["affine_silu"] * 2)
+
+    def temp_conv():
+        seq.extend(["coeffs"] * 4)
+
+    def spatial(p, key):
+        seq.append("affine")
+        for b in range(len(p["blocks"])):
+            seq.extend(["dx", "dx", key + (b,), "dx"])
+
+    def temporal(p):
+        seq.extend(["affine"] + ["dx"] * len(p["blocks"]))
+
+    def layer(lp, key):
+        resnet()
+        temp_conv()
+        if "attn" in lp:
+            spatial(lp["attn"], key)
+            temporal(lp["temp_attn"])
+
+    temporal(params["transformer_in"])
+    for i, block in enumerate(params["down_blocks"]):
+        for j, lp in enumerate(block["layers"]):
+            layer(lp, ("down", i, j))
+    mid = params["mid_block"]
+    resnet()
+    temp_conv()
+    for j, lp in enumerate(mid["layers"]):
+        spatial(lp["attn"], ("mid", 0, j))
+        temporal(lp["temp_attn"])
+        resnet()
+        temp_conv()
+    for i, block in enumerate(params["up_blocks"]):
+        for j, lp in enumerate(block["layers"]):
+            layer(lp, ("up", i, j))
+    last = max(seq.index(tuple(k)) for k in keys)
+    reached = [site for site in seq[:last] if isinstance(site, str)]
+    return {"group_norm_bwd": {form: reached.count(form) for form in
+                               ("affine", "affine_silu", "coeffs", "sums", "apply",
+                                "apply_silu")},
+            "layer_norm_bwd": {"dx": reached.count("dx"), "dx_params": 0}}
+
+
+# Kernels K-M: GroupNorm statistics, GroupNorm apply (+ SiLU), LayerNorm;
+# N and O: their backwards.
 NORM_KERNELS = ("group_norm_stats", "group_norm_apply", "layer_norm_rows")
 FORWARD_KERNELS = ("attention_packed", "temporal_attention_pair", "geglu_mlp",
                    "norm_silu_temporal_conv") + NORM_KERNELS
 GUIDED_KERNELS = FORWARD_KERNELS + ("attention_packed_bwd", "temporal_attention_pair_bwd",
-                                    "geglu_mlp_bwd")
+                                    "geglu_mlp_bwd", "group_norm_bwd", "layer_norm_bwd")
 # This slice's main path: the guided generation under the two opt-in switches.
 KNOB_KERNELS = GUIDED_KERNELS + ("linear", "norm_silu_conv2d")
 
@@ -1505,7 +1618,8 @@ def upsample_phase(torch, run_dir, refiner):
 
 
 # Substrings of the kernels' device symbols (B-D's and F-J's: every form; K's
-# two passes).
+# two passes; N's three; O's two; the column sums of dscale and dbias that N
+# and O share).
 KERNEL_SYMBOLS = {
     "attention_packed": "attn_packed_kernel",
     "temporal_attention_pair": ("::temporal_pair_kernel", "::temporal_pair_wgmma_kernel",
@@ -1521,6 +1635,9 @@ KERNEL_SYMBOLS = {
     "group_norm_stats": ("::gn_partial_kernel", "::gn_finish_kernel"),
     "group_norm_apply": "::gn_apply_kernel",
     "layer_norm_rows": "::ln_rows_kernel",
+    "group_norm_bwd": "::gn_bwd_",
+    "layer_norm_bwd": "::ln_bwd_",
+    "norm_bwd_params (N, O)": "::colsum_kernel",
 }
 
 
@@ -1572,9 +1689,10 @@ def train_batch(torch, cfg, frames, seed=11):
             "gligen": {"boxes": boxes, "masks": masks, "positive_embeddings": embs}}
 
 
-def _loss_and_grads(torch, cfg, params, batch, key, trains=None):
+def _loss_and_grads(torch, cfg, params, batch, key, trains=None, after_forward=None):
     """diffusion_loss at the params and its gradient for every leaf (or for
-    each leaf ``trains`` names), fp32."""
+    each leaf ``trains`` names), fp32; ``after_forward`` is called between
+    the forward and the backward."""
     from lvd_tpu_torch.config import SchedulerConfig
     from lvd_tpu_torch.diffusion import schedule
     from lvd_tpu_torch.training import train as tr
@@ -1586,6 +1704,8 @@ def _loss_and_grads(torch, cfg, params, batch, key, trains=None):
     leaves = {p: t.detach().requires_grad_(trains is None or trains(p))
               for p, t in flatten(params).items()}
     loss = tr.diffusion_loss(unflatten_like(params, leaves), cfg, *tables, batch, key)
+    if after_forward is not None:
+        after_forward()
     wanted = [p for p, t in leaves.items() if t.requires_grad]
     grads = torch.autograd.grad(loss, [leaves[p] for p in wanted])
     return loss.detach(), dict(zip(wanted, grads))
@@ -1739,11 +1859,16 @@ def full_step_check(torch, cfg, params):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        forward = {}
         t0 = time.perf_counter()
-        loss_k, grads_k = _loss_and_grads(torch, cfg, params, batch, key)
+        loss_k, grads_k = _loss_and_grads(
+            torch, cfg, params, batch, key,
+            after_forward=lambda: forward.update(launches=read_launches(), forms=read_forms()))
         torch.cuda.synchronize()
         kernel_s = time.perf_counter() - t0
         peak_grad = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_train_norm_bwd("train", forward["launches"], forward["forms"], read_forms())
         t0 = time.perf_counter()
         with plain_route():
             loss_p, grads_p = _loss_and_grads(torch, cfg, params, batch, key)
@@ -2031,6 +2156,8 @@ def _profile(torch, label, fn):
     log(f"[profile] {label}: wall {wall_ms:.3f} ms (CUDA events, profiler on), "
         f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}")
     log(f"[profile] {label}, device ms by kernel: {json.dumps(split)}")
+    log(f"[profile] {label}: {split['stock']['calls']} stock kernel launches, "
+        f"{split['stock']['ms']} ms")
     by_symbol = {k[:120]: [round(ms, 3), n] for k, (ms, n) in sorted(
         by_name.items(), key=lambda kv: -kv[1][0]) if k in ours}
     log(f"[profile] {label}, the kernels' device ms and calls by symbol (form): "
@@ -2283,7 +2410,8 @@ SHARDED_RANKS = 2
 SHARDED_TIMEOUT = 900   # seconds: every collective's limit, and the parent's wait
 SHARDED_TRAIN_FRAMES = 8
 SHARDED_FORWARD = ("attention_packed", "temporal_attention_pair", "geglu_mlp") + NORM_KERNELS
-SHARDED_BACKWARD = ("attention_packed_bwd", "temporal_attention_pair_bwd", "geglu_mlp_bwd")
+SHARDED_BACKWARD = ("attention_packed_bwd", "temporal_attention_pair_bwd", "geglu_mlp_bwd",
+                    "group_norm_bwd", "layer_norm_bwd")
 
 
 def _rel_max(got, ref):
@@ -2741,6 +2869,10 @@ def kernels_line(records, knob_launches, entry_launches, forms, path_launches):
         })
         if kname in forms:
             kernels[-1]["forms"] = forms[kname]
+        in_type = [r for r in recs if "ulps" in r]  # N's bf16 dx against the plain in bf16
+        if in_type:
+            kernels[-1]["ulps"] = max(r["ulps"] for r in in_type)
+            kernels[-1]["bits_differ"] = max(r["bits_differ"] for r in in_type)
         for key in ("form", "products_ms", "copy_ms", "first_ms", "first_rel_err"):
             if key in main:
                 kernels[-1][key] = main[key]

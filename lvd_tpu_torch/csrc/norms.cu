@@ -28,7 +28,9 @@
 // max(s2 / count - mean^2, 0) (one pass, not Welford), inv = rsqrt(var +
 // eps), a = inv * scale, b = bias - mean * a, both (N, C) fp32. In the
 // `sums` form (frame-sharded statistics) it writes the (N, G) sums, which
-// the caller psums. The plan (vector width, slabs, row lanes, chunk rows)
+// the caller psums. Given a `stats` buffer, the `coeffs` form also writes
+// each group's mean, inv and variance-clamp mask, which kernel N reads
+// (norms_bwd.cu) instead of summing x again. The plan (vector width, slabs, row lanes, chunk rows)
 // depends on C and the type alone and the chunks on R alone: a sample's
 // sums take the same order whatever N is, with no atomics, so a sample's
 // statistics are the same bits alone or in a batch and from run to run.
@@ -49,74 +51,12 @@
 // again (from L1, the row was just read) and writes ((x - mean) * rsqrt(var
 // + eps)) * scale + bias in fp32, rounded once to x's type (lvd_tpu's
 // `layer_norm`, `p is None` in the `normalize` form). scale and bias may be
-// bf16, fp16 or fp32, read as they are.
-#include <cuda_fp16.h>
-
-#include "common.cuh"
+// bf16, fp16 or fp32, read as they are. Given a `stats` buffer, M also
+// writes each row's mean, rstd and variance-clamp mask for kernel O.
+#include "norms.cuh"
 
 namespace lvd {
 namespace {
-
-constexpr int kNormThreads = 256;   // K and L: threads a block
-constexpr int kChunkBytes = 65536;  // K and L: bytes of one slab a chunk reads
-constexpr int kLnRows = 8;          // M: rows (warps) a block
-constexpr int kF16 = 2;             // this file's third element type (0 bf16, 1 fp32)
-
-__device__ __forceinline__ float ld(float v) { return v; }
-__device__ __forceinline__ float ld(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float ld(__half v) { return __half2float(v); }
-
-template <typename T>
-__device__ __forceinline__ T st(float v);
-template <>
-__device__ __forceinline__ float st<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 st<bf16>(float v) { return __float2bfloat16_rn(v); }
-template <>
-__device__ __forceinline__ __half st<__half>(float v) { return __float2half_rn(v); }
-
-// v rounded to T's precision, as a float.
-template <typename T>
-__device__ __forceinline__ float rnd(float v) { return ld(st<T>(v)); }
-
-// K's and L's geometry for C channels of `itemsize` bytes: `vec` values a
-// 16-byte vector, `slabs` slabs of `slab_vecs` vectors (at most 256),
-// `row_lanes` threads down the rows, `chunk_rows` rows a chunk (a multiple
-// of row_lanes, 64 KB of a slab rounded up). ops/norms.py `launch_plan`
-// computes the same; the entry points refuse any other.
-struct NormPlan {
-  int vec, slabs, slab_vecs, row_lanes, chunk_rows;
-};
-
-inline NormPlan make_plan(int C, int itemsize) {
-  NormPlan p;
-  p.vec = 16 / itemsize;
-  const int cv = C / p.vec;
-  p.slabs = (cv + kNormThreads - 1) / kNormThreads;
-  p.slab_vecs = (cv + p.slabs - 1) / p.slabs;
-  p.row_lanes = kNormThreads / p.slab_vecs;
-  const int want = (kChunkBytes + p.slab_vecs * 16 - 1) / (p.slab_vecs * 16);
-  p.chunk_rows = (want + p.row_lanes - 1) / p.row_lanes * p.row_lanes;
-  return p;
-}
-
-inline int itemsize_of(int dtype) { return dtype == kF32 ? 4 : 2; }
-
-// Loads one 16-byte vector of T as floats.
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[16 / sizeof(T)]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-  for (int i = 0; i < 16 / (int)sizeof(T); ++i) out[i] = ld(e[i]);
-}
-
-// A scale or bias value of the type `pdtype` names.
-__device__ __forceinline__ float load_param(const void* p, int pdtype, int i) {
-  if (pdtype == kF32) return static_cast<const float*>(p)[i];
-  if (pdtype == kF16) return __half2float(static_cast<const __half*>(p)[i]);
-  return __bfloat162float(static_cast<const bf16*>(p)[i]);
-}
 
 // ---- K, pass 1: per-channel sums of one chunk of one slab ----
 
@@ -189,7 +129,8 @@ gn_partial_kernel(const T* __restrict__ x, float* __restrict__ part1,
 __global__ void __launch_bounds__(kNormThreads)
 gn_finish_kernel(const float* __restrict__ part1, const float* __restrict__ part2, int chunks,
                  int C, int G, int form, const void* scale, const void* bias, int pdtype,
-                 float count, float eps, float* __restrict__ out1, float* __restrict__ out2) {
+                 float count, float eps, float* __restrict__ out1, float* __restrict__ out2,
+                 float* __restrict__ stats) {
   __shared__ float r1[kNormThreads], r2[kNormThreads];
   const int g = blockIdx.x, n = blockIdx.y, cpg = C / G, t = threadIdx.x;
   const int lanes_c = min(cpg, kNormThreads);
@@ -225,8 +166,14 @@ gn_finish_kernel(const float* __restrict__ part1, const float* __restrict__ part
     return;
   }
   const float mean = __fdiv_rn(s1, count);
-  const float var = fmaxf(__fsub_rn(__fdiv_rn(s2, count), __fmul_rn(mean, mean)), 0.f);
-  const float inv = rsqrtf(__fadd_rn(var, eps));
+  const float var_raw = __fsub_rn(__fdiv_rn(s2, count), __fmul_rn(mean, mean));
+  const float inv = rsqrtf(__fadd_rn(fmaxf(var_raw, 0.f), eps));
+  if (stats != nullptr && t == 0) {  // for kernel N: mean, inv and the clamp's gradient mask
+    const size_t N = gridDim.y, o = (size_t)n * G + g;
+    stats[o] = mean;
+    stats[N * G + o] = inv;
+    stats[2 * N * G + o] = var_raw >= 0.f ? 1.f : 0.f;
+  }
   for (int c = t; c < cpg; c += kNormThreads) {
     const int cc = g * cpg + c;
     const float a = __fmul_rn(inv, load_param(scale, pdtype, cc));
@@ -315,7 +262,8 @@ __device__ __forceinline__ void load_params(const P* p, float (&out)[V]) {
 template <typename T, typename P, bool kAffine>
 __global__ void __launch_bounds__(kLnRows * 32)
 ln_rows_kernel(const T* __restrict__ x, const P* __restrict__ scale,
-               const P* __restrict__ bias, T* __restrict__ y, int rows, int C, float eps) {
+               const P* __restrict__ bias, T* __restrict__ y, int rows, int C, float eps,
+               float* __restrict__ stats) {
   constexpr int V = 16 / sizeof(T);
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kLnRows + threadIdx.x / 32;
@@ -340,8 +288,13 @@ ln_rows_kernel(const T* __restrict__ x, const P* __restrict__ scale,
     s2 += __shfl_xor_sync(0xffffffffu, s2, o);
   }
   const float mean = __fdiv_rn(s1, (float)C);
-  const float var = fmaxf(__fsub_rn(__fdiv_rn(s2, (float)C), __fmul_rn(mean, mean)), 0.f);
-  const float rstd = rsqrtf(__fadd_rn(var, eps));
+  const float var_raw = __fsub_rn(__fdiv_rn(s2, (float)C), __fmul_rn(mean, mean));
+  const float rstd = rsqrtf(__fadd_rn(fmaxf(var_raw, 0.f), eps));
+  if (stats != nullptr && lane == 0) {  // for kernel O: mean, rstd and the clamp's gradient mask
+    stats[row] = mean;
+    stats[(size_t)rows + row] = rstd;
+    stats[2 * (size_t)rows + row] = var_raw >= 0.f ? 1.f : 0.f;
+  }
   for (int i = lane; i < cv; i += 32) {
     float v[V];
     load_vec(xr + i * V, v);
@@ -362,23 +315,6 @@ ln_rows_kernel(const T* __restrict__ x, const P* __restrict__ scale,
   }
 }
 
-// Runs fn(T{}) with T the element type `dtype` names (0 bf16, 1 fp32, 2 fp16).
-template <typename Fn>
-inline cudaError_t dispatch3(int dtype, Fn fn) {
-  if (dtype == kBF16) return fn(bf16{});
-  if (dtype == kF32) return fn(float{});
-  if (dtype == kF16) return fn(__half{});
-  return cudaErrorInvalidValue;
-}
-
-inline bool plan_ok(int C, int dtype, int vec, int slabs, int slab_vecs, int row_lanes,
-                    int chunk_rows) {
-  if (dtype != kBF16 && dtype != kF32 && dtype != kF16) return false;
-  const NormPlan p = make_plan(C, itemsize_of(dtype));
-  return vec == p.vec && slabs == p.slabs && slab_vecs == p.slab_vecs &&
-         row_lanes == p.row_lanes && chunk_rows == p.chunk_rows;
-}
-
 }  // namespace
 }  // namespace lvd
 
@@ -386,19 +322,23 @@ inline bool plan_ok(int C, int dtype, int vec, int slabs, int slab_vecs, int row
 // part1, part2: (N, chunks, C) fp32 workspaces; form 1 (`coeffs`): scale,
 // bias (C,) of `pdtype`, out1 = a and out2 = b, each (N, C) fp32, from
 // `count` values a group and `eps`; form 2 (`sums`): out1, out2 = the (N, G)
-// sums of x and x*x (scale, bias unread). The plan must be launch_plan's.
+// sums of x and x*x (scale, bias unread). `stats`, null or (3, N, G) fp32,
+// receives in the `coeffs` form each group's mean, inv and whether the
+// variance was clamped at 0 (1 if not), kernel N's inputs. The plan must be
+// launch_plan's.
 LVD_EXPORT int lvd_gn_stats(const void* x, void* part1, void* part2, const void* scale,
-                            const void* bias, void* out1, void* out2, int N, int R, int C,
-                            int G, int form, int vec, int slabs, int slab_vecs, int row_lanes,
-                            int chunk_rows, int chunks, float count, float eps, int pdtype,
-                            int dtype, void* stream) {
+                            const void* bias, void* out1, void* out2, void* stats, int N, int R,
+                            int C, int G, int form, int vec, int slabs, int slab_vecs,
+                            int row_lanes, int chunk_rows, int chunks, float count, float eps,
+                            int pdtype, int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
   if (N <= 0 || R <= 0 || C <= 0 || C % 8 != 0 || G <= 0 || C % G != 0 || N > 65535 ||
       G > 65535 || (form != 1 && form != 2) ||
       !plan_ok(C, dtype, vec, slabs, slab_vecs, row_lanes, chunk_rows) ||
       chunks != (R + chunk_rows - 1) / chunk_rows || (long long)chunks * slabs >= (1LL << 31) ||
-      (form == 1 && (pdtype < 0 || pdtype > 2 || scale == nullptr || bias == nullptr)))
+      (form == 1 && (pdtype < 0 || pdtype > 2 || scale == nullptr || bias == nullptr)) ||
+      (form == 2 && stats != nullptr))
     return cudaErrorInvalidValue;
   const NormPlan p{vec, slabs, slab_vecs, row_lanes, chunk_rows};
   auto s = static_cast<cudaStream_t>(stream);
@@ -413,7 +353,8 @@ LVD_EXPORT int lvd_gn_stats(const void* x, void* part1, void* part2, const void*
   if (err != cudaSuccess) return err;
   gn_finish_kernel<<<dim3(G, N), kNormThreads, 0, s>>>(
       static_cast<const float*>(part1), static_cast<const float*>(part2), chunks, C, G, form,
-      scale, bias, pdtype, count, eps, static_cast<float*>(out1), static_cast<float*>(out2));
+      scale, bias, pdtype, count, eps, static_cast<float*>(out1), static_cast<float*>(out2),
+      static_cast<float*>(stats));
   return cudaGetLastError();
 }
 
@@ -448,8 +389,10 @@ LVD_EXPORT int lvd_gn_apply(const void* x, const void* a, const void* b, void* y
 
 // Kernel M. x, y: (rows, C) of `dtype`, C % 8 == 0; form 1 (`affine`):
 // scale, bias (C,) of `pdtype`; form 2 (`normalize`): neither (null).
+// `stats`, null or (3, rows) fp32, receives each row's mean, rstd and
+// whether its variance was clamped at 0 (1 if not), kernel O's inputs.
 LVD_EXPORT int lvd_layer_norm(const void* x, const void* scale, const void* bias, void* y,
-                              int rows, int C, int form, float eps,
+                              void* stats, int rows, int C, int form, float eps,
                               int pdtype, int dtype, void* stream) {
   using namespace lvd;
   cudaGetLastError();
@@ -459,19 +402,20 @@ LVD_EXPORT int lvd_layer_norm(const void* x, const void* scale, const void* bias
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const dim3 grid((rows + kLnRows - 1) / kLnRows);
+  auto stat = static_cast<float*>(stats);
   return dispatch3(dtype, [&](auto tag) {
     using T = decltype(tag);
     auto xs = static_cast<const T*>(x);
     auto ys = static_cast<T*>(y);
     if (form == 2) {
       ln_rows_kernel<T, T, false><<<grid, kLnRows * 32, 0, s>>>(xs, nullptr, nullptr, ys, rows,
-                                                                C, eps);
+                                                                C, eps, stat);
       return cudaGetLastError();
     }
     return dispatch3(pdtype, [&](auto ptag) {
       using P = decltype(ptag);
       ln_rows_kernel<T, P, true><<<grid, kLnRows * 32, 0, s>>>(
-          xs, static_cast<const P*>(scale), static_cast<const P*>(bias), ys, rows, C, eps);
+          xs, static_cast<const P*>(scale), static_cast<const P*>(bias), ys, rows, C, eps, stat);
       return cudaGetLastError();
     });
   });

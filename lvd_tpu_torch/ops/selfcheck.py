@@ -65,11 +65,20 @@ fusions of lvd_tpu's norms and no Pallas kernel, run in bf16 and fp32 at
 the UNet's GroupNorm and LayerNorm shapes, the VAE decoder's widest
 GroupNorm, the SDXL refiner's C = 3072 and CLIP's LayerNorm, against their
 plain versions on fp32 copies: within 1e-2 of max|ref| in bf16 (K, whose
-output is fp32 statistics, within 1e-4) and 1e-5 in fp32. Their yardsticks
+output is fp32 statistics, within 1e-4) and 1e-5 in fp32. Their backwards
+N (``affine``, ``affine_silu``, ``coeffs``) and O run at the guided
+update's shapes (L0 to L3), N's frame-sharded forms (``sums``, ``apply``,
+``apply_silu``) at a rank's L0 shard, dx alone in bf16 (2e-2) and with
+dscale and dbias in fp32 (1e-4), against their plain versions on fp32
+copies (N's dy with a mean of 1, so its statistics' term shows); N's bf16
+dx also against its plain version run in bf16 (``in_type_reading``). Their
+yardsticks
 are ``torch.var_mean`` over the grouped view (K's statistics),
 ``F.group_norm`` on a channels-first view (statistics and apply: K + L's
-work, set beside L), then ``F.silu`` (L's ``affine_silu``), and
-``F.layer_norm`` (M); their
+work, set beside L), then ``F.silu`` (L's ``affine_silu``),
+``F.layer_norm`` (M), and aten's ``native_group_norm_backward`` on a
+channels-first copy (N's ``affine``) and ``native_layer_norm_backward``
+(O), dx alone; their
 bound counts the arithmetic at the CUDA cores' fp32 rate (67 TFLOP/s), so
 the bytes set it.
 
@@ -106,10 +115,23 @@ FP32_TOL = 5e-3
 # Kernels K-M against their plain versions on fp32 copies: L and M in bf16
 # within 1e-2 of max|ref| (one rounding of the output), fp32 within 1e-5
 # (the sums' order alone); K, whose output is fp32 in every type, within
-# 1e-4 in bf16 and fp16.
+# 1e-4 in bf16 and fp16. N and O in bf16 within lvd_tpu's gate, 2e-2 (dz,
+# L's dx term and the cotangents of (a, b) round to bf16); in fp32 1e-5,
+# 1e-4 where dscale and dbias or the cotangents of (a, b) (sums over N or
+# the rows) are checked too. N's dy has a mean of 1 (NORM_BWD_DY_MEAN), so
+# GroupNorm's statistics' term is a fifth to a half of max|dx| and 2e-2
+# sees it (with a mean of 0 it lies below a bf16 ulp of most elements). N's
+# bf16 dx against the plain version run in bf16 (in_type_reading): in at
+# least half the (sample, group) blocks at most 1e-3 of the elements
+# differ at all, which a term rounded elsewhere than the plain version
+# rounds it (1-5% of every block) does not pass.
 NORM_TOL = 1e-2
 NORM_STATS_TOL = 1e-4
 NORM_FP32_TOL = 1e-5
+NORM_BWD_TOL = DEFAULT_TOL
+NORM_PARAMS_FP32_TOL = 1e-4
+NORM_BWD_BITS_DIFFER = 1e-3
+NORM_BWD_DY_MEAN = 1.0
 
 # The shapes the 576x320, 24-frame CFG forward gives each kernel.
 ATTN_SHAPES = [  # (batch, S_q, S_k, C): self-attention at L0/L1, cross at every level
@@ -200,6 +222,18 @@ TRAIN_GEGLU_SHAPES = [(69120, 320), (17280, 640)]
 NORM_GN_SHAPES = [(48, 2880, 320), (2, 69120, 320), (48, 720, 640), (48, 180, 1280),
                   (24, 184320, 256), (2, 144, 3072)]
 NORM_LN_SHAPES = [(138240, 320), (34560, 640), (8640, 1280), (154, 1024)]
+# Kernels N and O at the guided update's shapes (the cond-only walk, batch
+# 1 x 24 frames), L0 to L3: N's ``affine`` / ``affine_silu`` at the spatial
+# GroupNorms (24 frames of 2880 ... 45 pixels), ``coeffs`` at the temporal
+# convs' statistics (1 x 24 x pixels rows), O at the LayerNorms; in fp32
+# (the train step's type) with the parameters' gradients too.
+NORM_BWD_GN_SHAPES = [(24, 2880, 320), (24, 720, 640), (24, 180, 1280), (24, 45, 1280)]
+NORM_BWD_COEFFS_SHAPES = [(1, 69120, 320), (1, 17280, 640), (1, 4320, 1280), (1, 1080, 1280)]
+NORM_BWD_LN_SHAPES = [(69120, 320), (17280, 640), (4320, 1280), (1080, 1280)]
+# N's frame-sharded forms (``sums``, ``apply``, ``apply_silu``) at a rank's
+# share of the temporal convs' statistics at L0 when the sharded phase's two
+# ranks split the 24 frames: 1 x 12 x 2880 rows.
+NORM_BWD_SHARD_SHAPE = (1, 34560, 320)
 
 _A = "lvd_tpu/ops/pallas_attention.py"
 SOURCES = {  # kernel wrapper -> (CUDA source, the TPU kernels it replaces)
@@ -224,13 +258,19 @@ SOURCES = {  # kernel wrapper -> (CUDA source, the TPU kernels it replaces)
     "sdpa": ("lvd_tpu_torch/csrc/packed_attention.cu", f"{_A}:109 _pallas_attention"),
     "geglu_stream": ("lvd_tpu_torch/csrc/geglu_stream.cu",
                      "lvd_tpu/ops/geglu_fused.py:194 _fused_rows"),
-    # K-M replace no Pallas kernel: XLA's fusions of these functions.
+    # K-O replace no Pallas kernel: XLA's fusions of these functions and,
+    # under jax.grad, of their VJPs.
     "group_norm_stats": ("lvd_tpu_torch/csrc/norms.cu",
                          "lvd_tpu/ops/basic.py:59 group_norm_coeffs (XLA's fusion)"),
     "group_norm_apply": ("lvd_tpu_torch/csrc/norms.cu",
                          "lvd_tpu/ops/basic.py:113 group_norm (XLA's fusion)"),
     "layer_norm_rows": ("lvd_tpu_torch/csrc/norms.cu",
                         "lvd_tpu/ops/basic.py:144 layer_norm (XLA's fusion)"),
+    "group_norm_bwd": ("lvd_tpu_torch/csrc/norms_bwd.cu",
+                       "lvd_tpu/ops/basic.py:59 group_norm_coeffs, :113 group_norm "
+                       "(XLA's fusion of their VJP)"),
+    "layer_norm_bwd": ("lvd_tpu_torch/csrc/norms_bwd.cu",
+                       "lvd_tpu/ops/basic.py:144 layer_norm (XLA's fusion of its VJP)"),
 }
 
 
@@ -766,7 +806,8 @@ def check_gn_stats(gen, shape, dtype=torch.bfloat16):
     count = r * (c // groups)
     fn = lambda: norms.group_norm_stats(x, p["scale"], p["bias"], groups, 1e-5, count)
     out, form = _launched_form(norms.group_norm_stats, fn)
-    plain = lambda xx, pp: norms._coeffs_fn(xx, pp["scale"], pp["bias"], groups, 1e-5, count)
+    plain = lambda xx, pp: norms.group_norm_coeffs_plain(pp, xx, groups, 1e-5,
+                                                         count_override=count)
     rec = _norm_record(
         "group_norm_stats", shape, dtype, out, _ref(plain, x, p), time_ms(fn),
         time_ms(lambda: plain(x, p), 1, 2), 3.0 * x.numel(),
@@ -812,10 +853,185 @@ def check_layer_norm(gen, shape, dtype=torch.bfloat16):
         time_ms(lambda: F.layer_norm(x, (c,), p["scale"], p["bias"], 1e-5)), form)
 
 
+def _gn_bwd_library(x, dy, p, groups):
+    """aten's GroupNorm backward (dx alone) on channels-first contiguous
+    copies of x and dy (N, R, C), with its forward's mean and rstd, all made
+    here, outside the timed call; the port never calls it."""
+    n, r, c = x.shape
+    xc, dyc = (t.permute(0, 2, 1).contiguous() for t in (x, dy))
+    _, mean, rstd = torch.ops.aten.native_group_norm(xc, p["scale"], p["bias"], n, c, r,
+                                                     groups, 1e-5)
+    return lambda: torch.ops.aten.native_group_norm_backward(
+        dyc, xc, mean, rstd, p["scale"], n, c, r, groups, [True, False, False])
+
+
+def _kept(outs):
+    return tuple(o for o in outs if o is not None)
+
+
+def _norm_bwd_gates(rec, out, ref):
+    """In fp32, N's and O's dx within NORM_FP32_TOL and their other outputs
+    (dscale and dbias, or the cotangents of (a, b): sums over N or the
+    rows) within NORM_PARAMS_FP32_TOL (``rel_errs``, one an output)."""
+    if rec["dtype"] != "float32" or len(out) == 1:
+        return rec
+    rels = [_rel_err(o, r)[1] for o, r in zip(out, ref)]
+    finite = all(torch.isfinite(o).all().item() for o in out)
+    return rec | {"rel_errs": rels, "tol": NORM_PARAMS_FP32_TOL,
+                  "ok": bool(finite and rels[0] <= NORM_FP32_TOL
+                             and max(rels[1:]) <= NORM_PARAMS_FP32_TOL)}
+
+
+def in_type_reading(got, want, addends, groups=32):
+    """``got`` (N, R, C) against ``want``, the plain version run in the same
+    half type on the same inputs, where it rounds where the kernel rounds:
+    the largest difference in ulps of the type at the largest of the
+    ``addends`` (the rounded terms ``want`` adds at each element), and
+    ``bits_differ``, the median over (sample, group of C / groups channels)
+    of the share of elements whose bits differ. Where the two differ only in
+    the order of an fp32 sum, a flipped rounding moves the elements of a few
+    channels or groups by a few ulps (more where a group's sum cancels), and
+    in most groups no bit differs; a term rounded elsewhere moves a share of
+    every group (tests/test_torch_norms.py)."""
+    big = torch.stack(torch.broadcast_tensors(*(t.float().abs() for t in addends))).amax(0)
+    # |v| in [2^(e-1), 2^e) has the ulp eps 2^(e-1)
+    eps = torch.full_like(big, torch.finfo(got.dtype).eps)
+    ulp = torch.ldexp(eps, torch.frexp(big).exponent - 1)
+    ulps = ((got.float() - want.float()).abs() / ulp).max().item()
+    n, r, c = got.shape
+    differ = (got != want).view(n, r, groups, c // groups).float().mean(dim=(1, 3))
+    return ulps, differ.median().item()
+
+
+def gn_bwd_in_type(form, x, *, dy=None, a=None, b=None, da=None, db=None, scale=None,
+                   stats=None, count=1, ds=None):
+    """Kernel N's dx in ``form`` (its arguments) by the plain pieces in x's
+    type, and the rounded terms it adds (``in_type_reading``'s addends)."""
+    terms = ()
+    if form == "sums":
+        ds1, ds2 = ds
+    elif form == "coeffs":
+        ds1, ds2 = norms.group_coeffs_sums_bwd_plain(da, db, scale, stats, count)
+    else:
+        dx_l, da, db = norms.group_norm_apply_bwd_plain(x, dy, a, b, form.endswith("silu"))
+        terms = (dx_l,)
+        if form in ("apply", "apply_silu"):
+            return dx_l, terms
+        ds1, ds2 = norms.group_coeffs_sums_bwd_plain(da, db, scale, stats, count)
+    t1, t2 = norms.group_sums_bwd_terms(x, ds1, ds2)
+    dx = t1 + t2
+    return (terms[0] + dx if terms else dx), terms + (t1, t2)
+
+
+def check_gn_bwd(gen, shape, dtype=torch.bfloat16, form="affine"):
+    """Kernel N at (N, R, C), 32 groups, in ``form``, on K's saved
+    statistics: against the plain backward on fp32 copies, dx alone in bf16
+    (the guided update), with dscale and dbias in fp32 in the ``affine`` and
+    ``coeffs`` forms (the train step), the cotangents of (a, b) in the
+    ``apply`` forms (the frame-sharded path). In bf16 dx is also held to
+    the plain version run in bf16 (``in_type_reading``: ``ulps`` and
+    ``bits_differ``, the second gated)."""
+    n, r, c = shape
+    groups, item = 32, torch.finfo(dtype).bits // 8
+    apply_only = form in ("apply", "apply_silu")
+    params = dtype == torch.float32 and form in ("affine", "affine_silu", "coeffs")
+    x, p = _gn_inputs(gen, shape, dtype)
+    count = r * (c // groups)
+    a, b, stats = norms.group_norm_stats(x, p["scale"], p["bias"], groups, 1e-5, count,
+                                         stats=True)
+    dy = da = db = ds = library_ms = None
+    kw = {"scale": p["scale"], "stats": stats, "count": count}
+    if form == "coeffs":
+        da, db = _randn(gen, (n, c)), _randn(gen, (n, c))
+        kw |= {"da": da, "db": db}
+        plain = lambda xx, dd, pp, st: norms.group_norm_coeffs_bwd_plain(
+            xx, da, db, pp["scale"], st, count, params)
+        ops, nbytes = 4.0, 2.0 * x.numel() * item
+    elif form == "sums":
+        ds = _randn(gen, (2, n, groups), 1e-3)
+        kw = {"ds": ds}
+        plain = lambda xx, dd, pp, st: (norms.group_sums_bwd_plain(xx, ds[0], ds[1]),)
+        ops, nbytes = 3.0, 2.0 * x.numel() * item
+    else:
+        dy = (_randn(gen, shape) + NORM_BWD_DY_MEAN).to(dtype)
+        kw = {"dy": dy, "a": a, "b": b} | ({} if apply_only else kw)
+        silu = form.endswith("silu")
+        if apply_only:
+            plain = lambda xx, dd, pp, st: norms.group_norm_apply_bwd_plain(xx, dd, a, b, silu)
+        else:
+            plain = lambda xx, dd, pp, st: norms.group_norm_bwd_plain(
+                xx, dd, a, b, pp["scale"], st, count, silu, params)
+        ops, nbytes = (30.0 if silu else 10.0), 3.0 * x.numel() * item
+        if form == "affine":
+            library_ms = time_ms(_gn_bwd_library(x, dy, p, groups))
+    fn = lambda: norms.group_norm_bwd(form, x, params=params, **kw)
+    out, launched = _launched_form(norms.group_norm_bwd, fn)
+    out, ref = _kept(out), _kept(_ref(plain, x, dy, p, stats))
+    rec = _norm_bwd_gates(_norm_record(
+        "group_norm_bwd", [*shape, launched], dtype, out, ref, time_ms(fn),
+        time_ms(lambda: plain(x, dy, p, stats), 1, 2), ops * x.numel(),
+        nbytes + 16.0 * n * c, library_ms, launched, tol=NORM_BWD_TOL), out, ref)
+    if dtype != torch.float32:
+        want, addends = gn_bwd_in_type(form, x, **kw)
+        rec["ulps"], rec["bits_differ"] = in_type_reading(out[0], want, addends)
+        rec["ok"] = bool(rec["ok"] and rec["bits_differ"] <= NORM_BWD_BITS_DIFFER)
+    return rec | {"params": params}
+
+
+def check_gn_bwd_silu(gen, shape, dtype=torch.bfloat16):
+    return check_gn_bwd(gen, shape, dtype, "affine_silu")
+
+
+def check_gn_bwd_coeffs(gen, shape, dtype=torch.bfloat16):
+    return check_gn_bwd(gen, shape, dtype, "coeffs")
+
+
+def check_gn_bwd_sums(gen, shape, dtype=torch.bfloat16):
+    return check_gn_bwd(gen, shape, dtype, "sums")
+
+
+def check_gn_bwd_apply(gen, shape, dtype=torch.bfloat16):
+    return check_gn_bwd(gen, shape, dtype, "apply")
+
+
+def check_gn_bwd_apply_silu(gen, shape, dtype=torch.bfloat16):
+    return check_gn_bwd(gen, shape, dtype, "apply_silu")
+
+
+def check_ln_bwd(gen, shape, dtype=torch.bfloat16):
+    """Kernel O at (rows, C) on M's saved statistics: ``dx`` in bf16,
+    ``dx_params`` in fp32, against the plain backward on fp32 copies, and
+    aten's LayerNorm backward (dx alone) as the library call."""
+    rows, c = shape
+    params = dtype == torch.float32
+    x, p = _gn_inputs(gen, shape, dtype)
+    dy = _randn(gen, shape).to(dtype)
+    _, stats = norms.layer_norm_rows(x, p["scale"], p["bias"], 1e-5, stats=True)
+    fn = lambda: norms.layer_norm_bwd(x, dy, p["scale"], stats, params)
+    out, launched = _launched_form(norms.layer_norm_bwd, fn)
+    plain = lambda xx, dd, pp, st: norms.layer_norm_bwd_plain(xx, dd, pp["scale"], st, params)
+    out, ref = _kept(out), _kept(_ref(plain, x, dy, p, stats))
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, (c,), p["scale"], p["bias"], 1e-5)
+    library = lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, (c,), mean, rstd, p["scale"], p["bias"], [True, False, False])
+    rec = _norm_bwd_gates(_norm_record(
+        "layer_norm_bwd", [*shape, launched], dtype, out, ref, time_ms(fn),
+        time_ms(lambda: plain(x, dy, p, stats), 1, 2), 12.0 * x.numel(),
+        3.0 * x.numel() * x.element_size() + 12.0 * rows, time_ms(library), launched,
+        tol=NORM_BWD_TOL), out, ref)
+    return rec | {"params": params}
+
+
 NORM_PLAN = ([(check_gn_stats, s) for s in NORM_GN_SHAPES]
              + [(check_gn_apply, s) for s in NORM_GN_SHAPES]
              + [(check_gn_apply_silu, s) for s in NORM_GN_SHAPES]
-             + [(check_layer_norm, s) for s in NORM_LN_SHAPES])
+             + [(check_layer_norm, s) for s in NORM_LN_SHAPES]
+             + [(check_gn_bwd, NORM_BWD_GN_SHAPES[0])]
+             + [(check_gn_bwd_silu, s) for s in NORM_BWD_GN_SHAPES]
+             + [(check_gn_bwd_coeffs, s) for s in NORM_BWD_COEFFS_SHAPES]
+             + [(fn, NORM_BWD_SHARD_SHAPE) for fn in (check_gn_bwd_sums, check_gn_bwd_apply,
+                                                      check_gn_bwd_apply_silu)]
+             + [(check_ln_bwd, s) for s in NORM_BWD_LN_SHAPES])
 
 
 BF16_PLAN = ([(check_attention, s) for s in ATTN_SHAPES + FUSER_ATTN_SHAPES]

@@ -730,7 +730,8 @@ def test_geglu_forms_match_plain(cuda, c, gelu, dtype, monkeypatch):
         assert errs[dtype] <= FP32_TOL and errs[dtype] < errs[torch.bfloat16]
 
 
-@pytest.mark.parametrize("kernel", ["C", "D", "B", "G", "F", "J", "A", "E", "K", "L", "M"])
+@pytest.mark.parametrize("kernel", ["C", "D", "B", "G", "F", "J", "A", "E", "K", "L", "M", "N",
+                                    "O"])
 def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch):
     """Kernels B, C, D, F, G and J check the wrapper's launch plan: C's and
     G's split (1 at C = 320, 2 at 640) and rows a block, D's m64 tiles,
@@ -739,10 +740,10 @@ def test_kernels_refuse_a_plan_they_were_not_built_for(cuda, kernel, monkeypatch
     and column block (and form), B's, F's and G's in bf16 and in fp32
     (their TF32 forms); A and E their form code (a code they do not know,
     another head dim's form, the wide form past D = 256), in both types;
-    each changed value is refused, and the plan as given launches. K and L
-    their vector width, slabs, row lanes, chunk rows and form code, M its
-    form code, in bf16, fp16 and fp32."""
-    if kernel in ("K", "L", "M"):
+    each changed value is refused, and the plan as given launches. K, L, N
+    and O their vector width, slabs, row lanes, chunk rows and form code, M
+    its form code, in bf16, fp16 and fp32."""
+    if kernel in ("K", "L", "M", "N", "O"):
         return _refuse_norm_plans(kernel, cuda, monkeypatch)
     from lvd_tpu_torch.models.loader import cast_tree
     from lvd_tpu_torch.ops import geglu_fused as gf
@@ -855,7 +856,8 @@ def _refuse_norm_plans(kernel, cuda, monkeypatch):
     from lvd_tpu_torch.ops import norms
 
     g = torch.Generator(device=cuda).manual_seed(35)
-    forms = {"K": "STATS_FORMS", "L": "APPLY_FORMS", "M": "LN_FORMS"}[kernel]
+    forms = {"K": "STATS_FORMS", "L": "APPLY_FORMS", "M": "LN_FORMS", "N": "GN_BWD_FORMS",
+             "O": "LN_BWD_FORMS"}[kernel]
     # M takes no plan: one warp a row, the kernel's own rows a block.
     changes = [] if kernel == "M" else [("vec", 4), ("vec", 8), ("slabs", 2),
                                         ("slab_vecs", 64), ("row_lanes", 3), ("chunk_rows", 100)]
@@ -865,9 +867,15 @@ def _refuse_norm_plans(kernel, cuda, monkeypatch):
             for c in (320, 3072):
                 x = torch.randn(2, 300, c, generator=g, device=cuda).to(dt)
                 s, a = torch.ones(c, device=cuda), torch.ones(2, c, device=cuda)
+                st, st_ln = torch.ones(3, 2, 32, device=cuda), torch.ones(3, 300, device=cuda)
                 run = {"K": lambda: norms.group_norm_stats(x, s, s, 32, 1e-5, 300 * c // 32),
                        "L": lambda: norms.group_norm_apply(x, a, a, True),
-                       "M": lambda: norms.layer_norm_rows(x[0], s, s, 1e-5)}[kernel]
+                       "M": lambda: norms.layer_norm_rows(x[0], s, s, 1e-5),
+                       "N": lambda: norms.group_norm_bwd("affine_silu", x, dy=x, a=a, b=a,
+                                                         scale=s, stats=st, count=300,
+                                                         params=True),
+                       "O": lambda: norms.layer_norm_bwd(x[0], x[0], s, st_ln,
+                                                         params=True)}[kernel]
                 run()  # the plan as given
                 own = plan(c, dt)
                 for key, value in changes:
@@ -878,7 +886,7 @@ def _refuse_norm_plans(kernel, cuda, monkeypatch):
                     with pytest.raises(RuntimeError, match="launch failed"):
                         run()
                     monkeypatch.setattr(norms, "launch_plan", plan)
-                monkeypatch.setattr(norms, forms, dict.fromkeys(codes, 3))
+                monkeypatch.setattr(norms, forms, dict.fromkeys(codes, 7))
                 with pytest.raises(RuntimeError, match="launch failed"):
                     run()
                 monkeypatch.setattr(norms, forms, codes)
@@ -1661,8 +1669,8 @@ def test_group_norm_kernels_match_plain(cuda, shape, kernel, dtype):
         before = wrapper.launches
         out = wrapper(x, p["scale"], p["bias"], 32, 1e-5, count)
         with exact_fp32():
-            ref = norms._coeffs_fn(x.float(), p["scale"].float(), p["bias"].float(), 32, 1e-5,
-                                   count)
+            ref = norms.group_norm_coeffs_plain({k: v.float() for k, v in p.items()},
+                                                x.float(), 32, 1e-5, count_override=count)
     else:
         silu = kernel == "L_silu"
         a = 1 + 0.1 * torch.randn(n, c, generator=g, device=cuda)
@@ -1741,16 +1749,20 @@ def test_norm_kernels_refuse_inputs_that_require_grad(cuda):
         norms.group_norm_apply(x, a, a)
     with pytest.raises(RuntimeError, match="autograd.Function"):
         norms.layer_norm_rows(x[0], s, s, 1e-5)
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        norms.group_norm_bwd("sums", x, ds=torch.ones(2, 2, 8, device=cuda))
+    with pytest.raises(RuntimeError, match="autograd.Function"):
+        norms.layer_norm_bwd(x[0], x[0].detach(), s, None)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("fn", ["group_norm_coeffs", "group_norm", "group_norm_silu",
                                 "layer_norm"])
 def test_norm_functions_gradients_match_plain(cuda, fn, dtype):
-    """Each public function launches its kernels once in the forward; dx,
-    dscale and dbias through its Function (the plain version's VJP,
-    recomputed) against the plain version's autograd on fp32 copies: 1e-5
-    of max|ref| in fp32, 2e-2 in the half types."""
+    """Each public function launches its kernels once in the forward and N
+    or O once in the backward; dx, dscale and dbias through its Function
+    against the plain version's autograd on fp32 copies: 1e-5 of max|ref|
+    in fp32, 2e-2 in the half types."""
     from lvd_tpu_torch.ops import norms
     from lvd_tpu_torch.ops.selfcheck import exact_fp32
 
@@ -1760,11 +1772,12 @@ def test_norm_functions_gradients_match_plain(cuda, fn, dtype):
     low = [x32.to(dtype), p32["scale"].to(dtype), p32["bias"].to(dtype)]
     low = [t.requires_grad_(True) for t in low]
     ref_leaves = [t.detach().float().requires_grad_(True) for t in low]
-    counters = (norms.group_norm_stats, norms.group_norm_apply, norms.layer_norm_rows)
+    counters = (norms.group_norm_stats, norms.group_norm_apply, norms.layer_norm_rows,
+                norms.group_norm_bwd, norms.layer_norm_bwd)
     before = [w.launches for w in counters]
     out = getattr(norms, fn)({"scale": low[1], "bias": low[2]}, low[0], *args)
     want_launches = {"group_norm_coeffs": [1, 0, 0], "layer_norm": [0, 0, 1]}.get(fn, [1, 1, 0])
-    assert [w.launches - b for w, b in zip(counters, before)] == want_launches
+    assert [w.launches - b for w, b in zip(counters, before)] == want_launches + [0, 0]
     with exact_fp32():
         ref = getattr(norms, f"{fn}_plain")({"scale": ref_leaves[1], "bias": ref_leaves[2]},
                                             ref_leaves[0], *args)
@@ -1773,7 +1786,205 @@ def test_norm_functions_gradients_match_plain(cuda, fn, dtype):
     got = torch.autograd.grad(outs, low, [ct.to(o.dtype) for ct, o in zip(cts, outs)])
     with exact_fp32():
         want = torch.autograd.grad(refs, ref_leaves, cts)
+    # The backward: N (its form) or O (dx_params: the params need gradients).
+    assert [w.launches - b for w, b in zip(counters, before)][3:] == (
+        [0, 1] if fn == "layer_norm" else [1, 0])
+    form = {"group_norm_coeffs": "coeffs", "group_norm": "affine",
+            "group_norm_silu": "affine_silu"}.get(fn)
+    assert form is None or norms.group_norm_bwd.launches_by_form[form] > 0
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     for a, b in zip(got, want):
         assert a.dtype == dtype and torch.isfinite(a).all()
         assert _rel(a, b) <= tol
+
+
+# ---- kernels N and O: the norms' backwards (ops/norms.py, csrc/norms_bwd.cu) ----
+
+# (N, R, C, groups): the guided update's spatial GroupNorm at L0 (24 frames of
+# 2880 pixels), its temporal one (1 x 69120 rows, K's coefficients before
+# kernel D), ragged rows (R % chunk != 0) at C = 72 (vectors that straddle
+# 9-channel groups), the refiner's C = 3072 (two slabs).
+GN_BWD_CASES = [(24, 2880, 320, 32), (1, 69120, 320, 32), (2, 1000, 72, 8), (2, 144, 3072, 32)]
+# (rows, C): the update's LayerNorms at L0 and L1, ragged C = 72, CLIP's, 3072.
+LN_BWD_CASES = [(69120, 320), (17280, 640), (1000, 72), (154, 1024), (288, 3072)]
+
+
+def _bwd_tol(dtype, summed=False):
+    """Of max|ref| against the plain version in the same type on the same
+    inputs: fp32 1e-5 (1e-4 for dscale and dbias, summed over N or the
+    rows); 2e-2 in bf16 and fp16 (the sums' order flips a rounding of the
+    cotangents of (a, b) or of dz)."""
+    if dtype == torch.float32:
+        return 1e-4 if summed else 1e-5
+    return 2e-2
+
+
+def _gn_bwd_inputs(shape, dtype, g, cuda):
+    """x, dy, params in ``dtype`` and K's (a, b, stats) of x on the card; dy
+    with the selfcheck's mean (NORM_BWD_DY_MEAN), so that GroupNorm's
+    statistics' term is a fifth to a half of max|dx| and _bwd_tol sees it,
+    then an eighth of it (exact: every gradient is linear in dy), so that the
+    fp16 sums of dz over 69120 rows, and dbias over 24 x 2880, stay below
+    fp16's 65504 as the plain version sums them."""
+    from lvd_tpu_torch.ops.selfcheck import NORM_BWD_DY_MEAN
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import norms
+
+    n, r, c, groups = shape
+    x32, p32 = _norm_case((n, r, c), g, cuda)
+    x, p = x32.to(dtype), cast_tree(p32, dtype)
+    dy = ((torch.randn((n, r, c), generator=g, device=cuda) + NORM_BWD_DY_MEAN) / 8).to(dtype)
+    count = r * (c // groups)
+    a, b, stats = norms.group_norm_stats(x, p["scale"], p["bias"], groups, 1e-5, count,
+                                         stats=True)
+    return x, dy, p, a, b, stats, count
+
+
+# N's forms, and whether dscale and dbias are asked (the frame-sharded forms
+# take no parameters).
+GN_BWD_FORMS = [("affine", False), ("affine", True), ("affine_silu", False),
+                ("affine_silu", True), ("coeffs", False), ("coeffs", True), ("sums", False),
+                ("apply", False), ("apply_silu", False)]
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+@pytest.mark.parametrize("form,params", GN_BWD_FORMS)
+@pytest.mark.parametrize("shape", GN_BWD_CASES)
+def test_group_norm_bwd_kernel_matches_plain(cuda, shape, form, params, dtype):
+    """Kernel N in each form against its plain version in the same type on
+    the same inputs (K's saved statistics; for ``coeffs`` and ``sums`` fp32
+    cotangents drawn here): dx, and dscale and dbias where asked (the
+    cotangents of (a, b) in the ``apply`` forms), within _bwd_tol; one
+    launch counted by form. In bf16 dx is also held to the plain version
+    bit for bit in most groups (ops/selfcheck.py in_type_reading within
+    NORM_BWD_BITS_DIFFER)."""
+    from lvd_tpu_torch.ops import norms, selfcheck
+
+    g = torch.Generator(device=cuda).manual_seed(41)
+    x, dy, p, a, b, stats, count = _gn_bwd_inputs(shape, dtype, g, cuda)
+    n, _, c, groups = shape
+    fp = lambda *s: torch.randn(s, generator=g, device=cuda)
+    before = norms.group_norm_bwd.launches_by_form[form]
+    stats_kw = dict(scale=p["scale"], stats=stats, count=count)
+    if form in ("affine", "affine_silu"):
+        kw = dict(dy=dy, a=a, b=b, **stats_kw)
+        want = norms.group_norm_bwd_plain(x, dy, a, b, p["scale"], stats, count,
+                                          form == "affine_silu", params)
+    elif form in ("apply", "apply_silu"):
+        kw = dict(dy=dy, a=a, b=b)
+        want = norms.group_norm_apply_bwd_plain(x, dy, a, b, form == "apply_silu")
+    elif form == "coeffs":
+        kw = dict(da=fp(n, c), db=fp(n, c), **stats_kw)
+        want = norms.group_norm_coeffs_bwd_plain(x, kw["da"], kw["db"], p["scale"], stats, count,
+                                                 params)
+    else:
+        kw = dict(ds=fp(2, n, groups) * 1e-3)
+        want = (norms.group_sums_bwd_plain(x, kw["ds"][0], kw["ds"][1]),)
+    got = norms.group_norm_bwd(form, x, params=params, **kw)
+    if form == "sums":
+        got = got[:1]
+    torch.cuda.synchronize()
+    assert norms.group_norm_bwd.launches_by_form[form] == before + 1
+    for i, (u, v) in enumerate(zip(got, want)):
+        assert (u is None) == (v is None)
+        if u is None:
+            continue
+        assert u.dtype == v.dtype and u.shape == v.shape and torch.isfinite(u).all()
+        assert _rel(u, v) <= _bwd_tol(dtype, summed=i > 0), (i, _rel(u, v))
+    if dtype == torch.bfloat16:
+        dx, addends = selfcheck.gn_bwd_in_type(form, x, **kw)
+        assert torch.equal(dx, want[0])
+        ulps, share = selfcheck.in_type_reading(got[0], dx, addends, groups)
+        assert share <= selfcheck.NORM_BWD_BITS_DIFFER, (ulps, share)
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+@pytest.mark.parametrize("form", ["dx", "dx_normalize", "dx_params"])
+@pytest.mark.parametrize("shape", LN_BWD_CASES)
+def test_layer_norm_bwd_kernel_matches_plain(cuda, shape, form, dtype):
+    """Kernel O against its plain version in the same type on M's saved
+    statistics: ``dx`` with scale, without (M's ``normalize``), and
+    ``dx_params``; within _bwd_tol."""
+    from lvd_tpu_torch.models.loader import cast_tree
+    from lvd_tpu_torch.ops import norms
+
+    g = torch.Generator(device=cuda).manual_seed(42)
+    x32, p32 = _norm_case(shape, g, cuda)
+    x, p = x32.to(dtype), cast_tree(p32, dtype)
+    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    scale = None if form == "dx_normalize" else p["scale"]
+    _, stats = norms.layer_norm_rows(x, scale, None if scale is None else p["bias"], 1e-5,
+                                     stats=True)
+    params = form == "dx_params"
+    kform = "dx_params" if params else "dx"
+    before = norms.layer_norm_bwd.launches_by_form[kform]
+    got = norms.layer_norm_bwd(x, dy, scale, stats, params)
+    want = norms.layer_norm_bwd_plain(x, dy, scale, stats, params)
+    torch.cuda.synchronize()
+    assert norms.layer_norm_bwd.launches_by_form[kform] == before + 1
+    for i, (u, v) in enumerate(zip(got, want)):
+        assert (u is None) == (v is None)
+        if u is not None:
+            assert u.dtype == dtype and torch.isfinite(u).all()
+            assert _rel(u, v) <= _bwd_tol(dtype, summed=i > 0), (i, _rel(u, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("form", ["affine_silu", "coeffs"])
+def test_norm_backwards_are_the_same_bits_alone_and_in_a_batch(cuda, form, dtype):
+    """A sample's dx from N is the same bits alone as in a batch of 3, and
+    a row's from O alone as among others; with fp32 params, the batch's
+    dscale and dbias are the alone ones summed in the kernel's order (8
+    strided lanes over N, then the lanes: with 3 samples, s0 + s1 + s2 in
+    turn), and a second run gives the same bits."""
+    from lvd_tpu_torch.ops import norms
+
+    g = torch.Generator(device=cuda).manual_seed(43)
+    x, dy, p, a, b, stats, count = _gn_bwd_inputs((3, 2000, 320, 32), dtype, g, cuda)
+    p = {k: v.float() for k, v in p.items()}
+    da, db = (torch.randn(3, 320, generator=g, device=cuda) for _ in range(2))
+
+    def run(i):
+        sl = slice(None) if i is None else slice(i, i + 1)
+        kw = ({"dy": dy[sl].clone(), "a": a[sl].clone(), "b": b[sl].clone()}
+              if form == "affine_silu" else {"da": da[sl].clone(), "db": db[sl].clone()})
+        return norms.group_norm_bwd(form, x[sl].clone(), scale=p["scale"],
+                                    stats=stats[:, sl].clone(), count=count, params=True, **kw)
+
+    batch = run(None)
+    alone = [run(i) for i in range(3)]
+    for i in range(3):
+        assert torch.equal(batch[0][i], alone[i][0][0])
+    for k in (1, 2):
+        assert torch.equal(batch[k], (alone[0][k] + alone[1][k]) + alone[2][k])
+    assert all(torch.equal(u, v) for u, v in zip(batch, run(None)))
+    x2, dy2 = x.reshape(-1, 320), dy.reshape(-1, 320)
+    _, st = norms.layer_norm_rows(x2, p["scale"], p["bias"], 1e-5, stats=True)
+    rows = norms.layer_norm_bwd(x2, dy2, p["scale"], st)[0]
+    part = norms.layer_norm_bwd(x2[17:29].clone(), dy2[17:29].clone(), p["scale"],
+                                st[:, 17:29].clone())[0]
+    assert torch.equal(rows[17:29], part)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(24, 2880, 320), (1, 69120, 320), (2, 144, 3072)])
+def test_group_norm_saved_statistics_equal_the_sums_recompute(cuda, shape, dtype):
+    """K's saved (3, N, G) statistics are the ones its ``sums`` form gives:
+    mean = s1 / count and the clamp's mask equal, inv = rsqrt(max(s2 /
+    count - mean^2, 0) + eps) within two ulps (both rsqrtf)."""
+    from lvd_tpu_torch.ops import norms
+
+    g = torch.Generator(device=cuda).manual_seed(44)
+    x32, p32 = _norm_case(shape, g, cuda)
+    x = x32.to(dtype)
+    n, r, c = shape
+    count = r * (c // 32)
+    _, _, stats = norms.group_norm_stats(x, p32["scale"], p32["bias"], 32, 1e-5, count,
+                                         stats=True)
+    s1, s2 = norms.group_norm_stats(x, None, None, 32, 0.0, 1, "sums")
+    cnt = torch.full_like(s1, float(count))
+    mean = s1 / cnt
+    var = s2 / cnt - mean * mean
+    inv = torch.rsqrt(torch.clamp(var, min=0.0) + 1e-5)
+    assert torch.equal(stats[0], mean) and torch.equal(stats[2], (var >= 0).float())
+    assert ((stats[1] - inv).abs() <= 2.5e-7 * inv).all()
